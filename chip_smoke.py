@@ -30,6 +30,27 @@ Phases:
   7 parity   the same 200k-row, 10-tree, depth-6 model trained on the card
              and on the CPU (plain versions): trees identical except at
              bf16-boundary ties, AUC within 0.005
+  8 lut_exact   K4 (csrc/lut.cu ddt_lut_int8, fp16 and int8 leaves) and K5
+             (ddt_lut_int4 at 13 bins, nibble thresholds, and at 255 bins)
+             on the 1M rows over exact-grid ensembles (70 trees, 7
+             classes, missing and categorical, lossless grids): bitwise
+             against their plain versions and against the traversal kernel
+             on the same f32 ensemble
+  9 lut_trained K4 (fp16) and K5 on phase 5's model: |diff| <= 1e-5 *
+             (|p| + 1) against their plain versions, and within the tables'
+             max_abs_err (+ the same slack) of the traversal kernel; times,
+             bounds and table bytes per tier
+ 10 lut4_packed the same Higgs shape trained at 15 bins on the card; its
+             int4 tables nibble-pack the thresholds; K5 against its plain
+             version, with times
+ 11 serve    ServeEngine over phase 5's bundle at quantize None, "int8"
+             and "int4" (max_batch 256, max_wait_ms 1.0): 32 submitter
+             threads send ~2,000 requests of 1-64 raw float rows, with a
+             hot swap to the 15-bin bundle halfway, then single rows at an
+             idle queue (the express lane). Every response equals offline
+             api.predict at that tier for the token that scored it,
+             bitwise; each model resolves to the requested tier; the
+             counters are zeroed just before and the LUT kernels' must move
   then the {"kernels": [...]} line, nvidia-smi's line, and the ok line.
 """
 
@@ -38,6 +59,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -48,7 +70,9 @@ from ddt_tpu_torch.config import TrainConfig
 from ddt_tpu_torch.data.datasets import synthetic_binary
 from ddt_tpu_torch.data.quantizer import fit_bin_mapper
 from ddt_tpu_torch.models.tree import empty_ensemble
-from ddt_tpu_torch.ops import hist_cuda, histogram, predict, predict_cuda
+from ddt_tpu_torch.ops import (hist_cuda, histogram, predict, predict_cuda,
+                               predict_lut, predict_lut_cuda)
+from ddt_tpu_torch.serve import ServeEngine
 
 ROWS = 1_000_000
 FEATURES = 28
@@ -56,6 +80,12 @@ DEPTH = 6
 N_TREES = 100
 PARITY_ROWS = 200_000
 PARITY_TREES = 10
+SERVE_POOL = 65_536         # raw rows the serve phase's requests slice
+SERVE_REQUESTS = 2_000
+SERVE_THREADS = 32
+EXPRESS_REQUESTS = 200
+TIER_IMPL = {None: "auto", "int8": "lut", "int4": "lut4"}
+TIER_RESOLVED = {None: "f32", "int8": "lut", "int4": "lut4"}
 
 
 def emit(obj) -> None:
@@ -446,6 +476,285 @@ def traverse_compares(ce, Xd: torch.Tensor) -> int:
     return compares
 
 
+def lut_grid_ensemble(T, depth, F, B, C, cat, qmax, seed=0):
+    """exact_grid_ensemble with leaves on the 1/(qmax+1) grid and each
+    tree's largest |leaf| pinned to qmax/(qmax+1) (the left spine stays
+    internal): the per-tree scale max/qmax is exactly 1/(qmax+1), so int8
+    (qmax 127) or int4 (qmax 7) quantization is lossless."""
+    ens = exact_grid_ensemble(T, depth, F, B, C, cat, seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    ens.leaf_value[:] = rng.integers(
+        -qmax, qmax + 1, size=ens.leaf_value.shape) / (qmax + 1)
+    ens.is_leaf[:, [(1 << d) - 1 for d in range(depth)]] = False
+    ens.leaf_value[:, (1 << depth) - 1] = qmax / (qmax + 1)
+    return ens
+
+
+def lut_callables(tables, dev):
+    """(operand tensors on the card, kernel(X), plain(X)) of the tier
+    `tables` serves: K4 for fp16/int8 leaves, K5 for int4."""
+    if tables.leaf_dtype == "int4":
+        p = tables.pack_int4()
+        host, static = p.ops, p.static_kwargs()
+        kern = predict_lut_cuda.lut_int4_cuda
+        plain = predict_lut.predict_effective_lut4_plain
+    else:
+        host = predict_lut.lut_device_operands(tables)
+        static = predict_lut.lut_static_kwargs(tables)
+        kern = predict_lut_cuda.lut_int8_cuda
+        plain = predict_lut.predict_effective_lut_plain
+    ops = tuple(torch.from_numpy(a).to(dev) for a in host)
+    n_int = (1 << tables.max_depth) - 1
+    extras = dict(
+        cls=torch.from_numpy(tables.cls_oh.argmax(axis=1).astype(np.int32))
+        .to(dev), max_feature=int(tables.eff_feat[:, :n_int].max()))
+    return (ops, lambda X: kern(ops, X, **static, **extras),
+            lambda X: plain(ops, X, **static))
+
+
+def phase_lut_exact(X: np.ndarray, Xb: np.ndarray) -> None:
+    dev = torch.device("cuda")
+    Xb13 = fit_bin_mapper(X, n_bins=13).transform(X)
+    cases = (("K4 fp16", "float16", 255, 7, Xb),
+             ("K4 int8", "int8", 255, 127, Xb),
+             ("K5 13 bins", "int4", 13, 7, Xb13),
+             ("K5 255 bins", "int4", 255, 7, Xb))
+    for what, leaf_dtype, B, qmax, rows in cases:
+        ens = lut_grid_ensemble(70, DEPTH, FEATURES, B, 7, (3, 10), qmax)
+        ce = ens.compile(tree_chunk=64)
+        tables = ce.quantize(leaf_dtype)
+        check(tables.max_abs_err == 0.0, f"{what}: lossless grid")
+        packed = (tables.pack_int4().thr_packed
+                  if leaf_dtype == "int4" else None)
+        if leaf_dtype == "int4":
+            check(packed == (B <= 15), f"{what}: thr_packed {packed}")
+        _, kernel, plain = lut_callables(tables, dev)
+        Xd = torch.from_numpy(rows).to(dev)
+        got = kernel(Xd).cpu().numpy()
+        check(np.array_equal(got, plain(Xd).cpu().numpy()),
+              f"{what}: kernel == plain, bitwise")
+        _, k3, _ = device_operands(ce, dev)
+        check(np.array_equal(got, k3(Xd).cpu().numpy()),
+              f"{what}: kernel == traversal kernel on the f32 ensemble")
+        emit({"phase": "lut_exact", "case": what, "leaf_dtype": leaf_dtype,
+              "bins": B, "thr_packed": packed, "rows": len(rows),
+              "trees": 70, "depth": DEPTH, "classes": 7, "missing": True,
+              "cat": [3, 10], "bitwise_equal_plain": True,
+              "bitwise_equal_traverse": True, "max_abs_err": 0.0})
+
+
+def lut_bound_ms(ce, ops, Xd, card: dict, muls: bool,
+                 n_trees: int) -> dict:
+    """The traversal's bound (traverse_compares) over the quantized
+    tables: bytes = rows in, scores out, every operand and the per-tree
+    class once; operations = INT32 compares plus one f32 add per row and
+    real tree, and one f32 multiply more where leaves are dequantized by
+    scale (priced at the add rate)."""
+    R, F = Xd.shape
+    table_bytes = sum(t.numel() * t.element_size() for t in ops) \
+        + 4 * ce.n_trees_padded
+    nbytes = R * F + R * ce.n_classes_out * 4 + table_bytes
+    compares = traverse_compares(ce, Xd)
+    flops = R * n_trees * (2 if muls else 1)
+    t_bytes = 1e3 * nbytes / card["bw"]
+    t_ops = 1e3 * (compares / card["int32"] + flops / card["f32_add"])
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "table_bytes": table_bytes,
+            "int32_compares": compares, "f32_ops": flops}
+
+
+def lut_measure(what, tables, ce, n_trees, Xd, card, flush,
+                k3_out=None) -> dict:
+    dev = Xd.device
+    ops, kernel, plain = lut_callables(tables, dev)
+    got = kernel(Xd)
+    want = plain(Xd)
+    err = (got - want).abs()
+    check(bool((err <= 1e-5 * (want.abs() + 1)).all()),
+          f"{what}: kernel vs plain max err {float(err.max())}")
+    row = {"max_abs_err": float(err.max())}
+    if k3_out is not None:
+        d = (got - k3_out).abs()
+        lim = tables.max_abs_err * (1 + 1e-5) + 1e-5 * (k3_out.abs() + 1)
+        check(bool((d <= lim).all()),
+              f"{what}: vs traversal kernel {float(d.max())} > "
+              f"max_abs_err {tables.max_abs_err}")
+        row["max_abs_diff_vs_traverse"] = float(d.max())
+    row.update(lut_bound_ms(ce, ops, Xd, card,
+                            muls=tables.leaf_dtype != "float16",
+                            n_trees=n_trees))
+    row["kernel_ms"] = time_ms(lambda: kernel(Xd), 20, flush)
+    row["plain_ms"] = time_ms(lambda: plain(Xd), 3, flush)
+    row["library_ms"] = None       # no single PyTorch call computes it
+    row["tables_max_abs_err"] = tables.max_abs_err
+    return row
+
+
+def phase_lut_trained(res, X: np.ndarray, card: dict,
+                      flush: torch.Tensor) -> dict:
+    dev = torch.device("cuda")
+    ce = res.ensemble.compile(tree_chunk=64)
+    k3_tables, k3, _ = device_operands(ce, dev)
+    Xd = torch.from_numpy(res.mapper.transform(X)).to(dev)
+    k3_out = k3(Xd)
+    rows = {}
+    for name, leaf_dtype in (("lut", "float16"), ("lut4", "int4")):
+        tables = ce.quantize(leaf_dtype)
+        rows[name] = lut_measure(name, tables, ce, res.ensemble.n_trees,
+                                 Xd, card, flush, k3_out)
+        rows[name]["thr_packed"] = (tables.pack_int4().thr_packed
+                                    if leaf_dtype == "int4" else None)
+        emit({"phase": "lut_trained", "kernel": name,
+              "leaf_dtype": leaf_dtype, "rows": Xd.shape[0],
+              "trees": N_TREES, "depth": DEPTH, **rows[name]})
+    emit({"phase": "lut_trained", "table_bytes": {
+        "f32 (traverse)": sum(t.numel() * t.element_size()
+                              for t in k3_tables[:4]),
+        "int8 tier (lut)": rows["lut"]["table_bytes"],
+        "int4 tier (lut4)": rows["lut4"]["table_bytes"]}})
+    return rows
+
+
+def phase_lut4_packed(X: np.ndarray, y: np.ndarray, card: dict,
+                      flush: torch.Tensor):
+    cfg = TrainConfig(n_trees=N_TREES, max_depth=DEPTH, n_bins=15)
+    t0 = time.perf_counter()
+    res = api.train(X, y, cfg)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    ce = res.ensemble.compile(tree_chunk=64)
+    tables = ce.quantize("int4")
+    check(tables.pack_int4().thr_packed, "15-bin model: thr_packed")
+    Xd = torch.from_numpy(res.mapper.transform(X)).to(torch.device("cuda"))
+    _, k3, _ = device_operands(ce, Xd.device)
+    row = lut_measure("lut4 packed", tables, ce, res.ensemble.n_trees, Xd,
+                      card, flush, k3(Xd))
+    emit({"phase": "lut4_packed", "rows": len(X), "bins": 15,
+          "trees": N_TREES, "depth": DEPTH, "train_s": train_s,
+          "thr_packed": True, **row})
+    return res, row
+
+
+def serve_tier(tier, b255, b15, pool, refs) -> dict:
+    """One engine at `tier` under load with a hot swap, then the express
+    lane at idle; every response checked against offline api.predict."""
+    eng = ServeEngine(b255, TrainConfig(), quantize=tier, max_batch=256,
+                      max_wait_ms=1.0)
+    try:
+        results, errors = [], []
+        lock = threading.Lock()
+        per_thread = SERVE_REQUESTS // SERVE_THREADS
+
+        def submitter(tid):
+            rng = np.random.default_rng(tid)
+            for _ in range(per_thread):
+                s = int(rng.integers(0, SERVE_POOL - 64))
+                c = int(rng.integers(1, 65))
+                try:
+                    req = eng.predict_async(pool[s:s + c])
+                    out = req.result(timeout=60.0)
+                except Exception as e:  # collected, checked empty below
+                    with lock:
+                        errors.append(repr(e))
+                    continue
+                with lock:
+                    results.append((s, c, req.model_token, out))
+
+        threads = [threading.Thread(target=submitter, args=(t,))
+                   for t in range(SERVE_THREADS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        while True:
+            with lock:
+                n_done = len(results) + len(errors)
+            if n_done >= SERVE_REQUESTS // 2 or \
+                    not any(t.is_alive() for t in threads):
+                break
+            time.sleep(0.001)
+        swap = eng.swap(b15)
+        for t in threads:
+            t.join(120)
+        load_s = time.perf_counter() - t0
+        check(not any(t.is_alive() for t in threads), "submitters done")
+        check(not errors, f"serve {tier}: errors {errors[:3]}")
+        load = eng.stats.window_summary(reset=True)
+        # Median request-trace segments of the last loaded requests.
+        ring = eng.stats.traces_snapshot()
+        segments = {k: float(np.median([t[k] for t in ring]))
+                    for k in ("handler_ms", "queue_ms", "gate_ms",
+                              "device_ms", "wake_ms", "total_ms")}
+        # Express lane: single rows at an idle queue, one at a time.
+        rng = np.random.default_rng(99)
+        for _ in range(EXPRESS_REQUESTS):
+            s = int(rng.integers(0, SERVE_POOL))
+            req = eng.predict_async(pool[s:s + 1])
+            results.append((s, 1, req.model_token, req.result(timeout=60.0)))
+        express = eng.stats.window_summary(reset=True)
+        tokens = {swap["old"], swap["new"]}
+        for s, c, token, out in results:
+            check(token in tokens, f"serve {tier}: unknown token")
+            check(np.array_equal(out, refs[token, tier][s:s + c]),
+                  f"serve {tier}: rows [{s}:{s + c}] differ from offline "
+                  "api.predict")
+        by_token = {tok: sum(1 for r in results if r[2] == tok)
+                    for tok in tokens}
+        check(all(by_token.values()), f"serve {tier}: both models served")
+        for tok in tokens:
+            got = eng.backend.resolved_predict_impl(tok)
+            check(got == TIER_RESOLVED[tier],
+                  f"serve {tier}: token {tok[:12]} resolved to {got}")
+        check(eng.health()["predict_impl"] == TIER_RESOLVED[tier],
+              f"serve {tier}: health tier")
+        check(express["express"] >= 1, f"serve {tier}: express lane used")
+    finally:
+        eng.close()
+    return {"tier": tier or "f32", "requests": load["requests"],
+            "load_s": load_s, "batches": load["batches"],
+            "coalesce_max": load["coalesce_max"],
+            "coalesce_mean": load["coalesce_mean"],
+            "p50_ms": load["p50_ms"], "p99_ms": load["p99_ms"],
+            "p999_ms": load["p999_ms"], "responses_by_model": list(
+                by_token.values()), "trace_median_ms": segments,
+            "express_requests": express["requests"],
+            "express_lane": express["express"],
+            "express_p50_ms": express["p50_ms"],
+            "express_p99_ms": express["p99_ms"]}
+
+
+def phase_serve(res255, res15, X: np.ndarray) -> dict:
+    b255 = api.ModelBundle(res255.ensemble, res255.mapper)
+    b15 = api.ModelBundle(res15.ensemble, res15.mapper)
+    pool = np.ascontiguousarray(X[:SERVE_POOL], np.float32)
+    # Offline answers first: their launches are the yardstick's, not the
+    # serving path's.
+    refs = {}
+    for tier, impl in TIER_IMPL.items():
+        for b in (b255, b15):
+            token = b.ensemble.compile(tree_chunk=64).token
+            refs[token, tier] = api.predict(
+                b, pool, cfg=TrainConfig(predict_impl=impl))
+    torch.cuda.synchronize()
+    predict_cuda.launches = 0
+    predict_lut_cuda.launches_lut = 0
+    predict_lut_cuda.launches_lut4 = 0
+    t0 = time.perf_counter()
+    tiers = [serve_tier(t, b255, b15, pool, refs) for t in TIER_IMPL]
+    torch.cuda.synchronize()
+    launches = {"traverse": predict_cuda.launches,
+                "lut": predict_lut_cuda.launches_lut,
+                "lut4": predict_lut_cuda.launches_lut4}
+    for name in ("traverse", "lut", "lut4"):
+        check(launches[name] > 0, f"{name} kernel launched while serving")
+    for row in tiers:
+        emit({"phase": "serve", **row})
+    emit({"phase": "serve", "wall_s": time.perf_counter() - t0,
+          "launches": launches, "max_batch": 256, "max_wait_ms": 1.0,
+          "threads": SERVE_THREADS})
+    return launches
+
+
 def phase_parity(X: np.ndarray, y: np.ndarray) -> None:
     Xs, ys = X[:PARITY_ROWS], y[:PARITY_ROWS]
     cfg = TrainConfig(n_trees=PARITY_TREES, max_depth=DEPTH, n_bins=255,
@@ -487,7 +796,22 @@ def main() -> int:
     main_run = phase_main(X, y)
     trav = phase_traverse_trained(main_run["res"], X, card, flush)
     phase_parity(X, y)
+    phase_lut_exact(X, Xb)
+    lut = phase_lut_trained(main_run["res"], X, card, flush)
+    res15, _ = phase_lut4_packed(X, y, card, flush)
+    served = phase_serve(main_run["res"], res15, X)
     launches = main_run["launches"]
+
+    def lut_entry(name, line):
+        r = lut[name]
+        return {"name": name, "route": "cuda",
+                "source": "ddt_tpu_torch/csrc/lut.cu",
+                "replaces": f"ddt_tpu/ops/predict_lut.py:{line}",
+                "launches": served[name], "max_abs_err": r["max_abs_err"],
+                "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "library_ms": None}
+
     emit({"kernels": [
         {"name": "hist", "route": "cuda",
          "source": "ddt_tpu_torch/csrc/hist.cu",
@@ -503,6 +827,8 @@ def main() -> int:
          "max_abs_err": trav["max_abs_err"], "ms": trav["kernel_ms"],
          "plain_ms": trav["plain_ms"], "bound_ms": trav["bound_ms"],
          "bound_by": trav["bound_by"], "library_ms": None},
+        lut_entry("lut", 376),
+        lut_entry("lut4", 674),
     ]})
     emit({"phase": "done", "wall_s": time.perf_counter() - t_start})
     print(card["smi"], flush=True)

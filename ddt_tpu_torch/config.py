@@ -39,6 +39,16 @@ class TrainConfig:
     hist_subtraction: str = "auto"  # auto | on | off
     seed: int = 0               # bin-edge sampling (api.train)
 
+    # Batch-scoring tier (backends/cuda.py): "auto" is the f32 traversal;
+    # "lut" the int8 TreeLUT tier (int8 thresholds, fp16 leaves; kernel
+    # csrc/lut.cu ddt_lut_int8); "lut4" the int4 tier (nibble-packed
+    # leaves with per-tree scales, nibble thresholds on <= 15-bin models;
+    # ddt_lut_int4). A quantized tier whose shape the kernel's fits guard
+    # refuses steps down int4 -> int8 -> f32 with a warning. The
+    # reference's "pallas" / "onehot" pick between its two f32 paths on a
+    # TPU; the port has one f32 path, so they are refused.
+    predict_impl: str = "auto"  # auto | lut | lut4
+
     # --- system ---
     # Where training and scoring run. "cuda" raises when no card is
     # visible: the entry points never continue on the CPU by themselves.
@@ -58,6 +68,12 @@ class TrainConfig:
             raise ValueError(
                 f"hist_subtraction must be auto|on|off, got "
                 f"{self.hist_subtraction!r}")
+        if self.predict_impl not in ("auto", "lut", "lut4"):
+            raise ValueError(
+                f"predict_impl must be auto|lut|lut4, got "
+                f"{self.predict_impl!r} (the port has one f32 scoring "
+                "path: 'auto'; the reference's 'pallas'/'onehot' choose "
+                "between its two TPU paths)")
 
     def replace(self, **kw) -> "TrainConfig":
         return dataclasses.replace(self, **kw)

@@ -46,6 +46,31 @@ class BinMapper:
         """Bins available to real values (excludes the reserved NaN bin)."""
         return self.n_bins - 1 if self.missing_bin else self.n_bins
 
+    def non_identity_columns(self, features) -> list[int]:
+        """Subset of `features` whose edges do not identity-map integer bin
+        ids (quantile-fitted, so category ids would be merged or permuted
+        by transform). Judged by the edges themselves, not by the recorded
+        `cat_features`. Memoized per feature tuple: edges never change
+        after fit, and api.predict runs this check on every call."""
+        key = tuple(sorted(int(f) for f in features))
+        cache = self.__dict__.setdefault("_non_identity_memo", {})
+        if key in cache:
+            return list(cache[key])
+        bad = sorted(f for f in key if not 0 <= f < self.n_features)
+        if bad:
+            raise ValueError(
+                f"cat_features indices {bad} out of range for "
+                f"{self.n_features} features"
+            )
+        nv = self.n_value_bins
+        want = np.arange(nv - 1, dtype=np.float32)
+        out = sorted(
+            f for f in key
+            if not np.array_equal(self.edges[f, : nv - 1], want)
+        )
+        cache[key] = tuple(out)
+        return out
+
     def transform(self, X: np.ndarray) -> np.ndarray:
         """Bin a float matrix [rows, n_features] -> uint8 [rows, n_features]."""
         X = np.asarray(X, dtype=np.float32)

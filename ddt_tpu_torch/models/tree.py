@@ -298,6 +298,35 @@ class CompiledEnsemble:
             out.append(self.eff_cat)
         return tuple(out)
 
+    def quantize(self, leaf_dtype: str = "float16"):
+        """TreeLUT-style quantized scoring tables
+        (ops/predict_lut.QuantizedTables): int8 recentred thresholds,
+        fp16 / int8 / int4 leaves, and the computed `max_abs_err` bound.
+        Memoized per leaf_dtype (this snapshot is immutable): the serving
+        tier quantizes at publish and the backend at its first quantized
+        dispatch, one host pass shared."""
+        memo = self.__dict__.get("_quant_memo")
+        if memo is None:
+            memo = {}
+            object.__setattr__(self, "_quant_memo", memo)
+        if leaf_dtype not in memo:
+            from ddt_tpu_torch.ops.predict_lut import quantize_compiled
+
+            memo[leaf_dtype] = quantize_compiled(self, leaf_dtype=leaf_dtype)
+        return memo[leaf_dtype]
+
+    def seed_quantized(self, tables) -> None:
+        """Install pre-built tables as this instance's quantization:
+        `quantize(leaf_dtype=tables.leaf_dtype)`, the backend's first
+        quantized dispatch included, returns them verbatim (tables carried
+        with a model, e.g. loaded with ops/predict_lut.tables_from_arrays,
+        serve as they are)."""
+        memo = self.__dict__.get("_quant_memo")
+        if memo is None:
+            memo = {}
+            object.__setattr__(self, "_quant_memo", memo)
+        memo[tables.leaf_dtype] = tables
+
     @staticmethod
     def build(ens: TreeEnsemble, tree_chunk: int = 64
               ) -> "CompiledEnsemble":

@@ -17,10 +17,12 @@ scores rows with it. Two implementations of the one function:
   mirrors the reference's `_descend_comp` (every internal node's
   comparison bit, then a D-step descent selecting the path node's bit) and
   `_predict_effective`'s per-chunk class accumulation: rows in chunks of
-  ROW_CHUNK, trees in chunks of `tree_chunk`, acc += vals @ class
-  one-hot per tree chunk, then base + lr * acc. Where the reference used
-  one-hot compare+reduce to avoid TPU gathers, this uses gathers: the
-  selected integers are the same.
+  ROW_CHUNK, trees in chunks of `tree_chunk`, acc += the chunk's class
+  sums, then base + lr * acc. Where the reference used one-hot
+  compare+reduce to avoid TPU gathers, this uses gathers: the selected
+  integers are the same. The chunk's class sums are taken tree by tree in
+  tree order, the order of the CUDA kernels, so the plain version equals
+  them bitwise and a row's score does not depend on its batch.
 """
 
 from __future__ import annotations
@@ -76,7 +78,7 @@ def predict_effective_plain(eff_feat, eff_thr, bot_val, cls_oh, X, *,
     if Tpad % tree_chunk:
         raise ValueError(f"padded tree count {Tpad} is not a multiple of "
                          f"tree_chunk={tree_chunk}")
-    cls_oh = cls_oh.to(torch.float32)
+    cls = cls_oh.argmax(dim=1).tolist()          # class of each tree
     bot_val = bot_val.to(torch.float32)
     outs = []
     for r0 in range(0, R, ROW_CHUNK):
@@ -92,7 +94,14 @@ def predict_effective_plain(eff_feat, eff_thr, bot_val, cls_oh, X, *,
                 cat=None if eff_cat is None else eff_cat[ts])
             tidx = torch.arange(k.shape[1], device=X.device)[None, :]
             vals = bot_val[ts][tidx, k]                          # [Rc, Tc]
-            acc = acc + vals @ cls_oh[ts]
+            # Class sums tree by tree, the kernels' order: a row's score
+            # then depends on nothing but the row (a matmul's order
+            # changes with the batch's row count).
+            cs = torch.zeros_like(acc)
+            for j in range(vals.shape[1]):
+                c = cls[t0 + j]
+                cs[:, c] += vals[:, j]
+            acc = acc + cs
         outs.append(acc)
     acc = torch.cat(outs) if outs else torch.zeros(
         (0, C), dtype=torch.float32, device=X.device)

@@ -10,9 +10,11 @@ machine does not have; this file imports nothing of JAX or ddt_tpu.)
 
 Tolerances: the histogram kernel sums with float atomics in a run-to-run
 order, so each (g, h) cell is held to 1e-5 * (sum of |g| or |h| over the
-cell's own rows) + 1e-6. The traversal kernel is bitwise on exact-grid leaf
-values (multiples of 1/8: every partial sum is exact in f32, so the order
-cannot matter) and within 1e-5 * (|p| + 1) on random leaves.
+cell's own rows) + 1e-6. The traversal kernel and the LUT kernels (K4,
+K5) are bitwise on exact-grid leaf values (every partial sum is exact in
+f32, so the order cannot matter) and within 1e-5 * (|p| + 1) on random
+leaves; the LUT kernels also stay within the tables' max_abs_err of the
+f32 host oracle.
 """
 
 import numpy as np
@@ -21,7 +23,8 @@ import torch
 
 from ddt_tpu_torch import _build
 from ddt_tpu_torch.models.tree import empty_ensemble
-from ddt_tpu_torch.ops import hist_cuda, histogram, predict, predict_cuda
+from ddt_tpu_torch.ops import (hist_cuda, histogram, predict, predict_cuda,
+                               predict_lut, predict_lut_cuda)
 
 pytestmark = pytest.mark.cuda
 
@@ -60,7 +63,7 @@ def _hist_tol(Xb, g, h, ni, N, B):
 
 def test_kernels_build(dev):
     _build.build_all()
-    for name in ("hist", "traverse"):
+    for name in ("hist", "traverse", "lut"):
         assert _build.lib_path(name).exists()
 
 
@@ -180,3 +183,120 @@ def test_traverse_dispatch_goes_to_kernel(dev):
         base=ce.base_score)
     assert predict_cuda.launches == before + 1
     assert out.shape == (1000,)
+
+
+# --------------------------------------------------------------------- #
+# K4 / K5: the LUT kernels (csrc/lut.cu) against their plain versions.
+# Exact-grid leaves sit on the 1/(qmax+1) grid with each tree's largest
+# |leaf| pinned to qmax/(qmax+1), so the per-tree scale is exact
+# (qmax 7 for int4, 127 for int8) and quantization lossless.
+# --------------------------------------------------------------------- #
+
+def _lut_ens(T, depth, F, B, C, missing, cat, leaf_dtype, exact=True,
+             seed=0):
+    ens = _rand_ens(T, depth, F, B, C=C, missing=missing, cat=cat,
+                    exact=exact, seed=seed)
+    if exact:
+        qmax = 127 if leaf_dtype == "int8" else 7
+        rng = np.random.default_rng(seed + 1)
+        ens.leaf_value[:] = rng.integers(
+            -qmax, qmax + 1, size=ens.leaf_value.shape) / (qmax + 1)
+        ens.is_leaf[:, [(1 << d) - 1 for d in range(depth)]] = False
+        ens.leaf_value[:, (1 << depth) - 1] = qmax / (qmax + 1)
+    return ens
+
+
+def _lut_both(tables, X, dev):
+    if tables.leaf_dtype == "int4":
+        p = tables.pack_int4()
+        host, static = p.ops, p.static_kwargs()
+        kernel = predict_lut_cuda.lut_int4_cuda
+        plain = predict_lut.predict_effective_lut4_plain
+    else:
+        host = predict_lut.lut_device_operands(tables)
+        static = predict_lut.lut_static_kwargs(tables)
+        kernel = predict_lut_cuda.lut_int8_cuda
+        plain = predict_lut.predict_effective_lut_plain
+    ops = tuple(torch.from_numpy(a).to(dev) for a in host)
+    Xd = torch.from_numpy(X).to(dev)
+    got = kernel(ops, Xd, **static)
+    want = plain(ops, Xd, **static)
+    torch.cuda.synchronize()
+    return got.cpu().numpy(), want.cpu().numpy()
+
+
+LUT_CASES = [
+    ("float16", 255, 7, True, (3, 10), 70, 6, 20_011),
+    ("int8", 255, 7, True, (3, 10), 70, 6, 20_011),
+    ("int4", 13, 7, True, (3, 10), 70, 6, 20_011),     # nibble thresholds
+    ("int4", 255, 1, False, (), 100, 6, 50_000),       # int8 thresholds
+    ("int8", 31, 3, True, (1,), 9, 3, 1_000),
+    ("int4", 13, 1, True, (), 130, 2, 257),
+]
+
+
+@pytest.mark.parametrize("leaf_dtype,B,C,missing,cat,T,depth,R", LUT_CASES)
+def test_lut_kernels_bitwise_on_exact_grid(dev, leaf_dtype, B, C, missing,
+                                           cat, T, depth, R):
+    F = 28
+    ens = _lut_ens(T, depth, F, B, C, missing, cat, leaf_dtype)
+    tables = ens.compile(tree_chunk=64).quantize(leaf_dtype)
+    assert tables.max_abs_err == 0.0
+    if leaf_dtype == "int4":
+        assert tables.pack_int4().thr_packed == (B <= 15)
+    X = np.random.default_rng(1).integers(0, B, size=(R, F),
+                                          dtype=np.uint8)
+    got, want = _lut_both(tables, X, dev)
+    np.testing.assert_array_equal(got, want)
+    ref = ens.predict_raw(X, binned=True)       # lossless grid: the oracle
+    np.testing.assert_array_equal(got if C > 1 else got[:, 0], ref)
+
+
+@pytest.mark.parametrize("leaf_dtype,B,C,missing,cat,T,depth,R",
+                         LUT_CASES[::2])
+def test_lut_kernels_random_leaves_within_tolerance(dev, leaf_dtype, B, C,
+                                                    missing, cat, T, depth,
+                                                    R):
+    F = 28
+    ens = _lut_ens(T, depth, F, B, C, missing, cat, leaf_dtype, exact=False)
+    tables = ens.compile(tree_chunk=64).quantize(leaf_dtype)
+    X = np.random.default_rng(2).integers(0, B, size=(R, F),
+                                          dtype=np.uint8)
+    got, want = _lut_both(tables, X, dev)
+    assert np.all(np.abs(got - want) <= 1e-5 * (np.abs(want) + 1))
+    f32 = ens.predict_raw(X, binned=True)
+    f32 = f32 if C > 1 else f32[:, None]
+    assert np.all(np.abs(got - f32) <= tables.max_abs_err * (1 + 1e-5)
+                  + 1e-5 * (np.abs(f32) + 1))
+
+
+def test_lut_kernel_refuses_rows_that_do_not_fit_shared_memory(dev):
+    F = 1000                    # 256 KB of staged rows per block
+    ens = _lut_ens(8, 3, F, 31, 1, False, (), "float16")
+    tables = ens.compile(tree_chunk=8).quantize()
+    assert not predict_lut.predict_lut_fits(
+        8, 8, 3, F, 1, smem_limit=_build.smem_limit(dev))
+    X = np.zeros((10, F), np.uint8)
+    with pytest.raises(ValueError, match="shared memory"):
+        _lut_both(tables, X, dev)
+
+
+def test_lut_dispatch_and_backend_tier_go_to_the_kernels(dev):
+    from ddt_tpu_torch.backends.cuda import CUDADevice
+    from ddt_tpu_torch.config import TrainConfig
+
+    ens = _lut_ens(20, 4, 6, 13, 1, False, (), "int4")
+    X = np.random.default_rng(3).integers(0, 13, (500, 6), dtype=np.uint8)
+    ce = ens.compile()
+    Xd = torch.from_numpy(X).to(dev)
+    b8, b4 = predict_lut_cuda.launches_lut, predict_lut_cuda.launches_lut4
+    out8 = predict_lut.predict_effective_lut(ce.quantize(), Xd)
+    out4 = predict_lut.predict_effective_lut4(ce.quantize("int4"), Xd)
+    assert predict_lut_cuda.launches_lut == b8 + 1
+    assert predict_lut_cuda.launches_lut4 == b4 + 1
+    assert out8.shape == out4.shape == (500,)
+    be = CUDADevice(TrainConfig(n_bins=13, predict_impl="lut4"))
+    got = be.predict_raw(ens, X)
+    assert be.resolved_predict_impl(ce.token) == "lut4"
+    assert predict_lut_cuda.launches_lut4 == b4 + 2
+    np.testing.assert_array_equal(got, out4.cpu().numpy())
