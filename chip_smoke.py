@@ -51,6 +51,31 @@ Phases:
              api.predict at that tier for the token that scored it,
              bitwise; each model resolves to the requested tier; the
              counters are zeroed just before and the LUT kernels' must move
+ 12 quantize ops/grad.quantize_gradients on the card at 1M rows, int8 and
+             int16, from logloss gradients: q's and scales bitwise equal to
+             the numpy twin, and which term (max|g|/qmax or the snapped sum
+             cap) set each scale; the device uniform twin bitwise equal to
+             uniform_np, at row base 0 and above 2^32
+ 13 hist_int the histogram kernel's integer mode against its plain version,
+             bitwise (max |diff| = 0), int8 and int16 q's at 1M x 28, 255
+             bins at N = 1..32 and 128 / 64 bins at N = 16, 32, 10% frozen
+             rows; times of the kernel, the plain version, two int32
+             index_add_ calls (the library yardstick, itself bitwise) and
+             the bound; the per-tree sum over N = 1, 1, 2, 4, 8, 16
+ 14 quant_exact one tree from exact-grid gradients, int8 against f32,
+             structure and leaves bitwise: mse on y in {-1, +1} (g = -/+1,
+             h = 1) at 131,072 rows, so every integer sum stays below 2^24
+             and the one dequantize is exact; and the reference's pinned
+             grid (scale exactly 1) at 1M rows through the backend
+ 15 train_quant api.train at 1M x 28, 255 bins, depth 6, 100 trees with
+             grad_dtype="int8" on the card: the integer kernel's counter
+             moves and the f32 one does not; train AUC >= 0.80 and within
+             0.005 of phase 5's; per-round split agreement with f32 >= 0.985
+             over 10 rounds grown from the same f32 boosting state
+ 16 parity_quant 200k rows, 10 trees, depth 6, 63 bins (K2's regime),
+             int16, subsample 0.8, colsample_bytree 0.8, on the card and on
+             the CPU: trees identical except at bf16-boundary ties, AUC
+             within 0.005
   then the {"kernels": [...]} line, nvidia-smi's line, and the ok line.
 """
 
@@ -70,8 +95,10 @@ from ddt_tpu_torch.config import TrainConfig
 from ddt_tpu_torch.data.datasets import synthetic_binary
 from ddt_tpu_torch.data.quantizer import fit_bin_mapper
 from ddt_tpu_torch.models.tree import empty_ensemble
-from ddt_tpu_torch.ops import (hist_cuda, histogram, predict, predict_cuda,
-                               predict_lut, predict_lut_cuda)
+from ddt_tpu_torch.backends import get_backend
+from ddt_tpu_torch.ops import (grad, hist_cuda, histogram, predict,
+                               predict_cuda, predict_lut, predict_lut_cuda,
+                               sampling)
 from ddt_tpu_torch.serve import ServeEngine
 
 ROWS = 1_000_000
@@ -84,6 +111,13 @@ SERVE_POOL = 65_536         # raw rows the serve phase's requests slice
 SERVE_REQUESTS = 2_000
 SERVE_THREADS = 32
 EXPRESS_REQUESTS = 200
+QUANT_EXACT_ROWS = 131_072  # 127 * rows < 2^24: every int32 sum exact in f32
+AGREE_ROUNDS = 10
+PARITY_Q_BINS = 63
+HIST_SHAPES = ((255, (1, 2, 4, 8, 16, 32)), (128, (16, 32)), (64, (16, 32)))
+#: Histogram builds of one main-path tree with sibling subtraction (on for
+#: the card, and everywhere for integer histograms): nodes per level.
+TREE_SEQ = (1, 1, 2, 4, 8, 16)
 TIER_IMPL = {None: "auto", "int8": "lut", "int4": "lut4"}
 TIER_RESOLVED = {None: "f32", "int8": "lut", "int4": "lut4"}
 
@@ -258,19 +292,17 @@ def hist_bound_ms(ni: np.ndarray, F: int, N: int, B: int,
     return 1e3 * nbytes / card["bw"], 1e3 * ops / card["f32_add"]
 
 
-def phase_hist(X: np.ndarray, card: dict, flush: torch.Tensor) -> dict:
+def phase_hist(binned: dict, card: dict, flush: torch.Tensor) -> dict:
     dev = torch.device("cuda")
     rng = np.random.default_rng(7)
-    R = X.shape[0]
+    R = binned[255].shape[0]
     g = rng.standard_normal(R).astype(np.float32)
     h = (0.25 * rng.random(R)).astype(np.float32)
     gd, hd = torch.from_numpy(g).to(dev), torch.from_numpy(h).to(dev)
     per_n = {}
     max_err = 0.0
-    for B, nodes in ((255, (1, 2, 4, 8, 16, 32)), (128, (16, 32)),
-                     (64, (16, 32))):
-        Xb = fit_bin_mapper(X, n_bins=B).transform(X)
-        Xd = torch.from_numpy(Xb).to(dev)
+    for B, nodes in HIST_SHAPES:
+        Xd = torch.from_numpy(binned[B]).to(dev)
         for N in nodes:
             ni = rng.integers(0, N, size=R).astype(np.int32)
             ni[rng.random(R) < 0.1] = -1
@@ -324,7 +356,7 @@ def phase_hist(X: np.ndarray, card: dict, flush: torch.Tensor) -> dict:
                   **row})
     # One tree of the main path with sibling subtraction (on for the
     # card) builds 1, 1, 2, 4, 8, 16 nodes at 255 bins.
-    seq = (1, 1, 2, 4, 8, 16)
+    seq = TREE_SEQ
     tree = {k: sum(per_n[(255, n)][k] for n in seq)
             for k in ("kernel_ms", "plain_ms", "library_ms", "bound_ms",
                       "bound_bytes_ms", "bound_ops_ms")}
@@ -393,6 +425,7 @@ def phase_main(X: np.ndarray, y: np.ndarray) -> dict:
     cfg = TrainConfig(n_trees=N_TREES, max_depth=DEPTH, n_bins=255,
                       device="cuda")
     hist_cuda.launches = 0
+    hist_cuda.launches_int = 0
     predict_cuda.launches = 0
     t0 = time.perf_counter()
     res = api.train(X, y, cfg)
@@ -404,6 +437,8 @@ def phase_main(X: np.ndarray, y: np.ndarray) -> dict:
     launches = {"hist": hist_cuda.launches,
                 "traverse": predict_cuda.launches}
     check(launches["hist"] > 0, "histogram kernel launched on main path")
+    check(hist_cuda.launches_int == 0,
+          "integer histogram mode not launched on the f32 path")
     check(launches["traverse"] > 0, "traversal kernel launched on main path")
     check(p.shape == (len(X),) and np.all(np.isfinite(p)),
           "predictions finite, one per row")
@@ -421,7 +456,8 @@ def phase_main(X: np.ndarray, y: np.ndarray) -> dict:
           "train_s": t1 - t0, "predict_s": t2 - t1,
           "train_auc": train_auc, "launches": launches,
           "hist_launches_per_tree": launches["hist"] / N_TREES})
-    return {"res": res, "launches": launches}
+    return {"res": res, "launches": launches, "auc": train_auc,
+            "train_s": t1 - t0}
 
 
 def phase_traverse_trained(res, X: np.ndarray, card: dict,
@@ -779,6 +815,316 @@ def phase_parity(X: np.ndarray, y: np.ndarray) -> None:
           "auc_card": a_card, "auc_cpu": a_cpu,
           "train_card_s": t1 - t0, "train_cpu_s": t2 - t1})
 
+# --------------------------------------------------------------------- #
+# quantized-gradient training (grad_dtype int8 / int16)
+# --------------------------------------------------------------------- #
+
+def logloss_gh(R: int, seed: int) -> tuple[np.ndarray, np.ndarray]:
+    """f32 logloss (g, h) at random raw scores and labels."""
+    rng = np.random.default_rng(seed)
+    raw = (0.5 * rng.standard_normal(R)).astype(np.float32)
+    y = (rng.random(R) < 0.5).astype(np.float32)
+    p = (np.float32(1) / (np.float32(1) + np.exp(-raw))).astype(np.float32)
+    return (p - y).astype(np.float32), (p * (1 - p)).astype(np.float32)
+
+
+def scale_term(a: np.ndarray, grad_dtype: str) -> dict:
+    """Which term of quant_scale set the scale of values `a`, from host
+    stats: 'max' (max|a| / qmax, exact) or 'sum_cap' (the power-of-two
+    snap of sum|a| / 2^30)."""
+    mx, sm = np.max(np.abs(a)), np.sum(np.abs(a))
+    base = np.float32(mx) / np.float32(grad.GRAD_QMAX[grad_dtype])
+    scale = grad.quant_scale_np(mx, sm, grad_dtype)
+    return {"term": "max" if scale == base else "sum_cap",
+            "max_term": float(base),
+            "cap_term": float(grad.quant_scale_np(0.0, sm, grad_dtype)),
+            "sum_abs_numpy": float(sm)}
+
+
+def phase_quantize(flush: torch.Tensor) -> dict:
+    dev = torch.device("cuda")
+    g, h = logloss_gh(ROWS, 11)
+    gd, hd = torch.from_numpy(g).to(dev), torch.from_numpy(h).to(dev)
+    out = {}
+    for dt in ("int8", "int16"):
+        qg, qh, gs, hs = grad.quantize_gradients(gd, hd, grad_dtype=dt,
+                                                 tree_id=3, seed=11)
+        ng, nh, ngs, nhs = grad.quantize_gradients_np(
+            g, h, grad_dtype=dt, tree_id=3, seed=11)
+        check(np.array_equal(qg.cpu().numpy(), ng), f"quantize {dt}: q(g)")
+        check(np.array_equal(qh.cpu().numpy(), nh), f"quantize {dt}: q(h)")
+        check(float(gs) == float(ngs) and float(hs) == float(nhs),
+              f"quantize {dt}: scales {float(gs)} {float(ngs)} "
+              f"{float(hs)} {float(nhs)}")
+        _, sg, _, sh = grad.grad_abs_stats(gd, hd)
+        row = {"gscale": float(gs), "hscale": float(hs),
+               "g": {**scale_term(g, dt), "sum_abs_card": float(sg)},
+               "h": {**scale_term(h, dt), "sum_abs_card": float(sh)},
+               "q_bitwise_equal": True, "scales_equal": True,
+               "ms": time_ms(lambda: grad.quantize_gradients(
+                   gd, hd, grad_dtype=dt, tree_id=3, seed=11), 20, flush)}
+        out[dt] = row
+        emit({"phase": "quantize", "rows": ROWS, "grad_dtype": dt, **row})
+    for base in (0, (1 << 33) + 0xFFFFFF00):
+        u = sampling.uniform(11, 3, base, ROWS, dev).cpu().numpy()
+        check(np.array_equal(u.view(np.uint32),
+                             sampling.uniform_np(11, 3, base, ROWS)
+                             .view(np.uint32)),
+              f"uniform twin at row base {base}")
+        emit({"phase": "quantize", "uniform_row_base": base, "rows": ROWS,
+              "bitwise_equal_uniform_np": True})
+    return out
+
+
+def hist_int_bound_ms(ni: np.ndarray, F: int, N: int, B: int,
+                      itemsize: int, card: dict) -> tuple[float, float]:
+    """(bytes time, operations time) in ms of the integer mode: the node
+    index of every row, Xb and the two q's of each active row read once,
+    the int32 table written once; 2 INT32 adds per active (row, feature)
+    at the INT32 rate."""
+    act = int((ni >= 0).sum())
+    nbytes = ni.size * 4 + act * (F + 2 * itemsize) + N * F * B * 8
+    return 1e3 * nbytes / card["bw"], 1e3 * 2 * act * F / card["int32"]
+
+
+def phase_hist_int(binned: dict, card: dict, flush: torch.Tensor) -> dict:
+    dev = torch.device("cuda")
+    R = binned[255].shape[0]
+    rng = np.random.default_rng(7)
+    g = rng.standard_normal(R).astype(np.float32)
+    h = (0.25 * rng.random(R)).astype(np.float32)
+    rows = {}
+    for dt, itemsize in (("int8", 1), ("int16", 2)):
+        qg, qh, _, _ = grad.quantize_gradients_np(g, h, grad_dtype=dt,
+                                                  tree_id=0, seed=7)
+        gd, hd = torch.from_numpy(qg).to(dev), torch.from_numpy(qh).to(dev)
+        rng_n = np.random.default_rng(8)
+        for B, nodes in HIST_SHAPES:
+            Xd = torch.from_numpy(binned[B]).to(dev)
+            for N in nodes:
+                ni = rng_n.integers(0, N, size=R).astype(np.int32)
+                ni[rng_n.random(R) < 0.1] = -1
+                nid = torch.from_numpy(ni).to(dev)
+                args = (Xd, gd, hd, nid, N, B)
+                got = hist_cuda.build_histograms_cuda(*args)
+                want = histogram.build_histograms_segment(*args)
+                check(got.dtype == torch.int32 and torch.equal(got, want),
+                      f"hist_int {dt} B={B} N={N}: kernel != plain")
+                err = int((got.long() - want.long()).abs().max())
+                # Library yardstick: two int32 index_add_ calls over the
+                # combined (f*N + node)*B + bin key.
+                key = ((torch.arange(FEATURES, device=dev)[None, :] * N
+                        + nid.clamp(min=0).long()[:, None]) * B
+                       + Xd.long()).reshape(-1)
+                act = nid >= 0
+                wg = torch.where(act, gd.int(), 0)[:, None] \
+                    .expand(R, FEATURES).reshape(-1).contiguous()
+                wh = torch.where(act, hd.int(), 0)[:, None] \
+                    .expand(R, FEATURES).reshape(-1).contiguous()
+                m = FEATURES * N * B
+
+                def library():
+                    return (torch.zeros(m, dtype=torch.int32, device=dev)
+                            .index_add_(0, key, wg),
+                            torch.zeros(m, dtype=torch.int32, device=dev)
+                            .index_add_(0, key, wh))
+
+                lib = torch.stack(library(), -1).reshape(
+                    FEATURES, N, B, 2).permute(1, 0, 2, 3)
+                check(torch.equal(lib, want),
+                      f"index_add_ yardstick {dt} B={B} N={N}")
+                t_bytes, t_ops = hist_int_bound_ms(ni, FEATURES, N, B,
+                                                   itemsize, card)
+                row = {
+                    "kernel_ms": time_ms(
+                        lambda: hist_cuda.build_histograms_cuda(*args), 20,
+                        flush),
+                    "plain_ms": time_ms(
+                        lambda: histogram.build_histograms_segment(*args), 5,
+                        flush),
+                    "library_ms": time_ms(library, 10, flush),
+                    "bound_ms": max(t_bytes, t_ops),
+                    "bound_bytes_ms": t_bytes, "bound_ops_ms": t_ops,
+                    "max_abs_err": err,
+                }
+                row["bound_by"] = ("bytes" if t_bytes >= t_ops
+                                   else "operations")
+                del key, wg, wh, lib
+                rows[(dt, B, N)] = row
+                emit({"phase": "hist_int", "grad_dtype": dt, "rows": R,
+                      "features": FEATURES, "bins": B, "nodes": N,
+                      "frozen_frac": 0.1, "bitwise_equal": True, **row})
+    out = {"rows": rows}
+    for dt in ("int8", "int16"):
+        tree = {k: sum(rows[(dt, 255, n)][k] for n in TREE_SEQ)
+                for k in ("kernel_ms", "plain_ms", "library_ms", "bound_ms",
+                          "bound_bytes_ms", "bound_ops_ms")}
+        tree["bound_by"] = ("bytes" if tree["bound_bytes_ms"]
+                            >= tree["bound_ops_ms"] else "operations")
+        out[dt] = tree
+        emit({"phase": "hist_int", "grad_dtype": dt,
+              "per_tree_main_path": list(TREE_SEQ), **tree})
+    out["max_abs_err"] = max(r["max_abs_err"] for r in rows.values())
+    return out
+
+
+TREE_FIELDS = ("feature", "threshold_bin", "is_leaf", "leaf_value",
+               "split_gain", "default_left")
+
+
+def phase_quant_exact(binned: dict, y: np.ndarray) -> None:
+    # (a) mse on y in {-1, +1} with mean exactly 0: g = -/+1 and h = 1, so
+    # q = -/+127 and 127, and with 127 * rows < 2^24 every integer sum
+    # converts to f32 exactly and dequantizes to the f32 path's sum.
+    R = QUANT_EXACT_ROWS
+    Xb = binned[255][:R]
+    ypm = np.where(y[:R] > 0.5, 1.0, -1.0).astype(np.float32)
+    flip = np.flatnonzero(ypm > 0 if ypm.sum() > 0 else ypm < 0)
+    ypm[flip[:int(abs(ypm.sum())) // 2]] *= -1
+    check(ypm.sum() == 0, "balanced +-1 labels")
+    cfg = TrainConfig(n_trees=1, max_depth=DEPTH, n_bins=255, loss="mse")
+    hist_cuda.launches_int = 0
+    ens = {dt: api.train(Xb, ypm, cfg.replace(grad_dtype=dt),
+                         binned=True).ensemble for dt in ("f32", "int8")}
+    check(hist_cuda.launches_int > 0, "quant_exact ran the integer mode")
+    for k in TREE_FIELDS:
+        check(np.array_equal(getattr(ens["f32"], k), getattr(ens["int8"], k)),
+              f"quant_exact mse: {k} int8 == f32")
+    emit({"phase": "quant_exact", "case": "mse y in {-1,+1}", "rows": R,
+          "depth": DEPTH, "bins": 255, "bitwise_equal": list(TREE_FIELDS),
+          "split_nodes": int((ens["f32"].feature >= 0).sum())})
+    # (b) the reference's pinned grid at full width: integer g in {-1, 0,
+    # 1} and h = 1, each channel's max pinned to 127, so the scale is
+    # exactly 1.0 and every sum stays below 2^24.
+    R = ROWS
+    rng = np.random.default_rng(5)
+    g = rng.integers(-1, 2, size=R).astype(np.float32)
+    h = np.ones(R, np.float32)
+    g[0] = h[0] = 127.0
+    trees = {}
+    for dt in ("f32", "int8"):
+        be = get_backend(TrainConfig(n_trees=1, max_depth=DEPTH, n_bins=255,
+                                     grad_dtype=dt))
+        data = be.upload(binned[255])
+        handle, _ = be.grow_tree(data, torch.from_numpy(g).to(be.device),
+                                 torch.from_numpy(h).to(be.device),
+                                 tree_id=0)
+        trees[dt] = be.fetch_tree(handle)
+    for k in TREE_FIELDS:
+        check(np.array_equal(trees["f32"][k], trees["int8"][k]),
+              f"quant_exact pinned grid: {k} int8 == f32")
+    emit({"phase": "quant_exact", "case": "pinned grid, scale 1.0",
+          "rows": R, "depth": DEPTH, "bins": 255,
+          "bitwise_equal": list(TREE_FIELDS),
+          "split_nodes": int((trees["f32"]["feature"] >= 0).sum())})
+
+
+def boost_ms_per_tree(Xb: np.ndarray, y: np.ndarray, grad_dtype: str) -> float:
+    """ms per tree of the Driver's boosting loop on binned rows (upload
+    included, binning not), host clock ending in a synchronize."""
+    cfg = TrainConfig(n_trees=N_TREES, max_depth=DEPTH, n_bins=255,
+                      grad_dtype=grad_dtype)
+    t0 = time.perf_counter()
+    api.train(Xb, y, cfg, binned=True)
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / N_TREES
+
+
+def phase_train_quant(X: np.ndarray, y: np.ndarray, binned: dict,
+                      main_run: dict) -> dict:
+    cfg = TrainConfig(n_trees=N_TREES, max_depth=DEPTH, n_bins=255,
+                      grad_dtype="int8")
+    hist_cuda.launches = 0
+    hist_cuda.launches_int = 0
+    predict_cuda.launches = 0
+    t0 = time.perf_counter()
+    res = api.train(X, y, cfg)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    p = api.predict(res.ensemble, X, mapper=res.mapper)
+    launches = {"hist_int": hist_cuda.launches_int,
+                "hist_f32": hist_cuda.launches,
+                "traverse": predict_cuda.launches}
+    check(launches["hist_int"] > 0, "integer histogram mode launched")
+    check(launches["hist_f32"] == 0, "f32 histogram mode not launched")
+    check(launches["traverse"] > 0, "traversal kernel launched")
+    check(p.shape == (len(X),) and np.all(np.isfinite(p)), "finite scores")
+    a = auc(y, p)
+    check(a >= 0.80, f"int8 train AUC {a} >= 0.80")
+    check(abs(a - main_run["auc"]) <= 0.005,
+          f"int8 AUC {a} vs f32 {main_run['auc']}")
+    # Per-round split agreement: both trees of a round grown from the same
+    # f32 boosting state (the reference's acceptance protocol).
+    be_f = get_backend(TrainConfig(max_depth=DEPTH, n_bins=255))
+    be_q = get_backend(TrainConfig(max_depth=DEPTH, n_bins=255,
+                                   grad_dtype="int8"))
+    data = be_f.upload(binned[255])
+    yh = be_f.upload_labels(y)
+    pred = be_f.init_pred(yh, float(np.log(y.mean() / (1 - y.mean()))))
+    same = tot = 0
+    for rnd in range(AGREE_ROUNDS):
+        g, h = be_f.grad_hess(pred, yh)
+        hf, delta = be_f.grow_tree(data, g, h, tree_id=rnd)
+        hq, _ = be_q.grow_tree(data, g, h, tree_id=rnd)
+        tf, tq = be_f.fetch_tree(hf), be_q.fetch_tree(hq)
+        same += int((tf["feature"] == tq["feature"]).sum())
+        tot += tf["feature"].size
+        pred = be_f.apply_delta(pred, delta, 0)
+    agree = same / tot
+    check(agree >= 0.985, f"int8 split agreement {agree} >= 0.985")
+    # Boosting loop alone, f32 and int8 in turns (binning excluded).
+    order = ("f32", "int8", "int8", "f32")
+    loop = {dt: [] for dt in ("f32", "int8")}
+    for dt in order:
+        loop[dt].append(boost_ms_per_tree(binned[255], y, dt))
+    row = {"rows": len(X), "bins": 255, "depth": DEPTH, "trees": N_TREES,
+           "grad_dtype": "int8", "train_s": t1 - t0,
+           "train_s_f32_main": main_run["train_s"], "train_auc": a,
+           "train_auc_f32": main_run["auc"], "launches": launches,
+           "hist_int_launches_per_tree": launches["hist_int"] / N_TREES,
+           "split_agreement": agree, "agreement_rounds": AGREE_ROUNDS,
+           "boost_ms_per_tree": loop, "boost_order": list(order)}
+    emit({"phase": "train_quant", **row})
+    return row
+
+
+def phase_parity_quant(X: np.ndarray, y: np.ndarray) -> dict:
+    Xs, ys = X[:PARITY_ROWS], y[:PARITY_ROWS]
+    cfg = TrainConfig(n_trees=PARITY_TREES, max_depth=DEPTH,
+                      n_bins=PARITY_Q_BINS, min_split_gain=1e-3,
+                      grad_dtype="int16", subsample=0.8,
+                      colsample_bytree=0.8)
+    hist_cuda.launches = 0
+    hist_cuda.launches_int = 0
+    t0 = time.perf_counter()
+    on_card = api.train(Xs, ys, cfg, device="cuda")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    launches = {"hist_int": hist_cuda.launches_int,
+                "hist_f32": hist_cuda.launches}
+    check(launches["hist_int"] > 0 and launches["hist_f32"] == 0,
+          f"parity_quant launches {launches}")
+    on_cpu = api.train(Xs, ys, cfg, device="cpu")
+    t2 = time.perf_counter()
+    n_rc = trees_match_mod_ties(on_cpu.ensemble, on_card.ensemble, 1e-3)
+    a_card = auc(ys, api.predict(on_card.ensemble, Xs,
+                                 mapper=on_card.mapper))
+    a_cpu = auc(ys, api.predict(on_cpu.ensemble, Xs, mapper=on_cpu.mapper,
+                                device="cpu"))
+    check(abs(a_card - a_cpu) <= 0.005, f"AUC {a_card} vs {a_cpu}")
+    same = int(np.sum(np.all(
+        (on_card.ensemble.feature == on_cpu.ensemble.feature)
+        & (on_card.ensemble.threshold_bin == on_cpu.ensemble.threshold_bin),
+        axis=1)))
+    row = {"rows": PARITY_ROWS, "trees": PARITY_TREES,
+           "bins": PARITY_Q_BINS, "grad_dtype": "int16", "subsample": 0.8,
+           "colsample_bytree": 0.8, "identical_trees": same,
+           "tie_root_causes": n_rc, "auc_card": a_card, "auc_cpu": a_cpu,
+           "launches": launches, "train_card_s": t1 - t0,
+           "train_cpu_s": t2 - t1}
+    emit({"phase": "parity_quant", **row})
+    return row
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -790,8 +1136,10 @@ def main() -> int:
     phase_build()
     X, y = synthetic_binary(ROWS, n_features=FEATURES, seed=0)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
-    hist = phase_hist(X, card, flush)
-    Xb = fit_bin_mapper(X, n_bins=255).transform(X)
+    binned = {B: fit_bin_mapper(X, n_bins=B).transform(X)
+              for B, _ in HIST_SHAPES}
+    hist = phase_hist(binned, card, flush)
+    Xb = binned[255]
     phase_traverse_exact(Xb)
     main_run = phase_main(X, y)
     trav = phase_traverse_trained(main_run["res"], X, card, flush)
@@ -800,7 +1148,13 @@ def main() -> int:
     lut = phase_lut_trained(main_run["res"], X, card, flush)
     res15, _ = phase_lut4_packed(X, y, card, flush)
     served = phase_serve(main_run["res"], res15, X)
+    phase_quantize(flush)
+    hist_int = phase_hist_int(binned, card, flush)
+    phase_quant_exact(binned, y)
+    train_q = phase_train_quant(X, y, binned, main_run)
+    parity_q = phase_parity_quant(X, y)
     launches = main_run["launches"]
+    k2 = hist_int["rows"][("int16", 64, 32)]
 
     def lut_entry(name, line):
         r = lut[name]
@@ -829,6 +1183,23 @@ def main() -> int:
          "bound_by": trav["bound_by"], "library_ms": None},
         lut_entry("lut", 376),
         lut_entry("lut4", 674),
+        {"name": "hist_int", "route": "cuda",
+         "source": "ddt_tpu_torch/csrc/hist.cu",
+         "replaces": "ddt_tpu/ops/hist_pallas.py:175",
+         "launches": train_q["launches"]["hist_int"],
+         "max_abs_err": hist_int["max_abs_err"],
+         "ms": hist_int["int8"]["kernel_ms"],
+         "plain_ms": hist_int["int8"]["plain_ms"],
+         "bound_ms": hist_int["int8"]["bound_ms"],
+         "bound_by": hist_int["int8"]["bound_by"],
+         "library_ms": hist_int["int8"]["library_ms"]},
+        {"name": "hist_int_t", "route": "cuda",
+         "source": "ddt_tpu_torch/csrc/hist.cu",
+         "replaces": "ddt_tpu/ops/hist_pallas.py:214",
+         "launches": parity_q["launches"]["hist_int"],
+         "max_abs_err": hist_int["max_abs_err"], "ms": k2["kernel_ms"],
+         "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
+         "bound_by": k2["bound_by"], "library_ms": k2["library_ms"]},
     ]})
     emit({"phase": "done", "wall_s": time.perf_counter() - t_start})
     print(card["smi"], flush=True)

@@ -2,12 +2,12 @@
 ddt_tpu/backends/base.py, same method names).
 
 The Driver sees only upload / upload_labels / init_pred / grad_hess /
-grow_tree / fetch_tree / apply_delta / loss_value / predict_raw; the
-granular kernels (build_histograms, best_splits) stay on the interface as
-the parity surface. Boosting state (raw predictions) and the data live
-where the backend wants them: opaque handles flow Driver -> grad_hess ->
-grow_tree -> apply_delta without a host round trip; only the grown tree's
-node arrays come back per tree.
+apply_row_mask / grow_tree / fetch_tree / apply_delta / loss_value /
+predict_raw; the granular kernels (build_histograms, best_splits) stay on
+the interface as the parity surface. Boosting state (raw predictions) and
+the data live where the backend wants them: opaque handles flow Driver ->
+grad_hess -> grow_tree -> apply_delta without a host round trip; only the
+grown tree's node arrays come back per tree.
 """
 
 from __future__ import annotations
@@ -70,6 +70,11 @@ class DeviceBackend(abc.ABC):
     @abc.abstractmethod
     def grad_hess(self, pred: Any, y: Any) -> tuple[Any, Any]:
         """Loss gradients/hessians at `pred`: f32 [R]."""
+
+    @abc.abstractmethod
+    def apply_row_mask(self, g: Any, h: Any, mask: Any) -> tuple[Any, Any]:
+        """Bagging: (g, h) with the rows where `mask` (bool [R]) is False
+        zeroed."""
 
     @abc.abstractmethod
     def grow_tree(self, data: Any, g: Any, h: Any,

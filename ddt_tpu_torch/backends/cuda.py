@@ -64,7 +64,8 @@ class CUDADevice(DeviceBackend):
                 "pass device='cpu' to run the plain versions on the CPU")
         self.device = torch.device(cfg.device)
         self.hist_subtraction = grow_ops.resolve_hist_subtraction(
-            cfg.hist_subtraction, self.device.type)
+            cfg.hist_subtraction, self.device.type,
+            integer_hists=cfg.grad_dtype != "f32")
         # token -> (CompiledEnsemble, prepared operands), LRU order; and
         # token -> the tier those operands serve. Both under _cache_lock.
         self._predict_cache: dict[str, tuple] = {}
@@ -106,9 +107,13 @@ class CUDADevice(DeviceBackend):
     # ------------------------------------------------------------------ #
 
     def build_histograms(self, data, g, h, node_index, n_nodes):
+        """f32 sums for float g/h; the raw int32 histogram for int8/int16
+        (quantized) g/h."""
+        g, h = self._tensor(g), self._tensor(h)
+        if g.is_floating_point():
+            g, h = g.float(), h.float()
         return hist_ops.build_histograms(
-            data, self._tensor(g).float().contiguous(),
-            self._tensor(h).float().contiguous(),
+            data, g.contiguous(), h.contiguous(),
             self._tensor(node_index).to(torch.int32).contiguous(),
             n_nodes, self.cfg.n_bins)
 
@@ -131,21 +136,32 @@ class CUDADevice(DeviceBackend):
     def grad_hess(self, pred, y: LabelHandle):
         return grad_ops.grad_hess(pred, y.y, self.cfg.loss)
 
+    def apply_row_mask(self, g, h, mask):
+        """Bagging: g and h times the 0/1 row mask (bool [R], a tensor on
+        the device or a host array), so a masked row adds nothing, and
+        quantizes to a q of 0."""
+        m = self._tensor(mask).to(torch.float32)
+        return g * m, h * m
+
     def grow_tree(self, data, g, h, feature_mask=None,
                   tree_id: int = 0) -> tuple[Any, Any]:
         """Returns (packed [6, N] f32 tree on the device, delta [R]): no
-        host sync here; `fetch_tree` copies the tree to the host."""
-        if feature_mask is not None:
-            raise NotImplementedError(
-                "colsample feature masks are not ported yet (ROADMAP.md)")
+        host sync here; `fetch_tree` copies the tree to the host.
+        `feature_mask` (bool [F], host or device) is the colsample mask;
+        `tree_id` (the absolute tree index) keys the quantized-gradient
+        rounding with cfg.seed when cfg.grad_dtype != "f32"."""
         cfg = self.cfg
+        if feature_mask is not None:
+            feature_mask = self._tensor(feature_mask).to(torch.bool)
         tree = grow_ops.grow_tree(
             data, g.contiguous(), h.contiguous(),
             max_depth=cfg.max_depth, n_bins=cfg.n_bins,
             reg_lambda=cfg.reg_lambda,
             min_child_weight=cfg.min_child_weight,
             min_split_gain=cfg.min_split_gain,
-            hist_subtraction=self.hist_subtraction)
+            hist_subtraction=self.hist_subtraction,
+            grad_dtype=cfg.grad_dtype, quant_tree_id=tree_id,
+            quant_seed=cfg.seed, feature_mask=feature_mask)
         delta = grow_ops.tree_predict_delta(tree, cfg.learning_rate)
         # One [6, N] f32 array: a single device->host copy per tree
         # (int32 and bool node values are exact in f32).

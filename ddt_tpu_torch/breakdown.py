@@ -7,12 +7,13 @@ at its shape (the Higgs shape: 1M rows x 28 features, 255 bins, depth 6,
 100 trees; fixed, because these numbers are read beside chip_smoke's) in
 separately timed pieces, host clock around work that ends in a
 synchronize: bin-edge fitting and binning on the host, the boosting loop
-on binned data, and scoring (first call: pushdown, upload and packing of
-the model; second call: cache hit). Then torch.profiler over
-PROFILE_TREES boosting rounds and one warm scoring call gives device time
-by kernel and the device's busy share (sum of device time over wall
-time). Prints one JSON object per line; the card's name and power limit
-(nvidia-smi) come first.
+on binned data with f32 gradients and with grad_dtype="int8" (quantized),
+and scoring (first call: pushdown, upload and packing of the model;
+second call: cache hit). Then torch.profiler over PROFILE_TREES boosting
+rounds of each gradient type and one warm scoring call gives device time
+and launch count by kernel and the device's busy share (sum of device
+time over wall time). Prints one JSON object per line; the card's name
+and power limit (nvidia-smi) come first.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ ROWS = 1_000_000
 N_TREES = 100
 PROFILE_TREES = 5
 TOP = 12            # kernels listed per profile
+BOOST_GRAD_DTYPES = ("f32", "int8")   # boosting loops timed side by side
 
 
 def _emit(obj) -> None:
@@ -67,6 +69,7 @@ def _profiled(fn) -> dict:
     busy = sum(r[1] for r in rows) * 1e-6
     return {"wall_s": wall, "device_busy_s": busy,
             "busy_share": busy / wall if wall > 0 else None,
+            "device_launches": sum(r[2] for r in rows),
             "top": [{"name": k[:80], "device_ms": t * 1e-3, "count": c}
                     for k, t, c in rows[:TOP]]}
 
@@ -93,15 +96,20 @@ def main() -> int:
 
     cfg = TrainConfig(n_trees=N_TREES, max_depth=6, n_bins=255,
                       device="cuda")
-    # Warm-up: kernel build/load and the CUDA context, outside the timing.
-    api.train(Xb[:4096], y[:4096], cfg, binned=True, n_trees=1)
-    torch.cuda.synchronize()
-    t3 = time.perf_counter()
-    res = api.train(Xb, y, cfg, binned=True)
-    torch.cuda.synchronize()
-    t4 = time.perf_counter()
-    _emit({"phase": "boost", "trees": N_TREES, "boost_s": t4 - t3,
-           "ms_per_tree": 1e3 * (t4 - t3) / N_TREES})
+    for dt in BOOST_GRAD_DTYPES:
+        # Warm-up: kernel build/load and the CUDA context, outside the
+        # timing.
+        api.train(Xb[:4096], y[:4096], cfg, binned=True, n_trees=1,
+                  grad_dtype=dt)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        res_dt = api.train(Xb, y, cfg, binned=True, grad_dtype=dt)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        _emit({"phase": "boost", "grad_dtype": dt, "trees": N_TREES,
+               "boost_s": t4 - t3, "ms_per_tree": 1e3 * (t4 - t3) / N_TREES})
+        if dt == "f32":
+            res = res_dt
 
     t5 = time.perf_counter()
     api.predict(res.ensemble, Xb, binned=True)
@@ -112,9 +120,13 @@ def main() -> int:
            "first_call_s": t6 - t5, "cached_call_s": t7 - t6})
 
     k = PROFILE_TREES
-    prof = _profiled(lambda: api.train(Xb, y, cfg, binned=True, n_trees=k))
-    _emit({"phase": "profile_boost", "trees": k,
-           "ms_per_tree": 1e3 * prof["wall_s"] / k, **prof})
+    for dt in BOOST_GRAD_DTYPES:
+        prof = _profiled(lambda: api.train(Xb, y, cfg, binned=True,
+                                           n_trees=k, grad_dtype=dt))
+        _emit({"phase": "profile_boost", "grad_dtype": dt, "trees": k,
+               "ms_per_tree": 1e3 * prof["wall_s"] / k,
+               "device_launches_per_tree": prof["device_launches"] / k,
+               **prof})
     prof = _profiled(lambda: api.predict(res.ensemble, Xb, binned=True))
     _emit({"phase": "profile_predict_cached", **prof})
     print(smi, flush=True)

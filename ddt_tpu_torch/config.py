@@ -2,8 +2,8 @@
 
 Port of ddt_tpu/config.py: a frozen TrainConfig with only the fields the
 port's path reads. Fields of the reference that are not ported yet
-(softmax, missing-value and categorical training, bagging, meshes,
-quantized gradients, ...) are absent, not silently ignored: passing one
+(softmax, missing-value and categorical training, meshes, compressed
+histogram collectives, ...) are absent, not silently ignored: passing one
 raises TypeError.
 """
 
@@ -13,6 +13,8 @@ import dataclasses
 
 LOSSES = ("logloss", "mse")
 DEVICES = ("cuda", "cpu")
+#: cfg.grad_dtype values ("f32" = quantization off; ops/grad.py).
+GRAD_DTYPES = ("f32", "int16", "int8")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,12 +34,25 @@ class TrainConfig:
     min_child_weight: float = 1e-3   # min hessian sum per child
     min_split_gain: float = 0.0      # split only if gain > this
 
+    # --- sampling (ops/sampling: stateless counter hashes of cfg.seed) ---
+    subsample: float = 1.0           # row fraction per boosting round
+    colsample_bytree: float = 1.0    # feature fraction per tree
+
     # Sibling subtraction (ops/grow.level_histograms): levels >= 1 build
     # only left-child histograms and recover right children as
     # parent - left. "auto" is on for device="cuda" and off on the CPU
     # (ops/grow.resolve_hist_subtraction).
     hist_subtraction: str = "auto"  # auto | on | off
-    seed: int = 0               # bin-edge sampling (api.train)
+    # Keys the bin-edge sample (api.train), the bagging and colsample
+    # draws, and the quantized-gradient stochastic rounding.
+    seed: int = 0
+
+    # Quantized gradients (ops/grad.py): "int8" / "int16" round g/h once
+    # per tree onto a shared grid (seeded stochastic rounding); histograms,
+    # node totals and leaf sums then add exact int32 sums (the histogram
+    # kernel's integer mode) and dequantize once per level. Sibling
+    # subtraction is exact there, so "auto" turns it on on every device.
+    grad_dtype: str = "f32"     # f32 | int16 | int8
 
     # Batch-scoring tier (backends/cuda.py): "auto" is the f32 traversal;
     # "lut" the int8 TreeLUT tier (int8 thresholds, fp16 leaves; kernel
@@ -64,6 +79,14 @@ class TrainConfig:
             raise ValueError("n_bins must be in [1, 256] (uint8 binned data)")
         if self.max_depth < 1:
             raise ValueError("max_depth must be >= 1")
+        if not (0.0 < self.subsample <= 1.0):
+            raise ValueError("subsample must be in (0, 1]")
+        if not (0.0 < self.colsample_bytree <= 1.0):
+            raise ValueError("colsample_bytree must be in (0, 1]")
+        if self.grad_dtype not in GRAD_DTYPES:
+            raise ValueError(
+                f"grad_dtype must be f32|int16|int8, got "
+                f"{self.grad_dtype!r}")
         if self.hist_subtraction not in ("auto", "on", "off"):
             raise ValueError(
                 f"hist_subtraction must be auto|on|off, got "

@@ -2,10 +2,14 @@
 
 Port of the granular loop of ddt_tpu/driver.py (:578-634), the path the
 reference's `_fit` takes whenever a backend has no fused `grow_rounds`.
-Per round: gradients -> grow one tree -> add its per-row delta to the
-boosting state -> copy the tree to the host (the copy waits for the
-round's device work). Telemetry, checkpoints, eval sets, bagging and
-softmax are not ported yet.
+Per round: gradients -> bagging mask (cfg.subsample < 1) -> grow one tree
+(with the round's colsample mask when cfg.colsample_bytree < 1) -> add
+its per-row delta to the boosting state -> copy the tree to the host (the
+copy waits for the round's device work). Both masks are pure functions of
+(cfg.seed, round) (ops/sampling); the bagging mask is drawn on the
+gradients' device by the hash's tensor twin, bit for bit the reference's
+row_keep_np, so no per-round mask crosses the bus. Telemetry,
+checkpoints, eval sets and softmax are not ported yet.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ import numpy as np
 from ddt_tpu_torch.backends.base import DeviceBackend
 from ddt_tpu_torch.config import TrainConfig
 from ddt_tpu_torch.models.tree import TreeEnsemble, empty_ensemble
+from ddt_tpu_torch.ops import sampling
 from ddt_tpu_torch.ops.grad import base_score_np
 
 log = logging.getLogger("ddt_tpu_torch.driver")
@@ -56,7 +61,16 @@ class Driver:
         t0 = time.perf_counter()
         for rnd in range(cfg.n_trees):
             g, h = self.backend.grad_hess(pred, y_dev)
-            handle, delta = self.backend.grow_tree(data, g, h, tree_id=rnd)
+            if cfg.subsample < 1.0:
+                keep = sampling.row_keep(cfg.seed, rnd, 0, R, cfg.subsample,
+                                         device=g.device)
+                g, h = self.backend.apply_row_mask(g, h, keep)
+            fmask = (sampling.colsample_mask(cfg.seed, rnd, 0, F,
+                                             cfg.colsample_bytree)
+                     if cfg.colsample_bytree < 1.0 else None)
+            # One output column, so the absolute tree id rnd * C + c is rnd.
+            handle, delta = self.backend.grow_tree(
+                data, g, h, feature_mask=fmask, tree_id=rnd)
             pred = self.backend.apply_delta(pred, delta, 0)
             tree = self.backend.fetch_tree(handle)
             for k in ("feature", "threshold_bin", "is_leaf", "leaf_value",

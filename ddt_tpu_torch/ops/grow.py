@@ -1,12 +1,20 @@
 """Whole-tree growth: the level loop on one device.
 
-Port of ddt_tpu/ops/grow.py for one device, f32 gradients, ordinal splits
-(no mesh, feature axis, quantized gradients, missing-value or categorical
-training yet). Per level: histograms (ops/histogram: the CUDA kernel on
-the card, the plain segment form on the CPU) -> node totals -> best splits
-(ops/split) -> node values and split decisions -> row routing. Every step
-is a PyTorch op queued on the tensors' device; the host reads nothing
-until the Driver fetches the finished tree.
+Port of ddt_tpu/ops/grow.py for one device, ordinal splits, f32 or
+quantized gradients, with an optional colsample feature mask (no mesh,
+feature axis, missing-value or categorical training yet). Per level:
+histograms (ops/histogram: the CUDA kernel on the card, the plain segment
+form on the CPU) -> node totals -> best splits (ops/split) -> node values
+and split decisions -> row routing. Every step is a PyTorch op queued on
+the tensors' device; the host reads nothing until the Driver fetches the
+finished tree.
+
+Quantized gradients (grad_dtype "int8" | "int16"): g/h are quantized once
+per tree (ops/grad.quantize_gradients); histograms, node totals and leaf
+sums add the integer q's exactly in int32; the sibling-subtraction carry
+keeps the int32 form, so parent - left is exact; and each level's
+histogram is dequantized exactly once, hist * (gscale, hscale), before
+the gain scan.
 
 Row routing keeps a dense per-row heap node id. The reference packs the
 per-node tables into one int32 and selects each row's entry with a one-hot
@@ -25,13 +33,16 @@ from ddt_tpu_torch.ops import histogram as H
 from ddt_tpu_torch.ops import split as S
 
 
-def resolve_hist_subtraction(flag: str, device_type: str) -> bool:
+def resolve_hist_subtraction(flag: str, device_type: str,
+                             integer_hists: bool = False) -> bool:
     """cfg.hist_subtraction ('auto'|'on'|'off') -> bool for this device.
 
     'auto' is on for CUDA and off on the CPU: parent - left changes
     right-child sums by f32 ULPs against a direct build, which the CPU
     suites' bitwise contracts with the reference's CPU path would see
-    (the reference gates it to its accelerator for the same reason)."""
+    (the reference gates it to its accelerator for the same reason).
+    With `integer_hists` (quantized gradients) parent - left is exact in
+    int32, so 'auto' is on everywhere."""
     if flag == "on":
         return True
     if flag == "off":
@@ -39,7 +50,7 @@ def resolve_hist_subtraction(flag: str, device_type: str) -> bool:
     if flag != "auto":
         raise ValueError(
             f"hist_subtraction must be auto|on|off, got {flag!r}")
-    return device_type == "cuda"
+    return integer_hists or device_type == "cuda"
 
 
 def level_histograms(Xb, g, h, node_index, n_level: int, n_bins: int, *,
@@ -50,7 +61,9 @@ def level_histograms(Xb, g, h, node_index, n_level: int, n_bins: int, *,
     children are built from rows (half the kernel work); each right child
     is parent - left, and children of parents that did not split are
     exactly zero (otherwise a frozen parent's phantom right child would
-    inherit its mass and could win a split no training row reaches)."""
+    inherit its mass and could win a split no training row reaches).
+    Dtype-generic: on the quantized path the carry and the left build are
+    int32 and the subtraction is exact."""
     if parent_hist is None or n_level < 2:
         return H.build_histograms(Xb, g, h, node_index, n_level, n_bins)
     half = n_level // 2
@@ -58,7 +71,7 @@ def level_histograms(Xb, g, h, node_index, n_level: int, n_bins: int, *,
     li = torch.where(is_left, node_index // 2, -1).to(torch.int32)
     hist_left = H.build_histograms(Xb, g, h, li, half, n_bins)
     gate = parent_split.reshape(half, 1, 1, 1)
-    hist_right = torch.where(gate, parent_hist - hist_left, 0.0)
+    hist_right = torch.where(gate, parent_hist - hist_left, 0)
     hist = torch.stack([hist_left, hist_right], dim=1)
     return hist.reshape((n_level,) + hist_left.shape[1:])
 
@@ -78,9 +91,15 @@ class TreeArrays(NamedTuple):
 def grow_tree(Xb: torch.Tensor, g: torch.Tensor, h: torch.Tensor, *,
               max_depth: int, n_bins: int, reg_lambda: float,
               min_child_weight: float, min_split_gain: float,
-              hist_subtraction: bool = False) -> TreeArrays:
+              hist_subtraction: bool = False, grad_dtype: str = "f32",
+              quant_tree_id: int = 0, quant_seed: int = 0,
+              feature_mask: torch.Tensor | None = None) -> TreeArrays:
     """Grow one complete-heap tree from uint8 Xb [R, F] and f32 g, h [R]
-    (the same decisions as ddt_tpu/ops/grow.grow_tree on one device)."""
+    (the same decisions as ddt_tpu/ops/grow.grow_tree on one device).
+
+    grad_dtype "int8"/"int16" quantizes g/h once, keyed by (quant_seed,
+    quant_tree_id, row); feature_mask (bool [F] on Xb's device, False =
+    excluded) restricts every level's split candidates (colsample)."""
     R, F = Xb.shape
     dev = Xb.device
     N = 2 ** (max_depth + 1) - 1
@@ -96,6 +115,13 @@ def grow_tree(Xb: torch.Tensor, g: torch.Tensor, h: torch.Tensor, *,
     frozen = torch.zeros(R, dtype=torch.bool, device=dev)
     prev_hist = prev_split = None
 
+    quant = grad_dtype != "f32"
+    if quant:
+        g, h, gscale, hscale = grad_ops.quantize_gradients(
+            g, h, grad_dtype=grad_dtype, tree_id=quant_tree_id,
+            seed=quant_seed)
+        scale2 = torch.stack([gscale, hscale])    # [2] dequantize vector
+
     for depth in range(max_depth):
         offset = (1 << depth) - 1
         n_level = 1 << depth
@@ -105,8 +131,14 @@ def grow_tree(Xb: torch.Tensor, g: torch.Tensor, h: torch.Tensor, *,
                                 parent_hist=prev_hist,
                                 parent_split=prev_split)
         G, Hh = S.node_totals(hist)
+        hist_q = hist
+        if quant:
+            # The one dequantize per level: integer sums, then * scale.
+            G = G.to(torch.float32) * gscale
+            Hh = Hh.to(torch.float32) * hscale
+            hist = hist.to(torch.float32) * scale2
         gains, feats, bins, dls = S.best_splits_impl(
-            hist, reg_lambda, min_child_weight)
+            hist, reg_lambda, min_child_weight, feature_mask)
         # An empty node at reg_lambda = 0 would store -0/0 = NaN, which a
         # predict-time row can reach: guarded to 0.
         value = torch.where(Hh > 0, -G / (Hh + reg_lambda), 0.0)
@@ -130,8 +162,8 @@ def grow_tree(Xb: torch.Tensor, g: torch.Tensor, h: torch.Tensor, *,
                               node_id)
         frozen = frozen | ~split_here
 
-        if hist_subtraction:
-            prev_hist, prev_split = hist, do_split
+        if hist_subtraction:       # the int32 form on the quantized path
+            prev_hist, prev_split = hist_q, do_split
 
     # Final level: leaf values from per-terminal-node (G, H) sums.
     offset = (1 << max_depth) - 1
@@ -140,6 +172,9 @@ def grow_tree(Xb: torch.Tensor, g: torch.Tensor, h: torch.Tensor, *,
     idx = (node_id - offset).clamp(0, n_last - 1)
     GH = grad_ops.leaf_gh_sums(idx, active, g, h, n_last)
     Gl, Hl = GH[:, 0], GH[:, 1]
+    if quant:
+        Gl = Gl.to(torch.float32) * gscale
+        Hl = Hl.to(torch.float32) * hscale
     vals = torch.where(Hl > 0, -Gl / (Hl + reg_lambda), 0.0)
     sl = slice(offset, offset + n_last)
     is_leaf[sl] = True

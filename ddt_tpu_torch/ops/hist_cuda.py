@@ -1,6 +1,12 @@
 """Histogram kernel wrapper (csrc/hist.cu): the Hopper counterpart of
-ddt_tpu/ops/hist_pallas.py::_hist_kernel (255 bins) and, in f32,
-::_hist_kernel_t (<= 128 bins).
+ddt_tpu/ops/hist_pallas.py::_hist_kernel (255 bins) and
+::_hist_kernel_t (<= 128 bins), each in its f32 and its integer mode.
+
+Modes, by the dtype of g and h (both the same): f32 sums into f32 with
+float atomics (`ddt_hist_f32`); int8 or int16 (quantized gradients) sum
+into the raw int32 histogram with integer atomics (`ddt_hist_i8`,
+`ddt_hist_i16`), which are exact and order-free, so that mode equals the
+plain version bit for bit.
 
 The kernel keeps a private (feature slab x node range) histogram per block
 in shared memory and flushes it into the zeroed output with global atomics
@@ -25,9 +31,16 @@ import torch
 
 from ddt_tpu_torch import _build
 
-#: Kernel launches since the last reset (chip_smoke reads it around the
-#: main path). Counted only where the kernel is launched.
+#: Kernel launches since the last reset (chip_smoke reads them around
+#: each path), one count per mode: `launches` for f32 g/h, `launches_int`
+#: for int8/int16. Counted only where the kernel is launched.
 launches = 0
+launches_int = 0
+
+# g/h dtype -> (C entry, output dtype).
+_MODES = {torch.float32: ("ddt_hist_f32", torch.float32),
+          torch.int8: ("ddt_hist_i8", torch.int32),
+          torch.int16: ("ddt_hist_i16", torch.int32)}
 
 THREADS = 1024          # kernel block size (kThreads in csrc/hist.cu)
 _MAX_GRID_Y = 65_535
@@ -49,7 +62,8 @@ class TilePlan:
 
 def plan_tiles(n_nodes: int, n_features: int, n_bins: int,
                smem_limit: int) -> TilePlan:
-    """Slab and node-range widths whose f32 (g, h) cells fit `smem_limit`
+    """Slab and node-range widths whose (g, h) cells (f32 or int32, 4 B
+    each) fit `smem_limit`
     bytes: whole feature rows per node when one node's F x B table fits,
     as many nodes per range as then fit; otherwise the widest feature slab
     one node allows. Widths are balanced so that the last slab or range is
@@ -91,9 +105,11 @@ def _lib():
     lib = _build.library("hist")
     if not _argtypes_set:
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.ddt_hist_f32.argtypes = [vp, vp, vp, vp, vp, i64, i32, i32, i32,
-                                     i32, i32, i32, i32, i32, vp]
-        lib.ddt_hist_f32.restype = i32
+        for entry, _ in _MODES.values():
+            fn = getattr(lib, entry)
+            fn.argtypes = [vp, vp, vp, vp, vp, i64, i32, i32, i32, i32, i32,
+                           i32, i32, i32, vp]
+            fn.restype = i32
         _argtypes_set = True
     return lib
 
@@ -101,12 +117,16 @@ def _lib():
 def build_histograms_cuda(Xb: torch.Tensor, g: torch.Tensor,
                           h: torch.Tensor, node_index: torch.Tensor,
                           n_nodes: int, n_bins: int) -> torch.Tensor:
-    """f32 [n_nodes, F, n_bins, 2] on Xb's card. Xb uint8 [R, F], g/h f32
-    [R], node_index int32 [R] (-1 = frozen), all contiguous CUDA tensors on
-    one device."""
-    global launches
-    for name, t, dt in (("Xb", Xb, torch.uint8), ("g", g, torch.float32),
-                        ("h", h, torch.float32),
+    """[n_nodes, F, n_bins, 2] on Xb's card: f32 for f32 g/h, int32 for
+    int8/int16 g/h. Xb uint8 [R, F], g and h [R] of one of those dtypes
+    (the same for both), node_index int32 [R] (-1 = frozen), all
+    contiguous CUDA tensors on one device."""
+    global launches, launches_int
+    if g.dtype not in _MODES:
+        raise TypeError(f"g must be float32, int8 or int16, got {g.dtype}")
+    entry, out_dtype = _MODES[g.dtype]
+    for name, t, dt in (("Xb", Xb, torch.uint8), ("g", g, g.dtype),
+                        ("h", h, g.dtype),
                         ("node_index", node_index, torch.int32)):
         if t.device.type != "cuda":
             raise TypeError(f"{name} must be a CUDA tensor, got {t.device}")
@@ -121,7 +141,7 @@ def build_histograms_cuda(Xb: torch.Tensor, g: torch.Tensor,
         raise ValueError("g, h and node_index must be [R] with R = Xb rows")
     if not 1 <= n_bins <= 256:
         raise ValueError(f"n_bins must be in [1, 256], got {n_bins}")
-    out = torch.zeros((n_nodes, F, n_bins, 2), dtype=torch.float32,
+    out = torch.zeros((n_nodes, F, n_bins, 2), dtype=out_dtype,
                       device=Xb.device)
     if R == 0 or F == 0 or n_nodes == 0:
         return out
@@ -133,10 +153,13 @@ def build_histograms_cuda(Xb: torch.Tensor, g: torch.Tensor,
     lib = _lib()
     with torch.cuda.device(Xb.device):
         stream = torch.cuda.current_stream().cuda_stream
-        status = lib.ddt_hist_f32(
+        status = getattr(lib, entry)(
             Xb.data_ptr(), g.data_ptr(), h.data_ptr(), node_index.data_ptr(),
             out.data_ptr(), R, F, n_bins, n_nodes, plan.fs, plan.nr,
             blocks_x, rows_per_block, plan.smem_bytes, stream)
-    _build.check(status, "hist kernel launch")
-    launches += 1
+    _build.check(status, f"hist kernel launch ({entry})")
+    if out_dtype == torch.float32:
+        launches += 1
+    else:
+        launches_int += 1
     return out

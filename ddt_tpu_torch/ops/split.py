@@ -16,7 +16,9 @@ import torch
 
 def node_totals(hist: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """(G, H) per node: sums over bins of feature 0 (any feature sums the
-    same rows). f32 [n_nodes] each."""
+    same rows). f32 [n_nodes] each for an f32 histogram; for the raw int32
+    histogram of the quantized path the exact integer sums (torch widens
+    them to int64), which the caller dequantizes."""
     return hist[:, 0, :, 0].sum(dim=1), hist[:, 0, :, 1].sum(dim=1)
 
 

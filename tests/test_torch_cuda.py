@@ -8,13 +8,14 @@ fixture decides, never module import). On the card run them with
 (`--noconftest`: the suite's conftest imports JAX, which the card's
 machine does not have; this file imports nothing of JAX or ddt_tpu.)
 
-Tolerances: the histogram kernel sums with float atomics in a run-to-run
-order, so each (g, h) cell is held to 1e-5 * (sum of |g| or |h| over the
-cell's own rows) + 1e-6. The traversal kernel and the LUT kernels (K4,
-K5) are bitwise on exact-grid leaf values (every partial sum is exact in
-f32, so the order cannot matter) and within 1e-5 * (|p| + 1) on random
-leaves; the LUT kernels also stay within the tables' max_abs_err of the
-f32 host oracle.
+Tolerances: the histogram kernel sums f32 g/h with float atomics in a
+run-to-run order, so each (g, h) cell is held to 1e-5 * (sum of |g| or
+|h| over the cell's own rows) + 1e-6; its integer mode (int8/int16 g/h,
+int32 sums) is exact and held bitwise. The traversal kernel and the LUT
+kernels (K4, K5) are bitwise on exact-grid leaf values (every partial sum
+is exact in f32, so the order cannot matter) and within 1e-5 * (|p| + 1)
+on random leaves; the LUT kernels also stay within the tables'
+max_abs_err of the f32 host oracle.
 """
 
 import numpy as np
@@ -103,6 +104,99 @@ def test_hist_dispatch_goes_to_kernel(dev):
     before = hist_cuda.launches
     histogram.build_histograms(*args, 2, 31)
     assert hist_cuda.launches == before + 1
+
+
+def _int_hist_case(R, F, B, N, grad_dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    npdt = np.int8 if grad_dtype == "int8" else np.int16
+    qmax = 127 if grad_dtype == "int8" else 32767
+    Xb = rng.integers(0, B, size=(R, F), dtype=np.uint8)
+    qg = rng.integers(-qmax, qmax + 1, size=R).astype(npdt)
+    qh = rng.integers(0, qmax + 1, size=R).astype(npdt)
+    qg[rng.random(R) < 0.2] = 0
+    ni = rng.integers(0, N, size=R).astype(np.int32)
+    ni[rng.random(R) < 0.1] = -1
+    return Xb, qg, qh, ni
+
+
+@pytest.mark.parametrize("grad_dtype", ["int8", "int16"])
+@pytest.mark.parametrize("R,F,B,N", [
+    (100_003, 28, 255, 1),
+    (100_003, 28, 255, 32),
+    (50_001, 28, 128, 16),
+    (50_001, 28, 64, 32),
+    (20_000, 120, 256, 4),    # feature slabs
+    (5, 3, 16, 4),
+])
+def test_int_hist_kernel_bitwise_equals_plain(dev, grad_dtype, R, F, B, N):
+    Xb, qg, qh, ni = _int_hist_case(R, F, B, N, grad_dtype)
+    args = [torch.from_numpy(a).to(dev) for a in (Xb, qg, qh, ni)]
+    before = (hist_cuda.launches, hist_cuda.launches_int)
+    got = hist_cuda.build_histograms_cuda(*args, N, B)
+    assert (hist_cuda.launches, hist_cuda.launches_int) == (
+        before[0], before[1] + 1)
+    want = histogram.build_histograms_segment(*args, N, B)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype == torch.int32
+    assert got.shape == (N, F, B, 2)
+    assert torch.equal(got, want)
+    assert torch.equal(hist_cuda.build_histograms_cuda(*args, N, B), got)
+
+
+def test_int_hist_all_frozen_is_zero(dev):
+    Xb, qg, qh, ni = _int_hist_case(3000, 4, 255, 8, "int8")
+    ni[:] = -1
+    args = [torch.from_numpy(a).to(dev) for a in (Xb, qg, qh, ni)]
+    out = hist_cuda.build_histograms_cuda(*args, 8, 255)
+    assert out.dtype == torch.int32 and torch.count_nonzero(out) == 0
+
+
+def test_int_hist_dispatch_goes_to_kernel(dev):
+    Xb, qg, qh, ni = _int_hist_case(4096, 5, 31, 2, "int8")
+    args = [torch.from_numpy(a).to(dev) for a in (Xb, qg, qh, ni)]
+    before = (hist_cuda.launches, hist_cuda.launches_int)
+    out = histogram.build_histograms(*args, 2, 31)
+    assert (hist_cuda.launches, hist_cuda.launches_int) == (
+        before[0], before[1] + 1)
+    assert out.dtype == torch.int32
+
+
+def test_int_hist_refuses_mixed_dtypes(dev):
+    Xb, qg, qh, ni = _int_hist_case(1000, 3, 31, 2, "int8")
+    Xd, gd, hd, nd = [torch.from_numpy(a).to(dev) for a in (Xb, qg, qh, ni)]
+    with pytest.raises(TypeError, match="h must be"):
+        hist_cuda.build_histograms_cuda(Xd, gd, hd.to(torch.int16), nd, 2, 31)
+    with pytest.raises(TypeError, match="h must be"):
+        hist_cuda.build_histograms_cuda(Xd, gd.float(), hd, nd, 2, 31)
+    with pytest.raises(TypeError, match="g must be"):
+        hist_cuda.build_histograms_cuda(Xd, gd.to(torch.int32),
+                                        hd.to(torch.int32), nd, 2, 31)
+
+
+def test_quantized_grow_tree_on_card_launches_int_kernel(dev):
+    """One quantized tree on the card: the integer mode runs, the f32 mode
+    does not, and the tree equals the CPU plain path's bitwise (integer
+    histograms; same f32 ops on both)."""
+    from ddt_tpu_torch.ops import grow
+
+    rng = np.random.default_rng(3)
+    R, F, B = 20_000, 8, 63
+    Xb = rng.integers(0, B, size=(R, F), dtype=np.uint8)
+    g = rng.integers(-64, 65, size=R).astype(np.float32)
+    h = rng.integers(1, 65, size=R).astype(np.float32)
+    g[0] = h[0] = 127          # exact grid: scale 1, exact dequantize
+    kw = dict(max_depth=4, n_bins=B, reg_lambda=1.0, min_child_weight=1e-3,
+              min_split_gain=0.0, hist_subtraction=True, grad_dtype="int8",
+              quant_seed=5, quant_tree_id=2)
+    before = (hist_cuda.launches, hist_cuda.launches_int)
+    on_card = grow.grow_tree(*[torch.from_numpy(a).to(dev)
+                               for a in (Xb, g, h)], **kw)
+    torch.cuda.synchronize()
+    assert hist_cuda.launches == before[0]
+    assert hist_cuda.launches_int > before[1]
+    on_cpu = grow.grow_tree(*[torch.from_numpy(a) for a in (Xb, g, h)], **kw)
+    for a, b in zip(on_card, on_cpu):
+        assert torch.equal(a.cpu(), b)
 
 
 def _rand_ens(T, depth, F, B, C=1, missing=False, cat=(), exact=True,

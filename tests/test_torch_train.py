@@ -115,14 +115,18 @@ def test_driver_fetch_pipeline_stores_every_tree(data):
 @pytest.mark.parametrize("bad", [
     dict(loss="softmax"), dict(device="tpu"), dict(n_bins=0),
     dict(n_bins=257), dict(max_depth=0), dict(hist_subtraction="maybe"),
+    dict(grad_dtype="int4"), dict(grad_dtype="bf16"), dict(subsample=0.0),
+    dict(subsample=1.5), dict(colsample_bytree=0.0),
+    dict(colsample_bytree=1.01),
 ])
 def test_config_validation(bad):
     with pytest.raises(ValueError):
         TrainConfig(**bad)
 
 
-@pytest.mark.parametrize("unported", ["subsample", "missing_policy",
-                                      "cat_features", "backend"])
+@pytest.mark.parametrize("unported", ["hist_comms_dtype", "missing_policy",
+                                      "cat_features", "backend",
+                                      "n_classes"])
 def test_unported_fields_are_absent(unported):
     with pytest.raises(TypeError):
         TrainConfig(**{unported: 1})
