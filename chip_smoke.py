@@ -8,6 +8,10 @@ ddt_tpu_torch package beside this file; imports nothing of JAX or ddt_tpu.
 Prints one JSON object per line; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}},
 printed only when every phase passed. Any failure raises (exit != 0).
+Times of kernels, plain versions and library calls are device times: the
+median of CUDA-event pairs around single calls, with a spin kernel queued
+before each start event so that the host's time in the wrapper stays
+outside the pair.
 
 Phases:
   1 device   card name, nvidia-smi's name and power limit, datasheet peaks
@@ -17,7 +21,10 @@ Phases:
              at 128 and 64 bins; |diff| <= 1e-5 * sum|g| (|h|) over the
              cell's own rows + 1e-6 (float atomics: run-to-run order); times
              of the kernel, the plain version, two torch.bincount calls
-             (the library yardstick) and the bound
+             (the library yardstick) and the bound; then the same check,
+             time and bound on the node indices of one main-path tree
+             grown on the card (left children only from level 1 on), per
+             level and summed per tree
   4 traverse the traversal kernel against its plain version: bitwise on
              an exact-grid ensemble (leaves multiples of 1/8) with missing
              and categorical routing and 7 classes
@@ -51,6 +58,9 @@ Phases:
              api.predict at that tier for the token that scored it,
              bitwise; each model resolves to the requested tier; the
              counters are zeroed just before and the LUT kernels' must move
+    serve_kernels K3, K4 (fp16) and K5 on phase 5's model at 1, 16, 64 and
+             256 binned rows a call: device time with L2 warm and with L2
+             flushed, beside the serve phase's launch counts
  12 quantize ops/grad.quantize_gradients on the card at 1M rows, int8 and
              int16, from logloss gradients: q's and scales bitwise equal to
              the numpy twin, and which term (max|g|/qmax or the snapped sum
@@ -61,7 +71,8 @@ Phases:
              bins at N = 1..32 and 128 / 64 bins at N = 16, 32, 10% frozen
              rows; times of the kernel, the plain version, two int32
              index_add_ calls (the library yardstick, itself bitwise) and
-             the bound; the per-tree sum over N = 1, 1, 2, 4, 8, 16
+             the bound; the per-tree sum over N = 1, 1, 2, 4, 8, 16; and
+             bitwise, timed and bounded on phase 3's main-path node indices
  14 quant_exact one tree from exact-grid gradients, int8 against f32,
              structure and leaves bitwise: mse on y in {-1, +1} (g = -/+1,
              h = 1) at 131,072 rows, so every integer sum stays below 2^24
@@ -118,6 +129,8 @@ HIST_SHAPES = ((255, (1, 2, 4, 8, 16, 32)), (128, (16, 32)), (64, (16, 32)))
 #: Histogram builds of one main-path tree with sibling subtraction (on for
 #: the card, and everywhere for integer histograms): nodes per level.
 TREE_SEQ = (1, 1, 2, 4, 8, 16)
+SERVE_SIZES = (1, 16, 64, 256)     # rows per call, phase serve_kernels
+SLEEP_CYCLES = 2_000_000           # ~1 ms spin before each timed call
 TIER_IMPL = {None: "auto", "int8": "lut", "int4": "lut4"}
 TIER_RESOLVED = {None: "f32", "int8": "lut", "int4": "lut4"}
 
@@ -147,14 +160,23 @@ def card_peaks(name: str) -> tuple[float, float, str]:
     return 3.35e12, 67e12, "H100 SXM data sheet"
 
 
-def time_ms(fn, reps: int, flush: torch.Tensor) -> float:
-    """Median device time of fn() in ms, CUDA events around each call,
-    with L2 flushed before each (the buffer is larger than the 50 MB L2)."""
+def time_ms(fn, reps: int, flush: torch.Tensor | None = None,
+            spin: bool = True) -> float:
+    """Median time of fn() in ms, CUDA events around each call, with L2
+    flushed before each when `flush` is given (the buffer is larger than
+    the 50 MB L2; None leaves L2 warm, as a serving loop finds it). With
+    `spin`, a spin kernel keeps the stream busy while the host enqueues
+    fn(), so the host's time in the wrapper stays outside the events and
+    the time is the device's; without it the card also waits for the
+    host, as it does in the boosting loop."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
-        flush.zero_()
+        if flush is not None:
+            flush.zero_()
+        if spin:
+            torch.cuda._sleep(SLEEP_CYCLES)
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
@@ -292,7 +314,62 @@ def hist_bound_ms(ni: np.ndarray, F: int, N: int, B: int,
     return 1e3 * nbytes / card["bw"], 1e3 * ops / card["f32_add"]
 
 
-def phase_hist(binned: dict, card: dict, flush: torch.Tensor) -> dict:
+def check_hist(args: tuple, what: str) -> float:
+    """The histogram kernel against its plain version on args = (Xb, g, h,
+    node_index, n_nodes, n_bins); max |kernel - plain|. f32 within 1e-5 *
+    sum|g| (|h|) over each cell's own rows + 1e-6 (float atomics add in a
+    different order every run); integer g/h bitwise."""
+    got = hist_cuda.build_histograms_cuda(*args)
+    want = histogram.build_histograms_segment(*args)
+    Xb, g, h, ni, N, B = args
+    if not g.is_floating_point():
+        check(got.dtype == torch.int32 and torch.equal(got, want),
+              f"{what}: kernel != plain")
+        return 0.0
+    tol = 1e-5 * histogram.build_histograms_segment(
+        Xb, g.abs(), h.abs(), ni, N, B) + 1e-6
+    err = (got - want).abs()
+    check(bool((err <= tol).all()), f"{what}: max err {float(err.max())}")
+    return float(err.max())
+
+
+def main_path_levels(Xd: torch.Tensor, y: np.ndarray) -> list:
+    """[(node_index, n_nodes)] of each level of one main-path tree grown on
+    the card from logloss gradients at the base score (depth 6, 255 bins,
+    sibling subtraction): the indices ops/grow.level_histograms hands the
+    kernel, from level 1 on the left-child index (-1 for right children
+    and frozen rows). They are recorded by swapping grow's
+    build_histograms for the length of one grow_tree call: the swap is
+    process-wide and not thread-safe, so nothing else may build
+    histograms meanwhile."""
+    from ddt_tpu_torch.ops import grow
+
+    p0 = float(y.mean())
+    g = torch.from_numpy((p0 - y.astype(np.float32)).astype(np.float32)) \
+        .to(Xd.device)
+    h = torch.full_like(g, p0 * (1 - p0))
+    levels = []
+    build = grow.H.build_histograms
+
+    def record(Xb_, g_, h_, ni, n, B):
+        levels.append((ni.clone(), n))
+        return build(Xb_, g_, h_, ni, n, B)
+
+    grow.H.build_histograms = record
+    try:
+        grow.grow_tree(Xd, g, h, max_depth=DEPTH, n_bins=255,
+                       reg_lambda=1.0, min_child_weight=1e-3,
+                       min_split_gain=0.0, hist_subtraction=True)
+    finally:
+        grow.H.build_histograms = build
+    torch.cuda.synchronize()
+    check([n for _, n in levels] == list(TREE_SEQ),
+          f"main-path levels {[n for _, n in levels]}")
+    return levels
+
+
+def phase_hist(binned: dict, levels: list, card: dict,
+               flush: torch.Tensor) -> dict:
     dev = torch.device("cuda")
     rng = np.random.default_rng(7)
     R = binned[255].shape[0]
@@ -363,7 +440,26 @@ def phase_hist(binned: dict, card: dict, flush: torch.Tensor) -> dict:
     tree["bound_by"] = ("bytes" if tree["bound_bytes_ms"]
                         >= tree["bound_ops_ms"] else "operations")
     emit({"phase": "hist", "per_tree_main_path": list(seq), **tree})
-    return {"max_abs_err": max_err, **tree}
+    # The same tree on the main path's own node indices: from level 1 on
+    # only left children are built, so about half the rows are -1.
+    Xd = torch.from_numpy(binned[255]).to(dev)
+    real = {"kernel_ms": 0.0, "bound_ms": 0.0, "levels": []}
+    for ni, N in levels:
+        args = (Xd, gd, hd, ni, N, 255)
+        max_err = max(max_err, check_hist(
+            args, f"hist main-path indices N={N}"))
+        t_bytes, t_ops = hist_bound_ms(ni.cpu().numpy(), FEATURES, N, 255,
+                                       card)
+        lv = {"nodes": N, "active_rows": int((ni >= 0).sum()),
+              "kernel_ms": time_ms(lambda: hist_cuda.build_histograms_cuda(
+                  *args), 20, flush), "bound_ms": max(t_bytes, t_ops)}
+        real["kernel_ms"] += lv["kernel_ms"]
+        real["bound_ms"] += lv["bound_ms"]
+        real["levels"].append(lv)
+    emit({"phase": "hist", "per_tree_main_path_indices": list(seq),
+          "synthetic_kernel_ms": tree["kernel_ms"], **real})
+    return {"max_abs_err": max_err, **tree,
+            "main_path_indices_ms": real["kernel_ms"]}
 
 
 def exact_grid_ensemble(T, depth, F, B, C, cat, seed=0):
@@ -791,6 +887,34 @@ def phase_serve(res255, res15, X: np.ndarray) -> dict:
     return launches
 
 
+def phase_serve_kernels(res, X: np.ndarray, served: dict,
+                        flush: torch.Tensor) -> dict:
+    """K3, K4 (fp16 leaves) and K5 at serving batch sizes on phase 5's
+    model: device time of one call at 1, 16, 64 and 256 binned rows, with
+    L2 warm and with L2 flushed before each call."""
+    dev = torch.device("cuda")
+    ce = res.ensemble.compile(tree_chunk=64)
+    _, k3, _ = device_operands(ce, dev)
+    kernels = {"traverse": k3}
+    for name, leaf_dtype in (("lut", "float16"), ("lut4", "int4")):
+        _, kern, _ = lut_callables(ce.quantize(leaf_dtype), dev)
+        kernels[name] = kern
+    Xb = torch.from_numpy(res.mapper.transform(
+        X[:max(SERVE_SIZES)])).to(dev)
+    out = {}
+    for name, kern in kernels.items():
+        out[name] = {}
+        for n in SERVE_SIZES:
+            Xn = Xb[:n].contiguous()
+            out[name][n] = {
+                "l2_warm_ms": time_ms(lambda: kern(Xn), 50),
+                "l2_flushed_ms": time_ms(lambda: kern(Xn), 20, flush)}
+        emit({"phase": "serve_kernels", "kernel": name, "trees": N_TREES,
+              "depth": DEPTH, "serve_launches": served[name],
+              "by_rows": {str(n): v for n, v in out[name].items()}})
+    return out
+
+
 def phase_parity(X: np.ndarray, y: np.ndarray) -> None:
     Xs, ys = X[:PARITY_ROWS], y[:PARITY_ROWS]
     cfg = TrainConfig(n_trees=PARITY_TREES, max_depth=DEPTH, n_bins=255,
@@ -887,7 +1011,8 @@ def hist_int_bound_ms(ni: np.ndarray, F: int, N: int, B: int,
     return 1e3 * nbytes / card["bw"], 1e3 * 2 * act * F / card["int32"]
 
 
-def phase_hist_int(binned: dict, card: dict, flush: torch.Tensor) -> dict:
+def phase_hist_int(binned: dict, levels: list, card: dict,
+                   flush: torch.Tensor) -> dict:
     dev = torch.device("cuda")
     R = binned[255].shape[0]
     rng = np.random.default_rng(7)
@@ -906,11 +1031,8 @@ def phase_hist_int(binned: dict, card: dict, flush: torch.Tensor) -> dict:
                 ni[rng_n.random(R) < 0.1] = -1
                 nid = torch.from_numpy(ni).to(dev)
                 args = (Xd, gd, hd, nid, N, B)
-                got = hist_cuda.build_histograms_cuda(*args)
+                err = check_hist(args, f"hist_int {dt} B={B} N={N}")
                 want = histogram.build_histograms_segment(*args)
-                check(got.dtype == torch.int32 and torch.equal(got, want),
-                      f"hist_int {dt} B={B} N={N}: kernel != plain")
-                err = int((got.long() - want.long()).abs().max())
                 # Library yardstick: two int32 index_add_ calls over the
                 # combined (f*N + node)*B + bin key.
                 key = ((torch.arange(FEATURES, device=dev)[None, :] * N
@@ -955,6 +1077,29 @@ def phase_hist_int(binned: dict, card: dict, flush: torch.Tensor) -> dict:
                       "features": FEATURES, "bins": B, "nodes": N,
                       "frozen_frac": 0.1, "bitwise_equal": True, **row})
     out = {"rows": rows}
+    # The main path's own node indices (phase hist's tree), int8 and int16.
+    Xd = torch.from_numpy(binned[255]).to(dev)
+    for dt, itemsize in (("int8", 1), ("int16", 2)):
+        qg, qh, _, _ = grad.quantize_gradients_np(g, h, grad_dtype=dt,
+                                                  tree_id=0, seed=7)
+        gd, hd = torch.from_numpy(qg).to(dev), torch.from_numpy(qh).to(dev)
+        real = {"kernel_ms": 0.0, "bound_ms": 0.0, "levels": []}
+        for ni, N in levels:
+            args = (Xd, gd, hd, ni, N, 255)
+            check_hist(args, f"hist_int {dt} main-path indices N={N}")
+            t_bytes, t_ops = hist_int_bound_ms(ni.cpu().numpy(), FEATURES, N,
+                                               255, itemsize, card)
+            lv = {"nodes": N, "active_rows": int((ni >= 0).sum()),
+                  "kernel_ms": time_ms(
+                      lambda: hist_cuda.build_histograms_cuda(*args), 20,
+                      flush), "bound_ms": max(t_bytes, t_ops)}
+            real["kernel_ms"] += lv["kernel_ms"]
+            real["bound_ms"] += lv["bound_ms"]
+            real["levels"].append(lv)
+        out[dt + "_main_path_indices"] = real
+        emit({"phase": "hist_int", "grad_dtype": dt,
+              "per_tree_main_path_indices": list(TREE_SEQ),
+              "bitwise_equal": True, **real})
     for dt in ("int8", "int16"):
         tree = {k: sum(rows[(dt, 255, n)][k] for n in TREE_SEQ)
                 for k in ("kernel_ms", "plain_ms", "library_ms", "bound_ms",
@@ -1138,7 +1283,8 @@ def main() -> int:
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     binned = {B: fit_bin_mapper(X, n_bins=B).transform(X)
               for B, _ in HIST_SHAPES}
-    hist = phase_hist(binned, card, flush)
+    levels = main_path_levels(torch.from_numpy(binned[255]).to("cuda"), y)
+    hist = phase_hist(binned, levels, card, flush)
     Xb = binned[255]
     phase_traverse_exact(Xb)
     main_run = phase_main(X, y)
@@ -1148,8 +1294,9 @@ def main() -> int:
     lut = phase_lut_trained(main_run["res"], X, card, flush)
     res15, _ = phase_lut4_packed(X, y, card, flush)
     served = phase_serve(main_run["res"], res15, X)
+    phase_serve_kernels(main_run["res"], X, served, flush)
     phase_quantize(flush)
-    hist_int = phase_hist_int(binned, card, flush)
+    hist_int = phase_hist_int(binned, levels, card, flush)
     phase_quant_exact(binned, y)
     train_q = phase_train_quant(X, y, binned, main_run)
     parity_q = phase_parity_quant(X, y)

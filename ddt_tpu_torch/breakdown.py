@@ -11,8 +11,9 @@ on binned data with f32 gradients and with grad_dtype="int8" (quantized),
 and scoring (first call: pushdown, upload and packing of the model;
 second call: cache hit). Then torch.profiler over PROFILE_TREES boosting
 rounds of each gradient type and one warm scoring call gives device time
-and launch count by kernel and the device's busy share (sum of device
-time over wall time). Prints one JSON object per line; the card's name
+and launch count by kernel, the histogram kernel's device ms per tree
+(L2 warm, as in the loop) and the device's busy share (sum of device time
+over wall time). Prints one JSON object per line; the card's name
 and power limit (nvidia-smi) come first.
 """
 
@@ -67,7 +68,8 @@ def _profiled(fn) -> dict:
             and not e.key.startswith("Activity Buffer")]
     rows = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])
     busy = sum(r[1] for r in rows) * 1e-6
-    return {"wall_s": wall, "device_busy_s": busy,
+    hist = sum(r[1] for r in rows if "hist_kernel" in r[0]) * 1e-3
+    return {"wall_s": wall, "device_busy_s": busy, "hist_kernel_ms": hist,
             "busy_share": busy / wall if wall > 0 else None,
             "device_launches": sum(r[2] for r in rows),
             "top": [{"name": k[:80], "device_ms": t * 1e-3, "count": c}
@@ -126,6 +128,7 @@ def main() -> int:
         _emit({"phase": "profile_boost", "grad_dtype": dt, "trees": k,
                "ms_per_tree": 1e3 * prof["wall_s"] / k,
                "device_launches_per_tree": prof["device_launches"] / k,
+               "hist_kernel_ms_per_tree": prof["hist_kernel_ms"] / k,
                **prof})
     prof = _profiled(lambda: api.predict(res.ensemble, Xb, binned=True))
     _emit({"phase": "profile_predict_cached", **prof})

@@ -199,6 +199,101 @@ def test_quantized_grow_tree_on_card_launches_int_kernel(dev):
         assert torch.equal(a.cpu(), b)
 
 
+# Shapes at the kernel's edges: F not a multiple of 4 (rows not 4-byte
+# aligned), fewer rows than one block has threads, a row count that is no
+# multiple of them, one bin and 256, 64 nodes (16 node ranges).
+HIST_EDGE_CASES = [
+    (100_003, 3, 255, 4),
+    (50_001, 27, 255, 8),
+    (50_001, 29, 255, 16),      # 6 ranges of 3 nodes
+    (700, 28, 255, 2),          # below one block's 1024 rows
+    (3_077, 29, 63, 32),        # not a multiple of 1024 rows
+    (20_000, 5, 1, 3),          # one bin
+    (20_000, 28, 256, 64),      # 16 ranges
+    (20_000, 28, 64, 64),
+]
+
+
+def _edge_case(R, F, B, N, mode, seed=0):
+    if mode == "f32":
+        return _hist_case(R, F, B, N, seed=seed)
+    return _int_hist_case(R, F, B, N, mode, seed=seed)
+
+
+def _check_hist(Xb, g, h, ni, N, B, got, dev):
+    args = [torch.from_numpy(a).to(dev) for a in (Xb, g, h, ni)]
+    want = histogram.build_histograms_segment(*args, N, B)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (N, Xb.shape[1], B, 2)
+    assert got.dtype == want.dtype
+    if got.dtype == torch.int32:
+        assert torch.equal(got, want)
+    else:
+        err = (got - want).abs().cpu().numpy()
+        assert np.all(err <= _hist_tol(Xb, g, h, ni, N, B)), float(err.max())
+
+
+@pytest.mark.parametrize("mode", ["f32", "int8", "int16"])
+@pytest.mark.parametrize("R,F,B,N", HIST_EDGE_CASES)
+def test_hist_kernel_edge_shapes(dev, mode, R, F, B, N):
+    Xb, g, h, ni = _edge_case(R, F, B, N, mode)
+    args = [torch.from_numpy(a).to(dev) for a in (Xb, g, h, ni)]
+    before = hist_cuda.launches + hist_cuda.launches_int
+    got = hist_cuda.build_histograms_cuda(*args, N, B)
+    assert hist_cuda.launches + hist_cuda.launches_int == before + 1
+    _check_hist(Xb, g, h, ni, N, B, got, dev)
+
+
+@pytest.mark.parametrize("mode", ["f32", "int8", "int16"])
+def test_hist_kernel_unaligned_rows(dev, mode):
+    # Xb a contiguous view one row into its storage: with F = 29 no row,
+    # and not the first, starts on a 4-byte boundary.
+    R, F, B, N = 30_001, 29, 255, 8
+    Xb, g, h, ni = _edge_case(R + 1, F, B, N, mode, seed=4)
+    Xd = torch.from_numpy(Xb).to(dev)[1:]
+    assert Xd.is_contiguous() and Xd.data_ptr() % 4 != 0
+    args = [torch.from_numpy(a[1:]).to(dev) for a in (g, h, ni)]
+    got = hist_cuda.build_histograms_cuda(Xd, *args, N, B)
+    _check_hist(Xb[1:], g[1:], h[1:], ni[1:], N, B, got, dev)
+
+
+@pytest.mark.parametrize("mode", ["f32", "int8", "int16"])
+@pytest.mark.parametrize("N", [1, 16, 32])
+def test_hist_kernel_every_row_frozen(dev, mode, N):
+    Xb, g, h, ni = _edge_case(50_000, 28, 255, N, mode)
+    ni[:] = -1
+    args = [torch.from_numpy(a).to(dev) for a in (Xb, g, h, ni)]
+    out = hist_cuda.build_histograms_cuda(*args, N, 255)
+    assert out.shape == (N, 28, 255, 2)
+    assert torch.count_nonzero(out) == 0
+
+
+@pytest.mark.parametrize("grad_dtype,N", [("int8", 1), ("int16", 1),
+                                          ("int16", 16)])
+def test_int_hist_large_negative_g_beside_positive_h(dev, grad_dtype, N):
+    # Large negative G beside positive H in the same cells: q at -qmax and
+    # +qmax, 60,000 rows over 8 of 32 bins of every feature, so each cell
+    # sums 7,500 / N rows (at int16 |G| ~ 1.8e8 and H ~ 2.2e8 for N = 1,
+    # inside the quantizer's 2^31 cap).
+    R, F, B = 60_000, 6, 32
+    used = np.array([0, 1, 2, 3, 16, 17, 18, 19], np.uint8)
+    qmax = 127 if grad_dtype == "int8" else 32767
+    npdt = np.int8 if grad_dtype == "int8" else np.int16
+    rng = np.random.default_rng(5)
+    Xb = rng.choice(used, size=(R, F))
+    qg = np.full(R, -qmax, npdt)
+    qh = np.full(R, qmax, npdt)
+    qg[::7] = qmax                      # a few positive g's in the mix
+    qh[::11] = 0
+    ni = rng.integers(0, N, size=R).astype(np.int32)
+    args = [torch.from_numpy(a).to(dev) for a in (Xb, qg, qh, ni)]
+    got = hist_cuda.build_histograms_cuda(*args, N, B)
+    want = histogram.build_histograms_segment(*args, N, B)
+    assert torch.equal(got, want)
+    assert int(want[..., 0].min()) < -qmax * R // (8 * N) // 2
+    assert bool((want[:, :, used.astype(np.int64), 1] > 0).all())
+
+
 def _rand_ens(T, depth, F, B, C=1, missing=False, cat=(), exact=True,
               seed=0):
     rng = np.random.default_rng(seed)
