@@ -42,7 +42,9 @@ Phases:
              on the 1M rows over exact-grid ensembles (70 trees, 7
              classes, missing and categorical, lossless grids): bitwise
              against their plain versions and against the traversal kernel
-             on the same f32 ensemble
+             on the same f32 ensemble; and at 1, 16, 64, 256 and 257 rows
+             (the small-batch mapping) bitwise against the plain version
+             and the 1M-row call's rows
   9 lut_trained K4 (fp16) and K5 on phase 5's model: |diff| <= 1e-5 *
              (|p| + 1) against their plain versions, and within the tables'
              max_abs_err (+ the same slack) of the traversal kernel; times,
@@ -60,7 +62,8 @@ Phases:
              counters are zeroed just before and the LUT kernels' must move
     serve_kernels K3, K4 (fp16) and K5 on phase 5's model at 1, 16, 64 and
              256 binned rows a call: device time with L2 warm and with L2
-             flushed, beside the serve phase's launch counts
+             flushed, beside the serve phase's launch counts; and an empty
+             kernel timed the same way, the latency floor of one launch
  12 quantize ops/grad.quantize_gradients on the card at 1M rows, int8 and
              int16, from logloss gradients: q's and scales bitwise equal to
              the numpy twin, and which term (max|g|/qmax or the snapped sum
@@ -130,6 +133,7 @@ HIST_SHAPES = ((255, (1, 2, 4, 8, 16, 32)), (128, (16, 32)), (64, (16, 32)))
 #: the card, and everywhere for integer histograms): nodes per level.
 TREE_SEQ = (1, 1, 2, 4, 8, 16)
 SERVE_SIZES = (1, 16, 64, 256)     # rows per call, phase serve_kernels
+LUT_EXACT_SIZES = (1, 16, 64, 256, 257)   # rows per call, phase lut_exact
 SLEEP_CYCLES = 2_000_000           # ~1 ms spin before each timed call
 TIER_IMPL = {None: "auto", "int8": "lut", "int4": "lut4"}
 TIER_RESOLVED = {None: "f32", "int8": "lut", "int4": "lut4"}
@@ -665,6 +669,14 @@ def phase_lut_exact(X: np.ndarray, Xb: np.ndarray) -> None:
         got = kernel(Xd).cpu().numpy()
         check(np.array_equal(got, plain(Xd).cpu().numpy()),
               f"{what}: kernel == plain, bitwise")
+        # Serving sizes take the other mapping: bitwise there too, and a
+        # row's score does not depend on its batch.
+        for n in LUT_EXACT_SIZES:
+            Xn = Xd[:n].contiguous()
+            small = kernel(Xn).cpu().numpy()
+            check(np.array_equal(small, plain(Xn).cpu().numpy())
+                  and np.array_equal(small, got[:n]),
+                  f"{what}: {n} rows, kernel == plain == the 1M-row call")
         _, k3, _ = device_operands(ce, dev)
         check(np.array_equal(got, k3(Xd).cpu().numpy()),
               f"{what}: kernel == traversal kernel on the f32 ensemble")
@@ -672,6 +684,7 @@ def phase_lut_exact(X: np.ndarray, Xb: np.ndarray) -> None:
               "bins": B, "thr_packed": packed, "rows": len(rows),
               "trees": 70, "depth": DEPTH, "classes": 7, "missing": True,
               "cat": [3, 10], "bitwise_equal_plain": True,
+              "bitwise_equal_at_rows": list(LUT_EXACT_SIZES),
               "bitwise_equal_traverse": True, "max_abs_err": 0.0})
 
 
@@ -912,6 +925,12 @@ def phase_serve_kernels(res, X: np.ndarray, served: dict,
         emit({"phase": "serve_kernels", "kernel": name, "trees": N_TREES,
               "depth": DEPTH, "serve_launches": served[name],
               "by_rows": {str(n): v for n, v in out[name].items()}})
+    # The latency floor of one launch: an empty kernel, timed the same way.
+    out["empty"] = {
+        "l2_warm_ms": time_ms(lambda: predict_lut_cuda.empty_launch(dev), 50),
+        "l2_flushed_ms": time_ms(lambda: predict_lut_cuda.empty_launch(dev),
+                                 20, flush)}
+    emit({"phase": "serve_kernels", "kernel": "empty", **out["empty"]})
     return out
 
 

@@ -359,19 +359,23 @@ def predict_lut_fits(n_trees_padded: int, tree_chunk: int, max_depth: int,
             n_classes > predict_lut_cuda.MAX_CLASSES:
         return False
     return predict_lut_cuda.smem_bytes(
-        1, max_depth, n_features, leaf_dtype) <= smem_limit
+        1, max_depth, n_features, leaf_dtype) \
+        <= smem_limit - predict_lut_cuda.STATIC_SMEM
 
 
 def predict_lut4_fits(n_trees_padded: int, tree_chunk: int, max_depth: int,
                       n_features: int, n_classes: int,
                       smem_limit: int = predict_lut_cuda.SMEM_LIMIT_H100,
                       thr_packed: bool = False) -> bool:
-    """predict_lut_fits for the int4 tier's packed tables."""
+    """predict_lut_fits for the int4 tier's packed tables (the kernel
+    decodes thresholds into its node words, so thr_packed does not change
+    the count)."""
     if n_trees_padded % tree_chunk or \
             n_classes > predict_lut_cuda.MAX_CLASSES:
         return False
     return predict_lut_cuda.smem_bytes(
-        1, max_depth, n_features, "int4", thr_packed) <= smem_limit
+        1, max_depth, n_features, "int4") \
+        <= smem_limit - predict_lut_cuda.STATIC_SMEM
 
 
 # --------------------------------------------------------------------- #

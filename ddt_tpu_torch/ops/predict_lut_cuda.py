@@ -5,8 +5,19 @@ ddt_tpu/ops/predict_lut.py::_lut_kernel (K4, the int8 tier) and
 Both take the reference's node-major operand tuples unchanged
 (ops/predict_lut.lut_device_operands, PackedTables.ops) and raw uint8
 rows, and write f32 [R, C] = base + lr * sum over tree chunks of the
-per-class chunk sums of the selected leaf values. One thread per row runs
-K3's descent; the design and the bound are stated in the source.
+per-class chunk sums of the selected leaf values.
+
+Once per model (per operand tuple, cached while its tensors live and are
+not written to) `pack_records` repacks the operands into one tree-major
+record a tree: a 32-bit word per internal node (feature, decoded
+threshold, default-left and categorical bits), the tree's class and
+scale, then its leaves at their own width. Trailing trees whose leaves
+are all zero (CompiledEnsemble's padding) are left out; they would add
++0.0 to every sum. `plan_launch`, a cached pure function of the shapes,
+picks the kernel's mapping (one thread a row for large batches, (row,
+tree) pairs over threads for small ones), the rows a block, the trees
+staged a pass and the shared memory. The design and the bound are stated
+in the source.
 
 The plain versions are ops/predict_lut.predict_effective_lut_plain and
 predict_effective_lut4_plain; ops/predict_lut's dispatchers send CUDA
@@ -18,6 +29,10 @@ raises.
 from __future__ import annotations
 
 import ctypes
+import functools
+import threading
+import weakref
+from typing import NamedTuple
 
 import torch
 
@@ -28,48 +43,244 @@ from ddt_tpu_torch import _build
 launches_lut = 0
 launches_lut4 = 0
 
-THREADS = 256           # rows per block (kThreads in csrc/lut.cu)
+THREADS = 256           # threads a block
+#: Rows mapping: rows a thread walks side by side, most first; the last
+#: (one) always fits where the fits guards admit the shape.
+ROWS_PER_THREAD = (2, 1)
 MAX_CLASSES = 32
 #: The H100's opt-in shared memory per block: what the fits guards count
 #: against when the scoring device is the CPU.
 SMEM_LIMIT_H100 = 232_448
+#: Resident blocks an SM holds at most (2048 threads of THREADS each), and
+#: the shared memory the system keeps per block.
+MAX_BLOCKS_PER_SM = 2048 // THREADS
+SMEM_PER_BLOCK_RESERVED = 1024
+#: Rows mapping, when the trees take several passes anyway: passes sized
+#: so that this many blocks share an SM (their warps hide the descent's
+#: latency), but of at least MIN_PASS_TREES trees.
+PASS_BLOCKS_PER_SM = 4
+MIN_PASS_TREES = 64
+#: Static shared memory of either kernel (the TMA copies' mbarrier): the
+#: dynamic shared memory may take the opt-in limit less this.
+STATIC_SMEM = 16
 _argtypes_set = False
 
 
-def tree_bytes(max_depth: int, leaf_dtype: str,
-               thr_packed: bool = False) -> int:
-    """Shared memory of one staged tree: feature int32 per node, scale and
-    class (4 B each), leaves at their width, thresholds (a byte per node,
-    half when nibble-packed), and the missing and categorical flags."""
+def record_bytes(max_depth: int, leaf_dtype: str) -> int:
+    """Bytes of one packed tree: a word per internal node, class and scale
+    words, the leaves at their width, padded to 16 bytes."""
     n_int = (1 << max_depth) - 1
     n_leaf = 1 << max_depth
     leaf_w = {"float16": 2 * n_leaf, "int8": n_leaf,
               "int4": (n_leaf + 1) // 2}[leaf_dtype]
-    thr_w = (n_int + 1) // 2 if thr_packed else n_int
-    return 4 * n_int + 8 + leaf_w + thr_w + 2 * n_int
+    return -(-(4 * (n_int + 2) + leaf_w) // 16) * 16
 
 
-def smem_bytes(sub: int, max_depth: int, n_features: int, leaf_dtype: str,
-               thr_packed: bool = False) -> int:
-    """Dynamic shared memory of one block staging `sub` trees."""
-    return (sub * tree_bytes(max_depth, leaf_dtype, thr_packed)
-            + n_features * THREADS)
+def smem_bytes(sub: int, max_depth: int, n_features: int,
+               leaf_dtype: str, rows: int = THREADS) -> int:
+    """Dynamic shared memory of a rows-mapping block staging `sub` trees
+    beside its `rows` rows. With one row a thread (THREADS rows) it is
+    what the fits guards count: the least the rows mapping needs."""
+    return sub * record_bytes(max_depth, leaf_dtype) + n_features * rows
 
 
-def stage_width(tree_chunk: int, max_depth: int, n_features: int,
-                leaf_dtype: str, thr_packed: bool, smem_limit: int) -> int:
-    """Trees staged per pass: the largest divisor of tree_chunk whose
-    tables fit beside the row staging area. Raises if one tree does not."""
-    for sub in range(tree_chunk, 0, -1):
-        if tree_chunk % sub == 0 and smem_bytes(
-                sub, max_depth, n_features, leaf_dtype,
-                thr_packed) <= smem_limit:
-            return sub
-    raise ValueError(
-        f"one depth-{max_depth} {leaf_dtype} LUT tree with {n_features} "
-        f"features needs "
-        f"{smem_bytes(1, max_depth, n_features, leaf_dtype, thr_packed)} "
-        f"B of shared memory, more than the card's {smem_limit} B")
+def _pairs_smem(sub: int, rows: int, tb: int, n_features: int) -> int:
+    return sub * (tb + 4 * rows) + rows * n_features
+
+
+class Plan(NamedTuple):
+    """One launch's shape: `pairs` takes the (row, tree) mapping."""
+
+    pairs: bool
+    rows: int           # rows a block
+    blocks: int
+    sub: int            # trees staged a pass
+    smem: int           # dynamic shared memory, bytes
+
+
+@functools.lru_cache(maxsize=4096)
+def plan_launch(n_rows: int, n_trees: int, max_depth: int, n_features: int,
+                leaf_dtype: str, n_classes: int, smem_limit: int,
+                sm_count: int) -> Plan:
+    """The launch of n_rows rows over n_trees packed trees on a card with
+    `sm_count` SMs and `smem_limit` bytes of opt-in shared memory a block.
+
+    The rows mapping (two rows a thread where 512 rows fit beside a tree,
+    else one) is taken once the batch gives every SM one of its blocks.
+    Below that the pairs mapping spreads the batch over as many blocks as
+    shared memory lets the card hold at once, with at least enough rows a
+    block to give each thread one (row, tree) pair, and at most THREADS
+    // n_classes (one summing thread a row and class). Each mapping stages
+    as many trees a pass as fit, except that where the rows mapping takes
+    several passes anyway, they are sized for PASS_BLOCKS_PER_SM blocks
+    an SM (at least MIN_PASS_TREES trees). Raises ValueError when one
+    tree and a block's rows do not fit."""
+    smem_limit -= STATIC_SMEM
+    tb = record_bytes(max_depth, leaf_dtype)
+    T = max(n_trees, 1)
+    if smem_bytes(1, max_depth, n_features, leaf_dtype) > smem_limit:
+        raise ValueError(
+            f"one depth-{max_depth} {leaf_dtype} LUT tree with {n_features} "
+            f"features needs "
+            f"{smem_bytes(1, max_depth, n_features, leaf_dtype)} B of shared "
+            f"memory, more than the card's {smem_limit} B")
+    rb = next(h * THREADS for h in ROWS_PER_THREAD
+              if smem_bytes(1, max_depth, n_features, leaf_dtype,
+                            h * THREADS) <= smem_limit)
+    sub = min(T, (smem_limit - n_features * rb) // tb)
+    if sub < T:
+        shared = (smem_limit // PASS_BLOCKS_PER_SM - n_features * rb) // tb
+        sub = min(sub, max(shared, MIN_PASS_TREES))
+    need = smem_bytes(sub, max_depth, n_features, leaf_dtype, rb)
+    if n_rows >= sm_count * rb:
+        return Plan(False, rb, -(-n_rows // rb), sub, need)
+    per_sm = max(1, min(MAX_BLOCKS_PER_SM,
+                        (smem_limit + SMEM_PER_BLOCK_RESERVED)
+                        // (need + SMEM_PER_BLOCK_RESERVED)))
+    # No more blocks than the card holds at once, counted for the rows
+    # mapping's blocks and for the smallest pairs block (one holding every
+    # tree, or the most that fit, is one an SM).
+    rows = max(1, min(-(-THREADS // T), n_rows, THREADS // n_classes))
+    sub = min(T, (smem_limit - rows * n_features) // (tb + 4 * rows))
+    per_sm = min(per_sm, max(1, (smem_limit + SMEM_PER_BLOCK_RESERVED) // (
+        _pairs_smem(sub, rows, tb, n_features) + SMEM_PER_BLOCK_RESERVED)))
+    full = per_sm * sm_count
+    rows = max(-(-THREADS // T), -(-n_rows // full))
+    rows = max(1, min(rows, n_rows, THREADS // n_classes))
+    while rows > 1 and _pairs_smem(1, rows, tb, n_features) > smem_limit:
+        rows //= 2
+    sub = min(T, (smem_limit - rows * n_features) // (tb + 4 * rows))
+    return Plan(True, rows, -(-n_rows // rows), sub,
+                _pairs_smem(sub, rows, tb, n_features))
+
+
+class Records(NamedTuple):
+    """One model's packed trees on its device (csrc/lut.cu's layout)."""
+
+    rec: torch.Tensor       # uint8 [n_trees, record_bytes]
+    n_trees: int            # trees packed: trailing all-zero ones left out
+    max_feature: int        # largest split feature (-1: no split at all)
+
+
+def pack_records(ops: tuple, *, leaf_dtype: str, thr_packed: bool,
+                 max_depth: int, tree_chunk: int, use_missing: bool,
+                 use_cat: bool, cls=None) -> Records:
+    """The node-major operand tuple of either tier (feat, thr, leaf,
+    [scale], cls_oh, [dl], [cat]; scale present for int8 and int4 leaves)
+    -> tree-major records, on the operands' device. Bit operations only:
+    the same on the CPU and the card."""
+    # ops/predict_lut owns the node-major layout and the decodings (it
+    # imports this module, so the import waits for the call).
+    from ddt_tpu_torch.ops.predict_lut import (_I8_OFFSET, _NIB_BIG,
+                                               _from_node_major)
+
+    n_int = (1 << max_depth) - 1
+    n_leaf = 1 << max_depth
+    h_n, h_l = (n_int + 1) // 2, (n_leaf + 1) // 2
+    tc = tree_chunk
+    feat, thr, leaf, *rest = ops
+    scale = rest.pop(0) if leaf_dtype != "float16" else None
+    coh = rest.pop(0)
+    dl = rest.pop(0) if use_missing else None
+    cat = rest.pop(0) if use_cat else None
+    dev = feat.device
+    f = _from_node_major(feat, tc, n_int).to(torch.int32)
+    if thr_packed:
+        t = _from_node_major(thr, tc, h_n).to(torch.int32)
+        nib = torch.cat([t & 15, t >> 4], dim=1)[:, :n_int]
+        t = torch.where(nib >= 15, _NIB_BIG, nib)
+    else:
+        t = _from_node_major(thr, tc, n_int).to(torch.int32) + _I8_OFFSET
+    word = f * 65536 + t
+    if dl is not None:
+        word += _from_node_major(dl, tc, n_int).ne(0).to(torch.int32) * 512
+    if cat is not None:
+        word += ((_from_node_major(cat, tc, n_int).ne(0) & (f >= 0))
+                 .to(torch.int32) * 1024)
+    if cls is None:
+        cls = coh.argmax(dim=1)
+    T = f.shape[0]
+    sc = (torch.ones(T, dtype=torch.float32, device=dev) if scale is None
+          else scale.reshape(T).to(torch.float32))
+    head = torch.cat([word, cls.reshape(T, 1).to(torch.int32),
+                      sc.view(torch.int32).reshape(T, 1)], dim=1)
+    if leaf_dtype == "int4":
+        lp = _from_node_major(leaf, tc, h_l).to(torch.int32)
+        v = torch.cat([lp & 15, (lp >> 4) & 15], dim=1)[:, :n_leaf]
+        zero = v == 0
+        if n_leaf % 2:
+            v = torch.cat([v, torch.zeros_like(v[:, :1])], dim=1)
+        leaf_b = (v[:, 0::2] | (v[:, 1::2] << 4)).to(torch.uint8)
+    else:
+        lv = _from_node_major(leaf, tc, n_leaf).contiguous()
+        if leaf_dtype == "float16":
+            zero = (lv.view(torch.int16).to(torch.int32) & 0x7FFF) == 0
+        else:
+            zero = lv == 0
+        leaf_b = lv.view(torch.uint8)
+    # A tree adds +0.0 to every sum iff each leaf decodes to a zero.
+    nonzero = ~zero.all(dim=1) | ~torch.isfinite(sc)
+    idx = torch.nonzero(nonzero).flatten()
+    n_trees = int(idx.max()) + 1 if idx.numel() else 0
+    tb = record_bytes(max_depth, leaf_dtype)
+    body = torch.cat([head.contiguous().view(torch.uint8), leaf_b], dim=1)
+    rec = torch.zeros((n_trees, tb), dtype=torch.uint8, device=dev)
+    rec[:, :body.shape[1]] = body[:n_trees]
+    return Records(rec=rec, n_trees=n_trees,
+                   max_feature=int(f.max()) if f.numel() else -1)
+
+
+class _Entry(NamedTuple):
+    refs: tuple
+    versions: tuple
+    static: tuple
+    records: Records
+
+
+_cache: dict[int, _Entry] = {}
+_cache_lock = threading.Lock()
+
+
+def records_for(ops: tuple, *, leaf_dtype: str, thr_packed: bool,
+                max_depth: int, tree_chunk: int, use_missing: bool,
+                use_cat: bool, cls=None, check=None) -> Records:
+    """pack_records, once per operand tuple: cached while its tensors live
+    and none of them is written to (their version counters). `check()`,
+    when given, runs before a tuple is packed."""
+    tensors = tuple(ops) + ((cls,) if cls is not None else ())
+    static = (leaf_dtype, thr_packed, max_depth, tree_chunk, use_missing,
+              use_cat, cls is not None)
+    key = id(tensors[0])
+    with _cache_lock:
+        hit = _cache.get(key)
+    if (hit is not None and hit.static == static
+            and len(hit.refs) == len(tensors)
+            and all(r() is t for r, t in zip(hit.refs, tensors))
+            and hit.versions == tuple(t._version for t in tensors)):
+        return hit.records
+    if check is not None:
+        check()
+    records = pack_records(ops, leaf_dtype=leaf_dtype, thr_packed=thr_packed,
+                           max_depth=max_depth, tree_chunk=tree_chunk,
+                           use_missing=use_missing, use_cat=use_cat, cls=cls)
+    entry = _Entry(tuple(weakref.ref(t) for t in tensors),
+                   tuple(t._version for t in tensors), static, records)
+    with _cache_lock:
+        fresh = key not in _cache
+        _cache[key] = entry
+    if fresh:
+        weakref.finalize(tensors[0], _forget, key)
+    return records
+
+
+def _forget(key: int) -> None:
+    with _cache_lock:
+        _cache.pop(key, None)
+
+
+def sm_count(device: torch.device) -> int:
+    """The card's SM count (torch caches the device properties)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _lib():
@@ -78,12 +289,23 @@ def _lib():
     if not _argtypes_set:
         vp, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int,
                              ctypes.c_longlong, ctypes.c_float)
-        for fn in (lib.ddt_lut_int8, lib.ddt_lut_int4):
-            fn.argtypes = [vp] * 9 + [i64] + [i32] * 10 + [f32, f32, i32,
-                                                           vp]
+        common = [vp, vp, vp, i64] + [i32] * 10
+        lib.ddt_lut_int8.argtypes = common + [i32, f32, f32, i32, vp]
+        lib.ddt_lut_int4.argtypes = common + [f32, f32, i32, vp]
+        lib.ddt_lut_empty.argtypes = [vp]
+        for fn in (lib.ddt_lut_int8, lib.ddt_lut_int4, lib.ddt_lut_empty):
             fn.restype = i32
         _argtypes_set = True
     return lib
+
+
+def empty_launch(device: torch.device) -> None:
+    """Launches csrc/lut.cu's empty kernel on the current stream: the
+    latency floor of one launch (chip_smoke times it; not counted)."""
+    lib = _lib()
+    with torch.cuda.device(device):
+        status = lib.ddt_lut_empty(torch.cuda.current_stream().cuda_stream)
+    _build.check(status, "ddt_lut_empty launch")
 
 
 def _expect(t: torch.Tensor, name: str, dtype, shape, device) -> None:
@@ -96,17 +318,10 @@ def _expect(t: torch.Tensor, name: str, dtype, shape, device) -> None:
         raise TypeError(f"{name} must be contiguous")
 
 
-def _launch(entry: str, ops: tuple, X: torch.Tensor, *, leaf_dtype: str,
-            thr_dtype, thr_packed: bool, use_scale: bool, max_depth: int,
-            learning_rate: float, base: float, n_classes: int,
-            tree_chunk: int, n_trees_padded: int, missing_bin_value: int,
-            use_missing: bool, use_cat: bool, cls, max_feature,
-            mode_flag: int) -> torch.Tensor:
-    if X.device.type != "cuda":
-        raise TypeError(f"X must be a CUDA tensor, got {X.device}")
-    if X.dtype != torch.uint8 or X.dim() != 2 or not X.is_contiguous():
-        raise TypeError("X must be a contiguous uint8 [R, F] tensor")
-    R, F = X.shape
+def _check_operands(ops: tuple, dev, *, leaf_dtype: str, thr_dtype,
+                    thr_packed: bool, use_scale: bool, max_depth: int,
+                    n_classes: int, tree_chunk: int, n_trees_padded: int,
+                    use_missing: bool, use_cat: bool, cls) -> None:
     C, tc, Tpad = n_classes, tree_chunk, n_trees_padded
     if Tpad % tc:
         raise ValueError(f"padded tree count {Tpad} is not a multiple of "
@@ -117,17 +332,12 @@ def _launch(entry: str, ops: tuple, X: torch.Tensor, *, leaf_dtype: str,
     n_tc = Tpad // tc
     n_int = (1 << max_depth) - 1
     n_leaf = 1 << max_depth
-    ops = list(ops)
     want = 3 + int(use_scale) + 1 + int(use_missing) + int(use_cat)
     if len(ops) != want:
         raise ValueError(f"{len(ops)} operands, expected {want}")
-    feat, thr, leaf = ops[:3]
-    rest = ops[3:]
+    feat, thr, leaf, *rest = ops
     scale = rest.pop(0) if use_scale else None
     coh = rest.pop(0)
-    dl = rest.pop(0) if use_missing else None
-    cat = rest.pop(0) if use_cat else None
-    dev = X.device
     _expect(feat, "feat", torch.int32, (n_tc, n_int * tc), dev)
     thr_w = (n_int + 1) // 2 if thr_packed else n_int
     _expect(thr, "thr", thr_dtype, (n_tc, thr_w * tc), dev)
@@ -140,36 +350,52 @@ def _launch(entry: str, ops: tuple, X: torch.Tensor, *, leaf_dtype: str,
     if scale is not None:
         _expect(scale, "scale", torch.float32, (n_tc, tc), dev)
     _expect(coh, "cls_oh", torch.float32, (Tpad, C), dev)
-    for m, name in ((dl, "dl"), (cat, "cat")):
-        if m is not None:
-            _expect(m, name, torch.int8, (n_tc, n_int * tc), dev)
-    if cls is None:
-        cls = coh.argmax(dim=1).to(torch.int32)
-    _expect(cls, "cls", torch.int32, (Tpad,), dev)
-    if max_feature is None:
-        max_feature = int(feat.max())
-    if max_feature >= F:
-        raise ValueError(f"split feature {max_feature} is >= the data's "
-                         f"{F} columns")
-    out = torch.empty((R, C), dtype=torch.float32, device=dev)
+    for m, name in zip(rest, ("dl",) * use_missing + ("cat",) * use_cat):
+        _expect(m, name, torch.int8, (n_tc, n_int * tc), dev)
+    if cls is not None:
+        _expect(cls, "cls", torch.int32, (Tpad,), dev)
+
+
+def _launch(entry: str, ops: tuple, X: torch.Tensor, *, leaf_dtype: str,
+            thr_dtype, thr_packed: bool, use_scale: bool, max_depth: int,
+            learning_rate: float, base: float, n_classes: int,
+            tree_chunk: int, n_trees_padded: int, missing_bin_value: int,
+            use_missing: bool, use_cat: bool, cls) -> torch.Tensor:
+    if X.device.type != "cuda":
+        raise TypeError(f"X must be a CUDA tensor, got {X.device}")
+    if X.dtype != torch.uint8 or X.dim() != 2 or not X.is_contiguous():
+        raise TypeError("X must be a contiguous uint8 [R, F] tensor")
+    R, F = X.shape
+    dev = X.device
+    if ops[0].device != dev:
+        raise ValueError(f"feat on {ops[0].device}, X on {dev}")
+    kw = dict(leaf_dtype=leaf_dtype, thr_packed=thr_packed,
+              max_depth=max_depth, tree_chunk=tree_chunk,
+              use_missing=use_missing, use_cat=use_cat)
+    records = records_for(ops, cls=cls, check=lambda: _check_operands(
+        ops, dev, thr_dtype=thr_dtype, use_scale=use_scale,
+        n_classes=n_classes, n_trees_padded=n_trees_padded, cls=cls, **kw),
+        **kw)
+    if records.max_feature >= F:
+        raise ValueError(f"split feature {records.max_feature} is >= the "
+                         f"data's {F} columns")
+    out = torch.empty((R, n_classes), dtype=torch.float32, device=dev)
     if R == 0:
         return out
-    limit = _build.smem_limit(dev)
-    sub = stage_width(tc, max_depth, F, leaf_dtype, thr_packed, limit)
+    plan = plan_launch(R, records.n_trees, max_depth, F, leaf_dtype,
+                       n_classes, _build.smem_limit(dev), sm_count(dev))
     lib = _lib()
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
+    args = [X.data_ptr(), records.rec.data_ptr(), out.data_ptr(), R, F,
+            records.n_trees, max_depth, tree_chunk,
+            record_bytes(max_depth, leaf_dtype) // 4, n_classes,
+            missing_bin_value if use_missing else -1, int(plan.pairs),
+            plan.rows, plan.sub]
+    if entry == "ddt_lut_int8":
+        args.append(int(leaf_dtype == "float16"))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        status = getattr(lib, entry)(
-            X.data_ptr(), feat.data_ptr(), thr.data_ptr(), leaf.data_ptr(),
-            ptr(scale), cls.data_ptr(), ptr(dl), ptr(cat), out.data_ptr(),
-            R, F, Tpad, max_depth, tc, sub, C, missing_bin_value,
-            int(use_missing), int(use_cat), mode_flag,
-            float(learning_rate), float(base),
-            smem_bytes(sub, max_depth, F, leaf_dtype, thr_packed), stream)
+        status = getattr(lib, entry)(*args, float(learning_rate),
+                                     float(base), plan.smem, stream)
     _build.check(status, f"{entry} launch")
     return out
 
@@ -181,17 +407,19 @@ def lut_int8_cuda(ops: tuple, X: torch.Tensor, *, max_depth: int,
                   use_scale: bool, cls=None,
                   max_feature: int | None = None) -> torch.Tensor:
     """K4: f32 [R, C] margins from lut_device_operands' tensors (fp16
-    leaves, or int8 leaves with a per-tree scale when use_scale)."""
+    leaves, or int8 leaves with a per-tree scale when use_scale). `cls`
+    (int32 class of each tree) is derived from cls_oh when not given;
+    `max_feature` is accepted from callers that cache it, and the packed
+    records carry their own."""
     global launches_lut
-    leaf_dtype = "int8" if use_scale else "float16"
     out = _launch(
-        "ddt_lut_int8", ops, X, leaf_dtype=leaf_dtype, thr_dtype=torch.int8,
+        "ddt_lut_int8", ops, X,
+        leaf_dtype="int8" if use_scale else "float16", thr_dtype=torch.int8,
         thr_packed=False, use_scale=use_scale, max_depth=max_depth,
         learning_rate=learning_rate, base=base, n_classes=n_classes,
         tree_chunk=tree_chunk, n_trees_padded=n_trees_padded,
         missing_bin_value=missing_bin_value, use_missing=use_missing,
-        use_cat=use_cat, cls=cls, max_feature=max_feature,
-        mode_flag=int(not use_scale))
+        use_cat=use_cat, cls=cls)
     if X.shape[0]:
         launches_lut += 1
     return out
@@ -213,8 +441,7 @@ def lut_int4_cuda(ops: tuple, X: torch.Tensor, *, max_depth: int,
         learning_rate=learning_rate, base=base, n_classes=n_classes,
         tree_chunk=tree_chunk, n_trees_padded=n_trees_padded,
         missing_bin_value=missing_bin_value, use_missing=use_missing,
-        use_cat=use_cat, cls=cls, max_feature=max_feature,
-        mode_flag=int(thr_packed))
+        use_cat=use_cat, cls=cls)
     if X.shape[0]:
         launches_lut4 += 1
     return out

@@ -15,7 +15,9 @@ int32 sums) is exact and held bitwise. The traversal kernel and the LUT
 kernels (K4, K5) are bitwise on exact-grid leaf values (every partial sum
 is exact in f32, so the order cannot matter) and within 1e-5 * (|p| + 1)
 on random leaves; the LUT kernels also stay within the tables'
-max_abs_err of the f32 host oracle.
+max_abs_err of the f32 host oracle, and equal their plain versions
+bitwise on random leaves too (both sum tree by tree in one order) at
+every batch size, in both of their mappings.
 """
 
 import numpy as np
@@ -457,6 +459,67 @@ def test_lut_kernels_random_leaves_within_tolerance(dev, leaf_dtype, B, C,
     f32 = f32 if C > 1 else f32[:, None]
     assert np.all(np.abs(got - f32) <= tables.max_abs_err * (1 + 1e-5)
                   + 1e-5 * (np.abs(f32) + 1))
+
+
+@pytest.mark.parametrize("leaf_dtype,B", [("float16", 255), ("int8", 255),
+                                          ("int4", 13), ("int4", 255)])
+@pytest.mark.parametrize("T", [70, 100])
+def test_lut_kernels_bitwise_at_every_batch_size(dev, leaf_dtype, B, T):
+    """Both mappings (on an H100: pairs below 67,584 rows, then the rows
+    mapping with two rows a thread), with padded trees left out: bitwise
+    equal to the plain version on random leaves (both sum tree by tree in
+    the same order), and each row's score the same whatever batch it
+    rides in."""
+    F, C = 28, 7
+    ens = _lut_ens(T, 6, F, B, C, True, (3, 10), leaf_dtype, exact=False)
+    tables = ens.compile(tree_chunk=64).quantize(leaf_dtype)
+    X = np.random.default_rng(4).integers(0, B, size=(300_000, F),
+                                          dtype=np.uint8)
+    _, full = _lut_both(tables, X, dev)
+    for R in (1, 2, 31, 255, 256, 257, 1000, 50_000, 300_000):
+        got, want = _lut_both(tables, X[:R], dev)
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(got, full[:R])
+
+
+@pytest.mark.parametrize("leaf_dtype,B", [("float16", 255), ("int4", 13)])
+def test_lut_kernels_bitwise_with_one_row_a_thread(dev, leaf_dtype, B):
+    """600 features: the rows mapping walks one row a thread (512 rows do
+    not fit beside a tree); depth 5 takes the kernels' runtime-depth
+    build. Bitwise equal to the plain version in both mappings."""
+    F = 600
+    ens = _lut_ens(40, 5, F, B, 3, True, (7,), leaf_dtype, exact=False)
+    tables = ens.compile(tree_chunk=64).quantize(leaf_dtype)
+    X = np.random.default_rng(5).integers(0, B, size=(40_000, F),
+                                          dtype=np.uint8)
+    p = predict_lut_cuda.plan_launch(
+        40_000, 40, 5, F, leaf_dtype, 3, _build.smem_limit(dev),
+        predict_lut_cuda.sm_count(dev))
+    assert not p.pairs and p.rows == 256
+    _, full = _lut_both(tables, X, dev)
+    for R in (1, 300, 40_000):
+        got, want = _lut_both(tables, X[:R], dev)
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(got, full[:R])
+
+
+@pytest.mark.parametrize("leaf_dtype,B", [("float16", 255), ("int4", 13)])
+def test_lut_kernels_bitwise_staging_pass_by_pass(dev, leaf_dtype, B):
+    """1000 depth-6 trees: more records than a block holds, so the kernel
+    stages them pass by pass (both mappings), across chunk boundaries
+    inside and between passes. Bitwise equal to the plain version."""
+    F, T = 28, 1000
+    ens = _lut_ens(T, 6, F, B, 1, True, (), leaf_dtype, exact=False)
+    tables = ens.compile(tree_chunk=64).quantize(leaf_dtype)
+    X = np.random.default_rng(6).integers(0, B, size=(100_000, F),
+                                          dtype=np.uint8)
+    for R in (1, 300, 100_000):
+        p = predict_lut_cuda.plan_launch(
+            R, T, 6, F, leaf_dtype, 1, _build.smem_limit(dev),
+            predict_lut_cuda.sm_count(dev))
+        assert p.sub < T
+        got, want = _lut_both(tables, X[:R], dev)
+        np.testing.assert_array_equal(got, want)
 
 
 def test_lut_kernel_refuses_rows_that_do_not_fit_shared_memory(dev):

@@ -15,6 +15,13 @@ to_dict / from_dict. The reference's Pallas kernels run in interpret mode.
   matter). On random models they agree within 1e-5 absolute (f32 sums in
   another order), and both stay within max_abs_err * (1 + 1e-5) + 1e-6 of
   the f32 path.
+- The LUT kernels' host half (ops/predict_lut_cuda): the launch plan
+  (mapping, rows a block, trees a pass, shared memory) for any batch on
+  an H100's limits, and the packed tree records: each field read back
+  equals the quantized tables', the padding trees are left out, and the
+  records walked in numpy exactly as csrc/lut.cu walks them equal the
+  plain version bitwise on any model and the reference's interpret-mode
+  kernel on exact-grid ones.
 - The backend's tier ladder on CUDADevice(device="cpu").
 """
 
@@ -295,26 +302,291 @@ def test_quantize_memoized_and_seedable():
 
 def test_fits_guards_count_shared_memory():
     limit = predict_lut_cuda.SMEM_LIMIT_H100
-    # The Higgs shape fits both tiers with room for whole 64-tree chunks.
+    # The Higgs shape fits both tiers with room for every tree at once.
     assert predict_lut.predict_lut_fits(128, 64, 6, 28, 1)
     assert predict_lut.predict_lut4_fits(128, 64, 6, 28, 1, thr_packed=True)
-    for leaf_dtype, packed in (("float16", False), ("int8", False),
-                               ("int4", True), ("int4", False)):
-        assert predict_lut_cuda.stage_width(
-            64, 6, 28, leaf_dtype, packed, limit) == 64
+    for leaf_dtype in LEAF_DTYPES:
+        for R in (1, 256, 1_000_000):
+            assert predict_lut_cuda.plan_launch(
+                R, 100, 6, 28, leaf_dtype, 1, limit, 132).sub == 100
     # Rows of 1000 features (256 KB staged per block) do not fit.
     assert not predict_lut.predict_lut_fits(64, 64, 6, 1000, 1)
     assert not predict_lut.predict_lut4_fits(64, 64, 6, 1000, 1)
     with pytest.raises(ValueError, match="shared memory"):
-        predict_lut_cuda.stage_width(64, 6, 1000, "int4", True, limit)
+        predict_lut_cuda.plan_launch(1, 64, 6, 1000, "int4", 1, limit, 132)
     # Ragged chunks and more classes than the kernel holds are refused.
     assert not predict_lut.predict_lut_fits(100, 64, 6, 28, 1)
     assert not predict_lut.predict_lut4_fits(64, 64, 6, 28, 33)
     # A card with less shared memory refuses sooner.
-    need = predict_lut_cuda.smem_bytes(1, 6, 28, "float16")
+    need = (predict_lut_cuda.smem_bytes(1, 6, 28, "float16")
+            + predict_lut_cuda.STATIC_SMEM)
     assert not predict_lut.predict_lut_fits(64, 64, 6, 28, 1,
                                             smem_limit=need - 1)
     assert predict_lut.predict_lut_fits(64, 64, 6, 28, 1, smem_limit=need)
+
+
+# --------------------------------------------------------------------- #
+# The kernels' host half: the launch plan and the packed tree records
+# (ops/predict_lut_cuda), checked on the CPU. The records are walked here
+# in numpy exactly as csrc/lut.cu walks them.
+# --------------------------------------------------------------------- #
+
+H100 = dict(smem_limit=predict_lut_cuda.SMEM_LIMIT_H100, sm_count=132)
+
+
+@pytest.mark.parametrize("leaf_dtype", LEAF_DTYPES)
+def test_plan_higgs_shape_takes_both_mappings(leaf_dtype):
+    """100 depth-6 trees x 28 features on an H100: serving batches spread
+    over many blocks (pairs), from 67,584 rows (a block of 512 rows an
+    SM) two rows a thread, every tree staged in one pass, within the
+    card's 232,448 B."""
+    plan = predict_lut_cuda.plan_launch
+    for R in (1, 16, 64, 256, 257):
+        p = plan(R, 100, 6, 28, leaf_dtype, 1, **H100)
+        assert p.pairs and p.smem <= H100["smem_limit"]
+        assert p.blocks == -(-R // p.rows) and p.blocks >= min(R, 64) // 3
+    assert plan(67_583, 100, 6, 28, leaf_dtype, 1, **H100).pairs
+    p = plan(67_584, 100, 6, 28, leaf_dtype, 1, **H100)  # a block an SM
+    assert not p.pairs and p.rows == 512 and p.blocks == 132
+    # 600 features: 512 rows do not fit beside a tree, 256 do.
+    assert plan(1_000_000, 100, 6, 600, leaf_dtype, 1, **H100).rows == 256
+    p = plan(1_000_000, 100, 6, 28, leaf_dtype, 1, **H100)
+    assert not p.pairs and p.rows == 512 and p.blocks == 1954
+    assert p.smem == predict_lut_cuda.smem_bytes(100, 6, 28, leaf_dtype,
+                                                 512)
+    assert p.smem <= H100["smem_limit"]
+
+
+def test_plan_stages_a_large_ensemble_pass_by_pass():
+    """1000 depth-6 trees (~400 KB of fp16 records) do not fit one block.
+    Serving batches (pairs) take passes as large as fit, two here; the
+    rows mapping takes passes small enough for four blocks an SM."""
+    limit = H100["smem_limit"]
+    for R in (1, 256):
+        p = predict_lut_cuda.plan_launch(R, 1000, 6, 28, "float16", 1,
+                                         **H100)
+        assert p.pairs and 500 <= p.sub < 1000 and p.smem <= limit
+        # Each such block takes an SM: the batch fills at most the card.
+        assert p.blocks <= H100["sm_count"]
+    p = predict_lut_cuda.plan_launch(1_000_000, 1000, 6, 28, "float16", 1,
+                                     **H100)
+    assert not p.pairs and p.sub == 109 and 4 * p.smem <= limit
+    # Wide rows leave a quarter too little: passes of one tree chunk.
+    p = predict_lut_cuda.plan_launch(1_000_000, 1000, 6, 200, "float16", 1,
+                                     **H100)
+    assert p.sub == predict_lut_cuda.MIN_PASS_TREES
+
+
+@pytest.mark.parametrize("C", [1, 3, 7, 32])
+@pytest.mark.parametrize("F,T,depth", [(28, 100, 6), (7, 13, 3),
+                                       (300, 1000, 8), (1, 0, 1)])
+def test_plan_covers_every_row_within_the_card(C, F, T, depth):
+    """Any batch: every row in exactly one block, one summing thread a
+    (row, class), at least one tree a pass, within shared memory; the
+    rows mapping from a block of 512 rows an SM on."""
+    for leaf_dtype in LEAF_DTYPES:
+        rows_from = None
+        for R in (1, 2, 31, 255, 256, 257, 1000, 67_583, 67_584, 135_169,
+                  270_336, 1_000_000):
+            p = predict_lut_cuda.plan_launch(R, T, depth, F, leaf_dtype, C,
+                                             **H100)
+            assert p.blocks * p.rows >= R > (p.blocks - 1) * p.rows
+            assert p.sub >= 1 and p.smem <= H100["smem_limit"]
+            if p.pairs:
+                assert rows_from is None    # no switch back
+                assert p.rows * C <= predict_lut_cuda.THREADS
+                assert p.rows >= 1
+            else:
+                assert p.rows in (256, 512)
+                rows_from = R if rows_from is None else rows_from
+        assert rows_from == 67_584          # a block of 512 rows an SM
+
+
+def _higgs_like(trees=100, leaf_zero_tail=0):
+    """A port ensemble at the Higgs shape (28 features, depth 6, 255 bins),
+    `trees` trees with random leaves; the last `leaf_zero_tail` real trees
+    get all-zero leaves."""
+    ens = _port(_rand_ens(trees=trees, depth=6, features=28, bins=255))
+    ens.leaf_value[trees - leaf_zero_tail:] = 0.0
+    return ens
+
+
+def _records(tables, leaf_dtype):
+    if leaf_dtype == "int4":
+        p = tables.pack_int4()
+        ops, thr_packed = p.ops, p.thr_packed
+    else:
+        ops, thr_packed = predict_lut.lut_device_operands(tables), False
+    ops = tuple(torch.from_numpy(a) for a in ops)
+    rec = predict_lut_cuda.pack_records(
+        ops, leaf_dtype=leaf_dtype, thr_packed=thr_packed,
+        max_depth=tables.max_depth, tree_chunk=tables.tree_chunk,
+        use_missing=tables.eff_dl is not None,
+        use_cat=tables.eff_cat is not None)
+    return ops, rec
+
+
+def _unpack_records(records, max_depth, leaf_dtype) -> dict:
+    """csrc/lut.cu's record layout read back field by field: feature,
+    threshold, dl and cat per node, class, scale, and the leaves' integer
+    codes (fp16 bits, int8, or int4 nibbles as 0-15), each [n_trees, .]."""
+    n_int = (1 << max_depth) - 1
+    n_leaf = 1 << max_depth
+    rec = records.rec.numpy()
+    head = np.ascontiguousarray(rec[:, :4 * (n_int + 2)]).view(np.int32)
+    w = head[:, :n_int]
+    lb = np.ascontiguousarray(rec[:, 4 * (n_int + 2):])
+    if leaf_dtype == "float16":
+        codes = np.ascontiguousarray(lb[:, :2 * n_leaf]).view(np.int16)
+    elif leaf_dtype == "int8":
+        codes = lb[:, :n_leaf].view(np.int8)
+    else:
+        b = lb[:, :(n_leaf + 1) // 2].astype(np.int32)
+        codes = np.stack([b & 15, b >> 4], axis=2).reshape(
+            len(rec), -1)[:, :n_leaf]
+    return {"feature": w >> 16, "threshold": w & 0x1FF,
+            "dl": (w >> 9) & 1, "cat": (w >> 10) & 1, "cls": head[:, n_int],
+            "scale": np.ascontiguousarray(head[:, n_int + 1]).view(
+                np.float32), "leaf": codes}
+
+
+@pytest.mark.parametrize("leaf_dtype", LEAF_DTYPES)
+def test_trailing_zero_trees_are_the_padding(leaf_dtype):
+    """CompiledEnsemble pads 100 trees to 128 with zero leaves: exactly
+    those 28 are left out of the records; a real tree with zero leaves at
+    the end goes too (it adds +0.0), one in the middle stays."""
+    ce = _higgs_like().compile(tree_chunk=64)
+    assert ce.n_trees_padded == 128
+    _, rec = _records(ce.quantize(leaf_dtype), leaf_dtype)
+    assert rec.n_trees == 100
+    assert tuple(rec.rec.shape) == (
+        100, predict_lut_cuda.record_bytes(6, leaf_dtype))
+    _, rec = _records(_higgs_like(leaf_zero_tail=3).compile(
+        tree_chunk=64).quantize(leaf_dtype), leaf_dtype)
+    assert rec.n_trees == 97
+    ens = _higgs_like()
+    ens.leaf_value[50] = 0.0
+    _, rec = _records(ens.compile(tree_chunk=64).quantize(leaf_dtype),
+                      leaf_dtype)
+    assert rec.n_trees == 100
+
+
+@pytest.mark.parametrize("leaf_dtype", LEAF_DTYPES)
+@pytest.mark.parametrize("variant,bins", VARIANTS)
+def test_records_hold_the_tables_tree_major(variant, bins, leaf_dtype):
+    """Every field of the packed records, decoded back, is the quantized
+    tables' own: feature, threshold (recentred or nibble-decoded, 256 for
+    the nibble sentinel), default-left, categorical gated on feature >= 0,
+    class, scale and the leaves' codes."""
+    t = _port(_rand_ens(bins=bins, **variant)).compile(
+        tree_chunk=8).quantize(leaf_dtype)
+    _, rec = _records(t, leaf_dtype)
+    u = _unpack_records(rec, t.max_depth, leaf_dtype)
+    n, D = rec.n_trees, t.max_depth
+    n_int = (1 << D) - 1
+    feat = t.eff_feat[:n, :n_int]
+    np.testing.assert_array_equal(u["feature"], feat)
+    thr = t.thr_i8[:n, :n_int].astype(np.int32) + 128
+    if leaf_dtype == "int4" and t.pack_int4().thr_packed:
+        thr = np.where(thr >= 255, 256, thr)
+    np.testing.assert_array_equal(u["threshold"], thr)
+    dl = (np.zeros_like(feat) if t.eff_dl is None
+          else t.eff_dl[:n, :n_int].astype(np.int32))
+    np.testing.assert_array_equal(u["dl"], dl)
+    cat = (np.zeros_like(feat) if t.eff_cat is None
+           else (t.eff_cat[:n, :n_int] & (feat >= 0)).astype(np.int32))
+    np.testing.assert_array_equal(u["cat"], cat)
+    np.testing.assert_array_equal(u["cls"], t.cls_oh[:n].argmax(axis=1))
+    np.testing.assert_array_equal(
+        u["scale"], np.ones(n, np.float32) if t.leaf_scale is None
+        else t.leaf_scale[:n])
+    if leaf_dtype == "float16":
+        np.testing.assert_array_equal(u["leaf"], t.leaf_q[:n].view(np.int16))
+    else:
+        np.testing.assert_array_equal(
+            u["leaf"], t.leaf_q[:n] & (0xF if leaf_dtype == "int4" else -1))
+
+
+def _walk_records(rec, Xb, *, max_depth, leaf_dtype, tree_chunk, n_classes,
+                  learning_rate, base, missing_bin_value, use_missing):
+    """csrc/lut.cu's descent and sum over packed records, in numpy f32: a
+    word per level, node = 2 node + 1 + go, the leaf decoded at its width,
+    class sums tree by tree, acc += chunk sum, base + lr * acc."""
+    u = _unpack_records(rec, max_depth, leaf_dtype)
+    f32 = np.float32
+    n_int = (1 << max_depth) - 1
+    mbv = missing_bin_value if use_missing else -1
+    R = Xb.shape[0]
+    rows = np.arange(R)
+    acc = np.zeros((R, n_classes), f32)
+    cs = np.zeros((R, n_classes), f32)
+    for t in range(rec.n_trees):
+        if t and t % tree_chunk == 0:
+            acc, cs = (acc + cs).astype(f32), np.zeros_like(cs)
+        node = np.zeros(R, np.int64)
+        for _ in range(max_depth):
+            f, th = u["feature"][t, node], u["threshold"][t, node]
+            v = np.where(f >= 0, Xb[rows, np.maximum(f, 0)], 0).astype(
+                np.int64)
+            go = np.where(u["cat"][t, node] == 1, v != th, v > th)
+            go = np.where(v == mbv, u["dl"][t, node] == 0, go)
+            node = 2 * node + np.where(go, 2, 1)
+        code = u["leaf"][t, node - n_int]
+        if leaf_dtype == "float16":
+            val = code.astype(np.int16).view(np.float16).astype(f32)
+        else:
+            q = code.astype(np.int64)
+            if leaf_dtype == "int4":
+                q = np.where(q >= 8, q - 16, q)
+            val = q.astype(f32) * f32(u["scale"][t])
+        c = int(u["cls"][t])
+        cs[:, c] = cs[:, c] + val
+    return f32(base) + f32(learning_rate) * (acc + cs)
+
+
+@pytest.mark.parametrize("exact", [True, False], ids=["exact", "random"])
+@pytest.mark.parametrize("leaf_dtype", LEAF_DTYPES)
+@pytest.mark.parametrize("variant,bins", VARIANTS)
+def test_records_walked_as_the_kernel_equal_the_reference(variant, bins,
+                                                          leaf_dtype, exact):
+    """The records, walked as the kernel walks them (trailing zero trees
+    left out), equal the port's plain version bitwise on any model (the
+    same tree-order sums), and on exact-grid models the reference's
+    interpret-mode Pallas kernel too."""
+    missing = variant.get("missing", False)
+    ens = _rand_ens(bins=bins, exact_grid=exact,
+                    qmax=127 if leaf_dtype == "int8" else 7, **variant)
+    Xb = _rows(ens, bins=bins, missing=missing)
+    got_plain, want, t = _scores(ens, leaf_dtype, Xb)
+    ops, rec = _records(t, leaf_dtype)
+    walked = _walk_records(
+        rec, Xb, max_depth=t.max_depth, leaf_dtype=leaf_dtype,
+        tree_chunk=t.tree_chunk, n_classes=t.n_classes_out,
+        learning_rate=t.learning_rate, base=t.base_score,
+        missing_bin_value=t.missing_bin_value,
+        use_missing=t.eff_dl is not None)
+    if t.n_classes_out == 1:
+        walked = walked[:, 0]
+    np.testing.assert_array_equal(walked, got_plain)
+    if exact:
+        np.testing.assert_array_equal(walked, want)
+
+
+def test_records_are_cached_per_operand_tuple():
+    """Packed once per model: the same tuple hits the cache; a tuple
+    written in place, or a new one, is packed again."""
+    t = _port(_rand_ens()).compile(tree_chunk=8).quantize()
+    ops = tuple(torch.from_numpy(a)
+                for a in predict_lut.lut_device_operands(t))
+    kw = dict(leaf_dtype="float16", thr_packed=False, max_depth=3,
+              tree_chunk=8, use_missing=False, use_cat=False)
+    first = predict_lut_cuda.records_for(ops, **kw)
+    assert predict_lut_cuda.records_for(ops, **kw) is first
+    ops[2].zero_()                      # every leaf now 0: nothing to walk
+    again = predict_lut_cuda.records_for(ops, **kw)
+    assert again is not first and again.n_trees == 0
+    fresh = tuple(a.clone() for a in ops)
+    assert predict_lut_cuda.records_for(fresh, **kw) is not again
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
