@@ -25,15 +25,22 @@ Phases:
              time and bound on the node indices of one main-path tree
              grown on the card (left children only from level 1 on), per
              level and summed per tree
-  4 traverse the traversal kernel against its plain version: bitwise on
-             an exact-grid ensemble (leaves multiples of 1/8) with missing
-             and categorical routing and 7 classes
+  4 traverse the traversal kernel (K3, csrc/lut.cu ddt_traverse_f32)
+             against its plain version: bitwise on an exact-grid ensemble
+             (leaves multiples of 1/8) with missing and categorical
+             routing and 7 classes, on the 1M rows and at 1, 16, 64, 256
+             and 257 rows and on both sides of the mapping crossover (a
+             block of 512 rows an SM), each also equal to the 1M-row
+             call's rows; and the host oracle on 50k rows; then the same
+             on a 1000-tree ensemble, whose records the kernel stages pass
+             by pass in both mappings
   5 main     api.train on 1M x 28 at 255 bins, depth 6, on the card, then
              api.predict on the 1M rows; both launch counters must move
              (they are zeroed just before, read just after); train AUC
              >= 0.80; scores equal the host oracle's on 50k rows
   6 trained  the traversal kernel against its plain version on the trained
-             ensemble, |diff| <= 1e-5 * (|p| + 1), and its times
+             ensemble, bitwise, at 1M rows and at every size of phase 4,
+             and its times
   7 parity   the same 200k-row, 10-tree, depth-6 model trained on the card
              and on the CPU (plain versions): trees identical except at
              bf16-boundary ties, AUC within 0.005
@@ -134,6 +141,8 @@ HIST_SHAPES = ((255, (1, 2, 4, 8, 16, 32)), (128, (16, 32)), (64, (16, 32)))
 TREE_SEQ = (1, 1, 2, 4, 8, 16)
 SERVE_SIZES = (1, 16, 64, 256)     # rows per call, phase serve_kernels
 LUT_EXACT_SIZES = (1, 16, 64, 256, 257)   # rows per call, phase lut_exact
+PASS_TREES = 1000                  # phase traverse_exact's staged model
+PASS_ROWS = 200_000
 SLEEP_CYCLES = 2_000_000           # ~1 ms spin before each timed call
 TIER_IMPL = {None: "auto", "int8": "lut", "int4": "lut4"}
 TIER_RESOLVED = {None: "f32", "int8": "lut", "int4": "lut4"}
@@ -503,22 +512,67 @@ def device_operands(ce, dev):
     return tables, kernel, plain
 
 
+def k3_plan(tables, R: int, F: int):
+    """The launch plan traverse_cuda takes for R rows of F features."""
+    dev = tables.rec.device
+    return predict_lut_cuda.plan_launch(
+        R, tables.n_trees, tables.max_depth, F, "float32", tables.n_classes,
+        _build.smem_limit(dev), predict_lut_cuda.sm_count(dev))
+
+
+def traverse_sizes(tables, F: int) -> list:
+    """Rows a call at which phases traverse_exact and traverse_trained
+    hold K3 bitwise: serving sizes, then both sides of the crossover where
+    the launch plan leaves the pairs mapping for the rows mapping (a block
+    of rows-mapping rows an SM: 67,584 rows on an H100)."""
+    sms = predict_lut_cuda.sm_count(tables.rec.device)
+    cross = sms * k3_plan(tables, ROWS, F).rows
+    check(k3_plan(tables, cross - 1, F).pairs
+          and not k3_plan(tables, cross, F).pairs,
+          f"mapping crossover at {cross} rows")
+    return list(LUT_EXACT_SIZES) + [cross - 1, cross]
+
+
+def check_traverse(kernel, plain, tables, Xd: torch.Tensor,
+                   what: str) -> tuple[np.ndarray, list]:
+    """K3 against its plain version on all of Xd and on its first rows at
+    every traverse_sizes() count, bitwise; each smaller call's rows also
+    equal the full call's. Returns (the full call's scores, the sizes)."""
+    got = kernel(Xd).cpu().numpy()
+    check(np.array_equal(got, plain(Xd).cpu().numpy()),
+          f"{what}: kernel == plain, bitwise, {Xd.shape[0]} rows")
+    sizes = traverse_sizes(tables, Xd.shape[1])
+    for n in sizes:
+        Xn = Xd[:n].contiguous()
+        small = kernel(Xn).cpu().numpy()
+        check(np.array_equal(small, plain(Xn).cpu().numpy())
+              and np.array_equal(small, got[:n]),
+              f"{what}: {n} rows, kernel == plain == the full call")
+    return got, sizes
+
+
 def phase_traverse_exact(Xb: np.ndarray) -> None:
     dev = torch.device("cuda")
-    ens = exact_grid_ensemble(70, DEPTH, FEATURES, 255, 7, (3, 10))
-    ce = ens.compile(tree_chunk=64)
-    _, kernel, plain = device_operands(ce, dev)
-    Xd = torch.from_numpy(Xb).to(dev)
-    got = kernel(Xd).cpu().numpy()
-    want = plain(Xd).cpu().numpy()
-    check(np.array_equal(got, want), "traverse exact-grid kernel == plain")
-    sub = 50_000
-    oracle = ens.predict_raw(Xb[:sub], binned=True)
-    check(np.array_equal(got[:sub], oracle),
-          "traverse exact-grid kernel == host oracle")
-    emit({"phase": "traverse_exact", "rows": len(Xb), "trees": 70,
-          "depth": DEPTH, "classes": 7, "missing": True, "cat": [3, 10],
-          "bitwise_equal": True, "oracle_rows": sub})
+    for trees, rows in ((70, len(Xb)), (PASS_TREES, PASS_ROWS)):
+        ens = exact_grid_ensemble(trees, DEPTH, FEATURES, 255, 7, (3, 10))
+        ce = ens.compile(tree_chunk=64)
+        tables, kernel, plain = device_operands(ce, dev)
+        Xd = torch.from_numpy(Xb[:rows]).to(dev)
+        got, sizes = check_traverse(kernel, plain, tables, Xd,
+                                    f"traverse exact-grid {trees} trees")
+        passes = [k3_plan(tables, n, FEATURES).sub < tables.n_trees
+                  for n in (1, rows)]
+        check(all(passes) == (trees == PASS_TREES),
+              f"{trees} trees staged pass by pass: {passes}")
+        sub = min(50_000, rows)
+        oracle = ens.predict_raw(Xb[:sub], binned=True)
+        check(np.array_equal(got[:sub], oracle),
+              f"traverse exact-grid {trees} trees: kernel == host oracle")
+        emit({"phase": "traverse_exact", "rows": rows, "trees": trees,
+              "trees_packed": tables.n_trees, "depth": DEPTH, "classes": 7,
+              "missing": True, "cat": [3, 10], "bitwise_equal": True,
+              "bitwise_equal_at_rows": sizes, "staged_pass_by_pass": trees
+              == PASS_TREES, "oracle_rows": sub})
 
 
 def phase_main(X: np.ndarray, y: np.ndarray) -> dict:
@@ -566,13 +620,9 @@ def phase_traverse_trained(res, X: np.ndarray, card: dict,
     ce = res.ensemble.compile(tree_chunk=64)
     tables, kernel, plain = device_operands(ce, dev)
     Xd = torch.from_numpy(res.mapper.transform(X)).to(dev)
-    got = kernel(Xd).cpu().numpy()
-    want = plain(Xd).cpu().numpy()
-    err = np.abs(got - want)
-    check(np.all(err <= 1e-5 * (np.abs(want) + 1)),
-          f"traverse trained: max err {float(err.max())}")
+    _, sizes = check_traverse(kernel, plain, tables, Xd, "traverse trained")
     R, F = Xd.shape
-    table_bytes = sum(t.numel() * t.element_size() for t in tables[:4])
+    table_bytes = tables.rec.numel()
     nbytes = R * F + R * ce.n_classes_out * 4 + table_bytes
     compares = traverse_compares(ce, Xd)
     adds = R * res.ensemble.n_trees
@@ -584,10 +634,11 @@ def phase_traverse_trained(res, X: np.ndarray, card: dict,
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "bytes": nbytes, "int32_compares": compares, "f32_adds": adds,
-        "max_abs_err": float(err.max()),
+        "max_abs_err": 0.0,
     }
     emit({"phase": "traverse_trained", "rows": R, "trees": N_TREES,
-          "trees_padded": ce.n_trees_padded, "depth": DEPTH, **row})
+          "trees_padded": ce.n_trees_padded, "trees_packed": tables.n_trees,
+          "depth": DEPTH, "bitwise_equal_at_rows": sizes, **row})
     return row
 
 
@@ -754,8 +805,7 @@ def phase_lut_trained(res, X: np.ndarray, card: dict,
               "leaf_dtype": leaf_dtype, "rows": Xd.shape[0],
               "trees": N_TREES, "depth": DEPTH, **rows[name]})
     emit({"phase": "lut_trained", "table_bytes": {
-        "f32 (traverse)": sum(t.numel() * t.element_size()
-                              for t in k3_tables[:4]),
+        "f32 (traverse)": k3_tables.rec.numel(),
         "int8 tier (lut)": rows["lut"]["table_bytes"],
         "int4 tier (lut4)": rows["lut4"]["table_bytes"]}})
     return rows
@@ -1341,7 +1391,7 @@ def main() -> int:
          "bound_ms": hist["bound_ms"], "bound_by": hist["bound_by"],
          "library_ms": hist["library_ms"]},
         {"name": "traverse", "route": "cuda",
-         "source": "ddt_tpu_torch/csrc/traverse.cu",
+         "source": "ddt_tpu_torch/csrc/lut.cu",
          "replaces": "ddt_tpu/ops/predict_pallas.py:105",
          "launches": launches["traverse"],
          "max_abs_err": trav["max_abs_err"], "ms": trav["kernel_ms"],

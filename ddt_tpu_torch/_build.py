@@ -12,7 +12,7 @@ and the flags, so an edited source is rebuilt and a stale library is never
 loaded. Builds write to a temporary name and are renamed into place.
 
 Binding rules, kept by the wrapper modules (ops/hist_cuda.py,
-ops/predict_cuda.py): every pointer and the stream are `c_void_p`; each C
+ops/predict_lut_cuda.py): every pointer and the stream are `c_void_p`; each C
 entry returns `cudaGetLastError()` and the wrapper raises on a non-zero
 value; outputs and scratch are allocated by the wrapper with torch.
 """

@@ -1,41 +1,54 @@
-// Quantized (TreeLUT) traversal kernels: raw margins of a pushed-down
-// ensemble from int8 / int4 tables and raw uint8 binned rows.
+// Traversal kernels of a pushed-down ensemble over raw uint8 binned rows:
+// f32 margins [R, C] = base + lr * the sum of the selected leaf values, from
+// f32 tables (K3) and from the quantized (TreeLUT) int8 / int4 tables (K4,
+// K5). One template walks all three; the leaf kind is a template argument.
 //
-// ddt_lut_int8 replaces ddt_tpu/ops/predict_lut.py::_lut_kernel (K4, the
-// int8 tier: int8 thresholds, fp16 leaves or int8 leaves with a per-tree
-// f32 scale). ddt_lut_int4 replaces ::_lut4_kernel (K5, the int4 tier:
-// leaves two nibbles per byte with a per-tree scale; thresholds nibble-
-// packed when every real one is <= 14, else the int8 form). The TPU
-// kernels contract a feature one-hot on the MXU, compare in bf16 and
-// k-select with predicated lane slices. On Hopper a thread reads a byte
-// by address, so these walk the trees directly, D dependent steps
-// node = 2 node + 1 + go per tree.
+// ddt_traverse_f32 replaces ddt_tpu/ops/predict_pallas.py::_traverse_kernel
+// (K3, the f32 tier: int32 thresholds, f32 leaves). ddt_lut_int8 replaces
+// ddt_tpu/ops/predict_lut.py::_lut_kernel (K4, the int8 tier: int8
+// thresholds, fp16 leaves or int8 leaves with a per-tree f32 scale).
+// ddt_lut_int4 replaces ::_lut4_kernel (K5, the int4 tier: leaves two
+// nibbles per byte with a per-tree scale; thresholds nibble-packed when
+// every real one is <= 14, else the int8 form). The TPU kernels contract a
+// feature one-hot on the MXU, compare in bf16 and k-select with predicated
+// lane slices. On Hopper a thread reads a byte by address, so these walk
+// the trees directly, D dependent steps node = 2 node + 1 + go per tree.
 //
-// Tables. The reference's node-major operands (ops/predict_lut.
-// lut_device_operands, PackedTables.ops) are repacked once per model by
-// ops/predict_lut_cuda.pack_records into one tree-major record a tree,
-// 16-byte aligned (rec_words 32-bit words):
-//   words [0, n_int)  one word per internal node: bits 0-8 the decoded
-//                     threshold t (int8 recentred, t = thr + 128 in
-//                     [0, 255]; a nibble, 15 decoded to 256), bit 9
+// Tables. The reference's operands (K3: the CompiledEnsemble arrays,
+// ops/predict_cuda.pack_tables; K4/K5: the node-major operands of
+// ops/predict_lut.lut_device_operands and PackedTables.ops,
+// ops/predict_lut_cuda.pack_records) are repacked once per model into one
+// tree-major record a tree, 16-byte aligned (rec_words 32-bit words):
+//   words [0, n_int)  one word per internal node: bits 0-8 the threshold
+//                     t stored as t + 1, with t clamped to [-1, 256] (K3's
+//                     int32 thresholds; K4's int8 recentred, thr + 128 in
+//                     [0, 255]; K5's nibble, 15 decoded to 256), bit 9
 //                     default_left, bit 10 categorical (gated on feature
 //                     >= 0), bits 16-31 the feature as int16 (-1 on a
 //                     pushed-down node);
-//   word n_int        the tree's class; word n_int + 1 its f32 scale;
-//   then the leaves   fp16 bits, int8, or int4 (leaf k in nibble k & 1 of
-//                     byte k >> 1, two's complement), zero padded.
+//   word n_int        the tree's class; word n_int + 1 its f32 scale (1.0
+//                     where the leaves need none);
+//   then the leaves   f32 bits, fp16 bits, int8, or int4 (leaf k in nibble
+//                     k & 1 of byte k >> 1, two's complement), zero padded.
+// A bin is in [0, 255], so every threshold above 256 routes as 256 (> is
+// never true, != always) and every one below -1 as -1 (> always true, !=
+// always): the clamp changes no route.
 // Trailing trees whose leaves are all zero are not packed: each would add
 // +0.0 to a class sum that starts at +0.0 and is never -0.0 under
 // round-to-nearest, so leaving them out changes no bit. A level of the
 // descent is one shared load of the node word plus one of the row's byte;
 // a warp's lanes on one tree read words of one level, which lie in
-// distinct banks (the old node-major staging put every node of a tree in
-// one bank).
+// distinct banks (a node-major staging puts every node of a tree in one
+// bank).
 //
-// Routing, exactly as K3 and the plain versions: a pushed-down node reads
-// bin 0 without touching the row; go = bin > t; a categorical node goes
-// right iff bin != t; a row in the reserved missing bin (mbv, -1 when the
-// model has none) goes right iff the node's default_left is 0.
+// Routing, exactly as the plain versions: a pushed-down node reads bin 0
+// without touching the row; go = bin > t; a categorical node goes right
+// iff bin != t; a row in the reserved missing bin (mbv, -1 when the model
+// has none) goes right iff the node's default_left is 0. A model with
+// neither a missing bin nor a categorical node (route = 0, the repo's
+// main-path models) runs a step compiled without those two tests: half
+// the time of the full step at 1M rows on an H100, the level's chain of
+// dependent instructions being what the descent waits on.
 //
 // Two mappings of the work (the wrapper's plan picks one from the row and
 // tree counts and the card's SM and shared-memory sizes):
@@ -47,13 +60,13 @@
 //          pairs; each leaf value lands in shared memory, then one thread
 //          a (row, class) adds them in tree order. A batch of 1-256 rows
 //          is then spread over many blocks and its descents run in
-//          parallel, where one block used to walk every tree in series.
+//          parallel, where one block would walk every tree in series.
 // Both keep the plain versions' order: per chunk of tree_chunk trees a
 // class sum in tree order, acc += chunk sum, then base + lr * acc, each
 // product and sum written with __fmul_rn / __fadd_rn so that nvcc cannot
 // contract it into an FMA. A row's score does not depend on its batch or
-// on the mapping, and exact-grid models match the plain versions bit for
-// bit.
+// on the mapping: K3 equals its plain version bit for bit on any model,
+// K4/K5 theirs, and exact-grid models match the host oracle too.
 //
 // Bound on this card: operations. At 1M rows x 28 features the rows are
 // 28 MB in and 4 MB out (~9.6 us at 3.35 TB/s) and the tables a few tens
@@ -64,7 +77,7 @@
 // remains is the descent's chain of D dependent shared loads per tree and
 // row, which resident warps and the rows mapping's second row hide. A
 // pass holds every tree at the shapes served here (100 depth-6 trees are
-// 31-40 KB of records); larger ensembles stage pass by pass.
+// 31-53 KB of records); larger ensembles stage pass by pass.
 
 #include <cstdint>
 #include <cuda_fp16.h>
@@ -74,7 +87,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxDevices = 64;
-enum Leaf { kF16 = 0, kI8 = 1, kI4 = 2 };
+enum Leaf { kF16 = 0, kI8 = 1, kI4 = 2, kF32 = 3 };
 
 struct Args {
   const uint8_t* x;
@@ -82,6 +95,7 @@ struct Args {
   float* out;
   long long n_rows;
   int n_feat, n_trees, depth, tree_chunk, rec_words, n_classes, mbv;
+  int route;  // 1: the model has a missing bin or categorical nodes
   int pairs;  // 1: the pairs mapping; 0: the rows mapping
   int rows;   // rows a block (rows mapping: kThreads or 2 kThreads)
   int sub;   // trees staged a pass
@@ -145,11 +159,16 @@ __device__ __forceinline__ void stage_trees(uint32_t* s, const uint4* g,
 }
 
 // One level: node's word w against the row whose byte of feature f is
-// xr[f * stride]; returns the child, 2 node + 1 + go.
+// xr[f * stride]; returns the child, 2 node + 1 + go. ROUTE = false
+// compiles the model without a missing bin or categorical node: every
+// node is then bin > t, and a pushed-down node (threshold 256) goes left
+// whatever byte it reads, so it reads feature 0's.
+template <bool ROUTE>
 __device__ __forceinline__ int step(uint32_t w, int node, const uint8_t* xr,
                                     int stride, int mbv) {
   const int f = (int)w >> 16;
-  const int t = (int)(w & 0x1FFu);
+  const int t = (int)(w & 0x1FFu) - 1;
+  if (!ROUTE) return 2 * node + ((int)xr[max(f, 0) * stride] > t ? 2 : 1);
   const int v = f >= 0 ? (int)xr[f * stride] : 0;
   bool go = v > t;
   if (w & 0x400u) go = v != t;
@@ -158,18 +177,21 @@ __device__ __forceinline__ int step(uint32_t w, int node, const uint8_t* xr,
 }
 
 // Bottom-level index k of the row whose byte of feature f is xr[f * stride].
+template <bool ROUTE>
 __device__ __forceinline__ int descend(const uint32_t* tr,
                                        const uint8_t* xr, int stride,
                                        int depth, int mbv) {
   int node = 0;
 #pragma unroll
-  for (int d = 0; d < depth; ++d) node = step(tr[node], node, xr, stride, mbv);
+  for (int d = 0; d < depth; ++d)
+    node = step<ROUTE>(tr[node], node, xr, stride, mbv);
   return node - ((1 << depth) - 1);
 }
 
 template <int LEAF>
 __device__ __forceinline__ float leaf_value(const uint32_t* tr, int n_int,
                                             int k) {
+  if (LEAF == kF32) return __uint_as_float(tr[n_int + 2 + k]);
   const uint8_t* lb = reinterpret_cast<const uint8_t*>(tr + n_int + 2);
   if (LEAF == kF16)
     return __half2float(
@@ -183,7 +205,7 @@ __device__ __forceinline__ float leaf_value(const uint32_t* tr, int n_int,
 // H rows a thread, walked side by side (independent chains of dependent
 // loads, which the scheduler interleaves); H * kThreads rows a block. D > 0
 // fixes the depth at compile time (the level loop unrolls), 0 reads it.
-template <int CM, int LEAF, int H, int D>
+template <int CM, int LEAF, int H, int D, bool ROUTE>
 __global__ void __launch_bounds__(kThreads) lut_rows(const Args a) {
   constexpr int kRowBlock = H * kThreads;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -235,8 +257,8 @@ __global__ void __launch_bounds__(kThreads) lut_rows(const Args a) {
       for (int d = 0; d < depth; ++d)
 #pragma unroll
         for (int h = 0; h < H; ++h)
-          node[h] = step(tr[node[h]], node[h], s_x + tid + h * kThreads,
-                         kRowBlock, a.mbv);
+          node[h] = step<ROUTE>(tr[node[h]], node[h],
+                                s_x + tid + h * kThreads, kRowBlock, a.mbv);
       const int c = CM == 1 ? 0 : (int)tr[n_int];
 #pragma unroll
       for (int h = 0; h < H; ++h)
@@ -257,7 +279,7 @@ __global__ void __launch_bounds__(kThreads) lut_rows(const Args a) {
 
 // `a.rows` rows a block; threads over (row, tree) pairs, then one thread
 // a (row, class) sums the leaf values in tree order (rows * C <= 256).
-template <int LEAF, int D>
+template <int LEAF, int D, bool ROUTE>
 __global__ void __launch_bounds__(kThreads) lut_pairs(const Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ __align__(8) uint64_t bar;
@@ -291,7 +313,7 @@ __global__ void __launch_bounds__(kThreads) lut_pairs(const Args a) {
       const int r = q - tl * nb;
       if (r >= rows) continue;
       const uint32_t* tr = s_rec + tl * rw;
-      const int k = descend(tr, s_x + r, nb, depth, a.mbv);
+      const int k = descend<ROUTE>(tr, s_x + r, nb, depth, a.mbv);
       s_val[q] = leaf_value<LEAF>(tr, n_int, k);
     }
     __syncthreads();
@@ -327,67 +349,66 @@ cudaError_t opt_in(K kernel, int bytes, int* done) {
   return e;
 }
 
-template <int CM, int LEAF, int H, int D>
+template <int CM, int LEAF, int H, int D, bool R>
 int launch_rows(const Args& a, int smem_bytes, cudaStream_t stream) {
   static int done[kMaxDevices] = {0};
-  cudaError_t e = opt_in(lut_rows<CM, LEAF, H, D>, smem_bytes, done);
+  cudaError_t e = opt_in(lut_rows<CM, LEAF, H, D, R>, smem_bytes, done);
   if (e != cudaSuccess) return (int)e;
   const long long blocks = (a.n_rows + H * kThreads - 1) / (H * kThreads);
-  lut_rows<CM, LEAF, H, D>
+  lut_rows<CM, LEAF, H, D, R>
       <<<(unsigned)blocks, kThreads, smem_bytes, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-// The depths of the repo's configurations (6: Higgs, 8: Covertype) are
-// compiled with the level loop unrolled; any other depth reads it.
-template <int CM, int LEAF, int H>
-int launch_rows(const Args& a, int smem_bytes, cudaStream_t stream) {
-  if (a.depth == 6) return launch_rows<CM, LEAF, H, 6>(a, smem_bytes, stream);
-  if (a.depth == 8) return launch_rows<CM, LEAF, H, 8>(a, smem_bytes, stream);
-  return launch_rows<CM, LEAF, H, 0>(a, smem_bytes, stream);
-}
-
-template <int CM, int LEAF>
-int launch_rows(const Args& a, int smem_bytes, cudaStream_t stream) {
-  if (a.rows == 2 * kThreads)
-    return launch_rows<CM, LEAF, 2>(a, smem_bytes, stream);
-  if (a.rows == kThreads)
-    return launch_rows<CM, LEAF, 1>(a, smem_bytes, stream);
-  return (int)cudaErrorInvalidValue;
-}
-
-template <int LEAF, int D>
+template <int LEAF, int D, bool R>
 int launch_pairs(const Args& a, int smem_bytes, cudaStream_t stream) {
   static int done[kMaxDevices] = {0};
-  cudaError_t e = opt_in(lut_pairs<LEAF, D>, smem_bytes, done);
+  cudaError_t e = opt_in(lut_pairs<LEAF, D, R>, smem_bytes, done);
   if (e != cudaSuccess) return (int)e;
   const long long blocks = (a.n_rows + a.rows - 1) / a.rows;
-  lut_pairs<LEAF, D><<<(unsigned)blocks, kThreads, smem_bytes, stream>>>(a);
+  lut_pairs<LEAF, D, R><<<(unsigned)blocks, kThreads, smem_bytes, stream>>>(
+      a);
   return (int)cudaGetLastError();
 }
 
-template <int LEAF>
-int launch_pairs(const Args& a, int smem_bytes, cudaStream_t stream) {
-  if (a.depth == 6) return launch_pairs<LEAF, 6>(a, smem_bytes, stream);
-  if (a.depth == 8) return launch_pairs<LEAF, 8>(a, smem_bytes, stream);
-  return launch_pairs<LEAF, 0>(a, smem_bytes, stream);
+template <int LEAF, int D, bool R>
+int launch(const Args& a, int smem_bytes, cudaStream_t stream) {
+  if (a.pairs) return launch_pairs<LEAF, D, R>(a, smem_bytes, stream);
+  if (a.n_classes == 1) {
+    if (a.rows == 2 * kThreads)
+      return launch_rows<1, LEAF, 2, D, R>(a, smem_bytes, stream);
+    return launch_rows<1, LEAF, 1, D, R>(a, smem_bytes, stream);
+  }
+  if (a.rows == 2 * kThreads)
+    return launch_rows<32, LEAF, 2, D, R>(a, smem_bytes, stream);
+  return launch_rows<32, LEAF, 1, D, R>(a, smem_bytes, stream);
+}
+
+// The depths of the repo's configurations (6: Higgs, 8: Covertype) are
+// compiled with the level loop unrolled; any other depth reads it. Models
+// with neither a missing bin nor a categorical node take the plain step.
+template <int LEAF, bool R>
+int launch_depth(const Args& a, int smem_bytes, cudaStream_t stream) {
+  if (a.depth == 6) return launch<LEAF, 6, R>(a, smem_bytes, stream);
+  if (a.depth == 8) return launch<LEAF, 8, R>(a, smem_bytes, stream);
+  return launch<LEAF, 0, R>(a, smem_bytes, stream);
 }
 
 template <int LEAF>
 int dispatch(const Args& a, int smem_bytes, cudaStream_t stream) {
   if (a.n_classes < 1 || a.n_classes > 32 || a.rec_words % 4 ||
       a.sub < 1 || a.rows < 1 ||
-      (a.pairs && a.rows * a.n_classes > kThreads))
+      (a.pairs && a.rows * a.n_classes > kThreads) ||
+      (!a.pairs && a.rows != kThreads && a.rows != 2 * kThreads))
     return (int)cudaErrorInvalidValue;
-  if (a.pairs) return launch_pairs<LEAF>(a, smem_bytes, stream);
-  if (a.n_classes == 1) return launch_rows<1, LEAF>(a, smem_bytes, stream);
-  return launch_rows<32, LEAF>(a, smem_bytes, stream);
+  if (a.route) return launch_depth<LEAF, true>(a, smem_bytes, stream);
+  return launch_depth<LEAF, false>(a, smem_bytes, stream);
 }
 
 Args make_args(const void* x, const void* rec, void* out, long long n_rows,
                int n_feat, int n_trees, int depth, int tree_chunk,
-               int rec_words, int n_classes, int mbv, int pairs, int rows,
-               int sub, float lr, float base) {
+               int rec_words, int n_classes, int mbv, int route, int pairs,
+               int rows, int sub, float lr, float base) {
   Args a;
   a.x = (const uint8_t*)x;
   a.rec = (const uint4*)rec;
@@ -400,6 +421,7 @@ Args make_args(const void* x, const void* rec, void* out, long long n_rows,
   a.rec_words = rec_words;
   a.n_classes = n_classes;
   a.mbv = mbv;
+  a.route = route;
   a.pairs = pairs;
   a.rows = rows;
   a.sub = sub;
@@ -414,21 +436,35 @@ __global__ void empty_kernel() {}
 
 extern "C" {
 
+// K3: f32 leaves (raw bits). rec: n_trees records of rec_words words
+// (ops/predict_cuda.pack_tables); the other arguments as ddt_lut_int8's.
+int ddt_traverse_f32(const void* x, const void* rec, void* out,
+                     long long n_rows, int n_feat, int n_trees, int depth,
+                     int tree_chunk, int rec_words, int n_classes, int mbv,
+                     int route, int pairs, int rows, int sub, float lr,
+                     float base, int smem_bytes, void* stream) {
+  const Args a = make_args(x, rec, out, n_rows, n_feat, n_trees, depth,
+                           tree_chunk, rec_words, n_classes, mbv, route,
+                           pairs, rows, sub, lr, base);
+  return dispatch<kF32>(a, smem_bytes, (cudaStream_t)stream);
+}
+
 // K4. leaf_f16 = 1: fp16 leaves; 0: int8 leaves with a per-tree scale.
 // rec: n_trees records of rec_words words (ops/predict_lut_cuda.
 // pack_records); pairs = 1 takes the pairs mapping, 0 the rows mapping,
 // with `rows` rows a block (the rows mapping takes 256 or 512: one or two
-// rows a thread); sub trees are staged a pass; mbv is the
-// missing bin or -1. Launches on `stream`; returns cudaGetLastError() (0 =
-// launched). n_classes must be in [1, 32].
+// rows a thread); sub trees are staged a pass; mbv is the missing bin or
+// -1; route = 0 declares that mbv is -1 and no node is categorical.
+// Launches on `stream`; returns cudaGetLastError() (0 = launched).
+// n_classes must be in [1, 32].
 int ddt_lut_int8(const void* x, const void* rec, void* out, long long n_rows,
                  int n_feat, int n_trees, int depth, int tree_chunk,
-                 int rec_words, int n_classes, int mbv, int pairs, int rows,
-                 int sub, int leaf_f16, float lr, float base, int smem_bytes,
-                 void* stream) {
+                 int rec_words, int n_classes, int mbv, int route, int pairs,
+                 int rows, int sub, int leaf_f16, float lr, float base,
+                 int smem_bytes, void* stream) {
   const Args a = make_args(x, rec, out, n_rows, n_feat, n_trees, depth,
-                           tree_chunk, rec_words, n_classes, mbv, pairs,
-                           rows, sub, lr, base);
+                           tree_chunk, rec_words, n_classes, mbv, route,
+                           pairs, rows, sub, lr, base);
   cudaStream_t s = (cudaStream_t)stream;
   return leaf_f16 ? dispatch<kF16>(a, smem_bytes, s)
                   : dispatch<kI8>(a, smem_bytes, s);
@@ -438,17 +474,17 @@ int ddt_lut_int8(const void* x, const void* rec, void* out, long long n_rows,
 // (nibble or int8) into the records.
 int ddt_lut_int4(const void* x, const void* rec, void* out, long long n_rows,
                  int n_feat, int n_trees, int depth, int tree_chunk,
-                 int rec_words, int n_classes, int mbv, int pairs, int rows,
-                 int sub, float lr, float base, int smem_bytes,
+                 int rec_words, int n_classes, int mbv, int route, int pairs,
+                 int rows, int sub, float lr, float base, int smem_bytes,
                  void* stream) {
   const Args a = make_args(x, rec, out, n_rows, n_feat, n_trees, depth,
-                           tree_chunk, rec_words, n_classes, mbv, pairs,
-                           rows, sub, lr, base);
+                           tree_chunk, rec_words, n_classes, mbv, route,
+                           pairs, rows, sub, lr, base);
   return dispatch<kI4>(a, smem_bytes, (cudaStream_t)stream);
 }
 
 // An empty kernel on `stream`: the latency floor of one launch, timed by
-// chip_smoke.py beside the LUT kernels at serving sizes.
+// chip_smoke.py beside the traversal kernels at serving sizes.
 int ddt_lut_empty(void* stream) {
   empty_kernel<<<1, 32, 0, (cudaStream_t)stream>>>();
   return (int)cudaGetLastError();

@@ -1,6 +1,7 @@
 """Kernel times on the card, for this checkout and others.
 
-    python -m ddt_tpu_torch.kernel_bench [--kernels hist,lut] [--other DIR ...]
+    python -m ddt_tpu_torch.kernel_bench [--kernels hist,lut,traverse]
+                                         [--other DIR ...]
 
 Every time is taken with chip_smoke.py's timer (one launch a call, CUDA
 events around each call, a spin kernel before each so that the host's
@@ -31,6 +32,18 @@ version first (both sum tree by tree in one order); K4 fp16 also at
 LUT_SWEEP rows (L2 flushed), where the mappings cross. Where the checkout
 has it, csrc/lut.cu's empty kernel is timed the same way: the latency
 floor of one launch.
+
+traverse: the f32 traversal kernel (K3) through chip_smoke.device_operands
+(ops/predict_cuda.pack_tables, then traverse_cuda) on the 100-tree and
+1000-tree 255-bin models above: at 1, 16, 64 and 256 rows with L2 warm
+(LUT_REPS_WARM), at 1M rows with L2 flushed (LUT_REPS), and, on the
+100-tree model, at LUT_SWEEP rows and on both sides of the rows mapping's
+first batch (a block of 512 rows an SM), L2 flushed; one call of 1 row
+with the host's time in the wrapper included (no spin before the start
+event: what a serving loop waits for); and the empty kernel timed the
+same ways. Each result is checked against the plain version first:
+within chip_smoke's old 1e-5 * (|p| + 1), and whether it is bitwise is
+reported (chip_smoke holds this checkout to bitwise).
 
 Every package runs in a worker process of its own, so that several
 checkouts (this one and, for example, a `git archive` of its parent,
@@ -65,13 +78,15 @@ MODES = ("f32", "int8", "int16")
 LUT_MODELS = {"255": (255, 100), "15": (15, 100), "255x1000": (255, 1000)}
 #: Rows a call between serving sizes and 1M (K4 fp16, L2 flushed): where
 #: the kernel's two mappings cross.
-LUT_SWEEP = (1_024, 4_096, 16_384, 32_768, 65_536, 131_072, 262_144,
-             524_288)
+LUT_SWEEP = (1_024, 4_096, 16_384, 32_768, 49_152, 65_536, 131_072,
+             262_144, 524_288)
 #: (name, model, leaf dtype) of each LUT case.
 LUT_CASES = (("K4 fp16", "255", "float16"), ("K4 int8", "255", "int8"),
              ("K5 255 bins", "255", "int4"), ("K5 15 bins", "15", "int4"),
              ("K4 fp16 1000 trees", "255x1000", "float16"),
              ("K5 1000 trees", "255x1000", "int4"))
+#: (name, model) of each K3 case; the first also takes the sweep.
+TRAVERSE_CASES = (("K3 100 trees", "255"), ("K3 1000 trees", "255x1000"))
 HERE = Path(__file__).resolve().parent.parent
 
 
@@ -150,13 +165,23 @@ def _hist_times(cs) -> dict:
     return out
 
 
-def _train_models(cs, models: Path) -> None:
-    """The LUT cases' models, trained on the card, with the binned rows
-    they score, into `models`."""
+def _needed_models(kernels: list) -> list:
+    names = set()
+    if "lut" in kernels:
+        names |= {m for _, m, _ in LUT_CASES}
+    if "traverse" in kernels:
+        names |= {m for _, m in TRAVERSE_CASES}
+    return [n for n in LUT_MODELS if n in names]
+
+
+def _train_models(cs, models: Path, names: list) -> None:
+    """The LUT and traversal cases' models, trained on the card, with the
+    binned rows they score, into `models`."""
     import numpy as np
 
     X, y = cs.synthetic_binary(cs.ROWS, n_features=cs.FEATURES, seed=0)
-    for name, (B, T) in LUT_MODELS.items():
+    for name in names:
+        B, T = LUT_MODELS[name]
         res = cs.api.train(X, y, cs.TrainConfig(
             n_trees=T, max_depth=cs.DEPTH, n_bins=B))
         res.ensemble.save(str(models / f"ens{name}.npz"))
@@ -200,6 +225,58 @@ def _lut_times(cs, models: Path) -> dict:
     return out
 
 
+def _close(cs, got, want, what: str) -> bool:
+    """got within 1e-5 * (|want| + 1) of want (raises otherwise); returns
+    whether the two are bitwise equal."""
+    err = (got - want).abs()
+    cs.check(bool((err <= 1e-5 * (want.abs() + 1)).all()),
+             f"{what}: kernel vs plain max err {float(err.max())}")
+    return bool(err.max() == 0) if err.numel() else True
+
+
+def _traverse_times(cs, models: Path) -> dict:
+    import numpy as np
+    import torch
+
+    from ddt_tpu_torch.models.tree import TreeEnsemble
+    from ddt_tpu_torch.ops import predict_lut_cuda
+
+    dev = torch.device("cuda")
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    cross = 512 * torch.cuda.get_device_properties(dev).multi_processor_count
+    sweep = sorted(set(LUT_SWEEP) | {cross - 1, cross})
+    out = {}
+    for name, model in TRAVERSE_CASES:
+        ce = TreeEnsemble.load(str(models / f"ens{model}.npz")).compile(
+            tree_chunk=64)
+        Xd = torch.from_numpy(np.load(models / f"xb{model}.npy")).to(dev)
+        _, kern, plain = cs.device_operands(ce, dev)
+        bitwise = {str(Xd.shape[0]): _close(cs, kern(Xd), plain(Xd), name)}
+        row = {}
+        for n in cs.SERVE_SIZES:
+            Xn = Xd[:n].contiguous()
+            bitwise[str(n)] = _close(cs, kern(Xn), plain(Xn), f"{name} {n}")
+            row[str(n)] = cs.time_ms(lambda: kern(Xn), LUT_REPS_WARM)
+        X1 = Xd[:1].contiguous()
+        row["1 host"] = cs.time_ms(lambda: kern(X1), LUT_REPS_WARM,
+                                   spin=False)
+        row[str(Xd.shape[0])] = cs.time_ms(lambda: kern(Xd), LUT_REPS, flush)
+        out[name] = row
+        out[name + " bitwise"] = bitwise
+        if name == TRAVERSE_CASES[0][0]:
+            out[name + " sweep"] = {
+                str(n): cs.time_ms(lambda: kern(Xd[:n].contiguous()),
+                                   LUT_REPS, flush) for n in sweep}
+
+    def empty():
+        predict_lut_cuda.empty_launch(dev)
+
+    out["empty kernel"] = {
+        "any": cs.time_ms(empty, LUT_REPS_WARM),
+        "host": cs.time_ms(empty, LUT_REPS_WARM, spin=False)}
+    return out
+
+
 def _worker(repo: str, kernels: list, models: str) -> None:
     """Times the kernels of the package at `repo`; one JSON line."""
     sys.path[0] = repo          # not this file's directory
@@ -209,6 +286,8 @@ def _worker(repo: str, kernels: list, models: str) -> None:
         out["hist"] = _hist_times(cs)
     if "lut" in kernels:
         out["lut"] = _lut_times(cs, Path(models))
+    if "traverse" in kernels:
+        out["traverse"] = _traverse_times(cs, Path(models))
     cs.emit(out)
 
 
@@ -233,9 +312,33 @@ def _summary(label: str, r: dict, cs, acc: dict) -> None:
             for m in MODES}
         s["hist_tree_levels_per_tree"] = {m: sum(h["tree_levels"][m])
                                           for m in MODES}
-    if "lut" in r:
-        s["lut"] = r["lut"]
+    for k in ("lut", "traverse"):
+        if k in r:
+            s[k] = r[k]
     row.append(s)
+
+
+def _prebuild(repos: list) -> dict:
+    """Builds every checkout's kernels at once (each checkout's _build
+    starts one nvcc per source), so that the workers find them built.
+    Returns {repo: seconds}; a failed build is reported and its worker
+    then fails on its own."""
+    import time
+
+    t0 = time.perf_counter()
+    procs = {str(r): subprocess.Popen(
+        [sys.executable, "-c",
+         "from ddt_tpu_torch import _build; _build.build_all()"],
+        cwd=r, env={**os.environ, "PYTHONPATH": str(r)},
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in dict.fromkeys(repos)}
+    took = {}
+    for r, p in procs.items():
+        log, _ = p.communicate()
+        took[r] = time.perf_counter() - t0
+        if p.returncode != 0:
+            print(json.dumps({"build": r, "error": log[-4000:]}), flush=True)
+    return took
 
 
 def main() -> int:
@@ -252,8 +355,9 @@ def main() -> int:
         if a.train:
             sys.path[0] = a.repo
             cs = _chip_smoke()
-            _train_models(cs, Path(a.models))
-            cs.emit({"trained": list(LUT_MODELS)})
+            names = _needed_models(kernels)
+            _train_models(cs, Path(a.models), names)
+            cs.emit({"trained": names})
         else:
             _worker(a.repo, kernels, a.models)
         return 0
@@ -264,10 +368,11 @@ def main() -> int:
     cs = _chip_smoke()
     card = cs.phase_device()
     with tempfile.TemporaryDirectory() as models:
-        if "lut" in kernels:
-            _run(HERE, kernels, models, train=True)
         others = [(f"other {o}", Path(o).resolve()) for o in a.other]
         runs = others + [("this", HERE), ("this", HERE)] + others[::-1]
+        cs.emit({"build_s": _prebuild([HERE] + [r for _, r in others])})
+        if _needed_models(kernels):
+            _run(HERE, kernels, models, train=True)
         summary = {}
         failed = False
         for label, repo in runs:

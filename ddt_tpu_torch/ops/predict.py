@@ -11,7 +11,7 @@ row walks to the bottom level) and returns raw margins [R] (one class) or
 device consumes, once per model (backends cache it); `predict_prepared`
 scores rows with it. Two implementations of the one function:
 
-- the kernel, ops/predict_cuda.traverse_cuda (csrc/traverse.cu), taken
+- the kernel, ops/predict_cuda.traverse_cuda (csrc/lut.cu), taken
   for CUDA tensors;
 - the plain version, `predict_effective_plain`, taken for CPU tensors. It
   mirrors the reference's `_descend_comp` (every internal node's

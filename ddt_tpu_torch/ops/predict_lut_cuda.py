@@ -1,6 +1,9 @@
 """LUT kernel wrappers (csrc/lut.cu): the Hopper counterparts of
 ddt_tpu/ops/predict_lut.py::_lut_kernel (K4, the int8 tier) and
-::_lut4_kernel (K5, the int4 tier).
+::_lut4_kernel (K5, the int4 tier). The record layout, its packing
+(`node_words`, `assemble_records`) and the launch plan are shared with the
+f32 traversal kernel (K3, ops/predict_cuda), which is the same template
+with f32 leaves.
 
 Both take the reference's node-major operand tuples unchanged
 (ops/predict_lut.lut_device_operands, PackedTables.ops) and raw uint8
@@ -60,6 +63,13 @@ SMEM_PER_BLOCK_RESERVED = 1024
 #: latency), but of at least MIN_PASS_TREES trees.
 PASS_BLOCKS_PER_SM = 4
 MIN_PASS_TREES = 64
+#: Pairs mapping, when no block size lets one wave of blocks hold the
+#: batch: blocks an SM (their warps hide the descent's latency), each
+#: staging the trees in passes sized for its share.
+PAIRS_BLOCKS_PER_SM = 2
+#: Pairs mapping: rows a block from which a batch is split over more
+#: blocks than PAIRS_BLOCKS_PER_SM an SM (where they fit).
+PAIRS_SPLIT_ROWS = 32
 #: Static shared memory of either kernel (the TMA copies' mbarrier): the
 #: dynamic shared memory may take the opt-in limit less this.
 STATIC_SMEM = 16
@@ -68,10 +78,11 @@ _argtypes_set = False
 
 def record_bytes(max_depth: int, leaf_dtype: str) -> int:
     """Bytes of one packed tree: a word per internal node, class and scale
-    words, the leaves at their width, padded to 16 bytes."""
+    words, the leaves at their width (float32 for K3, float16, int8 or
+    int4 for K4/K5), padded to 16 bytes."""
     n_int = (1 << max_depth) - 1
     n_leaf = 1 << max_depth
-    leaf_w = {"float16": 2 * n_leaf, "int8": n_leaf,
+    leaf_w = {"float32": 4 * n_leaf, "float16": 2 * n_leaf, "int8": n_leaf,
               "int4": (n_leaf + 1) // 2}[leaf_dtype]
     return -(-(4 * (n_int + 2) + leaf_w) // 16) * 16
 
@@ -106,50 +117,76 @@ def plan_launch(n_rows: int, n_trees: int, max_depth: int, n_features: int,
     `sm_count` SMs and `smem_limit` bytes of opt-in shared memory a block.
 
     The rows mapping (two rows a thread where 512 rows fit beside a tree,
-    else one) is taken once the batch gives every SM one of its blocks.
-    Below that the pairs mapping spreads the batch over as many blocks as
-    shared memory lets the card hold at once, with at least enough rows a
-    block to give each thread one (row, tree) pair, and at most THREADS
-    // n_classes (one summing thread a row and class). Each mapping stages
-    as many trees a pass as fit, except that where the rows mapping takes
-    several passes anyway, they are sized for PASS_BLOCKS_PER_SM blocks
-    an SM (at least MIN_PASS_TREES trees). Raises ValueError when one
-    tree and a block's rows do not fit."""
+    else one) is taken once the batch gives every SM one of its blocks;
+    it stages as many trees a pass as fit, except that where it takes
+    several passes anyway they are sized so that PASS_BLOCKS_PER_SM
+    blocks share an SM (at least MIN_PASS_TREES trees). Below that the
+    pairs mapping, with at least enough rows a block to give each thread
+    one (row, tree) pair and at most THREADS // n_classes (one summing
+    thread a row and class): the fewest rows a block, from those that
+    PAIRS_BLOCKS_PER_SM blocks an SM would take (or PAIRS_SPLIT_ROWS, where
+    that is fewer), at which the batch fits one wave of blocks, as many an
+    SM as their shared memory allows, each staging as many trees a pass
+    as fit; where no block size gives such a wave, PAIRS_BLOCKS_PER_SM
+    blocks an SM with passes sized for that share. Raises ValueError when
+    one tree and a block's rows do not fit."""
     smem_limit -= STATIC_SMEM
     tb = record_bytes(max_depth, leaf_dtype)
     T = max(n_trees, 1)
     if smem_bytes(1, max_depth, n_features, leaf_dtype) > smem_limit:
         raise ValueError(
-            f"one depth-{max_depth} {leaf_dtype} LUT tree with {n_features} "
-            f"features needs "
+            f"one depth-{max_depth} {leaf_dtype} tree record with "
+            f"{n_features} features needs "
             f"{smem_bytes(1, max_depth, n_features, leaf_dtype)} B of shared "
             f"memory, more than the card's {smem_limit} B")
+
+    per_block = STATIC_SMEM + SMEM_PER_BLOCK_RESERVED
+
+    def share(k: int) -> int:
+        """Dynamic shared memory a block may take when k share an SM: the
+        SM holds the opt-in limit plus one block's reserve, and each block
+        takes its dynamic bytes, the static ones and the reserve."""
+        return (smem_limit + per_block) // k - per_block
+
     rb = next(h * THREADS for h in ROWS_PER_THREAD
               if smem_bytes(1, max_depth, n_features, leaf_dtype,
                             h * THREADS) <= smem_limit)
-    sub = min(T, (smem_limit - n_features * rb) // tb)
-    if sub < T:
-        shared = (smem_limit // PASS_BLOCKS_PER_SM - n_features * rb) // tb
-        sub = min(sub, max(shared, MIN_PASS_TREES))
-    need = smem_bytes(sub, max_depth, n_features, leaf_dtype, rb)
     if n_rows >= sm_count * rb:
-        return Plan(False, rb, -(-n_rows // rb), sub, need)
-    per_sm = max(1, min(MAX_BLOCKS_PER_SM,
-                        (smem_limit + SMEM_PER_BLOCK_RESERVED)
-                        // (need + SMEM_PER_BLOCK_RESERVED)))
-    # No more blocks than the card holds at once, counted for the rows
-    # mapping's blocks and for the smallest pairs block (one holding every
-    # tree, or the most that fit, is one an SM).
-    rows = max(1, min(-(-THREADS // T), n_rows, THREADS // n_classes))
-    sub = min(T, (smem_limit - rows * n_features) // (tb + 4 * rows))
-    per_sm = min(per_sm, max(1, (smem_limit + SMEM_PER_BLOCK_RESERVED) // (
-        _pairs_smem(sub, rows, tb, n_features) + SMEM_PER_BLOCK_RESERVED)))
-    full = per_sm * sm_count
-    rows = max(-(-THREADS // T), -(-n_rows // full))
-    rows = max(1, min(rows, n_rows, THREADS // n_classes))
-    while rows > 1 and _pairs_smem(1, rows, tb, n_features) > smem_limit:
+        sub = min(T, (smem_limit - n_features * rb) // tb)
+        if sub < T:
+            shared = (share(PASS_BLOCKS_PER_SM) - n_features * rb) // tb
+            sub = min(sub, max(shared, MIN_PASS_TREES))
+        return Plan(False, rb, -(-n_rows // rb), sub,
+                    smem_bytes(sub, max_depth, n_features, leaf_dtype, rb))
+    # Pairs: the fewest rows a block at which one wave of blocks, as many
+    # an SM as their shared memory allows, holds the batch, each block
+    # staging as many trees a pass as fit. The search starts at the rows
+    # that PAIRS_BLOCKS_PER_SM blocks an SM would take, or at
+    # PAIRS_SPLIT_ROWS where that is more: every block copies every tree,
+    # so a small batch goes to few blocks, and more blocks an SM pay only
+    # once each has many rows to walk.
+    cap = max(1, min(n_rows, THREADS // n_classes))
+    lo = min(-(-THREADS // T), cap)
+    spread = -(-n_rows // (PAIRS_BLOCKS_PER_SM * sm_count))
+    for rows in range(min(cap, max(lo, min(spread, PAIRS_SPLIT_ROWS))),
+                      cap + 1):
+        sub = min(T, (smem_limit - rows * n_features) // (tb + 4 * rows))
+        if sub < 1:
+            break
+        smem = _pairs_smem(sub, rows, tb, n_features)
+        per_sm = min(MAX_BLOCKS_PER_SM,
+                     (smem_limit + per_block) // (smem + per_block))
+        if -(-n_rows // rows) <= per_sm * sm_count:
+            return Plan(True, rows, -(-n_rows // rows), sub, smem)
+    # No such wave: PAIRS_BLOCKS_PER_SM blocks an SM, passes sized for
+    # their share of it.
+    rows = min(cap, max(lo, spread))
+    budget = share(PAIRS_BLOCKS_PER_SM)
+    while rows > 1 and _pairs_smem(1, rows, tb, n_features) > budget:
         rows //= 2
-    sub = min(T, (smem_limit - rows * n_features) // (tb + 4 * rows))
+    if _pairs_smem(1, rows, tb, n_features) > budget:
+        budget = smem_limit         # one block an SM
+    sub = min(T, (budget - rows * n_features) // (tb + 4 * rows))
     return Plan(True, rows, -(-n_rows // rows), sub,
                 _pairs_smem(sub, rows, tb, n_features))
 
@@ -160,6 +197,45 @@ class Records(NamedTuple):
     rec: torch.Tensor       # uint8 [n_trees, record_bytes]
     n_trees: int            # trees packed: trailing all-zero ones left out
     max_feature: int        # largest split feature (-1: no split at all)
+
+
+def node_words(f: torch.Tensor, t: torch.Tensor, dl=None,
+               cat=None) -> torch.Tensor:
+    """int32 [T, n_int] node words from tree-major int32 features and
+    thresholds (dl / cat: nonzero where set, or None): the threshold
+    clamped to [-1, 256] and stored + 1 in bits 0-8 (a uint8 bin routes
+    the same against any threshold beyond that range), default-left bit
+    9, categorical bit 10 on real splits only, the feature in bits
+    16-31."""
+    word = f * 65536 + t.clamp(-1, 256) + 1
+    if dl is not None:
+        word += dl.ne(0).to(torch.int32) * 512
+    if cat is not None:
+        word += (cat.ne(0) & (f >= 0)).to(torch.int32) * 1024
+    return word
+
+
+def assemble_records(word: torch.Tensor, cls: torch.Tensor,
+                     scale: torch.Tensor, leaves: torch.Tensor,
+                     zero: torch.Tensor, max_depth: int,
+                     leaf_dtype: str) -> Records:
+    """Tree-major records from each tree's node words [T, n_int], class
+    [T], f32 scale [T], leaf bytes uint8 [T, .] and which leaves decode to
+    zero [T, n_leaf]: trailing trees whose every leaf is zero (and whose
+    scale is finite) are left out."""
+    T = word.shape[0]
+    head = torch.cat([word, cls.reshape(T, 1).to(torch.int32),
+                      scale.view(torch.int32).reshape(T, 1)], dim=1)
+    nonzero = ~zero.all(dim=1) | ~torch.isfinite(scale)
+    idx = torch.nonzero(nonzero).flatten()
+    n_trees = int(idx.max()) + 1 if idx.numel() else 0
+    tb = record_bytes(max_depth, leaf_dtype)
+    body = torch.cat([head.contiguous().view(torch.uint8), leaves], dim=1)
+    rec = torch.zeros((n_trees, tb), dtype=torch.uint8, device=word.device)
+    rec[:, :body.shape[1]] = body[:n_trees]
+    f = word >> 16
+    return Records(rec=rec, n_trees=n_trees,
+                   max_feature=int(f.max()) if f.numel() else -1)
 
 
 def pack_records(ops: tuple, *, leaf_dtype: str, thr_packed: bool,
@@ -191,19 +267,14 @@ def pack_records(ops: tuple, *, leaf_dtype: str, thr_packed: bool,
         t = torch.where(nib >= 15, _NIB_BIG, nib)
     else:
         t = _from_node_major(thr, tc, n_int).to(torch.int32) + _I8_OFFSET
-    word = f * 65536 + t
-    if dl is not None:
-        word += _from_node_major(dl, tc, n_int).ne(0).to(torch.int32) * 512
-    if cat is not None:
-        word += ((_from_node_major(cat, tc, n_int).ne(0) & (f >= 0))
-                 .to(torch.int32) * 1024)
+    word = node_words(
+        f, t, dl=None if dl is None else _from_node_major(dl, tc, n_int),
+        cat=None if cat is None else _from_node_major(cat, tc, n_int))
     if cls is None:
         cls = coh.argmax(dim=1)
     T = f.shape[0]
     sc = (torch.ones(T, dtype=torch.float32, device=dev) if scale is None
           else scale.reshape(T).to(torch.float32))
-    head = torch.cat([word, cls.reshape(T, 1).to(torch.int32),
-                      sc.view(torch.int32).reshape(T, 1)], dim=1)
     if leaf_dtype == "int4":
         lp = _from_node_major(leaf, tc, h_l).to(torch.int32)
         v = torch.cat([lp & 15, (lp >> 4) & 15], dim=1)[:, :n_leaf]
@@ -218,16 +289,8 @@ def pack_records(ops: tuple, *, leaf_dtype: str, thr_packed: bool,
         else:
             zero = lv == 0
         leaf_b = lv.view(torch.uint8)
-    # A tree adds +0.0 to every sum iff each leaf decodes to a zero.
-    nonzero = ~zero.all(dim=1) | ~torch.isfinite(sc)
-    idx = torch.nonzero(nonzero).flatten()
-    n_trees = int(idx.max()) + 1 if idx.numel() else 0
-    tb = record_bytes(max_depth, leaf_dtype)
-    body = torch.cat([head.contiguous().view(torch.uint8), leaf_b], dim=1)
-    rec = torch.zeros((n_trees, tb), dtype=torch.uint8, device=dev)
-    rec[:, :body.shape[1]] = body[:n_trees]
-    return Records(rec=rec, n_trees=n_trees,
-                   max_feature=int(f.max()) if f.numel() else -1)
+    return assemble_records(word, cls, sc, leaf_b, zero, max_depth,
+                            leaf_dtype)
 
 
 class _Entry(NamedTuple):
@@ -283,17 +346,21 @@ def sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _lib():
+def library():
+    """csrc/lut.cu's library, its entry points' argument types set (K3's
+    ddt_traverse_f32 included)."""
     global _argtypes_set
     lib = _build.library("lut")
     if not _argtypes_set:
         vp, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int,
                              ctypes.c_longlong, ctypes.c_float)
-        common = [vp, vp, vp, i64] + [i32] * 10
+        common = [vp, vp, vp, i64] + [i32] * 11
         lib.ddt_lut_int8.argtypes = common + [i32, f32, f32, i32, vp]
         lib.ddt_lut_int4.argtypes = common + [f32, f32, i32, vp]
+        lib.ddt_traverse_f32.argtypes = common + [f32, f32, i32, vp]
         lib.ddt_lut_empty.argtypes = [vp]
-        for fn in (lib.ddt_lut_int8, lib.ddt_lut_int4, lib.ddt_lut_empty):
+        for fn in (lib.ddt_lut_int8, lib.ddt_lut_int4, lib.ddt_traverse_f32,
+                   lib.ddt_lut_empty):
             fn.restype = i32
         _argtypes_set = True
     return lib
@@ -302,7 +369,7 @@ def _lib():
 def empty_launch(device: torch.device) -> None:
     """Launches csrc/lut.cu's empty kernel on the current stream: the
     latency floor of one launch (chip_smoke times it; not counted)."""
-    lib = _lib()
+    lib = library()
     with torch.cuda.device(device):
         status = lib.ddt_lut_empty(torch.cuda.current_stream().cuda_stream)
     _build.check(status, "ddt_lut_empty launch")
@@ -384,12 +451,13 @@ def _launch(entry: str, ops: tuple, X: torch.Tensor, *, leaf_dtype: str,
         return out
     plan = plan_launch(R, records.n_trees, max_depth, F, leaf_dtype,
                        n_classes, _build.smem_limit(dev), sm_count(dev))
-    lib = _lib()
+    lib = library()
     args = [X.data_ptr(), records.rec.data_ptr(), out.data_ptr(), R, F,
             records.n_trees, max_depth, tree_chunk,
             record_bytes(max_depth, leaf_dtype) // 4, n_classes,
-            missing_bin_value if use_missing else -1, int(plan.pairs),
-            plan.rows, plan.sub]
+            missing_bin_value if use_missing else -1,
+            int(use_missing or use_cat), int(plan.pairs), plan.rows,
+            plan.sub]
     if entry == "ddt_lut_int8":
         args.append(int(leaf_dtype == "float16"))
     with torch.cuda.device(dev):

@@ -15,9 +15,9 @@ Port of ddt_tpu/serve/engine.py. One engine owns:
   express-lane count, a fixed-bucket latency histogram and a ring of
   request traces.
 
-The tiers: quantize=None serves the f32 traversal (kernel K3,
-csrc/traverse.cu), "int8" the int8 TreeLUT tier (K4, csrc/lut.cu), "int4"
-the int4 tier (K5), down the backend's int4 -> int8 -> f32 fits-guard
+The tiers: quantize=None serves the f32 traversal (kernel K3), "int8"
+the int8 TreeLUT tier (K4), "int4" the int4 tier (K5; all three in
+csrc/lut.cu), down the backend's int4 -> int8 -> f32 fits-guard
 ladder; `ServableModel.predict_impl` reports the tier that serves. On the
 card by default (cfg.device="cuda"); device="cpu" runs the plain versions.
 

@@ -11,11 +11,11 @@ machine does not have; this file imports nothing of JAX or ddt_tpu.)
 Tolerances: the histogram kernel sums f32 g/h with float atomics in a
 run-to-run order, so each (g, h) cell is held to 1e-5 * (sum of |g| or
 |h| over the cell's own rows) + 1e-6; its integer mode (int8/int16 g/h,
-int32 sums) is exact and held bitwise. The traversal kernel and the LUT
-kernels (K4, K5) are bitwise on exact-grid leaf values (every partial sum
-is exact in f32, so the order cannot matter) and within 1e-5 * (|p| + 1)
-on random leaves; the LUT kernels also stay within the tables'
-max_abs_err of the f32 host oracle, and equal their plain versions
+int32 sums) is exact and held bitwise. The traversal kernel (K3) and the
+LUT kernels (K4, K5) are bitwise on exact-grid leaf values (every partial
+sum is exact in f32, so the order cannot matter) and within 1e-5 *
+(|p| + 1) on random leaves; the LUT kernels also stay within the tables'
+max_abs_err of the f32 host oracle. All three equal their plain versions
 bitwise on random leaves too (both sum tree by tree in one order) at
 every batch size, in both of their mappings.
 """
@@ -66,7 +66,7 @@ def _hist_tol(Xb, g, h, ni, N, B):
 
 def test_kernels_build(dev):
     _build.build_all()
-    for name in ("hist", "traverse", "lut"):
+    for name in ("device", "hist", "lut"):
         assert _build.lib_path(name).exists()
 
 
@@ -374,6 +374,95 @@ def test_traverse_dispatch_goes_to_kernel(dev):
         base=ce.base_score)
     assert predict_cuda.launches == before + 1
     assert out.shape == (1000,)
+
+
+def _k3_plan(dev, R, T, depth, F, C):
+    return predict_lut_cuda.plan_launch(
+        R, T, depth, F, "float32", C, _build.smem_limit(dev),
+        predict_lut_cuda.sm_count(dev))
+
+
+def _crossover(dev) -> int:
+    """The first batch the rows mapping takes at the Higgs shape: a block
+    of 512 rows an SM (67,584 rows on an H100)."""
+    return 512 * predict_lut_cuda.sm_count(dev)
+
+
+@pytest.mark.parametrize("exact", [True, False], ids=["exact", "random"])
+@pytest.mark.parametrize("T,C,missing,cat", [(70, 7, True, (3, 10)),
+                                             (100, 1, False, ())])
+def test_traverse_kernel_bitwise_at_every_batch_size(dev, T, C, missing,
+                                                     cat, exact):
+    """Both mappings (pairs below the crossover, then two rows a thread),
+    with the padded trees left out: bitwise equal to the plain version on
+    any leaves (both sum tree by tree in the same order), and each row's
+    score the same whatever batch it rides in."""
+    F, B = 28, 255
+    ens = _rand_ens(T, 6, F, B, C=C, missing=missing, cat=cat, exact=exact)
+    cross = _crossover(dev)
+    X = np.random.default_rng(4).integers(0, B, size=(cross + 1000, F),
+                                          dtype=np.uint8)
+    full, want = _score_both(ens, X, dev)
+    np.testing.assert_array_equal(full, want)
+    for R in (1, 16, 64, 256, 257, cross - 1, cross):
+        assert _k3_plan(dev, R, T, 6, F, C).pairs == (R < cross)
+        got, want = _score_both(ens, X[:R], dev)
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(got, full[:R])
+
+
+def test_traverse_kernel_bitwise_staging_pass_by_pass(dev):
+    """1000 depth-6 trees: more records than a block holds, so the kernel
+    stages them pass by pass (both mappings), across chunk boundaries
+    inside and between passes. Bitwise equal to the plain version."""
+    F, T = 28, 1000
+    ens = _rand_ens(T, 6, F, 255, C=3, missing=True, cat=(5,), exact=False)
+    X = np.random.default_rng(6).integers(0, 255, size=(100_000, F),
+                                          dtype=np.uint8)
+    for R in (1, 300, 100_000):
+        p = _k3_plan(dev, R, T, 6, F, 3)
+        assert p.sub < T and p.pairs == (R < _crossover(dev))
+        got, want = _score_both(ens, X[:R], dev)
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("missing", [False, True])
+def test_traverse_kernel_bitwise_with_out_of_range_thresholds(dev, missing):
+    """Real-node thresholds -7, -1, 255, 256 and 1000, categorical nodes
+    included, over rows that reach bin 255: the records' clamped
+    thresholds route every row as the int32 ones do. Bitwise equal to the
+    plain version in both mappings, and to the host oracle on exact-grid
+    leaves."""
+    F, B = 28, 256
+    ens = _rand_ens(40, 6, F, B, C=3, missing=missing, cat=(1, 3))
+    rng = np.random.default_rng(8)
+    odd = rng.random(ens.threshold_bin.shape) < 0.35
+    ens.threshold_bin[:] = np.where(
+        odd, rng.choice([-7, -1, 255, 256, 1000], size=odd.shape),
+        ens.threshold_bin)
+    X = rng.integers(0, B, size=(_crossover(dev) + 10, F), dtype=np.uint8)
+    for R in (1, 256, X.shape[0]):
+        got, want = _score_both(ens, X[:R], dev)
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(got, ens.predict_raw(X[:R],
+                                                           binned=True))
+
+
+def test_traverse_kernel_bitwise_with_one_row_a_thread(dev):
+    """600 features: the rows mapping walks one row a thread (512 rows do
+    not fit beside a tree); depth 5 takes the runtime-depth build."""
+    F = 600
+    ens = _rand_ens(40, 5, F, 255, C=3, missing=True, cat=(7,),
+                    exact=False)
+    X = np.random.default_rng(5).integers(0, 255, size=(40_000, F),
+                                          dtype=np.uint8)
+    p = _k3_plan(dev, 40_000, 40, 5, F, 3)
+    assert not p.pairs and p.rows == 256
+    full, _ = _score_both(ens, X, dev)
+    for R in (1, 300, 40_000):
+        got, want = _score_both(ens, X[:R], dev)
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(got, full[:R])
 
 
 # --------------------------------------------------------------------- #

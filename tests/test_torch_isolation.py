@@ -1,9 +1,10 @@
 """The port stands alone: ddt_tpu_torch imports neither JAX nor ddt_tpu.
 
 Two checks: a fresh interpreter imports every ddt_tpu_torch module and
-finds no jax / ddt_tpu module loaded; and a scan of the package's source
-finds no import statement naming either (including lazy imports inside
-functions, which the first check cannot reach).
+finds no jax / ddt_tpu module loaded; and a scan of the package's source,
+and of the root chip_smoke.py that drives it on the card, finds no import
+statement naming either (including lazy imports inside functions, which
+the first check cannot reach).
 """
 
 import ast
@@ -51,8 +52,9 @@ def test_import_every_module_loads_no_jax_or_reference():
     assert [m for m in loaded if _forbidden(m)] == []
 
 
-@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")),
-                         ids=lambda p: str(p.relative_to(ROOT)))
+@pytest.mark.parametrize(
+    "path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+    ids=lambda p: str(p.relative_to(ROOT)))
 def test_source_names_no_jax_or_reference_import(path):
     tree = ast.parse(path.read_text(), filename=str(path))
     bad = []

@@ -19,7 +19,7 @@ from ddt_tpu_torch.backends.cuda import CUDADevice
 from ddt_tpu_torch.config import TrainConfig
 from ddt_tpu_torch.models import tree as ttree
 from ddt_tpu_torch.ops import predict as tpred
-from ddt_tpu_torch.ops import predict_cuda
+from ddt_tpu_torch.ops import predict_cuda, predict_lut_cuda
 
 
 def _exact_ens(T=9, depth=3, F=4, B=31, C=1, missing=False, cat=(),
@@ -148,13 +148,15 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     ef, et, bv, coh, dl, cat = (torch.from_numpy(a) for a in ce.arrays())
     tables = predict_cuda.pack_tables(ef, et, bv, coh, ce.max_depth,
                                       eff_dl=dl, eff_cat=cat)
-    # Flags: bit 0 = default_left, bit 1 = categorical on real splits only.
+    # Node words: default-left bit, categorical bit on real splits only.
+    u = _unpack(tables)
     n_int = 2 ** ce.max_depth - 1
-    want = (dl[:, :n_int].to(torch.uint8)
-            | ((cat[:, :n_int] & (ef[:, :n_int] >= 0)).to(torch.uint8) << 1))
-    assert torch.equal(tables.flags, want)
-    assert torch.equal(tables.nodes[..., 0], ef[:, :n_int])
-    assert tables.cls.tolist() == [0] * ce.n_trees_padded
+    n = tables.n_trees
+    np.testing.assert_array_equal(u["dl"], dl[:n, :n_int].numpy())
+    np.testing.assert_array_equal(
+        u["cat"], (cat[:n, :n_int] & (ef[:n, :n_int] >= 0)).numpy())
+    np.testing.assert_array_equal(u["feature"], ef[:n, :n_int].numpy())
+    assert u["cls"].tolist() == [0] * n
     assert tables.max_feature == int(ef[:, :n_int].max())
     with pytest.raises(TypeError, match="prepared on the CPU"):
         tpred.predict_prepared(tables, torch.from_numpy(_X(10)),
@@ -164,14 +166,276 @@ def test_kernel_wrapper_refuses_cpu_tensors():
                                    learning_rate=0.1, base=0.0)
 
 
-@pytest.mark.parametrize("depth,F,sub", [(6, 28, 64), (3, 4, 64),
-                                          (9, 28, 32)])
-def test_stage_width_fits_h100(depth, F, sub):
-    limit = 232_448
-    assert predict_cuda.stage_width(64, depth, F, limit) == sub
-    assert predict_cuda.smem_bytes(sub, depth, F) <= limit
+# --------------------------------------------------------------------- #
+# K3's host half (ops/predict_cuda.pack_tables and the shared launch plan,
+# ops/predict_lut_cuda.plan_launch at f32 leaves), checked on the CPU.
+# The records are walked here in numpy exactly as csrc/lut.cu walks them.
+# --------------------------------------------------------------------- #
+
+#: Real-node thresholds outside a uint8 bin's range, and at its edge.
+ODD_THRESHOLDS = (-7, -1, 255, 256, 1000)
+H100 = dict(smem_limit=predict_lut_cuda.SMEM_LIMIT_H100, sm_count=132)
 
 
-def test_stage_width_raises_when_one_tree_does_not_fit():
+def _odd_ens(missing, seed=0):
+    """A 3-class model over 256 bins (rows reach bin 255) whose real
+    nodes, categorical ones included, take the thresholds of
+    ODD_THRESHOLDS a third of the time."""
+    ens = _exact_ens(T=12, depth=3, F=4, B=256, C=3, missing=missing,
+                     cat=(1, 3), seed=seed)
+    rng = np.random.default_rng(seed + 7)
+    odd = rng.random(ens.threshold_bin.shape) < 0.35
+    ens.threshold_bin[:] = np.where(
+        odd, rng.choice(ODD_THRESHOLDS, size=odd.shape), ens.threshold_bin)
+    return ens
+
+
+K3_VARIANTS = [
+    pytest.param(dict(), 31, id="plain"),
+    pytest.param(dict(C=3, missing=True, cat=(1,)), 31,
+                 id="missing-cat-3class"),
+    pytest.param(dict(T=70, depth=2), 31, id="70trees-depth2"),
+    pytest.param("odd", 256, id="odd-thresholds"),
+    pytest.param("odd-missing", 256, id="odd-thresholds-missing"),
+]
+
+
+def _k3_ens(variant, exact=True, seed=0):
+    if variant in ("odd", "odd-missing"):
+        ens = _odd_ens(variant == "odd-missing", seed=seed)
+    else:
+        ens = _exact_ens(seed=seed, **variant)
+    if not exact:
+        ens.leaf_value[:] = np.random.default_rng(seed + 3) \
+            .standard_normal(ens.leaf_value.shape).astype(np.float32)
+    return ens
+
+
+def _k3_rows(ens, B, R=400, seed=1):
+    X = _X(R, F=ens.n_features, B=B, seed=seed)
+    if ens.missing_bin:
+        X[::5, 0] = B - 1                  # reserved missing bin rows
+    return X
+
+
+def _pack(ce):
+    ops = [torch.from_numpy(a) for a in ce.arrays()]
+    ef, et, bv, coh, *rest = ops
+    dl = rest.pop(0) if ce.eff_dl is not None else None
+    cat = rest.pop(0) if ce.eff_cat is not None else None
+    return predict_cuda.pack_tables(ef, et, bv, coh, ce.max_depth,
+                                    eff_dl=dl, eff_cat=cat)
+
+
+def _unpack(tables) -> dict:
+    """The record layout of csrc/lut.cu read back field by field, f32
+    leaves: feature, threshold (stored + 1), dl and cat per node, class,
+    scale and the leaves, each [n_trees, .]."""
+    D = tables.max_depth
+    n_int, n_leaf = (1 << D) - 1, 1 << D
+    assert tables.rec.shape[1] == predict_lut_cuda.record_bytes(
+        D, "float32")
+    words = np.ascontiguousarray(tables.rec.numpy()).view(np.int32)
+    w = words[:, :n_int]
+    return {"feature": w >> 16, "threshold": (w & 0x1FF) - 1,
+            "dl": (w >> 9) & 1, "cat": (w >> 10) & 1,
+            "cls": words[:, n_int],
+            "scale": words[:, n_int + 1].view(np.float32),
+            "leaf": words[:, n_int + 2:n_int + 2 + n_leaf].view(np.float32)}
+
+
+def _walk(tables, X, *, tree_chunk, learning_rate, base, missing_bin_value):
+    """csrc/lut.cu's descent and sum over K3's records, in numpy f32: a
+    word per level, node = 2 node + 1 + go, the f32 leaf, class sums tree
+    by tree, acc += chunk sum, base + lr * acc."""
+    u = _unpack(tables)
+    f32 = np.float32
+    n_int = (1 << tables.max_depth) - 1
+    mbv = missing_bin_value if tables.use_missing else -1
+    R = X.shape[0]
+    rows = np.arange(R)
+    acc = np.zeros((R, tables.n_classes), f32)
+    cs = np.zeros_like(acc)
+    for t in range(tables.n_trees):
+        if t and t % tree_chunk == 0:
+            acc, cs = (acc + cs).astype(f32), np.zeros_like(cs)
+        node = np.zeros(R, np.int64)
+        for _ in range(tables.max_depth):
+            f, th = u["feature"][t, node], u["threshold"][t, node]
+            v = np.where(f >= 0, X[rows, np.maximum(f, 0)], 0).astype(
+                np.int64)
+            go = np.where(u["cat"][t, node] == 1, v != th, v > th)
+            go = np.where(v == mbv, u["dl"][t, node] == 0, go)
+            node = 2 * node + np.where(go, 2, 1)
+        c = int(u["cls"][t])
+        cs[:, c] = cs[:, c] + u["leaf"][t, node - n_int]
+    out = f32(base) + f32(learning_rate) * (acc + cs)
+    return out[:, 0] if tables.n_classes == 1 else out
+
+
+@pytest.mark.parametrize("exact", [True, False], ids=["exact", "random"])
+@pytest.mark.parametrize("variant,B", K3_VARIANTS)
+def test_k3_records_walked_as_the_kernel_equal_plain_and_reference(
+        variant, B, exact):
+    """K3's records, walked as the kernel walks them (trailing zero trees
+    left out), equal the port's plain version bitwise on any leaves (the
+    same tree-order sums), and on exact-grid leaves the reference's
+    interpret-mode Pallas kernel too, thresholds beyond the bins'
+    range included."""
+    ens = _k3_ens(variant, exact=exact)
+    X = _k3_rows(ens, B)
+    tc = 32
+    ce = ttree.TreeEnsemble.from_dict(ens.to_dict()).compile(tc)
+    walked = _walk(_pack(ce), X, tree_chunk=tc,
+                   learning_rate=ce.learning_rate, base=ce.base_score,
+                   missing_bin_value=ce.missing_bin_value)
+    np.testing.assert_array_equal(walked, _port_plain(ens, X, tree_chunk=tc))
+    if exact:
+        want = np.asarray(jpp.predict_raw_pallas(
+            jnp.asarray(ens.feature), jnp.asarray(ens.threshold_bin),
+            jnp.asarray(ens.is_leaf), jnp.asarray(ens.leaf_value),
+            jnp.asarray(X), tree_chunk=tc, interpret=True,
+            **_ref_kwargs(ens)))
+        np.testing.assert_array_equal(walked, want)
+        np.testing.assert_array_equal(walked, ens.predict_raw(X, binned=True))
+
+
+@pytest.mark.parametrize("variant,B", K3_VARIANTS)
+def test_k3_records_hold_the_compiled_arrays(variant, B):
+    """Every field of K3's records, decoded back, is the CompiledEnsemble's
+    own: feature, threshold clamped to [-1, 256], default-left,
+    categorical gated on feature >= 0, class, scale 1.0 and the f32
+    bottom-level values bit for bit."""
+    ce = ttree.TreeEnsemble.from_dict(
+        _k3_ens(variant, exact=False).to_dict()).compile(8)
+    tables = _pack(ce)
+    u = _unpack(tables)
+    n, n_int = tables.n_trees, (1 << ce.max_depth) - 1
+    assert n == ce.n_trees_padded - int(np.all(
+        ce.bot_val == 0, axis=1)[::-1].cumprod().sum())
+    feat = ce.eff_feat[:n, :n_int]
+    np.testing.assert_array_equal(u["feature"], feat)
+    np.testing.assert_array_equal(
+        u["threshold"], np.clip(ce.eff_thr[:n, :n_int], -1, 256))
+    np.testing.assert_array_equal(
+        u["dl"], np.zeros_like(feat) if ce.eff_dl is None
+        else ce.eff_dl[:n, :n_int])
+    np.testing.assert_array_equal(
+        u["cat"], np.zeros_like(feat) if ce.eff_cat is None
+        else ce.eff_cat[:n, :n_int] & (feat >= 0))
+    np.testing.assert_array_equal(u["cls"], ce.cls_oh[:n].argmax(axis=1))
+    np.testing.assert_array_equal(u["scale"], np.ones(n, np.float32))
+    np.testing.assert_array_equal(u["leaf"].view(np.int32),
+                                  ce.bot_val[:n].view(np.int32))
+    if variant in ("odd", "odd-missing"):
+        real = feat >= 0
+        assert {-1, 256} <= set(u["threshold"][real].tolist())
+
+
+def _higgs_like(trees=100):
+    """A port ensemble at the Higgs shape (28 features, depth 6, 255 bins)
+    with random leaves."""
+    ens = ttree.TreeEnsemble.from_dict(_exact_ens(
+        T=trees, depth=6, F=28, B=255).to_dict())
+    ens.leaf_value[:] = np.random.default_rng(4).standard_normal(
+        ens.leaf_value.shape)
+    return ens
+
+
+def test_k3_trailing_zero_trees_are_the_padding():
+    """CompiledEnsemble pads 100 trees to 128 with zero leaves: exactly
+    those 28 are left out of the records; a real tree at the end whose
+    leaves are all +-0.0 goes too (it adds +0.0), one in the middle
+    stays."""
+    ce = _higgs_like().compile(tree_chunk=64)
+    assert ce.n_trees_padded == 128
+    tables = _pack(ce)
+    assert (tables.n_trees, tables.n_trees_padded) == (100, 128)
+    assert tuple(tables.rec.shape) == (
+        100, predict_lut_cuda.record_bytes(6, "float32"))
+    ens = _higgs_like()
+    ens.leaf_value[97:] = 0.0
+    ens.leaf_value[99, ::2] = -0.0
+    assert _pack(ens.compile(tree_chunk=64)).n_trees == 97
+    ens = _higgs_like()
+    ens.leaf_value[50] = 0.0
+    assert _pack(ens.compile(tree_chunk=64)).n_trees == 100
+
+
+def test_k3_plan_higgs_shape_takes_both_mappings():
+    """100 depth-6 trees x 28 features on an H100 at f32 leaves: serving
+    batches spread over many blocks (pairs), from 67,584 rows (a block of
+    512 rows an SM) two rows a thread, every tree staged in one pass,
+    within the card's 232,448 B."""
+    plan = predict_lut_cuda.plan_launch
+    for R in (1, 16, 64, 256, 257):
+        p = plan(R, 100, 6, 28, "float32", 1, **H100)
+        assert p.pairs and p.smem <= H100["smem_limit"]
+        assert p.blocks == -(-R // p.rows) and p.blocks >= min(R, 64) // 3
+    assert plan(67_583, 100, 6, 28, "float32", 1, **H100).pairs
+    p = plan(67_584, 100, 6, 28, "float32", 1, **H100)
+    assert not p.pairs and p.rows == 512 and p.blocks == 132
+    p = plan(1_000_000, 100, 6, 28, "float32", 1, **H100)
+    assert not p.pairs and (p.rows, p.sub, p.blocks) == (512, 100, 1954)
+    assert p.smem == 100 * 528 + 28 * 512 <= H100["smem_limit"]
+    # 7 classes: at most 36 rows a pairs block (one thread a row and
+    # class sums).
+    p = plan(256, 70, 6, 28, "float32", 7, **H100)
+    assert p.pairs and p.rows * 7 <= predict_lut_cuda.THREADS
+
+
+@pytest.mark.parametrize("C", [1, 3, 7, 32])
+@pytest.mark.parametrize("F,T,depth", [(28, 100, 6), (7, 13, 3),
+                                       (300, 1000, 8), (1, 0, 1)])
+def test_k3_plan_covers_every_row_within_the_card(C, F, T, depth):
+    """Any batch at f32 leaves: every row in exactly one block, one summing
+    thread a (row, class), at least one tree a pass, within shared
+    memory; the rows mapping from a block of 512 rows an SM on."""
+    rows_from = None
+    for R in (1, 2, 31, 255, 256, 257, 1000, 67_583, 67_584, 135_169,
+              1_000_000):
+        p = predict_lut_cuda.plan_launch(R, T, depth, F, "float32", C,
+                                         **H100)
+        assert p.blocks * p.rows >= R > (p.blocks - 1) * p.rows
+        assert p.sub >= 1 and p.smem <= H100["smem_limit"]
+        if p.pairs:
+            assert rows_from is None and 1 <= p.rows
+            assert p.rows * C <= predict_lut_cuda.THREADS
+        else:
+            assert p.rows in (256, 512)
+            rows_from = R if rows_from is None else rows_from
+    assert rows_from == 67_584
+
+
+def test_k3_plan_stages_1000_trees_pass_by_pass():
+    """1000 depth-6 trees (528 KB of f32 records) do not fit one block:
+    serving batches take passes as large as fit, one block an SM; the rows
+    mapping's passes are sized for four blocks an SM. One tree too many
+    for shared memory is refused."""
+    limit, per_block = H100["smem_limit"], 16 + 1024
+    plan = predict_lut_cuda.plan_launch
+    for R in (1, 256):
+        p = plan(R, 1000, 6, 28, "float32", 1, **H100)
+        assert p.pairs and 400 <= p.sub < 1000 and p.smem <= limit
+        assert p.blocks <= H100["sm_count"]
+    p = plan(1_000_000, 1000, 6, 28, "float32", 1, **H100)
+    assert not p.pairs and p.sub == 81
+    assert 4 * (p.smem + per_block) <= limit + 1024
     with pytest.raises(ValueError, match="shared memory"):
-        predict_cuda.stage_width(64, 15, 28, 232_448)
+        plan(1, 100, 15, 28, "float32", 1, **H100)
+
+
+def test_k3_plan_spreads_a_large_batch_over_two_blocks_an_sm():
+    """100 trees: the pairs mapping takes the fewest rows a block that let
+    one wave hold the batch (42 rows, three blocks an SM, at 16,384
+    rows); where no block size does (49,152 rows), two blocks an SM whose
+    passes fit their half of it. Every row covered, within the card."""
+    limit, per_block = H100["smem_limit"], 16 + 1024
+    plan = predict_lut_cuda.plan_launch
+    p = plan(16_384, 100, 6, 28, "float32", 1, **H100)
+    assert p.pairs and (p.rows, p.blocks, p.sub) == (42, 391, 100)
+    assert 3 * (p.smem + per_block) <= limit + 1024
+    p = plan(49_152, 100, 6, 28, "float32", 1, **H100)
+    assert p.pairs and p.blocks == 2 * H100["sm_count"] - 1
+    assert p.sub < 100 and 2 * (p.smem + per_block) <= limit + 1024
+    assert p.blocks * p.rows >= 49_152

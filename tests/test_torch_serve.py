@@ -77,8 +77,23 @@ def test_bucket_ladder_and_tier_spellings():
 def test_concurrent_submitters_coalesce_and_keep_rows_straight(trained,
                                                                tier):
     """16 barrier-released single-row submitters: every response is the
-    offline answer for that row, and >= 8 of them shared one dispatch."""
-    eng = _engine(trained, tier)
+    offline answer for that row, and all 16 shared one dispatch. The
+    dispatch gate is held while they arrive, so the express lane (open
+    only at a free gate) is closed to each of them and every one queues;
+    with max_batch=16 and a long window the batcher admits the 16 rows as
+    one batch the moment the 16th queues, and dispatches it once the gate
+    is released. So the coalescing does not depend on thread timing."""
+    eng = _engine(trained, tier, max_batch=16, max_wait_ms=60_000.0)
+    batcher = eng._batcher
+    queued = threading.Semaphore(0)
+    submit = batcher.submit
+
+    def counted_submit(*a, **kw):
+        req = submit(*a, **kw)
+        queued.release()
+        return req
+
+    batcher.submit = counted_submit
     try:
         X, ref = trained["X"], trained["ref"]["a", tier]
         n = 16
@@ -91,13 +106,18 @@ def test_concurrent_submitters_coalesce_and_keep_rows_straight(trained,
 
         threads = [threading.Thread(target=worker, args=(i,))
                    for i in range(n)]
-        for t in threads:
-            t.start()
+        with batcher._gate:
+            for t in threads:
+                t.start()
+            for _ in range(n):
+                assert queued.acquire(timeout=60)
         for t in threads:
             t.join(60)
         assert not any(t.is_alive() for t in threads)
         np.testing.assert_array_equal(np.array(got), ref[:n])
-        assert eng.stats.coalesce_max >= 8, eng.stats.snapshot()
+        snap = eng.stats.snapshot()
+        assert eng.stats.coalesce_max == 16, snap
+        assert eng.stats.express == 0, snap
         assert eng.health()["predict_impl"] == IMPL[tier].replace(
             "auto", "f32")
     finally:
