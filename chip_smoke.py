@@ -34,10 +34,29 @@ Phases:
              call's rows; and the host oracle on 50k rows; then the same
              on a 1000-tree ensemble, whose records the kernel stages pass
              by pass in both mappings
-  5 main     api.train on 1M x 28 at 255 bins, depth 6, on the card, then
-             api.predict on the 1M rows; both launch counters must move
-             (they are zeroed just before, read just after); train AUC
-             >= 0.80; scores equal the host oracle's on 50k rows
+  5 main     api.train on 1M x 28 float rows at 255 bins, depth 6, on the
+             card, then api.predict on the 1M rows; the counters are zeroed
+             just before and read just after: both kernels' launch counters
+             move, the rows were binned on the card (ops/quantize's counter
+             moves, BinMapper.transform is never called), the loop ran as
+             100 replays of one captured round with ~6 histogram launches
+             a tree, counted per replay; train AUC >= 0.80; scores equal
+             the host oracle's on 50k rows. Then the same steps timed
+             apart: edge fitting, the f32 upload, binning, the reference
+             bin counts, the fused loop (capture included), and predict's
+             upload, binning and scoring
+  5b bin     binning on the card (ops/quantize) against BinMapper.transform
+             at 1M x 28, bitwise, on rows with NaN, +/-inf, -0.0, a
+             low-cardinality column (duplicate edges) and an identity
+             column, with and without the reserved NaN bin; its device
+             time beside its byte bound, the H2D upload timed apart; the
+             card's feature_bincounts bitwise against numpy
+  5c fused   20 trees at 1M x 28: the fused loop (replays of a captured
+             round) against the granular loop on the card: int8 trees
+             bitwise, f32 trees identical except at bf16-boundary ties (the
+             float atomics differ run to run), bagging 0.8 + colsample 0.8
+             in int8 bitwise, a block cap of 7 against one block bitwise;
+             ms a tree of both loops
   6 trained  the traversal kernel against its plain version on the trained
              ensemble, bitwise, at 1M rows and at every size of phase 4,
              and its times
@@ -66,7 +85,10 @@ Phases:
              idle queue (the express lane). Every response equals offline
              api.predict at that tier for the token that scored it,
              bitwise; each model resolves to the requested tier; the
-             counters are zeroed just before and the LUT kernels' must move
+             counters are zeroed just before and the LUT kernels' must move;
+             each batch is binned once on the card (transforms a batch ==
+             1), and the gate segment (batch assembly and binning) is
+             reported per tier
     serve_kernels K3, K4 (fp16) and K5 on phase 5's model at 1, 16, 64 and
              256 binned rows a call: device time with L2 warm and with L2
              flushed, beside the serve phase's launch counts; and an empty
@@ -112,14 +134,18 @@ import numpy as np
 import torch
 
 from ddt_tpu_torch import _build, api
+from ddt_tpu_torch.backends import cuda as cuda_backend
+from ddt_tpu_torch.backends import get_backend
 from ddt_tpu_torch.config import TrainConfig
 from ddt_tpu_torch.data.datasets import synthetic_binary
-from ddt_tpu_torch.data.quantizer import fit_bin_mapper
+from ddt_tpu_torch.data.quantizer import (BinMapper, feature_bincounts,
+                                          fit_bin_mapper)
+from ddt_tpu_torch.driver import Driver
 from ddt_tpu_torch.models.tree import empty_ensemble
-from ddt_tpu_torch.backends import get_backend
 from ddt_tpu_torch.ops import (grad, hist_cuda, histogram, predict,
                                predict_cuda, predict_lut, predict_lut_cuda,
-                               sampling)
+                               quantize, sampling)
+from ddt_tpu_torch.ops.grad import base_score_np
 from ddt_tpu_torch.serve import ServeEngine
 
 ROWS = 1_000_000
@@ -129,6 +155,7 @@ N_TREES = 100
 PARITY_ROWS = 200_000
 PARITY_TREES = 10
 SERVE_POOL = 65_536         # raw rows the serve phase's requests slice
+FUSED_TREES = 20
 SERVE_REQUESTS = 2_000
 SERVE_THREADS = 32
 EXPRESS_REQUESTS = 200
@@ -575,25 +602,66 @@ def phase_traverse_exact(Xb: np.ndarray) -> None:
               == PASS_TREES, "oracle_rows": sub})
 
 
+class HostTransformCount:
+    """Counts BinMapper.transform calls (host binning) while open."""
+
+    def __enter__(self):
+        self.calls = 0
+        self._orig = BinMapper.transform
+
+        def counted(mapper, X):
+            self.calls += 1
+            return self._orig(mapper, X)
+
+        BinMapper.transform = counted
+        return self
+
+    def __exit__(self, *exc):
+        BinMapper.transform = self._orig
+
+
+def synced(fn):
+    """(fn(), host seconds of fn ending in a synchronize)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
 def phase_main(X: np.ndarray, y: np.ndarray) -> dict:
     cfg = TrainConfig(n_trees=N_TREES, max_depth=DEPTH, n_bins=255,
                       device="cuda")
     hist_cuda.launches = 0
     hist_cuda.launches_int = 0
     predict_cuda.launches = 0
-    t0 = time.perf_counter()
-    res = api.train(X, y, cfg)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    p = api.predict(res.ensemble, X, mapper=res.mapper)
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
+    quantize.transforms = 0
+    cuda_backend.graph_replays = 0
+    with HostTransformCount() as host_bins:
+        t0 = time.perf_counter()
+        res = api.train(X, y, cfg)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        p = api.predict(res.ensemble, X, mapper=res.mapper)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
     launches = {"hist": hist_cuda.launches,
-                "traverse": predict_cuda.launches}
+                "traverse": predict_cuda.launches,
+                "binning": quantize.transforms,
+                "graph_replays": cuda_backend.graph_replays,
+                "host_transforms": host_bins.calls}
     check(launches["hist"] > 0, "histogram kernel launched on main path")
     check(hist_cuda.launches_int == 0,
           "integer histogram mode not launched on the f32 path")
     check(launches["traverse"] > 0, "traversal kernel launched on main path")
+    check(launches["binning"] == 2, "train and predict binned on the card")
+    check(host_bins.calls == 0, "no host binning on the main path")
+    check(launches["graph_replays"] == N_TREES,
+          f"{launches['graph_replays']} round replays for {N_TREES} trees")
+    # One launch a level with sibling subtraction, counted per replay; a
+    # capture adds one warm-up round outside the graph.
+    check(DEPTH * N_TREES <= launches["hist"] <= DEPTH * (N_TREES + 1),
+          f"{launches['hist']} histogram launches for {N_TREES} trees")
     check(p.shape == (len(X),) and np.all(np.isfinite(p)),
           "predictions finite, one per row")
     train_auc = auc(y, p)
@@ -610,8 +678,151 @@ def phase_main(X: np.ndarray, y: np.ndarray) -> dict:
           "train_s": t1 - t0, "predict_s": t2 - t1,
           "train_auc": train_auc, "launches": launches,
           "hist_launches_per_tree": launches["hist"] / N_TREES})
+    pieces = main_pieces(X, y, cfg)
     return {"res": res, "launches": launches, "auc": train_auc,
-            "train_s": t1 - t0}
+            "train_s": t1 - t0, "pieces": pieces}
+
+
+def main_pieces(X: np.ndarray, y: np.ndarray, cfg: TrainConfig) -> dict:
+    """api.train's and api.predict's steps on the same rows, each timed
+    apart (host clock ending in a synchronize), one line each."""
+    dev = torch.device("cuda")
+    out = {}
+    mapper, out["fit_bin_mapper_s"] = synced(
+        lambda: fit_bin_mapper(X, n_bins=255, seed=cfg.seed))
+    Xd, out["upload_f32_s"] = synced(lambda: torch.from_numpy(X).to(dev))
+    Xb, out["bin_s"] = synced(lambda: mapper.transform_device(Xd, dev))
+    _, out["ref_counts_s"] = synced(
+        lambda: feature_bincounts(Xb, 255).cpu().numpy())
+    be = get_backend(cfg)
+    ens, out["loop_s"] = synced(lambda: Driver(be, cfg).fit(Xb, y))
+    out["loop_ms_per_tree"] = 1e3 * out["loop_s"] / N_TREES
+    out["capture_s"] = be.last_capture_s
+    Xp, out["predict_upload_and_bin_s"] = synced(
+        lambda: mapper.transform_device(X, dev))
+    _, out["predict_score_s"] = synced(lambda: be.predict_raw(ens, Xp))
+    for k, v in out.items():
+        emit({"phase": "main", "piece": k, "value": v})
+    return out
+
+
+def binning_rows(X: np.ndarray) -> np.ndarray:
+    """X with binning's edge cases mixed in: NaN, +/-inf, -0.0 and 0.0, a
+    low-cardinality column (runs of duplicate edges) and an integer column
+    (fitted as identity)."""
+    rng = np.random.default_rng(21)
+    Xs = X.copy()
+    Xs[:, 6] = rng.integers(0, 4, len(X))
+    Xs[:, 5] = rng.integers(0, 40, len(X))
+    for v, frac in ((np.nan, 0.03), (np.inf, 0.005), (-np.inf, 0.005),
+                    (-0.0, 0.005), (0.0, 0.005)):
+        Xs[rng.random(Xs.shape) < frac] = v
+    return Xs
+
+
+def phase_bin(X: np.ndarray, card: dict, flush: torch.Tensor) -> dict:
+    dev = torch.device("cuda")
+    Xs = binning_rows(X)
+    R, F = Xs.shape
+    out = {}
+    for policy in ("zero", "learn"):
+        mapper = fit_bin_mapper(Xs, n_bins=255, missing_policy=policy,
+                                cat_features=(5,))
+        check(mapper.non_identity_columns((5,)) == [], "identity column")
+        check(len(np.unique(mapper.edges[6, :mapper.n_value_bins - 1]))
+              < mapper.n_value_bins - 1, "duplicate edges in column 6")
+        t0 = time.perf_counter()
+        host = mapper.transform(Xs)
+        host_s = time.perf_counter() - t0
+        ups = []
+        for _ in range(3):
+            Xd, t = synced(lambda: torch.from_numpy(Xs).to(dev))
+            ups.append(t)
+        edges = quantize.device_edges(mapper, dev)
+        got = quantize.transform_binned(Xd, edges, 255, mapper.missing_bin)
+        check(np.array_equal(got.cpu().numpy(), host),
+              f"binning {policy}: card == BinMapper.transform, bitwise")
+        counts = feature_bincounts(got, 255).cpu().numpy()
+        check(np.array_equal(counts, feature_bincounts(host, 255)),
+              f"binning {policy}: feature_bincounts card == numpy")
+        nbytes = R * F * 4 + R * F
+        row = {"ms": time_ms(lambda: quantize.transform_binned(
+                   Xd, edges, 255, mapper.missing_bin), 20, flush),
+               "bound_ms": 1e3 * nbytes / card["bw"], "bound_by": "bytes",
+               "bytes": nbytes, "upload_s": float(np.median(ups)),
+               "upload_s_all": ups, "host_transform_s": host_s,
+               "bincounts_ms": time_ms(
+                   lambda: feature_bincounts(got, 255), 10, flush)}
+        out[policy] = row
+        emit({"phase": "bin", "rows": R, "features": F, "bins": 255,
+              "missing_policy": policy, "nan": int(np.isnan(Xs).sum()),
+              "identity_columns": [5], "bitwise_equal": True,
+              "bincounts_bitwise_equal": True, **row})
+        del Xd, got
+    return out
+
+
+def granular_fit(cfg: TrainConfig, Xb, y: np.ndarray):
+    """The granular loop (Driver._fit_granular) on the card: the fused
+    loop's yardstick."""
+    be = get_backend(cfg)
+    bs = base_score_np(y, cfg.loss)
+    yd = be.upload_labels(y)
+    ens = empty_ensemble(cfg.n_trees, cfg.max_depth, Xb.shape[1],
+                         cfg.learning_rate, bs, cfg.loss, n_bins=cfg.n_bins)
+    return Driver(be, cfg)._fit_granular(be.upload(Xb), yd,
+                                         be.init_pred(yd, bs), ens)
+
+
+def phase_fused(Xb: np.ndarray, y: np.ndarray) -> dict:
+    dev = torch.device("cuda")
+    Xd = torch.from_numpy(Xb).to(dev)
+    base = TrainConfig(n_trees=FUSED_TREES, max_depth=DEPTH, n_bins=255,
+                       min_split_gain=1e-3)
+    cases = (("int8", dict(grad_dtype="int8")),
+             ("f32", {}),
+             ("int8 bagging 0.8 colsample 0.8",
+              dict(grad_dtype="int8", subsample=0.8, colsample_bytree=0.8,
+                   seed=3)))
+    out = {}
+    for what, kw in cases:
+        cfg = base.replace(**kw)
+        r0 = cuda_backend.graph_replays
+        fused, fused_s = synced(
+            lambda: Driver(get_backend(cfg), cfg).fit(Xd, y))
+        check(cuda_backend.graph_replays - r0 == FUSED_TREES,
+              f"fused {what}: {FUSED_TREES} replays")
+        gran, gran_s = synced(lambda: granular_fit(cfg, Xd, y))
+        capture_s = get_backend(cfg).last_capture_s
+        row = {"fused_ms_per_tree": 1e3 * fused_s / FUSED_TREES,
+               "fused_ms_per_tree_after_capture":
+                   1e3 * (fused_s - capture_s) / FUSED_TREES,
+               "granular_ms_per_tree": 1e3 * gran_s / FUSED_TREES,
+               "capture_s": capture_s}
+        if cfg.grad_dtype == "f32":
+            row["tie_root_causes"] = trees_match_mod_ties(gran, fused,
+                                                          1e-3)
+            row["identical_trees"] = int(np.sum(np.all(
+                (gran.feature == fused.feature)
+                & (gran.threshold_bin == fused.threshold_bin), axis=1)))
+        else:
+            for k in TREE_FIELDS:
+                check(np.array_equal(getattr(gran, k), getattr(fused, k)),
+                      f"fused {what}: {k} == granular, bitwise")
+            row["bitwise_equal"] = True
+        out[what] = row
+        emit({"phase": "fused", "case": what, "rows": len(Xb),
+              "trees": FUSED_TREES, "depth": DEPTH, **row})
+    cfg = base.replace(**cases[2][1])
+    one = Driver(get_backend(cfg), cfg).fit(Xd, y)
+    cap7 = cfg.replace(fused_block_rounds=7)
+    blocks = Driver(get_backend(cap7), cap7).fit(Xd, y)
+    for k in TREE_FIELDS:
+        check(np.array_equal(getattr(one, k), getattr(blocks, k)),
+              f"fused block cap 7 vs 100: {k} bitwise")
+    emit({"phase": "fused", "case": "block cap 7 vs 100, " + cases[2][0],
+          "bitwise_equal": True})
+    return out
 
 
 def phase_traverse_trained(res, X: np.ndarray, card: dict,
@@ -619,7 +830,7 @@ def phase_traverse_trained(res, X: np.ndarray, card: dict,
     dev = torch.device("cuda")
     ce = res.ensemble.compile(tree_chunk=64)
     tables, kernel, plain = device_operands(ce, dev)
-    Xd = torch.from_numpy(res.mapper.transform(X)).to(dev)
+    Xd = res.mapper.transform_device(X, dev)
     _, sizes = check_traverse(kernel, plain, tables, Xd, "traverse trained")
     R, F = Xd.shape
     table_bytes = tables.rec.numel()
@@ -701,7 +912,7 @@ def lut_callables(tables, dev):
 
 def phase_lut_exact(X: np.ndarray, Xb: np.ndarray) -> None:
     dev = torch.device("cuda")
-    Xb13 = fit_bin_mapper(X, n_bins=13).transform(X)
+    Xb13 = fit_bin_mapper(X, n_bins=13).transform_device(X).cpu().numpy()
     cases = (("K4 fp16", "float16", 255, 7, Xb),
              ("K4 int8", "int8", 255, 127, Xb),
              ("K5 13 bins", "int4", 13, 7, Xb13),
@@ -792,7 +1003,7 @@ def phase_lut_trained(res, X: np.ndarray, card: dict,
     dev = torch.device("cuda")
     ce = res.ensemble.compile(tree_chunk=64)
     k3_tables, k3, _ = device_operands(ce, dev)
-    Xd = torch.from_numpy(res.mapper.transform(X)).to(dev)
+    Xd = res.mapper.transform_device(X, dev)
     k3_out = k3(Xd)
     rows = {}
     for name, leaf_dtype in (("lut", "float16"), ("lut4", "int4")):
@@ -821,7 +1032,7 @@ def phase_lut4_packed(X: np.ndarray, y: np.ndarray, card: dict,
     ce = res.ensemble.compile(tree_chunk=64)
     tables = ce.quantize("int4")
     check(tables.pack_int4().thr_packed, "15-bin model: thr_packed")
-    Xd = torch.from_numpy(res.mapper.transform(X)).to(torch.device("cuda"))
+    Xd = res.mapper.transform_device(X, torch.device("cuda"))
     _, k3, _ = device_operands(ce, Xd.device)
     row = lut_measure("lut4 packed", tables, ce, res.ensemble.n_trees, Xd,
                       card, flush, k3(Xd))
@@ -858,6 +1069,7 @@ def serve_tier(tier, b255, b15, pool, refs) -> dict:
 
         threads = [threading.Thread(target=submitter, args=(t,))
                    for t in range(SERVE_THREADS)]
+        bins0 = quantize.transforms
         t0 = time.perf_counter()
         for t in threads:
             t.start()
@@ -875,6 +1087,10 @@ def serve_tier(tier, b255, b15, pool, refs) -> dict:
         check(not any(t.is_alive() for t in threads), "submitters done")
         check(not errors, f"serve {tier}: errors {errors[:3]}")
         load = eng.stats.window_summary(reset=True)
+        # Every request is float rows: one transform on the card a batch.
+        per_batch = (quantize.transforms - bins0) / load["batches"]
+        check(per_batch == 1.0, f"serve {tier}: {per_batch} transforms a "
+              "batch")
         # Median request-trace segments of the last loaded requests.
         ring = eng.stats.traces_snapshot()
         segments = {k: float(np.median([t[k] for t in ring]))
@@ -885,7 +1101,8 @@ def serve_tier(tier, b255, b15, pool, refs) -> dict:
         for _ in range(EXPRESS_REQUESTS):
             s = int(rng.integers(0, SERVE_POOL))
             req = eng.predict_async(pool[s:s + 1])
-            results.append((s, 1, req.model_token, req.result(timeout=60.0)))
+            out = req.result(timeout=60.0)     # stamps req.model_token
+            results.append((s, 1, req.model_token, out))
         express = eng.stats.window_summary(reset=True)
         tokens = {swap["old"], swap["new"]}
         for s, c, token, out in results:
@@ -911,7 +1128,8 @@ def serve_tier(tier, b255, b15, pool, refs) -> dict:
             "coalesce_mean": load["coalesce_mean"],
             "p50_ms": load["p50_ms"], "p99_ms": load["p99_ms"],
             "p999_ms": load["p999_ms"], "responses_by_model": list(
-                by_token.values()), "trace_median_ms": segments,
+                by_token.values()), "gate_ms": segments["gate_ms"],
+            "transforms_per_batch": per_batch, "trace_median_ms": segments,
             "express_requests": express["requests"],
             "express_lane": express["express"],
             "express_p50_ms": express["p50_ms"],
@@ -1350,13 +1568,17 @@ def main() -> int:
     phase_build()
     X, y = synthetic_binary(ROWS, n_features=FEATURES, seed=0)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
-    binned = {B: fit_bin_mapper(X, n_bins=B).transform(X)
-              for B, _ in HIST_SHAPES}
+    # Fixtures binned on the card (phase bin holds that bitwise to the
+    # host transform).
+    binned = {B: fit_bin_mapper(X, n_bins=B).transform_device(X)
+              .cpu().numpy() for B, _ in HIST_SHAPES}
     levels = main_path_levels(torch.from_numpy(binned[255]).to("cuda"), y)
     hist = phase_hist(binned, levels, card, flush)
     Xb = binned[255]
     phase_traverse_exact(Xb)
     main_run = phase_main(X, y)
+    phase_bin(X, card, flush)
+    phase_fused(Xb, y)
     trav = phase_traverse_trained(main_run["res"], X, card, flush)
     phase_parity(X, y)
     phase_lut_exact(X, Xb)

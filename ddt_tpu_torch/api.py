@@ -2,11 +2,13 @@
 ddt_tpu/api.py's `train`, `predict`, `ModelBundle` and
 `validate_mapper_model`).
 
-Float features are quantized here (data/quantizer) unless `binned=True`;
-training runs the Driver against the backend of `cfg.device`; scoring goes
-through the backend's device traversal, at the tier cfg.predict_impl
-names. Both run on the card unless the caller asks for the CPU
-(device="cpu").
+Float features are binned here unless `binned=True`: the edges are fitted
+on the host (data/quantizer.fit_bin_mapper), then the f32 rows are
+uploaded once and binned on the backend's device (ops/quantize), where the
+binned matrix stays: training hands it to the Driver and counts the
+mapper's reference bin histogram there; scoring hands it to the backend's
+device traversal, at the tier cfg.predict_impl names. Both run on the card
+unless the caller asks for the CPU (device="cpu").
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from ddt_tpu_torch.backends import get_backend
 from ddt_tpu_torch.backends.base import DeviceBackend
@@ -64,16 +67,18 @@ def train(
     backend: DeviceBackend | None = None,
     **cfg_overrides,
 ) -> TrainResult:
-    """Train a GBDT. `X` is float features (quantized here) unless
-    `binned=True` (uint8 bin indices). `cfg_overrides` are TrainConfig
-    fields, e.g. train(X, y, n_trees=50, device="cpu")."""
+    """Train a GBDT. `X` is float features (binned here, on the device)
+    unless `binned=True` (uint8 bin indices, host or tensor).
+    `cfg_overrides` are TrainConfig fields, e.g. train(X, y, n_trees=50,
+    device="cpu")."""
     if cfg is None:
         cfg = TrainConfig(**cfg_overrides)
     elif cfg_overrides:
         cfg = cfg.replace(**cfg_overrides)
+    be = backend if backend is not None else get_backend(cfg)
     if binned:
-        Xb = np.asarray(X)
-        if Xb.dtype != np.uint8:
+        Xb = X if isinstance(X, torch.Tensor) else np.asarray(X)
+        if Xb.dtype not in (np.uint8, torch.uint8):
             raise TypeError("binned=True requires uint8 bin indices")
     else:
         if mapper is None:
@@ -83,9 +88,9 @@ def train(
             raise ValueError(
                 "a BinMapper with a reserved missing bin needs "
                 "missing_policy='learn' training, which is not ported yet")
-        Xb = mapper.transform(np.asarray(X))
-        mapper.ref_counts = feature_bincounts(Xb, mapper.n_bins)
-    be = backend if backend is not None else get_backend(cfg)
+        Xb = mapper.transform_device(X, be.device)
+        mapper.ref_counts = feature_bincounts(
+            Xb, mapper.n_bins).cpu().numpy()
     ens = Driver(be, cfg).fit(Xb, np.asarray(y))
     if mapper is not None:
         fill_raw_thresholds(ens, mapper)
@@ -134,28 +139,30 @@ def predict(
     cfg: TrainConfig | None = None,
     device: str = "cuda",
 ) -> np.ndarray:
-    """Score a batch on the device: float X is binned with `mapper` first
-    (uint8 bins with binned=True); a ModelBundle brings its training
-    mapper. Returns probabilities (raw margins with raw=True). The scoring
-    backend is `backend` if given, else the one of `cfg` (whose
-    predict_impl picks the f32, int8 or int4 tier, and whose device
-    wins), else the f32 backend of `device`."""
+    """Score a batch on the device: float X is binned there with `mapper`
+    first (uint8 bins, host or tensor, with binned=True); a ModelBundle
+    brings its training mapper. Returns probabilities (raw margins with
+    raw=True). The scoring backend is `backend` if given, else the one of
+    `cfg` (whose predict_impl picks the f32, int8 or int4 tier, and whose
+    device wins), else the f32 backend of `device`."""
     if isinstance(ens, ModelBundle):
         if mapper is None:
             mapper = ens.mapper
         ens = ens.ensemble
-    X = np.asarray(X)
+    if not isinstance(X, torch.Tensor):
+        X = np.asarray(X)
     if not binned:
         if mapper is None:
             raise ValueError(
                 "predict on raw features needs the training mapper; or "
                 "pass binned=True with uint8 bins")
         validate_mapper_model(mapper, ens)
-        X = mapper.transform(X)
-    if X.dtype != np.uint8:
+    elif X.dtype not in (np.uint8, torch.uint8):
         raise TypeError(f"binned data must be uint8, got {X.dtype}")
     if backend is None:
         backend = get_backend(cfg if cfg is not None
                               else TrainConfig(device=device))
+    if not binned:
+        X = mapper.transform_device(X, backend.device)
     out = backend.predict_raw(ens, X)
     return out if raw else predict_proba_np(out, ens.loss)

@@ -3,11 +3,14 @@ ddt_tpu/backends/base.py, same method names).
 
 The Driver sees only upload / upload_labels / init_pred / grad_hess /
 apply_row_mask / grow_tree / fetch_tree / apply_delta / loss_value /
-predict_raw; the granular kernels (build_histograms, best_splits) stay on
-the interface as the parity surface. Boosting state (raw predictions) and
-the data live where the backend wants them: opaque handles flow Driver ->
-grad_hess -> grow_tree -> apply_delta without a host round trip; only the
-grown tree's node arrays come back per tree.
+predict_raw, and the optional fused rounds (grow_rounds /
+grow_rounds_masked / fetch_rounds), which it takes whenever a backend has
+them; the granular kernels (build_histograms, best_splits) stay on the
+interface as the parity surface. Boosting state (raw predictions) and
+the data live where the backend wants them (`device`): opaque handles flow
+Driver -> grad_hess -> grow_tree -> apply_delta without a host round
+trip; only the grown trees' node arrays come back, per tree on the
+granular loop and once a block on the fused one.
 """
 
 from __future__ import annotations
@@ -26,10 +29,30 @@ class HostTree(dict):
     is_leaf / leaf_value / split_gain / default_left, each [n_nodes_total]."""
 
 
+#: Rows of a packed tree record [6, N] f32 (int32 and bool node values are
+#: exact in f32): one device->host copy carries a whole tree.
+PACKED_FIELDS = ("feature", "threshold_bin", "is_leaf", "leaf_value",
+                 "split_gain", "default_left")
+
+
+def unpack_tree(packed: np.ndarray) -> HostTree:
+    """A packed [6, N] f32 tree record -> HostTree."""
+    return HostTree(
+        feature=packed[0].astype(np.int32),
+        threshold_bin=packed[1].astype(np.int32),
+        is_leaf=packed[2].astype(bool),
+        leaf_value=packed[3].astype(np.float32),
+        split_gain=packed[4].astype(np.float32),
+        default_left=packed[5].astype(bool),
+    )
+
+
 class DeviceBackend(abc.ABC):
     """Uniform device API for histogram-GBDT training and inference."""
 
     name: str = "abstract"
+    #: Where the backend keeps data and state (a torch.device).
+    device: Any = None
 
     def __init__(self, cfg: TrainConfig):
         self.cfg = cfg
@@ -37,8 +60,9 @@ class DeviceBackend(abc.ABC):
     # --- data plane ---
 
     @abc.abstractmethod
-    def upload(self, Xb: np.ndarray) -> Any:
-        """Ship the binned uint8 matrix [R, F] to the device."""
+    def upload(self, Xb: Any) -> Any:
+        """Ship the binned uint8 matrix [R, F] (host, or a tensor) to the
+        device."""
 
     @abc.abstractmethod
     def upload_labels(self, y: np.ndarray,
@@ -89,6 +113,25 @@ class DeviceBackend(abc.ABC):
         """Resolve a grow_tree handle to host node arrays."""
         return handle
 
+    # --- fused rounds (optional: the Driver takes them when present) ---
+    #
+    # grow_rounds(data, pred, y, n_rounds, first_round=0) runs n_rounds
+    # boosting rounds on the device and returns device handles
+    # (packed trees [n_rounds, 6, N] f32, the new pred, losses [n_rounds]
+    # f32: the loss after each round, loss_value's semantics). Bagging
+    # masks and quantized-gradient rounding keys come from the absolute
+    # round first_round + k. grow_rounds_masked(data, pred, y, n_rounds,
+    # fmasks, first_round=0) adds the host-drawn colsample masks, bool
+    # [n_rounds, F]. The reference's contract
+    # (ddt_tpu/backends/tpu.py:798-845), one output column.
+    grow_rounds = None
+    grow_rounds_masked = None
+
+    def fetch_rounds(self, trees: Any, losses: Any
+                     ) -> tuple[np.ndarray, np.ndarray]:
+        """Resolve grow_rounds' trees and losses to host arrays."""
+        return np.asarray(trees), np.asarray(losses)
+
     @abc.abstractmethod
     def apply_delta(self, pred: Any, delta: Any, class_idx: int) -> Any:
         """pred updated by delta."""
@@ -100,10 +143,12 @@ class DeviceBackend(abc.ABC):
     # --- inference ---
 
     @abc.abstractmethod
-    def predict_raw(self, ens: TreeEnsemble, Xb: np.ndarray,
+    def predict_raw(self, ens: TreeEnsemble, Xb: Any,
                     compiled=None) -> np.ndarray:
-        """Batch scoring of binned rows: raw margins [R] or [R, C] on host.
-        `compiled` is an optional CompiledEnsemble already built for ens."""
+        """Batch scoring of binned rows (host uint8, or a uint8 tensor,
+        scored where it lies when that is the backend's device): raw
+        margins [R] or [R, C] on host. `compiled` is an optional
+        CompiledEnsemble already built for ens."""
 
     def __repr__(self) -> str:  # pragma: no cover
         return f"<{type(self).__name__} backend={self.name!r}>"

@@ -6,15 +6,26 @@ Needs a CUDA card (exits 2 without one). Runs chip_smoke.py's main path
 at its shape (the Higgs shape: 1M rows x 28 features, 255 bins, depth 6,
 100 trees; fixed, because these numbers are read beside chip_smoke's) in
 separately timed pieces, host clock around work that ends in a
-synchronize: bin-edge fitting and binning on the host, the boosting loop
-on binned data with f32 gradients and with grad_dtype="int8" (quantized),
-and scoring (first call: pushdown, upload and packing of the model;
-second call: cache hit). Then torch.profiler over PROFILE_TREES boosting
-rounds of each gradient type and one warm scoring call gives device time
-and launch count by kernel, the histogram kernel's device ms per tree
-(L2 warm, as in the loop) and the device's busy share (sum of device time
-over wall time). Prints one JSON object per line; the card's name
-and power limit (nvidia-smi) come first.
+synchronize:
+
+- binning: bin-edge fitting on the host, the f32 upload, binning on the
+  card (ops/quantize), and the host transform it replaced;
+- the boosting loop on the card-binned rows, f32 and grad_dtype="int8",
+  fused (Driver._fit_fused: replays of one captured round) beside the
+  granular loop (Driver._fit_granular), with the capture's one-off cost
+  (its warm-up round and the capture) apart;
+- scoring: api.predict on the float rows (upload, binning, first call:
+  pushdown, upload and packing of the model; then a cache hit), and a
+  cached call on binned rows.
+
+Then torch.profiler over PROFILE_TREES rounds of each loop and gradient
+type, after a call that captured the round, and one warm scoring call:
+device time and count by kernel, the device's busy share (sum of device
+time over wall time), host launches a tree (the runtime's kernel-launch,
+graph-launch, copy and fill calls the host made), graph replays a tree
+and the histogram kernel's device ms per tree (L2 warm, as in the loop).
+Prints one JSON object per line; the card's name and power limit
+(nvidia-smi) come first and last.
 """
 
 from __future__ import annotations
@@ -27,15 +38,23 @@ import time
 import torch
 
 from ddt_tpu_torch import api
+from ddt_tpu_torch.backends import cuda as cuda_backend
+from ddt_tpu_torch.backends import get_backend
 from ddt_tpu_torch.config import TrainConfig
 from ddt_tpu_torch.data.datasets import synthetic_binary
 from ddt_tpu_torch.data.quantizer import fit_bin_mapper
+from ddt_tpu_torch.driver import Driver
+from ddt_tpu_torch.models.tree import empty_ensemble
+from ddt_tpu_torch.ops.grad import base_score_np
 
 ROWS = 1_000_000
 N_TREES = 100
 PROFILE_TREES = 5
 TOP = 12            # kernels listed per profile
 BOOST_GRAD_DTYPES = ("f32", "int8")   # boosting loops timed side by side
+#: Host-side runtime calls that put work on the device (CUPTI's names).
+HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch",
+                     "cudaMemcpyAsync", "cudaMemsetAsync")
 
 
 def _emit(obj) -> None:
@@ -47,9 +66,18 @@ def _device_time_us(evt) -> float:
     return float(t if t is not None else evt.self_cuda_time_total)
 
 
+def _synced(fn):
+    """(fn(), host seconds of fn ending in a synchronize)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
 def _profiled(fn) -> dict:
-    """Wall time, device busy time and the top kernels of fn() under
-    torch.profiler (CPU + CUDA activities)."""
+    """Wall time, device busy time, host launch calls and the top kernels
+    of fn() under torch.profiler (CPU + CUDA activities)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -59,21 +87,48 @@ def _profiled(fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    events = prof.key_averages()
     # Device-side events only (kernels, memcpy, memset): the op-level
     # rows repeat their kernels' time. CUPTI's own buffer requests are
     # profiler overhead, not work.
-    rows = [(e.key, _device_time_us(e), e.count)
-            for e in prof.key_averages()
+    rows = [(e.key, _device_time_us(e), e.count) for e in events
             if e.device_type == torch.autograd.DeviceType.CUDA
             and not e.key.startswith("Activity Buffer")]
     rows = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])
     busy = sum(r[1] for r in rows) * 1e-6
     hist = sum(r[1] for r in rows if "hist_kernel" in r[0]) * 1e-3
+    host = {e.key: e.count for e in events
+            if e.device_type == torch.autograd.DeviceType.CPU
+            and e.key.startswith(HOST_LAUNCH_CALLS)}
     return {"wall_s": wall, "device_busy_s": busy, "hist_kernel_ms": hist,
             "busy_share": busy / wall if wall > 0 else None,
             "device_launches": sum(r[2] for r in rows),
+            "host_launch_calls": sum(host.values()), "host_calls": host,
             "top": [{"name": k[:80], "device_ms": t * 1e-3, "count": c}
                     for k, t, c in rows[:TOP]]}
+
+
+class _Loops:
+    """The fused and granular loops of one config on data already on the
+    card, from the base score, as Driver.fit runs them."""
+
+    def __init__(self, cfg: TrainConfig, Xb: torch.Tensor, y):
+        self.cfg = cfg
+        self.be = get_backend(cfg)
+        self.data = self.be.upload(Xb)
+        self.y = self.be.upload_labels(y)
+        self.bs = base_score_np(y, cfg.loss)
+        self.F = Xb.shape[1]
+
+    def run(self, fused: bool, n_trees: int):
+        cfg = self.cfg.replace(n_trees=n_trees)
+        ens = empty_ensemble(n_trees, cfg.max_depth, self.F,
+                             cfg.learning_rate, self.bs, cfg.loss,
+                             n_bins=cfg.n_bins)
+        drv = Driver(self.be, cfg)
+        pred = self.be.init_pred(self.y, self.bs)
+        loop = drv._fit_fused if fused else drv._fit_granular
+        return loop(self.data, self.y, pred, ens)
 
 
 def main() -> int:
@@ -86,51 +141,70 @@ def main() -> int:
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
 
     X, y = synthetic_binary(ROWS, seed=0)
-    t0 = time.perf_counter()
-    mapper = fit_bin_mapper(X, n_bins=255, seed=0)
-    t1 = time.perf_counter()
-    Xb = mapper.transform(X)
-    t2 = time.perf_counter()
-    _emit({"phase": "host_binning", "rows": ROWS,
-           "fit_bin_mapper_s": t1 - t0, "transform_s": t2 - t1})
+    # Warm-up: the CUDA context and every kernel library, outside the
+    # timings.
+    small = api.train(X[:4096], y[:4096], n_trees=1)
+    api.predict(small.ensemble, X[:4096], mapper=small.mapper)
+    mapper, fit_s = _synced(lambda: fit_bin_mapper(X, n_bins=255, seed=0))
+    # Each step twice: the first call at this size also grows the
+    # allocator's pool.
+    up = [_synced(lambda: torch.from_numpy(X).to(dev)) for _ in range(2)]
+    Xd = up[-1][0]
+    bins = [_synced(lambda: mapper.transform_device(Xd, dev))
+            for _ in range(2)]
+    Xb = bins[-1][0]
+    _, host_s = _synced(lambda: mapper.transform(X))
+    _emit({"phase": "binning", "rows": ROWS, "fit_bin_mapper_s": fit_s,
+           "upload_f32_s": [t for _, t in up],
+           "device_transform_s": [t for _, t in bins],
+           "host_transform_s": host_s})
 
     cfg = TrainConfig(n_trees=N_TREES, max_depth=6, n_bins=255,
                       device="cuda")
+    loops = {}
     for dt in BOOST_GRAD_DTYPES:
-        # Warm-up: kernel build/load and the CUDA context, outside the
-        # timing.
-        api.train(Xb[:4096], y[:4096], cfg, binned=True, n_trees=1,
-                  grad_dtype=dt)
-        torch.cuda.synchronize()
-        t3 = time.perf_counter()
-        res_dt = api.train(Xb, y, cfg, binned=True, grad_dtype=dt)
-        torch.cuda.synchronize()
-        t4 = time.perf_counter()
+        lp = loops[dt] = _Loops(cfg.replace(grad_dtype=dt), Xb, y)
+        r0 = cuda_backend.graph_replays
+        first, first_s = _synced(lambda: lp.run(True, N_TREES))
+        capture_s = lp.be.last_capture_s
+        _, fused_s = _synced(lambda: lp.run(True, N_TREES))
+        _, gran_s = _synced(lambda: lp.run(False, N_TREES))
         _emit({"phase": "boost", "grad_dtype": dt, "trees": N_TREES,
-               "boost_s": t4 - t3, "ms_per_tree": 1e3 * (t4 - t3) / N_TREES})
+               "fused_ms_per_tree": 1e3 * fused_s / N_TREES,
+               "granular_ms_per_tree": 1e3 * gran_s / N_TREES,
+               "fused_first_call_s": first_s, "capture_s": capture_s,
+               "graph_replays": cuda_backend.graph_replays - r0})
         if dt == "f32":
-            res = res_dt
+            res = first
 
-    t5 = time.perf_counter()
-    api.predict(res.ensemble, Xb, binned=True)
-    t6 = time.perf_counter()
-    api.predict(res.ensemble, Xb, binned=True)
-    t7 = time.perf_counter()
+    _, first_s = _synced(lambda: api.predict(res, X, mapper=mapper))
+    _, cached_s = _synced(lambda: api.predict(res, X, mapper=mapper))
+    _, binned_s = _synced(lambda: api.predict(res, Xb, binned=True))
     _emit({"phase": "predict", "rows": ROWS,
-           "first_call_s": t6 - t5, "cached_call_s": t7 - t6})
+           "float_rows_first_call_s": first_s,
+           "float_rows_cached_call_s": cached_s,
+           "binned_cached_call_s": binned_s})
 
     k = PROFILE_TREES
     for dt in BOOST_GRAD_DTYPES:
-        prof = _profiled(lambda: api.train(Xb, y, cfg, binned=True,
-                                           n_trees=k, grad_dtype=dt))
-        _emit({"phase": "profile_boost", "grad_dtype": dt, "trees": k,
-               "ms_per_tree": 1e3 * prof["wall_s"] / k,
-               "device_launches_per_tree": prof["device_launches"] / k,
-               "hist_kernel_ms_per_tree": prof["hist_kernel_ms"] / k,
-               **prof})
-    prof = _profiled(lambda: api.predict(res.ensemble, Xb, binned=True))
+        lp = loops[dt]
+        for fused in (True, False):
+            r0 = cuda_backend.graph_replays
+            prof = _profiled(lambda: lp.run(fused, k))
+            _emit({"phase": "profile_boost", "grad_dtype": dt,
+                   "loop": "fused" if fused else "granular", "trees": k,
+                   "ms_per_tree": 1e3 * prof["wall_s"] / k,
+                   "device_launches_per_tree": prof["device_launches"] / k,
+                   "host_launches_per_tree":
+                       prof["host_launch_calls"] / k,
+                   "graph_replays_per_tree":
+                       (cuda_backend.graph_replays - r0) / k,
+                   "hist_kernel_ms_per_tree": prof["hist_kernel_ms"] / k,
+                   **prof})
+    prof = _profiled(lambda: api.predict(res, Xb, binned=True))
     _emit({"phase": "profile_predict_cached", **prof})
     print(smi, flush=True)
     return 0

@@ -65,6 +65,10 @@ class TrainConfig:
     predict_impl: str = "auto"  # auto | lut | lut4
 
     # --- system ---
+    # Rounds a block of the fused boosting loop (Driver._fit_fused): each
+    # block replays one captured round that many times (on the card, a
+    # CUDA graph) and fetches its trees to the host once.
+    fused_block_rounds: int = 100
     # Where training and scoring run. "cuda" raises when no card is
     # visible: the entry points never continue on the CPU by themselves.
     device: str = "cuda"        # cuda | cpu
@@ -91,6 +95,10 @@ class TrainConfig:
             raise ValueError(
                 f"hist_subtraction must be auto|on|off, got "
                 f"{self.hist_subtraction!r}")
+        if self.fused_block_rounds < 1:
+            raise ValueError(
+                f"fused_block_rounds must be >= 1, got "
+                f"{self.fused_block_rounds}")
         if self.predict_impl not in ("auto", "lut", "lut4"):
             raise ValueError(
                 f"predict_impl must be auto|lut|lut4, got "

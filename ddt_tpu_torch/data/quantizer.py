@@ -11,6 +11,11 @@ Bin semantics (shared by every kernel of both packages):
 A split "(feature f, threshold bin t)" routes rows with bin <= t LEFT.
 The raw-value threshold equivalent is edges[t] (go left iff v <= edges[t]).
 
+`BinMapper.transform` bins on the host with numpy; `transform_device`
+bins on a torch device (ops/quantize), bit for bit the same, and is what
+api.train / api.predict and the serving gate use; `feature_bincounts`
+counts a tensor on its device.
+
 NaN policy: "zero" maps NaN to bin 0; "learn" reserves the TOP bin
 (n_bins-1) for NaN (the reference trains a default direction for it; the
 port's trainer does not yet, but its mappers and scoring honour the bin).
@@ -21,6 +26,9 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
+
+from ddt_tpu_torch.ops import quantize as device_quantize
 
 
 @dataclasses.dataclass
@@ -91,6 +99,11 @@ class BinMapper:
             out[:, f] = binned.astype(np.uint8)
         return out
 
+    def transform_device(self, X, device="cuda") -> torch.Tensor:
+        """transform() on `device` (ops/quantize.transform_device): the
+        uint8 bins stay there, bit for bit transform(X)."""
+        return device_quantize.transform_device(self, X, device)
+
     def threshold_value(self, feature: int, threshold_bin: int) -> float:
         """Raw-value threshold for a (feature, bin) split: go left iff v <= it."""
         t = int(threshold_bin)
@@ -118,9 +131,12 @@ class BinMapper:
                                      else np.asarray(ref, np.int64)))
 
 
-def feature_bincounts(Xb: np.ndarray, n_bins: int) -> np.ndarray:
+def feature_bincounts(Xb, n_bins: int):
     """Per-feature bin histogram of a binned uint8 matrix: [rows, F] ->
-    int64 [F, n_bins] counts (one flat bincount over feature-offset codes)."""
+    int64 [F, n_bins] counts (one flat bincount over feature-offset codes).
+    A tensor is counted on its device and the counts stay there."""
+    if isinstance(Xb, torch.Tensor):
+        return device_quantize.feature_bincounts(Xb, n_bins)
     Xb = np.asarray(Xb)
     if Xb.ndim != 2:
         raise ValueError(f"Xb must be [rows, features], got {Xb.shape}")

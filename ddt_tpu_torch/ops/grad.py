@@ -195,12 +195,14 @@ def grad_abs_stats(g: torch.Tensor, h: torch.Tensor):
 
 def quantize_with_scales(g: torch.Tensor, h: torch.Tensor,
                          gscale: torch.Tensor, hscale: torch.Tensor, *,
-                         grad_dtype: str, tree_id: int, seed: int,
+                         grad_dtype: str, tree_id, seed: int,
                          row_start: int = 0):
     """(qg, qh) int8/int16 [R] from f32 gradients and a pre-derived pair
     of scales (0-dim tensors on g's device). q = floor(g / scale + u),
     u the per-(seed ^ channel salt, tree_id, global row) uniform;
-    on-grid values quantize exactly (u < 1 strictly)."""
+    on-grid values quantize exactly (u < 1 strictly). `tree_id` is an
+    int or a 0-dim int64 tensor on g's device (ops/sampling.uniform), the
+    form a captured round reads."""
     fq = float(GRAD_QMAX[grad_dtype])
     dt = grad_quant_dtype(grad_dtype)
     n, dev = g.shape[0], g.device
@@ -214,10 +216,11 @@ def quantize_with_scales(g: torch.Tensor, h: torch.Tensor,
 
 
 def quantize_gradients(g: torch.Tensor, h: torch.Tensor, *,
-                       grad_dtype: str, tree_id: int, seed: int,
+                       grad_dtype: str, tree_id, seed: int,
                        row_start: int = 0):
     """One tree's quantization step on g's device: scales from the |g|,
-    |h| stats, then seeded stochastic rounding. Returns (qg, qh, gscale,
+    |h| stats, then seeded stochastic rounding (`tree_id` an int or a
+    0-dim int64 tensor, as in quantize_with_scales). Returns (qg, qh, gscale,
     hscale); dequantize any integer aggregate A of the q's as A * scale,
     once. Refuses row counts past GRAD_ROW_LIMIT, where the sum cap no
     longer guarantees int32 headroom."""

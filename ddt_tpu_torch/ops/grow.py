@@ -92,13 +92,14 @@ def grow_tree(Xb: torch.Tensor, g: torch.Tensor, h: torch.Tensor, *,
               max_depth: int, n_bins: int, reg_lambda: float,
               min_child_weight: float, min_split_gain: float,
               hist_subtraction: bool = False, grad_dtype: str = "f32",
-              quant_tree_id: int = 0, quant_seed: int = 0,
+              quant_tree_id=0, quant_seed: int = 0,
               feature_mask: torch.Tensor | None = None) -> TreeArrays:
     """Grow one complete-heap tree from uint8 Xb [R, F] and f32 g, h [R]
     (the same decisions as ddt_tpu/ops/grow.grow_tree on one device).
 
     grad_dtype "int8"/"int16" quantizes g/h once, keyed by (quant_seed,
-    quant_tree_id, row); feature_mask (bool [F] on Xb's device, False =
+    quant_tree_id, row), the tree id an int or a 0-dim int64 tensor on
+    Xb's device; feature_mask (bool [F] on Xb's device, False =
     excluded) restricts every level's split candidates (colsample)."""
     R, F = Xb.shape
     dev = Xb.device

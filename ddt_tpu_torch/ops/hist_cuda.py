@@ -45,10 +45,12 @@ import dataclasses
 import torch
 
 from ddt_tpu_torch import _build
+from ddt_tpu_torch.utils import launches as _launches
 
 #: Kernel launches since the last reset (chip_smoke reads them around
 #: each path), one count per mode: `launches` for f32 g/h, `launches_int`
-#: for int8/int16. Counted only where the kernel is launched.
+#: for int8/int16. Counted only where the kernel is launched, and once
+#: per replay of a captured round (utils/launches).
 launches = 0
 launches_int = 0
 
@@ -178,7 +180,6 @@ def build_histograms_cuda(Xb: torch.Tensor, g: torch.Tensor,
     int8/int16 g/h. Xb uint8 [R, F], g and h [R] of one of those dtypes
     (the same for both), node_index int32 [R] (-1 = frozen), all
     contiguous CUDA tensors on one device."""
-    global launches, launches_int
     _check_operands(Xb, g, h, node_index, n_nodes, n_bins)
     entry, mode, out_dtype = _MODES[g.dtype]
     R, F = Xb.shape
@@ -199,8 +200,6 @@ def build_histograms_cuda(Xb: torch.Tensor, g: torch.Tensor,
             out.data_ptr(), R, F, n_bins, n_nodes, plan.fs, plan.nr,
             blocks_x, plan.smem_bytes, stream)
     _build.check(status, f"hist kernel launch ({entry})")
-    if out_dtype == torch.float32:
-        launches += 1
-    else:
-        launches_int += 1
+    _launches.count(__name__, "launches" if out_dtype == torch.float32
+                    else "launches_int")
     return out

@@ -26,6 +26,7 @@ import torch
 
 from ddt_tpu_torch import _build
 from ddt_tpu_torch.ops import predict_lut_cuda as L
+from ddt_tpu_torch.utils import launches as _launches
 
 #: Kernel launches since the last reset (chip_smoke reads it around the
 #: main path). Counted only where the kernel is launched.
@@ -83,7 +84,6 @@ def traverse_cuda(tables: Tables, X: torch.Tensor, *, learning_rate: float,
                   missing_bin_value: int = -1) -> torch.Tensor:
     """f32 [R, C] margins base + lr * sum of leaf values, X uint8 [R, F]
     contiguous on the card holding the tables."""
-    global launches
     if X.device.type != "cuda":
         raise TypeError(f"X must be a CUDA tensor, got {X.device}")
     if X.dtype != torch.uint8 or X.dim() != 2 or not X.is_contiguous():
@@ -116,5 +116,5 @@ def traverse_cuda(tables: Tables, X: torch.Tensor, *, learning_rate: float,
             plan.rows, plan.sub, float(learning_rate), float(base),
             plan.smem, torch.cuda.current_stream().cuda_stream)
     _build.check(status, "ddt_traverse_f32 launch")
-    launches += 1
+    _launches.count(__name__, "launches")
     return out

@@ -40,6 +40,7 @@ from typing import NamedTuple
 import torch
 
 from ddt_tpu_torch import _build
+from ddt_tpu_torch.utils import launches as _launches
 
 #: Kernel launches since the last reset (chip_smoke reads them around
 #: the serve phase). Counted only where a kernel is launched.
@@ -479,7 +480,6 @@ def lut_int8_cuda(ops: tuple, X: torch.Tensor, *, max_depth: int,
     (int32 class of each tree) is derived from cls_oh when not given;
     `max_feature` is accepted from callers that cache it, and the packed
     records carry their own."""
-    global launches_lut
     out = _launch(
         "ddt_lut_int8", ops, X,
         leaf_dtype="int8" if use_scale else "float16", thr_dtype=torch.int8,
@@ -489,7 +489,7 @@ def lut_int8_cuda(ops: tuple, X: torch.Tensor, *, max_depth: int,
         missing_bin_value=missing_bin_value, use_missing=use_missing,
         use_cat=use_cat, cls=cls)
     if X.shape[0]:
-        launches_lut += 1
+        _launches.count(__name__, "launches_lut")
     return out
 
 
@@ -501,7 +501,6 @@ def lut_int4_cuda(ops: tuple, X: torch.Tensor, *, max_depth: int,
                   max_feature: int | None = None) -> torch.Tensor:
     """K5: f32 [R, C] margins from PackedTables.ops tensors (nibble
     leaves with a per-tree scale; nibble thresholds when thr_packed)."""
-    global launches_lut4
     out = _launch(
         "ddt_lut_int4", ops, X, leaf_dtype="int4",
         thr_dtype=torch.uint8 if thr_packed else torch.int8,
@@ -511,5 +510,5 @@ def lut_int4_cuda(ops: tuple, X: torch.Tensor, *, max_depth: int,
         missing_bin_value=missing_bin_value, use_missing=use_missing,
         use_cat=use_cat, cls=cls)
     if X.shape[0]:
-        launches_lut4 += 1
+        _launches.count(__name__, "launches_lut4")
     return out

@@ -15,9 +15,11 @@ Two twins:
 - the numpy half (`_mix32_host`, `round_key`, `_mix32_np`, `uniform_np`,
   `row_keep_np`, `colsample_mask`), copied from the reference verbatim;
 - the tensor twin `uniform` / `row_keep`, which runs on any device and
-  equals `uniform_np` bit for bit. PyTorch's uint32 has few operations,
-  so the twin carries 32-bit words in int64 and multiplies by 16-bit
-  halves of the constant: no product reaches 2^63, so nothing relies on
+  equals `uniform_np` bit for bit; its round is a python int or an
+  int64 tensor (`round_key_t` computes the key on the device, so that a
+  captured boosting round reads its round from memory). PyTorch's
+  uint32 has few operations, so the twin carries 32-bit words in int64
+  and multiplies by 16-bit halves of the constant: no product reaches 2^63, so nothing relies on
   signed wraparound, and every step is masked back to 32 bits. Row ids
   are int64 (bases below 2^63; the numpy twin takes uint64).
 
@@ -103,18 +105,32 @@ def _mix32(x: torch.Tensor) -> torch.Tensor:
     return x ^ (x >> 16)
 
 
-def uniform(seed: int, rnd: int, row_start: int, n: int,
+def round_key_t(seed: int, rnd: torch.Tensor) -> torch.Tensor:
+    """round_key(seed, rnd) with the round an int64 tensor: the same
+    32-bit key, bit for bit, computed where the tensor lies. A captured
+    round reads its round from this tensor, so a replay is not pinned to
+    the round it was captured at."""
+    k = _mix32_host((seed & 0xFFFFFFFF) ^ _GOLD)
+    return _mix32(k ^ _mul32(rnd.to(torch.int64) & _MASK32, _KEY2))
+
+
+def uniform(seed: int, rnd, row_start: int, n: int,
             device="cpu") -> torch.Tensor:
     """f32 [n] uniforms in [0, 1) on `device` for global rows
     [row_start, row_start + n): the tensor twin of uniform_np, bit for
-    bit (the reference's uniform_jax in PyTorch). 0 <= row_start and
-    row_start + n <= 2^63."""
+    bit (the reference's uniform_jax in PyTorch). `rnd` is a python int
+    or a 0-dim int64 tensor on `device` (round_key_t). 0 <= row_start
+    and row_start + n <= 2^63."""
     ids = torch.arange(n, dtype=torch.int64, device=device) + row_start
     lo = ids & _MASK32
-    key = round_key(seed, rnd)
+    key = (round_key_t(seed, rnd) if isinstance(rnd, torch.Tensor)
+           else round_key(seed, rnd))
     if row_start >> 32 == (row_start + max(n, 1) - 1) >> 32:
-        # One high word for the whole range: its hash is a host constant.
-        inner = _mix32_host((row_start >> 32) ^ key)
+        # One high word for the whole range: its hash is one value (a host
+        # constant, or a 0-dim tensor for a tensor round).
+        hi = row_start >> 32
+        inner = (_mix32(key ^ hi) if isinstance(key, torch.Tensor)
+                 else _mix32_host(hi ^ key))
     else:
         inner = _mix32((ids >> 32) ^ key)
     bits = _mix32(lo ^ inner)
@@ -122,9 +138,10 @@ def uniform(seed: int, rnd: int, row_start: int, n: int,
     return (bits >> 8).to(torch.float32) * (2.0 ** -24)
 
 
-def row_keep(seed: int, rnd: int, row_start: int, n: int, subsample: float,
+def row_keep(seed: int, rnd, row_start: int, n: int, subsample: float,
              device="cpu") -> torch.Tensor:
-    """bool [n] on `device`: the tensor twin of row_keep_np."""
+    """bool [n] on `device`: the tensor twin of row_keep_np (`rnd` an int
+    or a 0-dim int64 tensor, as in uniform)."""
     # The f32 threshold as an exact python float: the compare runs in f32.
     return uniform(seed, rnd, row_start, n, device) \
         < float(np.float32(subsample))

@@ -6,8 +6,8 @@ Port of ddt_tpu/serve/engine.py. One engine owns:
   (mapper validation, CompiledEnsemble build, the quantized tables of the
   serving tier, device upload, one warm-up dispatch per bucket shape,
   which on the card also builds the kernel) is paid once at publish, so
-  the request path is: bin rows -> pad to bucket -> one dispatch ->
-  scatter;
+  the request path is: bin the batch's rows once, on the device -> pad
+  to bucket -> one dispatch -> scatter;
 - a `MicroBatcher` whose dispatcher scores each admitted batch against
   the model reference read once per batch. A hot swap is one reference
   store, so every request sees exactly the old or the new model;
@@ -40,6 +40,7 @@ import threading
 import time
 
 import numpy as np
+import torch
 
 from ddt_tpu_torch.api import predict_proba_np, validate_mapper_model
 from ddt_tpu_torch.backends import get_backend
@@ -145,17 +146,19 @@ class ServableModel:
     def n_features(self) -> int:
         return int(self.ens.n_features)
 
-    def transform(self, rows: np.ndarray) -> np.ndarray:
-        """Raw float rows -> uint8 bins with the training-time mapper."""
+    def transform(self, rows: np.ndarray) -> torch.Tensor:
+        """f32 rows -> uint8 bins on the backend's device, with the
+        training-time mapper (bit for bit mapper.transform)."""
         if self.mapper is None:
             raise ValueError(
                 "model carries no bin mapper; submit pre-binned uint8 rows")
-        return self.mapper.transform(rows)
+        return self.mapper.transform_device(rows, self.backend.device)
 
-    def score_binned(self, Xb: np.ndarray) -> np.ndarray:
-        """Probabilities (raw values for mse) for a binned block, padded
-        to the nearest bucket (each row's score does not depend on the
-        other rows of its batch)."""
+    def score_binned(self, Xb) -> np.ndarray:
+        """Probabilities (raw values for mse) for a binned block (host
+        uint8 or a uint8 tensor), padded on the device to the nearest
+        bucket (each row's score does not depend on the other rows of its
+        batch)."""
         n = Xb.shape[0]
         cap = self.buckets[-1]
         if n > cap:
@@ -163,10 +166,10 @@ class ServableModel:
             # largest-bucket pieces.
             return np.concatenate([self.score_binned(Xb[i:i + cap])
                                    for i in range(0, n, cap)])
+        Xb = self.backend.device_rows(Xb)
         b = bucket_for(n, self.buckets)
         if n < b:
-            Xb = np.concatenate(
-                [Xb, np.zeros((b - n, Xb.shape[1]), np.uint8)])
+            Xb = torch.cat([Xb, Xb.new_zeros((b - n, Xb.shape[1]))])
         out = self.backend.predict_raw(self.ens, Xb,
                                        compiled=self.compiled)[:n]
         return predict_proba_np(out, self.ens.loss)
@@ -325,6 +328,27 @@ def coerce_rows(rows) -> np.ndarray:
     return rows
 
 
+def _bin_batch(model, floats: list) -> list:
+    """Bin the float requests' f32 rows: one transform of their
+    concatenation on the device, each request's slice of it returned in
+    order. If that raises, each request is binned alone, so that a bad
+    request fails by itself: its entry is then the exception."""
+    try:
+        Xb = model.transform(floats[0] if len(floats) == 1
+                             else np.concatenate(floats))
+    except Exception:
+        out = []
+        for rows in floats:
+            try:
+                out.append(model.transform(rows))
+            # Delivered to this request's own waiter by the caller.
+            except Exception as e:
+                out.append(e)
+        return out
+    offs = np.cumsum([0] + [len(rows) for rows in floats])
+    return [Xb[offs[i]:offs[i + 1]] for i in range(len(floats))]
+
+
 def dispatch_batch(model, batch, queue_depth: int, stats) -> list:
     """Score ONE admitted micro-batch against `model` and deliver every
     result or error. The caller read the model reference once, so every
@@ -333,7 +357,10 @@ def dispatch_batch(model, batch, queue_depth: int, stats) -> list:
 
     Raw float requests are binned here, under the model that scores them
     (binning at submit could pair model A's bins with model B's trees
-    across a swap). Width and binning failures are per request: a bad
+    across a swap): each is cast to f32 by itself, exactly as
+    mapper.transform casts it (so an int64 block beside a float64 one is
+    rounded once, as alone), and the batch is binned once on the device
+    (_bin_batch). Width, cast and binning failures are per request: a bad
     submission fails its own waiter, never the valid requests beside it.
     Trace marks ride the requests' own `marks` on the batcher's clock."""
     clk = batch[0].marks["_clock"]
@@ -341,6 +368,7 @@ def dispatch_batch(model, batch, queue_depth: int, stats) -> list:
     for r in batch:
         r.marks["gate"] = t
     good, blocks = [], []
+    floats, float_at = [], []       # f32 rows, and their slots in blocks
     for r in batch:
         # Width against the model actually scoring (submit-time checks saw
         # the pre-swap model).
@@ -354,14 +382,26 @@ def dispatch_batch(model, batch, queue_depth: int, stats) -> list:
             blocks.append(r.rows)
             continue
         try:
-            blocks.append(model.transform(r.rows))
-            good.append(r)
-        # Delivered to this request's own waiter; the others proceed.
-        except Exception as e:
+            floats.append(np.asarray(r.rows, np.float32))
+        except Exception as e:          # this request's waiter only
             r.set_error(e)
+            continue
+        float_at.append(len(good))
+        good.append(r)
+        blocks.append(None)
+    if floats:
+        for i, Xb in zip(float_at, _bin_batch(model, floats)):
+            if isinstance(Xb, Exception):
+                good[i].set_error(Xb)
+                good[i] = None
+            blocks[i] = Xb
+        keep = [i for i, r in enumerate(good) if r is not None]
+        good = [good[i] for i in keep]
+        blocks = [blocks[i] for i in keep]
     if not good:
         return []
-    Xb = blocks[0] if len(blocks) == 1 else np.concatenate(blocks)
+    Xb = blocks[0] if len(blocks) == 1 else torch.cat(
+        [model.backend.device_rows(b) for b in blocks])
     t = clk()
     for r in good:
         r.marks["device"] = t

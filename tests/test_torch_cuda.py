@@ -641,3 +641,141 @@ def test_lut_dispatch_and_backend_tier_go_to_the_kernels(dev):
     assert be.resolved_predict_impl(ce.token) == "lut4"
     assert predict_lut_cuda.launches_lut4 == b4 + 2
     np.testing.assert_array_equal(got, out4.cpu().numpy())
+
+
+# --------------------------------------------------------------------- #
+# binning on the card, the fused round as a CUDA graph
+# --------------------------------------------------------------------- #
+
+def _binning_case(R=30_000, F=7, seed=0):
+    """Float rows with NaN, +/-inf, -0.0, a low-cardinality column (runs
+    of duplicate edges) and an integer column fitted as identity."""
+    rng = np.random.default_rng(seed)
+    X = rng.standard_normal((R, F)).astype(np.float32)
+    X[:, 1] = rng.integers(0, 4, R)
+    X[:, 2] = rng.integers(0, 40, R)
+    for v, p in ((np.nan, 0.05), (np.inf, 0.01), (-np.inf, 0.01),
+                 (-0.0, 0.01), (0.0, 0.01)):
+        X[rng.random((R, F)) < p] = v
+    return X
+
+
+@pytest.mark.parametrize("missing_policy", ["zero", "learn"])
+@pytest.mark.parametrize("row_block", [30_000, 10_000])
+def test_transform_binned_on_card_equals_cpu(dev, missing_policy,
+                                             row_block):
+    from ddt_tpu_torch.data.quantizer import (feature_bincounts,
+                                              fit_bin_mapper)
+    from ddt_tpu_torch.ops import quantize
+
+    X = _binning_case()
+    m = fit_bin_mapper(X, n_bins=255, missing_policy=missing_policy,
+                       cat_features=(2,))
+    e = torch.from_numpy(m.edges)
+    cpu = quantize.transform_binned(torch.from_numpy(X), e, 255,
+                                    m.missing_bin, row_block=row_block)
+    before = quantize.transforms
+    card = quantize.transform_binned(torch.from_numpy(X).to(dev),
+                                     e.to(dev), 255, m.missing_bin,
+                                     row_block=row_block)
+    assert quantize.transforms == before + 1
+    assert card.device.type == "cuda" and card.is_contiguous()
+    np.testing.assert_array_equal(card.cpu().numpy(), cpu.numpy())
+    np.testing.assert_array_equal(card.cpu().numpy(), m.transform(X))
+    np.testing.assert_array_equal(
+        feature_bincounts(card, 255).cpu().numpy(),
+        feature_bincounts(m.transform(X), 255))
+
+
+def test_cuda_upload_of_a_device_tensor_copies_nothing_to_the_host(
+        dev, monkeypatch):
+    from ddt_tpu_torch.backends.cuda import CUDADevice
+    from ddt_tpu_torch.config import TrainConfig
+
+    be = CUDADevice(TrainConfig(n_bins=16))
+    Xd = torch.randint(0, 16, (1000, 5), dtype=torch.uint8, device=dev)
+
+    def refuse(*a, **k):
+        raise AssertionError("the binned matrix went to the host")
+
+    monkeypatch.setattr(torch.Tensor, "cpu", refuse)
+    monkeypatch.setattr(torch.Tensor, "numpy", refuse)
+    out = be.upload(Xd)
+    assert out.data_ptr() == Xd.data_ptr()
+    monkeypatch.undo()
+    with pytest.raises(ValueError, match="n_bins"):
+        be.upload(torch.full((4, 2), 16, dtype=torch.uint8, device=dev))
+
+
+def _fused_case(R=20_000, F=9, B=63, seed=1):
+    rng = np.random.default_rng(seed)
+    Xb = rng.integers(0, B, size=(R, F), dtype=np.uint8)
+    logit = (Xb[:, 0].astype(np.float32) - B / 2) / 8 \
+        + (Xb[:, 3] > B // 3) - 0.5
+    y = (rng.random(R) < 1 / (1 + np.exp(-logit))).astype(np.float32)
+    return Xb, y
+
+
+@pytest.mark.parametrize("sampling", [{}, dict(subsample=0.8,
+                                               colsample_bytree=0.8)])
+@pytest.mark.parametrize("grad_dtype", ["int8", "int16"])
+def test_captured_round_replays_equal_the_granular_loop(dev, grad_dtype,
+                                                        sampling):
+    """Integer histograms are exact, so the graph's trees equal the
+    granular loop's bit for bit on the card, with bagging and colsample
+    read from the round tensors."""
+    from ddt_tpu_torch.backends.cuda import CUDADevice
+    from ddt_tpu_torch.config import TrainConfig
+    from ddt_tpu_torch.driver import Driver
+    from ddt_tpu_torch.models.tree import empty_ensemble
+    from ddt_tpu_torch.ops.grad import base_score_np
+
+    Xb, y = _fused_case()
+    cfg = TrainConfig(n_trees=7, max_depth=5, n_bins=63, seed=3,
+                      grad_dtype=grad_dtype, fused_block_rounds=3,
+                      **sampling)
+    be = CUDADevice(cfg)
+    fused = Driver(be, cfg).fit(Xb, y)
+    drv = Driver(be, cfg)
+    bs = base_score_np(y, cfg.loss)
+    yd = be.upload_labels(y)
+    granular = drv._fit_granular(
+        be.upload(Xb), yd, be.init_pred(yd, bs),
+        empty_ensemble(7, 5, Xb.shape[1], cfg.learning_rate, bs, cfg.loss,
+                       n_bins=63))
+    for k in ("feature", "threshold_bin", "is_leaf", "leaf_value",
+              "split_gain", "default_left"):
+        np.testing.assert_array_equal(getattr(fused, k),
+                                      getattr(granular, k))
+
+
+def test_launch_counters_advance_per_replay(dev):
+    from ddt_tpu_torch.backends import cuda as cuda_be
+    from ddt_tpu_torch.config import TrainConfig
+    from ddt_tpu_torch.ops.grad import base_score_np
+
+    Xb, y = _fused_case()
+    cfg = TrainConfig(max_depth=4, n_bins=63, grad_dtype="int8")
+    be = cuda_be.CUDADevice(cfg)
+    data, yd = be.upload(Xb), be.upload_labels(y)
+    pred = be.init_pred(yd, base_score_np(y, cfg.loss))
+    l0, i0 = hist_cuda.launches, hist_cuda.launches_int
+    c0, r0 = cuda_be.graph_captures, cuda_be.graph_replays
+    trees, pred1, losses = be.grow_rounds(data, pred, yd, 5)
+    torch.cuda.synchronize()
+    # The warm-up round runs outside the graph and counts: 1 + 5 rounds of
+    # 4 levels (one histogram launch a level with sibling subtraction).
+    assert hist_cuda.launches_int - i0 == 6 * 4
+    assert hist_cuda.launches == l0
+    assert (cuda_be.graph_captures - c0, cuda_be.graph_replays - r0) \
+        == (1, 5)
+    assert trees.shape == (5, 6, 31) and losses.shape == (5,)
+    assert bool(torch.isfinite(losses).all())
+    # Same key: no recapture, every launch is a replay's.
+    be.grow_rounds(data, pred1, yd, 3, first_round=5)
+    torch.cuda.synchronize()
+    assert hist_cuda.launches_int - i0 == 6 * 4 + 3 * 4
+    assert (cuda_be.graph_captures - c0, cuda_be.graph_replays - r0) \
+        == (1, 8)
+    # The losses are the rounds' own: they fall as the trees add up.
+    assert float(losses[-1]) < float(losses[0])

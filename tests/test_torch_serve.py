@@ -416,3 +416,119 @@ def test_engine_on_cuda_without_a_card_raises(trained):
     with pytest.raises(RuntimeError, match="is_available"):
         ServeEngine(_bundle(trained["res_a"]), TrainConfig(),
                     quantize="int4")
+
+
+# --------------------------------------------------------------------- #
+# the gate: one transform a batch, on the device
+# --------------------------------------------------------------------- #
+
+def _batch(rows_list):
+    """PendingRequests as the batcher hands them to dispatch_batch."""
+    from ddt_tpu_torch.serve.batcher import PendingRequest
+
+    out = []
+    for rows in rows_list:
+        r = PendingRequest(rows, rows.shape[0])
+        r.marks = {"_clock": time.perf_counter,
+                   "accept": time.perf_counter()}
+        out.append(r)
+    return out
+
+
+def _model(trained, tier=None, buckets=(1, 2, 4, 8, 16, 32, 64)):
+    from ddt_tpu_torch.backends import get_backend
+
+    cfg = CFG.replace(predict_impl=IMPL[tier])
+    return ServableModel(_bundle(trained["res_a"]), get_backend(cfg),
+                         quantize=tier, buckets=buckets)
+
+
+def _spy_transform(model, monkeypatch, fail_on=None):
+    """Record every block model.transform bins; raise on a block holding
+    `fail_on` (a request whose binning fails)."""
+    seen = []
+    orig = model.transform
+
+    def spy(rows):
+        seen.append(np.array(rows, copy=True))
+        if fail_on is not None and (rows == fail_on).any():
+            raise ValueError("unbinnable request")
+        return orig(rows)
+
+    monkeypatch.setattr(model, "transform", spy)
+    return seen
+
+
+@pytest.mark.parametrize("tier", TIERS)
+def test_dispatch_bins_each_batch_once(trained, tier, monkeypatch):
+    from ddt_tpu_torch.serve.engine import ServeStats, dispatch_batch
+
+    m = _model(trained, tier)
+    seen = _spy_transform(m, monkeypatch)
+    X, ref = trained["X"], trained["ref"]["a", tier]
+    spans = [(0, 3), (3, 1), (4, 9), (13, 2)]
+    rows = [X[s:s + c] for s, c in spans]
+    # A pre-binned request rides the same dispatch without a transform.
+    rows.insert(2, trained["res_a"].mapper.transform(X[40:45]))
+    batch = _batch(rows)
+    stats = ServeStats()
+    lats = dispatch_batch(m, batch, 0, stats)
+    assert len(seen) == 1 and len(lats) == 5
+    assert seen[0].shape == (15, X.shape[1])
+    for (s, c), r in zip(spans, batch[:2] + batch[3:]):
+        np.testing.assert_array_equal(r.result(timeout=1), ref[s:s + c])
+    np.testing.assert_array_equal(batch[2].result(timeout=1), ref[40:45])
+    assert stats.snapshot()["requests"] == 5
+
+
+def test_a_request_that_fails_binning_fails_alone(trained, monkeypatch):
+    """The batch transform raises, so each request is binned alone: the
+    bad one gets its error, its batch-mates their scores. A request whose
+    rows cannot become f32 fails at its own cast."""
+    from ddt_tpu_torch.serve.engine import ServeStats, dispatch_batch
+
+    m = _model(trained)
+    seen = _spy_transform(m, monkeypatch, fail_on=np.float32(123456.0))
+    X, ref = trained["X"], trained["ref"]["a", None]
+    bad = X[5:7].copy()
+    bad[1, 2] = 123456.0
+    uncastable = np.array([["x"] * X.shape[1]], dtype=object)
+    batch = _batch([X[0:3], bad, uncastable, X[10:14]])
+    lats = dispatch_batch(m, batch, 0, ServeStats())
+    assert len(lats) == 2
+    # One batch transform, then one per float request.
+    assert len(seen) == 1 + 3
+    np.testing.assert_array_equal(batch[0].result(timeout=1), ref[0:3])
+    np.testing.assert_array_equal(batch[3].result(timeout=1), ref[10:14])
+    with pytest.raises(ValueError, match="unbinnable"):
+        batch[1].result(timeout=1)
+    with pytest.raises(ValueError):
+        batch[2].result(timeout=1)
+
+
+def test_mixed_dtype_requests_bin_as_each_alone(trained, monkeypatch):
+    """Each request is cast to f32 by itself before the concatenation: an
+    int64 value rounds once, as binning the request alone rounds it, not
+    first to float64 beside a float64 batch-mate (2^60 + 2^36 + 1 rounds
+    to 2^60 + 2^37 directly, to 2^60 through float64)."""
+    from ddt_tpu_torch.serve.engine import ServeStats, dispatch_batch
+
+    m = _model(trained)
+    seen = _spy_transform(m, monkeypatch)
+    X = trained["X"]
+    F = X.shape[1]
+    big = np.zeros((2, F), np.int64)
+    big[:, 0] = 2**60 + 2**36 + 1
+    f64 = X[20:23].astype(np.float64)
+    f32 = X[30:31]
+    batch = _batch([big, f64, f32])
+    dispatch_batch(m, batch, 0, ServeStats())
+    want = np.concatenate([np.asarray(r, np.float32) for r in (big, f64,
+                                                               f32)])
+    assert len(seen) == 1
+    np.testing.assert_array_equal(seen[0], want)
+    assert seen[0][0, 0] == np.float32(2**60 + 2**37)
+    for r, rows in zip(batch, (big, f64, f32)):
+        np.testing.assert_array_equal(
+            r.result(timeout=1),
+            api.predict(_bundle(trained["res_a"]), rows, cfg=CFG))
