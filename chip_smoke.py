@@ -119,7 +119,47 @@ Phases:
              int16, subsample 0.8, colsample_bytree 0.8, on the card and on
              the CPU: trees identical except at bf16-boundary ties, AUC
              within 0.005
-  then the {"kernels": [...]} line, nvidia-smi's line, and the ok line.
+    The training matrix. Each path's counters are zeroed just before it
+    and read just after.
+ 17 covertype  BASELINE config 2 at full width through api.train: 464,809
+             x 54 float rows (synthetic_multiclass), 7 classes, 255 bins,
+             depth 8, up to 500 rounds, the last 116,203 rows as the eval
+             set with logloss and early stopping (patience 20), binned on
+             the card, the fused loop with the eval step inside the
+             captured round; then api.predict of the kept ensemble through
+             K3. One capture, one replay a round, 8 x 7 histogram launches
+             a round (+ the warm-up round); eval accuracy >= 0.80; the
+             host logloss of K3's scores equals the round's device score
+             to 1e-4; scores equal the host oracle's on 2,000 rows. Then
+             the loop apart (blocks of 20 rounds: ms a round, a profiled
+             5-round window's busy share and kernels), K1 on one covertype
+             tree's node indices level by level (kernel, plain, library,
+             bound), and K3 on the trained model bitwise against its plain
+             version at 1, 256 and 116,203 rows, with its bound
+ 18 covertype_prefix  20 rounds with the eval set, fused against granular:
+             int8 trees and eval scores bitwise; f32 on the same best round
+             and eval accuracy within 0.005, the trees' first divergence
+             reported (K1's float atomics part them at noise-level gains)
+ 19 missing  1M x 28 (synthetic_missing: 10% NaN, informative on 3
+             features), missing_policy "learn" against "zero", 100 rounds,
+             depth 6, 800k rows train: learned AUC >= zero policy's on the
+             rest; K3's routing step on the learned model bitwise
+ 20 categorical  synthetic_ctr(1M): 13 numeric + 26 frequency-binned
+             categorical columns as cat_features, 255 bins, depth 6, 100
+             rounds; one-vs-rest splits chosen; K3's routing step bitwise
+ 21 weights  Higgs shape, 20 rounds, int8: all-ones weights == no
+             weights bitwise; integer weights 0-3 fused == granular
+             bitwise; the training loss is the weighted mean (to 1e-4)
+ 22 resume   covertype at 100k rows (20k eval): 10 rounds with
+             checkpoint_every=5, resumed to 20, against an uninterrupted
+             20: int8 bitwise (trees and eval scores); f32 reported as in
+             18, eval accuracy within 0.005
+    parity_matrix  card against CPU at 20k rows, 5 rounds, for missing,
+             categorical, weights (f32) and covertype (int8): trees
+             identical except at bf16-boundary ties, AUC or accuracy
+             within 0.005
+  then the {"kernels": [...]} line (K1 and K3 report covertype, the other
+  paths' launches under "paths"), nvidia-smi's line, and the ok line.
 """
 
 from __future__ import annotations
@@ -127,6 +167,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -136,8 +177,13 @@ import torch
 from ddt_tpu_torch import _build, api
 from ddt_tpu_torch.backends import cuda as cuda_backend
 from ddt_tpu_torch.backends import get_backend
+from ddt_tpu_torch.backends.cuda import CUDADevice
+from ddt_tpu_torch.breakdown import profiled
 from ddt_tpu_torch.config import TrainConfig
-from ddt_tpu_torch.data.datasets import synthetic_binary
+from ddt_tpu_torch.data.categorical import fit_categorical_encoder
+from ddt_tpu_torch.data.datasets import (synthetic_binary, synthetic_ctr,
+                                         synthetic_missing,
+                                         synthetic_multiclass)
 from ddt_tpu_torch.data.quantizer import (BinMapper, feature_bincounts,
                                           fit_bin_mapper)
 from ddt_tpu_torch.driver import Driver
@@ -145,8 +191,8 @@ from ddt_tpu_torch.models.tree import empty_ensemble
 from ddt_tpu_torch.ops import (grad, hist_cuda, histogram, predict,
                                predict_cuda, predict_lut, predict_lut_cuda,
                                quantize, sampling)
-from ddt_tpu_torch.ops.grad import base_score_np
 from ddt_tpu_torch.serve import ServeEngine
+from ddt_tpu_torch.utils.metrics import accuracy, auc, logloss
 
 ROWS = 1_000_000
 FEATURES = 28
@@ -171,6 +217,25 @@ LUT_EXACT_SIZES = (1, 16, 64, 256, 257)   # rows per call, phase lut_exact
 PASS_TREES = 1000                  # phase traverse_exact's staged model
 PASS_ROWS = 200_000
 SLEEP_CYCLES = 2_000_000           # ~1 ms spin before each timed call
+# The training matrix (phases covertype .. parity_matrix).
+COV_ROWS = 581_012            # BASELINE config 2: Covertype's rows
+COV_TRAIN = 464_809           # the first 80% train, the last 116,203 eval
+COV_FEATURES = 54
+COV_CLASSES = 7
+COV_DEPTH = 8
+COV_ROUNDS = 500              # 3,500 trees at most
+COV_PATIENCE = 20             # early_stopping_rounds
+COV_PREFIX = 20               # rounds of the fused-vs-granular prefix
+COV_PROFILE = 5               # rounds in the profiled window
+MATRIX_TRAIN = 800_000        # missing / categorical: train rows of the 1M
+MATRIX_ROUNDS = 100
+NAN_FRAC = 0.1
+WEIGHT_ROUNDS = 20
+RESUME_ROWS = 100_000
+RESUME_ROUNDS = 10            # trained, then resumed to twice as many
+RESUME_EVERY = 5
+PARITY_MATRIX_ROWS = 20_000
+PARITY_MATRIX_ROUNDS = 5
 TIER_IMPL = {None: "auto", "int8": "lut", "int4": "lut4"}
 TIER_RESOLVED = {None: "f32", "int8": "lut", "int4": "lut4"}
 
@@ -225,25 +290,6 @@ def time_ms(fn, reps: int, flush: torch.Tensor | None = None,
         torch.cuda.synchronize()
         times.append(s.elapsed_time(e))
     return float(np.median(times))
-
-
-def auc(y: np.ndarray, score: np.ndarray) -> float:
-    """Binary ROC-AUC, rank formulation with average ranks on ties."""
-    y = np.asarray(y).astype(bool)
-    s = np.asarray(score, np.float64)
-    n_pos = int(y.sum())
-    n_neg = y.size - n_pos
-    order = np.argsort(s, kind="mergesort")
-    s_sorted = s[order]
-    start = np.empty(y.size, bool)
-    start[0] = True
-    np.not_equal(s_sorted[1:], s_sorted[:-1], out=start[1:])
-    starts = np.flatnonzero(start)
-    ends = np.concatenate([starts[1:], [y.size]])
-    ranks = np.empty(y.size, np.float64)
-    ranks[order] = (0.5 * (starts + ends + 1))[np.cumsum(start) - 1]
-    return float((ranks[y].sum() - n_pos * (n_pos + 1) / 2.0)
-                 / (n_pos * n_neg))
 
 
 def trees_match_mod_ties(full, other, min_split_gain, leaf_rtol=1e-3,
@@ -306,6 +352,32 @@ def trees_match_mod_ties(full, other, min_split_gain, leaf_rtol=1e-3,
                       f"split flip tree {t} node {s}: gains {ga} vs {gb}")
     check(n_rc <= max(1, T * N // 500), f"{n_rc} root causes")
     return n_rc
+
+
+class Granular(CUDADevice):
+    """The card's backend without the fused rounds: Driver.fit takes the
+    granular loop (the fused loop's yardstick)."""
+
+    grow_rounds = None
+
+
+def first_divergence(a, b) -> dict:
+    """Where two ensembles of the same shape first part: the trees equal in
+    (feature, threshold_bin, is_leaf), and the first tree and node (heap
+    order) whose decision differs, with both split gains."""
+    same = np.all((a.feature == b.feature)
+                  & (a.threshold_bin == b.threshold_bin)
+                  & (a.is_leaf == b.is_leaf), axis=1)
+    out = {"identical_trees": int(same.sum()), "trees": int(len(same))}
+    if not same.all():
+        t = int(np.argmin(same))
+        n = int(np.argmax((a.feature[t] != b.feature[t])
+                          | (a.threshold_bin[t] != b.threshold_bin[t])
+                          | (a.is_leaf[t] != b.is_leaf[t])))
+        out["first"] = {"tree": t, "node": n,
+                        "gains": [float(a.split_gain[t, n]),
+                                  float(b.split_gain[t, n])]}
+    return out
 
 
 # --------------------------------------------------------------------- #
@@ -373,19 +445,18 @@ def check_hist(args: tuple, what: str) -> float:
     return float(err.max())
 
 
-def main_path_levels(Xd: torch.Tensor, y: np.ndarray) -> list:
-    """[(node_index, n_nodes)] of each level of one main-path tree grown on
-    the card from logloss gradients at the base score (depth 6, 255 bins,
-    sibling subtraction): the indices ops/grow.level_histograms hands the
-    kernel, from level 1 on the left-child index (-1 for right children
-    and frozen rows). They are recorded by swapping grow's
-    build_histograms for the length of one grow_tree call: the swap is
-    process-wide and not thread-safe, so nothing else may build
-    histograms meanwhile."""
+def tree_levels(Xd: torch.Tensor, p0: float, y1: np.ndarray,
+                depth: int) -> list:
+    """[(node_index, n_nodes)] of each level of one tree grown on the card
+    (255 bins, sibling subtraction) from logloss-shaped gradients p0 - y1,
+    p0 * (1 - p0): the indices ops/grow.level_histograms hands the kernel,
+    from level 1 on the left-child index (-1 for right children and frozen
+    rows). They are recorded by swapping grow's build_histograms for the
+    length of one grow_tree call: the swap is process-wide and not
+    thread-safe, so nothing else may build histograms meanwhile."""
     from ddt_tpu_torch.ops import grow
 
-    p0 = float(y.mean())
-    g = torch.from_numpy((p0 - y.astype(np.float32)).astype(np.float32)) \
+    g = torch.from_numpy((p0 - y1.astype(np.float32)).astype(np.float32)) \
         .to(Xd.device)
     h = torch.full_like(g, p0 * (1 - p0))
     levels = []
@@ -397,15 +468,22 @@ def main_path_levels(Xd: torch.Tensor, y: np.ndarray) -> list:
 
     grow.H.build_histograms = record
     try:
-        grow.grow_tree(Xd, g, h, max_depth=DEPTH, n_bins=255,
+        grow.grow_tree(Xd, g, h, max_depth=depth, n_bins=255,
                        reg_lambda=1.0, min_child_weight=1e-3,
                        min_split_gain=0.0, hist_subtraction=True)
     finally:
         grow.H.build_histograms = build
     torch.cuda.synchronize()
-    check([n for _, n in levels] == list(TREE_SEQ),
-          f"main-path levels {[n for _, n in levels]}")
+    seq = [1] + [1 << d for d in range(depth - 1)]
+    check([n for _, n in levels] == seq,
+          f"levels {[n for _, n in levels]}, want {seq}")
     return levels
+
+
+def main_path_levels(Xd: torch.Tensor, y: np.ndarray) -> list:
+    """tree_levels of one main-path tree: logloss gradients at the base
+    score, depth 6 (TREE_SEQ's node counts)."""
+    return tree_levels(Xd, float(y.mean()), y, DEPTH)
 
 
 def phase_hist(binned: dict, levels: list, card: dict,
@@ -482,23 +560,11 @@ def phase_hist(binned: dict, levels: list, card: dict,
     emit({"phase": "hist", "per_tree_main_path": list(seq), **tree})
     # The same tree on the main path's own node indices: from level 1 on
     # only left children are built, so about half the rows are -1.
-    Xd = torch.from_numpy(binned[255]).to(dev)
-    real = {"kernel_ms": 0.0, "bound_ms": 0.0, "levels": []}
-    for ni, N in levels:
-        args = (Xd, gd, hd, ni, N, 255)
-        max_err = max(max_err, check_hist(
-            args, f"hist main-path indices N={N}"))
-        t_bytes, t_ops = hist_bound_ms(ni.cpu().numpy(), FEATURES, N, 255,
-                                       card)
-        lv = {"nodes": N, "active_rows": int((ni >= 0).sum()),
-              "kernel_ms": time_ms(lambda: hist_cuda.build_histograms_cuda(
-                  *args), 20, flush), "bound_ms": max(t_bytes, t_ops)}
-        real["kernel_ms"] += lv["kernel_ms"]
-        real["bound_ms"] += lv["bound_ms"]
-        real["levels"].append(lv)
+    real = hist_tree(torch.from_numpy(binned[255]).to(dev), levels, card,
+                     flush, seed=7)
     emit({"phase": "hist", "per_tree_main_path_indices": list(seq),
           "synthetic_kernel_ms": tree["kernel_ms"], **real})
-    return {"max_abs_err": max_err, **tree,
+    return {**tree, "max_abs_err": max(max_err, real["max_abs_err"]),
             "main_path_indices_ms": real["kernel_ms"]}
 
 
@@ -762,18 +828,6 @@ def phase_bin(X: np.ndarray, card: dict, flush: torch.Tensor) -> dict:
     return out
 
 
-def granular_fit(cfg: TrainConfig, Xb, y: np.ndarray):
-    """The granular loop (Driver._fit_granular) on the card: the fused
-    loop's yardstick."""
-    be = get_backend(cfg)
-    bs = base_score_np(y, cfg.loss)
-    yd = be.upload_labels(y)
-    ens = empty_ensemble(cfg.n_trees, cfg.max_depth, Xb.shape[1],
-                         cfg.learning_rate, bs, cfg.loss, n_bins=cfg.n_bins)
-    return Driver(be, cfg)._fit_granular(be.upload(Xb), yd,
-                                         be.init_pred(yd, bs), ens)
-
-
 def phase_fused(Xb: np.ndarray, y: np.ndarray) -> dict:
     dev = torch.device("cuda")
     Xd = torch.from_numpy(Xb).to(dev)
@@ -792,7 +846,7 @@ def phase_fused(Xb: np.ndarray, y: np.ndarray) -> dict:
             lambda: Driver(get_backend(cfg), cfg).fit(Xd, y))
         check(cuda_backend.graph_replays - r0 == FUSED_TREES,
               f"fused {what}: {FUSED_TREES} replays")
-        gran, gran_s = synced(lambda: granular_fit(cfg, Xd, y))
+        gran, gran_s = synced(lambda: Driver(Granular(cfg), cfg).fit(Xd, y))
         capture_s = get_backend(cfg).last_capture_s
         row = {"fused_ms_per_tree": 1e3 * fused_s / FUSED_TREES,
                "fused_ms_per_tree_after_capture":
@@ -862,12 +916,14 @@ def traverse_compares(ce, Xd: torch.Tensor) -> int:
     D = ce.max_depth
     ef = torch.from_numpy(ce.eff_feat).to(dev)
     et = torch.from_numpy(ce.eff_thr).to(dev)
+    # Rows a step: ~2^28 (row, tree, node) comparison bits.
+    step = max(1024, (1 << 28) // (ce.tree_chunk * ((1 << D) - 1)))
     compares = 0
     for t0 in range(0, ef.shape[0], ce.tree_chunk):
         ts = slice(t0, t0 + ce.tree_chunk)
         tidx = torch.arange(ef[ts].shape[0], device=dev)[None, :]
-        for r0 in range(0, Xd.shape[0], 65_536):
-            k = predict.descend_plain(ef[ts], et[ts], Xd[r0:r0 + 65_536], D)
+        for r0 in range(0, Xd.shape[0], step):
+            k = predict.descend_plain(ef[ts], et[ts], Xd[r0:r0 + step], D)
             for d in range(D):
                 node = ((1 << d) - 1) + (k >> (D - d))
                 compares += int((ef[ts][tidx, node] >= 0).sum())
@@ -1558,6 +1614,526 @@ def phase_parity_quant(X: np.ndarray, y: np.ndarray) -> dict:
     return row
 
 
+# --------------------------------------------------------------------- #
+# the full training matrix: softmax with an eval set, early stopping and
+# resume; learned missing values; categorical splits; instance weights
+# --------------------------------------------------------------------- #
+
+def zero_counters() -> None:
+    hist_cuda.launches = 0
+    hist_cuda.launches_int = 0
+    predict_cuda.launches = 0
+    quantize.transforms = 0
+    cuda_backend.graph_replays = 0
+    cuda_backend.graph_captures = 0
+
+
+def read_counters() -> dict:
+    torch.cuda.synchronize()
+    return {"hist": hist_cuda.launches, "hist_int": hist_cuda.launches_int,
+            "traverse": predict_cuda.launches,
+            "binning": quantize.transforms,
+            "graph_replays": cuda_backend.graph_replays,
+            "graph_captures": cuda_backend.graph_captures}
+
+
+def hist_tree(Xd: torch.Tensor, levels: list, card: dict,
+              flush: torch.Tensor, seed: int) -> dict:
+    """K1 on the node indices of one recorded tree, level by level, against
+    its plain version (check_hist), and the tree's sums: kernel, plain and
+    library (two torch.bincount) device ms, and the bound (hist_bound_ms
+    per level: each row's node index, Xb and g/h of the active rows and
+    the table once)."""
+    dev = Xd.device
+    R, F = Xd.shape
+    rng = np.random.default_rng(seed)
+    gd = torch.from_numpy(rng.standard_normal(R).astype(np.float32)).to(dev)
+    hd = torch.from_numpy((0.25 * rng.random(R)).astype(np.float32)).to(dev)
+    out = {"kernel_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+           "bound_bytes_ms": 0.0, "bound_ops_ms": 0.0, "bound_ms": 0.0,
+           "max_abs_err": 0.0, "levels": []}
+    for ni, N in levels:
+        args = (Xd, gd, hd, ni, N, 255)
+        err = check_hist(args, f"hist F={F} N={N}")
+        key = ((torch.arange(F, device=dev)[None, :] * N
+                + ni.clamp(min=0).long()[:, None]) * 255
+               + Xd.long()).reshape(-1)
+        wg = torch.where(ni >= 0, gd, 0.0)[:, None].expand(R, F) \
+            .reshape(-1).contiguous()
+        wh = torch.where(ni >= 0, hd, 0.0)[:, None].expand(R, F) \
+            .reshape(-1).contiguous()
+        m = F * N * 255
+        t_bytes, t_ops = hist_bound_ms(ni.cpu().numpy(), F, N, 255, card)
+        lv = {"nodes": N, "active_rows": int((ni >= 0).sum()),
+              "plan": hist_cuda.plan_tiles(N, F, 255,
+                                           _build.smem_limit(dev)).__dict__,
+              "kernel_ms": time_ms(lambda: hist_cuda.build_histograms_cuda(
+                  *args), 20, flush),
+              "plain_ms": time_ms(lambda: histogram.build_histograms_segment(
+                  *args), 3, flush),
+              "library_ms": time_ms(lambda: (
+                  torch.bincount(key, wg, minlength=m),
+                  torch.bincount(key, wh, minlength=m)), 5, flush),
+              "bound_bytes_ms": t_bytes, "bound_ops_ms": t_ops,
+              "bound_ms": max(t_bytes, t_ops), "max_abs_err": err}
+        del key, wg, wh
+        for k in ("kernel_ms", "plain_ms", "library_ms", "bound_bytes_ms",
+                  "bound_ops_ms", "bound_ms"):
+            out[k] += lv[k]
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        out["levels"].append(lv)
+    out["bound_by"] = ("bytes" if out["bound_bytes_ms"]
+                       >= out["bound_ops_ms"] else "operations")
+    return out
+
+
+def traverse_row(kernel, plain, tables, ce, Xd: torch.Tensor, card: dict,
+                 flush: torch.Tensor, sizes, what: str) -> dict:
+    """K3 bitwise against its plain version on all of Xd and on its first
+    rows at each of `sizes`, then its time, the plain version's and the
+    bound (traverse_compares: int32 compares on each row's real path, one
+    f32 add per row and real tree; bytes: rows in, scores out, records
+    once)."""
+    got = kernel(Xd)
+    check(torch.equal(got, plain(Xd)), f"{what}: kernel == plain, "
+          f"bitwise, {Xd.shape[0]} rows")
+    for n in sizes:
+        Xn = Xd[:n].contiguous()
+        small = kernel(Xn)
+        check(torch.equal(small, plain(Xn)) and torch.equal(small, got[:n]),
+              f"{what}: {n} rows, kernel == plain == the full call")
+    R, F = Xd.shape
+    tables_bytes = tables.rec.numel()
+    nbytes = R * F + R * ce.n_classes_out * 4 + tables_bytes
+    compares = traverse_compares(ce, Xd)
+    adds = R * tables.n_trees
+    t_bytes = 1e3 * nbytes / card["bw"]
+    t_ops = 1e3 * (compares / card["int32"] + adds / card["f32_add"])
+    return {"kernel_ms": time_ms(lambda: kernel(Xd), 10, flush),
+            "plain_ms": time_ms(lambda: plain(Xd), 2, flush),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "int32_compares": compares, "f32_adds": adds,
+            "max_abs_err": 0.0, "bitwise_equal_at_rows": list(sizes) + [R]}
+
+
+def matrix_parity(what: str, X: np.ndarray, y: np.ndarray,
+                  cfg: TrainConfig, score, **train_kw) -> dict:
+    """The same model trained on the card and on the CPU (plain versions):
+    trees identical except at bf16-boundary ties, `score` (AUC or
+    accuracy, on the training rows) within 0.005."""
+    t0 = time.perf_counter()
+    card_run = api.train(X, y, cfg, device="cuda", **train_kw)
+    t1 = time.perf_counter()
+    cpu_run = api.train(X, y, cfg, device="cpu", **train_kw)
+    t2 = time.perf_counter()
+    n_rc = trees_match_mod_ties(cpu_run.ensemble, card_run.ensemble,
+                                cfg.min_split_gain)
+    s_card = score(y, api.predict(card_run.ensemble, X,
+                                  mapper=card_run.mapper, raw=True))
+    s_cpu = score(y, api.predict(cpu_run.ensemble, X, mapper=cpu_run.mapper,
+                                 raw=True, device="cpu"))
+    check(abs(s_card - s_cpu) <= 0.005, f"{what} parity: {s_card} vs "
+          f"{s_cpu}")
+    same = int(np.sum(np.all(
+        (card_run.ensemble.feature == cpu_run.ensemble.feature)
+        & (card_run.ensemble.threshold_bin
+           == cpu_run.ensemble.threshold_bin), axis=1)))
+    row = {"rows": len(y), "rounds": cfg.n_trees,
+           "trees": card_run.ensemble.n_trees, "identical_trees": same,
+           "tie_root_causes": n_rc, "score_card": s_card,
+           "score_cpu": s_cpu, "train_card_s": t1 - t0,
+           "train_cpu_s": t2 - t1}
+    emit({"phase": "parity_matrix", "case": what, **row})
+    return row
+
+
+def eval_accuracy(ens, Xvd: torch.Tensor, yv: np.ndarray) -> float:
+    """Accuracy of a multiclass ensemble's K3 scores on binned eval rows."""
+    return accuracy(yv, api.predict(ens, Xvd, binned=True, raw=True))
+
+
+def covertype_data():
+    """BASELINE config 2's rows: synthetic_multiclass at Covertype's shape,
+    the first COV_TRAIN rows to train on, the rest as the eval set."""
+    X, y = synthetic_multiclass(COV_ROWS, COV_FEATURES, COV_CLASSES, seed=0)
+    return X[:COV_TRAIN], y[:COV_TRAIN], X[COV_TRAIN:], y[COV_TRAIN:]
+
+
+def covertype_cfg(**kw) -> TrainConfig:
+    return TrainConfig(n_trees=COV_ROUNDS, max_depth=COV_DEPTH, n_bins=255,
+                       loss="softmax", n_classes=COV_CLASSES).replace(**kw)
+
+
+def phase_covertype(card: dict, flush: torch.Tensor) -> dict:
+    dev = torch.device("cuda")
+    Xt, yt, Xv, yv = covertype_data()
+    cfg = covertype_cfg()
+    C = COV_CLASSES
+    zero_counters()
+    t0 = time.perf_counter()
+    res = api.train(Xt, yt, cfg, eval_set=(Xv, yv), eval_metric="logloss",
+                    early_stopping_rounds=COV_PATIENCE)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    raw = api.predict(res.ensemble, Xv, mapper=res.mapper, raw=True)
+    t2 = time.perf_counter()
+    launches = read_counters()
+    rounds = len(res.history)
+    best = res.best_round
+    stopped = rounds < COV_ROUNDS
+    check(launches["hist"] > 0 and launches["hist_int"] == 0,
+          f"covertype: f32 histogram kernel only, {launches}")
+    check(launches["traverse"] > 0, "covertype: traversal kernel launched")
+    check(launches["binning"] == 3,
+          "covertype: train rows, eval rows and predict rows binned on "
+          "the card")
+    check(launches["graph_captures"] == 1
+          and launches["graph_replays"] == rounds,
+          f"covertype: one capture, {rounds} replays: {launches}")
+    # One launch a level with sibling subtraction, C trees a round,
+    # counted per replay, plus the capture's warm-up round.
+    check(launches["hist"] == COV_DEPTH * C * (rounds + 1),
+          f"covertype: {launches['hist']} histogram launches for "
+          f"{rounds} rounds")
+    if stopped:
+        check(rounds == best + 1 + COV_PATIENCE,
+              f"covertype: stopped at {rounds}, best {best}")
+    check(res.ensemble.n_trees == (best + 1 if stopped else rounds) * C,
+          f"covertype: {res.ensemble.n_trees} trees kept")
+    check(raw.shape == (len(yv), C) and np.all(np.isfinite(raw)),
+          "covertype: finite [rows, 7] scores")
+    acc = accuracy(yv, raw)
+    check(acc >= 0.80, f"covertype eval accuracy {acc} >= 0.80")
+    ll = logloss(yv, raw)
+    ll_dev = res.history[best]["valid_logloss"]
+    kept = res.history[res.ensemble.n_trees // C - 1]["valid_logloss"]
+    check(abs(ll - kept) <= 1e-4 * (abs(ll) + 1e-3),
+          f"covertype: host logloss {ll} vs the round's device score "
+          f"{kept}")
+    sub = 2_000
+    Xvb = res.mapper.transform(Xv[:sub])
+    oracle = res.ensemble.predict_raw(Xvb, binned=True)
+    check(np.all(np.abs(raw[:sub] - oracle) <= 1e-5 * (np.abs(oracle) + 1)),
+          "covertype: scores == host oracle")
+    row = {"rows_train": len(yt), "rows_eval": len(yv),
+           "features": COV_FEATURES, "classes": C, "bins": 255,
+           "depth": COV_DEPTH, "max_rounds": COV_ROUNDS,
+           "patience": COV_PATIENCE, "rounds_trained": rounds,
+           "early_stopped": stopped, "best_round": best,
+           "trees_kept": res.ensemble.n_trees, "train_s": t1 - t0,
+           "predict_s": t2 - t1, "ms_per_round_api": 1e3 * (t1 - t0) / rounds,
+           "eval_accuracy": acc, "eval_logloss": ll,
+           "eval_logloss_device_best": ll_dev, "launches": launches,
+           "hist_launches_per_round": launches["hist"] / (rounds + 1)}
+    emit({"phase": "covertype", **row})
+
+    # The loop apart on binned rows, its block at the Driver's size
+    # (COV_PATIENCE rounds): a call that captures, a timed one, and a
+    # profiled window.
+    mapper = res.mapper
+    Xd = mapper.transform_device(Xt, dev)
+    Xvd = mapper.transform_device(Xv, dev)
+    be = get_backend(cfg)
+    yd, yvd = be.upload_labels(yt), be.upload_labels(yv)
+    pred = be.init_pred(yd, 0.0)
+    vpred = torch.zeros((len(yv), C), device=dev)
+
+    def block(k, first=0):
+        return be.grow_rounds_eval(Xd, pred, yd, k, Xvd, vpred, yvd,
+                                   "logloss", first_round=first)
+
+    synced(lambda: block(COV_PATIENCE))
+    _, loop_s = synced(lambda: block(COV_PATIENCE, COV_PATIENCE))
+    prof = profiled(lambda: block(COV_PROFILE, 2 * COV_PATIENCE))
+    loop = {"ms_per_round": 1e3 * loop_s / COV_PATIENCE,
+            "ms_per_tree": 1e3 * loop_s / (COV_PATIENCE * C),
+            "capture_s": be.last_capture_s,
+            "profile_rounds": COV_PROFILE,
+            "busy_share": prof["busy_share"],
+            "device_ms_per_round": 1e3 * prof["device_busy_s"] / COV_PROFILE,
+            "hist_kernel_ms_per_tree":
+                prof["hist_kernel_ms"] / (COV_PROFILE * C),
+            "device_launches_per_round":
+                prof["device_launches"] / COV_PROFILE,
+            "host_launches_per_round":
+                prof["host_launch_calls"] / COV_PROFILE,
+            "top": prof["top"]}
+    emit({"phase": "covertype", "piece": "loop", **loop})
+
+    # K1 on one covertype tree's node indices (class 0 at pred 0).
+    levels = tree_levels(Xd, 1.0 / C, (yt == 0).astype(np.int32), COV_DEPTH)
+    k1 = hist_tree(Xd, levels, card, flush, seed=8)
+    emit({"phase": "covertype", "piece": "hist_per_tree", **k1})
+    del levels
+
+    # K3 on the trained model: bitwise to its plain version at 1, 256
+    # and every eval row; its time against its bound.
+    ce = res.ensemble.compile(tree_chunk=64)
+    tables, kernel, plain = device_operands(ce, dev)
+    k3 = traverse_row(kernel, plain, tables, ce, Xvd, card, flush, (1, 256),
+                      "covertype traverse")
+    k3.update(trees=res.ensemble.n_trees, trees_packed=tables.n_trees,
+              passes_at_eval_rows=-(-tables.n_trees // k3_plan(
+                  tables, len(yv), COV_FEATURES).sub))
+    emit({"phase": "covertype", "piece": "traverse_trained", **k3})
+    return {"row": row, "loop": loop, "hist": k1, "traverse": k3,
+            "Xd": Xd, "yt": yt, "Xvd": Xvd, "yv": yv}
+
+
+def phase_covertype_prefix(cov: dict) -> dict:
+    """COV_PREFIX rounds with the eval set, fused against granular on the
+    card: int8 trees and scores bitwise, f32 trees identical except at
+    bf16-boundary ties; the same best round."""
+    Xd, yt, Xvd, yv = cov["Xd"], cov["yt"], cov["Xvd"], cov["yv"]
+    out = {}
+    for dt in ("int8", "f32"):
+        cfg = covertype_cfg(n_trees=COV_PREFIX, grad_dtype=dt,
+                            min_split_gain=1e-3)
+        kw = dict(eval_set=(Xvd, yv), eval_metric="logloss",
+                  early_stopping_rounds=COV_PATIENCE)
+        fd = Driver(get_backend(cfg), cfg)
+        fused, fused_s = synced(lambda: fd.fit(Xd, yt, **kw))
+        gd = Driver(Granular(cfg), cfg)
+        gran, gran_s = synced(lambda: gd.fit(Xd, yt, **kw))
+        check(fd.best_round == gd.best_round,
+              f"covertype prefix {dt}: best round {fd.best_round} vs "
+              f"{gd.best_round}")
+        sf, sg = fd.best_score, gd.best_score
+        row = {"best_round": fd.best_round, "best_logloss": [sf, sg],
+               "fused_ms_per_round": 1e3 * fused_s / COV_PREFIX,
+               "granular_ms_per_round": 1e3 * gran_s / COV_PREFIX}
+        if dt == "int8":
+            for k in TREE_FIELDS:
+                check(np.array_equal(getattr(fused, k), getattr(gran, k)),
+                      f"covertype prefix int8: {k} fused == granular")
+            check([r["valid_logloss"] for r in fd.history]
+                  == [r["valid_logloss"] for r in gd.history],
+                  "covertype prefix int8: eval scores bitwise")
+            row["bitwise_equal"] = True
+        else:
+            # K1's float atomics add each cell in a run-to-run order. At
+            # this size a nearly pure node's G^2/H terms reach ~1e5 and
+            # its split gains (~0.1-1) sit inside that sum's rounding, so
+            # the two runs may part there by more than a bf16 tie: the
+            # trees are reported, and the models held to the same best
+            # round and, as card and CPU are, eval accuracy within 0.005.
+            row.update(first_divergence(gran, fused))
+            row["eval_accuracy"] = [eval_accuracy(m, Xvd, yv)
+                                    for m in (fused, gran)]
+            check(abs(row["eval_accuracy"][0] - row["eval_accuracy"][1])
+                  <= 0.005, f"covertype prefix f32: eval accuracy "
+                  f"{row['eval_accuracy']}")
+        out[dt] = row
+        emit({"phase": "covertype_prefix", "grad_dtype": dt,
+              "rounds": COV_PREFIX, **row})
+    return out
+
+
+def phase_missing(card: dict, flush: torch.Tensor) -> dict:
+    dev = torch.device("cuda")
+    X, y = synthetic_missing(ROWS, FEATURES, seed=3, frac=NAN_FRAC)
+    tr = MATRIX_TRAIN
+    out = {}
+    for policy in ("learn", "zero"):
+        cfg = TrainConfig(n_trees=MATRIX_ROUNDS, max_depth=DEPTH, n_bins=255,
+                          missing_policy=policy)
+        zero_counters()
+        res, train_s = synced(lambda: api.train(X[:tr], y[:tr], cfg))
+        raw = api.predict(res.ensemble, X[tr:], mapper=res.mapper, raw=True)
+        launches = read_counters()
+        check(launches["hist"] > 0 and launches["traverse"] > 0,
+              f"missing {policy}: kernels launched {launches}")
+        out[policy] = {"auc": auc(y[tr:], raw), "train_s": train_s,
+                       "launches": launches, "res": res}
+    learn = out["learn"]["res"]
+    check(learn.ensemble.missing_bin
+          and bool(learn.ensemble.default_left.any()),
+          "missing: learned default directions used")
+    check(out["learn"]["auc"] >= out["zero"]["auc"],
+          f"missing: learned AUC {out['learn']['auc']} >= zero policy's "
+          f"{out['zero']['auc']}")
+    ce = learn.ensemble.compile(tree_chunk=64)
+    tables, kernel, plain = device_operands(ce, dev)
+    check(tables.use_missing, "missing: routing step with the NaN test")
+    Xd = learn.mapper.transform_device(X[tr:], dev)
+    _, sizes = check_traverse(kernel, plain, tables, Xd, "missing traverse")
+    row = {"rows_train": tr, "rows_eval": ROWS - tr, "nan_frac": NAN_FRAC,
+           "nan_values": int(np.isnan(X).sum()), "rounds": MATRIX_ROUNDS,
+           "depth": DEPTH, "auc_learn": out["learn"]["auc"],
+           "auc_zero": out["zero"]["auc"],
+           "train_s_learn": out["learn"]["train_s"],
+           "train_s_zero": out["zero"]["train_s"],
+           "launches": out["learn"]["launches"],
+           "default_left_nodes": int(learn.ensemble.default_left.sum()),
+           "traverse_bitwise_at_rows": sizes + [Xd.shape[0]],
+           "traverse_ms": time_ms(lambda: kernel(Xd), 10, flush)}
+    emit({"phase": "missing", **row})
+    p = PARITY_MATRIX_ROWS
+    row["parity"] = matrix_parity(
+        "missing", X[:p], y[:p],
+        TrainConfig(n_trees=PARITY_MATRIX_ROUNDS, max_depth=DEPTH,
+                    n_bins=255, missing_policy="learn", min_split_gain=1e-3),
+        auc)
+    return row
+
+
+def phase_categorical(card: dict, flush: torch.Tensor) -> dict:
+    dev = torch.device("cuda")
+    Xn, Xc, y = synthetic_ctr(ROWS, seed=0)
+    enc, enc_s = synced(lambda: fit_categorical_encoder(Xc, n_bins=255))
+    X = np.concatenate([Xn, enc.transform(Xc).astype(np.float32)], axis=1)
+    cat = tuple(range(Xn.shape[1], X.shape[1]))
+    tr = MATRIX_TRAIN
+    cfg = TrainConfig(n_trees=MATRIX_ROUNDS, max_depth=DEPTH, n_bins=255,
+                      cat_features=cat)
+    zero_counters()
+    res, train_s = synced(lambda: api.train(X[:tr], y[:tr], cfg))
+    raw = api.predict(res.ensemble, X[tr:], mapper=res.mapper, raw=True)
+    launches = read_counters()
+    check(launches["hist"] > 0 and launches["traverse"] > 0,
+          f"categorical: kernels launched {launches}")
+    ens = res.ensemble
+    split = ~ens.is_leaf & (ens.feature >= 0)
+    cat_nodes = int(np.isin(ens.feature[split], cat).sum())
+    check(cat_nodes > 0, "categorical: one-vs-rest splits chosen")
+    ce = ens.compile(tree_chunk=64)
+    tables, kernel, plain = device_operands(ce, dev)
+    check(tables.use_cat, "categorical: routing step with the category test")
+    Xd = res.mapper.transform_device(X[tr:], dev)
+    _, sizes = check_traverse(kernel, plain, tables, Xd,
+                              "categorical traverse")
+    a = auc(y[tr:], raw)
+    row = {"rows_train": tr, "rows_eval": ROWS - tr,
+           "numeric": Xn.shape[1], "categorical": len(cat),
+           "encoder_fit_s": enc_s, "rounds": MATRIX_ROUNDS, "depth": DEPTH,
+           "auc": a, "train_s": train_s, "launches": launches,
+           "categorical_split_nodes": cat_nodes,
+           "split_nodes": int(split.sum()),
+           "traverse_bitwise_at_rows": sizes + [Xd.shape[0]],
+           "traverse_ms": time_ms(lambda: kernel(Xd), 10, flush)}
+    emit({"phase": "categorical", **row})
+    p = PARITY_MATRIX_ROWS
+    row["parity"] = matrix_parity(
+        "categorical", X[:p], y[:p],
+        TrainConfig(n_trees=PARITY_MATRIX_ROUNDS, max_depth=DEPTH,
+                    n_bins=255, cat_features=cat, min_split_gain=1e-3),
+        auc)
+    return row
+
+
+def phase_weights(X: np.ndarray, y: np.ndarray, binned: dict) -> dict:
+    dev = torch.device("cuda")
+    Xd = torch.from_numpy(binned[255]).to(dev)
+    cfg = TrainConfig(n_trees=WEIGHT_ROUNDS, max_depth=DEPTH, n_bins=255,
+                      grad_dtype="int8")
+    w = np.random.default_rng(5).integers(0, 4, len(y)).astype(np.float32)
+    zero_counters()
+    plain_run = Driver(get_backend(cfg), cfg).fit(Xd, y)
+    ones = Driver(get_backend(cfg), cfg).fit(Xd, y,
+                                             sample_weight=np.ones(len(y)))
+    for k in TREE_FIELDS:
+        check(np.array_equal(getattr(plain_run, k), getattr(ones, k)),
+              f"weights: all-ones {k} == unweighted, bitwise")
+    fd = Driver(get_backend(cfg), cfg)
+    fused, fused_s = synced(lambda: fd.fit(Xd, y, sample_weight=w))
+    raw = api.predict(fused, Xd, binned=True, raw=True).astype(np.float64)
+    launches = read_counters()
+    gran, gran_s = synced(lambda: Driver(Granular(cfg), cfg).fit(
+        Xd, y, sample_weight=w))
+    for k in TREE_FIELDS:
+        check(np.array_equal(getattr(fused, k), getattr(gran, k)),
+              f"weights: integer weights {k} fused == granular, bitwise")
+    per = np.logaddexp(0.0, raw) - raw * y
+    want = float((per * w).sum() / w.sum())
+    got = fd.history[-1]["train_loss"]
+    check(abs(got - want) <= 1e-4 * want,
+          f"weights: train loss {got} == weighted mean {want}")
+    row = {"rows": len(y), "rounds": WEIGHT_ROUNDS, "depth": DEPTH,
+           "grad_dtype": "int8", "weights": "integers 0-3",
+           "all_ones_bitwise": True, "fused_granular_bitwise": True,
+           "train_loss": got, "weighted_mean_loss_host": want,
+           "unweighted_mean_loss_host": float(per.mean()),
+           "fused_ms_per_tree": 1e3 * fused_s / WEIGHT_ROUNDS,
+           "granular_ms_per_tree": 1e3 * gran_s / WEIGHT_ROUNDS,
+           "launches": launches}
+    emit({"phase": "weights", **row})
+    p = PARITY_MATRIX_ROWS
+    row["parity"] = matrix_parity(
+        "weights", X[:p], y[:p],
+        TrainConfig(n_trees=PARITY_MATRIX_ROUNDS, max_depth=DEPTH,
+                    n_bins=255, min_split_gain=1e-3), auc,
+        sample_weight=w[:p])
+    return row
+
+
+def phase_resume() -> dict:
+    dev = torch.device("cuda")
+    Xt, yt, Xv, yv = covertype_data()
+    Xt, yt = Xt[:RESUME_ROWS], yt[:RESUME_ROWS]
+    Xv, yv = Xv[:RESUME_ROWS // 5], yv[:RESUME_ROWS // 5]
+    mapper = fit_bin_mapper(Xt, n_bins=255)
+    Xd, Xvd = mapper.transform_device(Xt, dev), mapper.transform_device(Xv,
+                                                                        dev)
+    kw = dict(eval_set=(Xvd, yv), eval_metric="logloss")
+    out = {}
+    zero_counters()
+    for dt in ("int8", "f32"):
+        cfg = covertype_cfg(n_trees=2 * RESUME_ROUNDS, grad_dtype=dt,
+                            min_split_gain=1e-3)
+        be = get_backend(cfg)
+        whole = Driver(be, cfg)
+        full = whole.fit(Xd, yt, **kw)
+        with tempfile.TemporaryDirectory() as ck:
+            first = cfg.replace(n_trees=RESUME_ROUNDS)
+            Driver(be, first, checkpoint_dir=ck,
+                   checkpoint_every=RESUME_EVERY).fit(Xd, yt, **kw)
+            again = Driver(be, cfg, checkpoint_dir=ck,
+                           checkpoint_every=RESUME_EVERY)
+            resumed, resume_s = synced(lambda: again.fit(Xd, yt, **kw))
+        last = [whole.history[-1]["valid_logloss"],
+                again.history[-1]["valid_logloss"]]
+        row = {"resume_s": resume_s, "final_logloss": last}
+        if dt == "int8":
+            for k in TREE_FIELDS:
+                check(np.array_equal(getattr(full, k), getattr(resumed, k)),
+                      f"resume int8: {k} == uninterrupted, bitwise")
+            check([r["valid_logloss"] for r in again.history]
+                  == [r["valid_logloss"]
+                      for r in whole.history[RESUME_ROUNDS:]],
+                  "resume int8: eval scores == uninterrupted")
+            row["bitwise_equal"] = True
+        else:
+            # f32 histograms sum with float atomics in a run-to-run order,
+            # so the first run's trees and the uninterrupted run's may part
+            # (see phase_covertype_prefix): the resume cannot be bitwise on
+            # the card, and is held to eval accuracy within 0.005.
+            row.update(first_divergence(full, resumed))
+            row["eval_accuracy"] = [eval_accuracy(m, Xvd, yv)
+                                    for m in (full, resumed)]
+            check(abs(row["eval_accuracy"][0] - row["eval_accuracy"][1])
+                  <= 0.005, f"resume f32: eval accuracy "
+                  f"{row['eval_accuracy']}")
+        out[dt] = row
+        emit({"phase": "resume", "grad_dtype": dt, "rows": RESUME_ROWS,
+              "rounds": [RESUME_ROUNDS, 2 * RESUME_ROUNDS],
+              "checkpoint_every": RESUME_EVERY, **row})
+    out["launches"] = read_counters()
+    return out
+
+
+def phase_covertype_parity() -> dict:
+    Xt, yt, _, _ = covertype_data()
+    p = PARITY_MATRIX_ROWS
+    # int8: the card's histograms are then order-free as the CPU's are
+    # (f32 ones part at noise-level gains on this shape, see
+    # phase_covertype_prefix).
+    return matrix_parity(
+        "covertype", Xt[:p], yt[:p],
+        covertype_cfg(n_trees=PARITY_MATRIX_ROUNDS, grad_dtype="int8",
+                      min_split_gain=1e-3), accuracy)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1591,6 +2167,14 @@ def main() -> int:
     phase_quant_exact(binned, y)
     train_q = phase_train_quant(X, y, binned, main_run)
     parity_q = phase_parity_quant(X, y)
+    cov = phase_covertype(card, flush)
+    phase_covertype_prefix(cov)
+    del cov["Xd"], cov["Xvd"]
+    missing = phase_missing(card, flush)
+    categorical = phase_categorical(card, flush)
+    weights = phase_weights(X, y, binned)
+    resume = phase_resume()
+    phase_covertype_parity()
     launches = main_run["launches"]
     k2 = hist_int["rows"][("int16", 64, 32)]
 
@@ -1604,27 +2188,54 @@ def main() -> int:
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                 "library_ms": None}
 
+    k1, k3 = cov["hist"], cov["traverse"]
+    cov_launches = cov["row"]["launches"]
     emit({"kernels": [
+        # K1 and K3 report this slice's main path (covertype: depth 8,
+        # 54 features, 7 classes; K1 a tree, K3 on the trained model);
+        # each other path's launches, counted from zero around it, and
+        # the Higgs main path's numbers are under "paths".
         {"name": "hist", "route": "cuda",
          "source": "ddt_tpu_torch/csrc/hist.cu",
          "replaces": "ddt_tpu/ops/hist_pallas.py:175",
-         "launches": launches["hist"], "max_abs_err": hist["max_abs_err"],
-         "ms": hist["kernel_ms"], "plain_ms": hist["plain_ms"],
-         "bound_ms": hist["bound_ms"], "bound_by": hist["bound_by"],
-         "library_ms": hist["library_ms"]},
+         "launches": cov_launches["hist"], "max_abs_err": k1["max_abs_err"],
+         "ms": k1["kernel_ms"], "plain_ms": k1["plain_ms"],
+         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
+         "library_ms": k1["library_ms"],
+         "paths": {
+             "main_higgs": {
+                 "launches": launches["hist"],
+                 "max_abs_err": hist["max_abs_err"],
+                 "ms": hist["kernel_ms"], "plain_ms": hist["plain_ms"],
+                 "bound_ms": hist["bound_ms"], "bound_by": hist["bound_by"],
+                 "library_ms": hist["library_ms"]},
+             "missing": missing["launches"]["hist"],
+             "categorical": categorical["launches"]["hist"],
+             "resume": resume["launches"]["hist"]}},
         {"name": "traverse", "route": "cuda",
          "source": "ddt_tpu_torch/csrc/lut.cu",
          "replaces": "ddt_tpu/ops/predict_pallas.py:105",
-         "launches": launches["traverse"],
-         "max_abs_err": trav["max_abs_err"], "ms": trav["kernel_ms"],
-         "plain_ms": trav["plain_ms"], "bound_ms": trav["bound_ms"],
-         "bound_by": trav["bound_by"], "library_ms": None},
+         "launches": cov_launches["traverse"],
+         "max_abs_err": k3["max_abs_err"], "ms": k3["kernel_ms"],
+         "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
+         "bound_by": k3["bound_by"], "library_ms": None,
+         "paths": {
+             "main_higgs": {
+                 "launches": launches["traverse"],
+                 "max_abs_err": trav["max_abs_err"], "ms": trav["kernel_ms"],
+                 "plain_ms": trav["plain_ms"], "bound_ms": trav["bound_ms"],
+                 "bound_by": trav["bound_by"]},
+             "missing": missing["launches"]["traverse"],
+             "categorical": categorical["launches"]["traverse"],
+             "weights": weights["launches"]["traverse"]}},
         lut_entry("lut", 376),
         lut_entry("lut4", 674),
         {"name": "hist_int", "route": "cuda",
          "source": "ddt_tpu_torch/csrc/hist.cu",
          "replaces": "ddt_tpu/ops/hist_pallas.py:175",
          "launches": train_q["launches"]["hist_int"],
+         "paths": {"weights": weights["launches"]["hist_int"],
+                   "resume": resume["launches"]["hist_int"]},
          "max_abs_err": hist_int["max_abs_err"],
          "ms": hist_int["int8"]["kernel_ms"],
          "plain_ms": hist_int["int8"]["plain_ms"],

@@ -3,12 +3,19 @@ ddt_tpu/api.py's `train`, `predict`, `ModelBundle` and
 `validate_mapper_model`).
 
 Float features are binned here unless `binned=True`: the edges are fitted
-on the host (data/quantizer.fit_bin_mapper), then the f32 rows are
-uploaded once and binned on the backend's device (ops/quantize), where the
-binned matrix stays: training hands it to the Driver and counts the
-mapper's reference bin histogram there; scoring hands it to the backend's
-device traversal, at the tier cfg.predict_impl names. Both run on the card
-unless the caller asks for the CPU (device="cpu").
+on the host (data/quantizer.fit_bin_mapper, with the config's missing
+policy and categorical columns), then the f32 rows are uploaded once and
+binned on the backend's device (ops/quantize), where the binned matrix
+stays: training hands it to the Driver (an eval set is binned there with
+the training mapper too) and counts the mapper's reference bin histogram
+there; scoring hands it to the backend's device traversal, at the tier
+cfg.predict_impl names. Both run on the card unless the caller asks for
+the CPU (device="cpu").
+
+api.train takes what ddt_tpu.api.train takes for one device: softmax
+(loss="softmax", n_classes), missing_policy="learn", cat_features,
+sample_weight, eval_set / eval_metric / early_stopping_rounds and
+checkpoint_dir / checkpoint_every.
 """
 
 from __future__ import annotations
@@ -32,6 +39,9 @@ class TrainResult:
     ensemble: TreeEnsemble
     mapper: BinMapper | None      # None when the caller passed binned data
     cfg: TrainConfig
+    history: list = dataclasses.field(default_factory=list)
+    best_round: int | None = None   # 0-based; set with an eval_set
+    best_score: float | None = None
 
 
 @dataclasses.dataclass
@@ -46,14 +56,17 @@ class ModelBundle:
 
 
 def fill_raw_thresholds(ens: TreeEnsemble, mapper: BinMapper) -> None:
-    """Raw-value thresholds of every split node from the mapper's edges."""
-    T, N = ens.feature.shape
-    for t in range(T):
-        for n in range(N):
-            f = ens.feature[t, n]
-            if f >= 0:
-                ens.threshold_raw[t, n] = mapper.threshold_value(
-                    int(f), int(ens.threshold_bin[t, n]))
+    """Raw-value thresholds of every split node from the mapper's edges:
+    mapper.threshold_value at every node, in one array pass (the value
+    bins' last threshold sends every value left: +inf; categorical
+    nodes' identity edges give the category id itself)."""
+    split = ens.feature >= 0
+    f = np.where(split, ens.feature, 0)
+    t = np.clip(ens.threshold_bin, 0, mapper.edges.shape[1] - 1)
+    raw = np.where(ens.threshold_bin >= mapper.n_value_bins - 1,
+                   np.float32(np.inf), mapper.edges[f, t])
+    ens.threshold_raw = np.where(split, raw, ens.threshold_raw).astype(
+        np.float32)
     ens.has_raw_thresholds = True
 
 
@@ -65,12 +78,18 @@ def train(
     binned: bool = False,
     mapper: BinMapper | None = None,
     backend: DeviceBackend | None = None,
+    checkpoint_dir: str | None = None,
+    checkpoint_every: int = 25,
+    eval_set: tuple | None = None,
+    eval_metric: str | None = None,
+    early_stopping_rounds: int | None = None,
+    sample_weight: np.ndarray | None = None,
     **cfg_overrides,
 ) -> TrainResult:
     """Train a GBDT. `X` is float features (binned here, on the device)
-    unless `binned=True` (uint8 bin indices, host or tensor).
-    `cfg_overrides` are TrainConfig fields, e.g. train(X, y, n_trees=50,
-    device="cpu")."""
+    unless `binned=True` (uint8 bin indices, host or tensor); the eval
+    set's rows follow the same flag. `cfg_overrides` are TrainConfig
+    fields, e.g. train(X, y, n_trees=50, device="cpu")."""
     if cfg is None:
         cfg = TrainConfig(**cfg_overrides)
     elif cfg_overrides:
@@ -83,18 +102,50 @@ def train(
     else:
         if mapper is None:
             mapper = fit_bin_mapper(np.asarray(X), n_bins=cfg.n_bins,
-                                    seed=cfg.seed)
-        elif mapper.missing_bin:
+                                    seed=cfg.seed,
+                                    missing_policy=cfg.missing_policy,
+                                    cat_features=cfg.cat_features)
+        elif cfg.missing_policy == "learn" and not mapper.missing_bin:
             raise ValueError(
-                "a BinMapper with a reserved missing bin needs "
-                "missing_policy='learn' training, which is not ported yet")
+                "missing_policy='learn' requires a BinMapper fitted with "
+                "the same policy (its top bin must be the NaN bin)")
+        if cfg.cat_features:
+            # Quantile edges would merge or permute category ids before
+            # the one-vs-rest splits see them.
+            not_identity = mapper.non_identity_columns(cfg.cat_features)
+            if not_identity:
+                raise ValueError(
+                    f"cat_features {not_identity} were not identity-binned "
+                    "by this BinMapper; refit it with "
+                    f"cat_features={tuple(sorted(cfg.cat_features))} so "
+                    "category ids survive binning")
         Xb = mapper.transform_device(X, be.device)
         mapper.ref_counts = feature_bincounts(
             Xb, mapper.n_bins).cpu().numpy()
-    ens = Driver(be, cfg).fit(Xb, np.asarray(y))
+    if eval_set is not None:
+        Xv, yv = eval_set
+        if not isinstance(Xv, torch.Tensor):
+            Xv = np.asarray(Xv)
+        if binned:
+            if Xv.dtype not in (np.uint8, torch.uint8):
+                raise TypeError(
+                    "training data is pre-binned; eval_set must be uint8 "
+                    f"bin indices too, got {Xv.dtype}")
+        else:
+            Xv = mapper.transform_device(Xv, be.device)
+        eval_set = (Xv, np.asarray(yv))
+    driver = Driver(be, cfg, checkpoint_dir=checkpoint_dir,
+                    checkpoint_every=checkpoint_every)
+    ens = driver.fit(Xb, np.asarray(y), eval_set=eval_set,
+                     eval_metric=eval_metric,
+                     early_stopping_rounds=early_stopping_rounds,
+                     sample_weight=sample_weight)
     if mapper is not None:
         fill_raw_thresholds(ens, mapper)
-    return TrainResult(ensemble=ens, mapper=mapper, cfg=cfg)
+    return TrainResult(ensemble=ens, mapper=mapper, cfg=cfg,
+                       history=driver.history,
+                       best_round=driver.best_round,
+                       best_score=driver.best_score)
 
 
 def predict_proba_np(raw: np.ndarray, loss: str) -> np.ndarray:

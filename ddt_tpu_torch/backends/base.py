@@ -1,11 +1,11 @@
 """DeviceBackend: the Driver's device contract (port of
 ddt_tpu/backends/base.py, same method names).
 
-The Driver sees only upload / upload_labels / init_pred / grad_hess /
-apply_row_mask / grow_tree / fetch_tree / apply_delta / loss_value /
-predict_raw, and the optional fused rounds (grow_rounds /
-grow_rounds_masked / fetch_rounds), which it takes whenever a backend has
-them; the granular kernels (build_histograms, best_splits) stay on the
+The Driver sees only upload / upload_labels / init_pred / load_pred /
+grad_hess / apply_row_mask / grow_tree / fetch_tree / apply_delta /
+loss_value / eval_round / predict_raw, and the optional fused rounds
+(grow_rounds / grow_rounds_masked / grow_rounds_eval / fetch_rounds),
+which it takes whenever a backend has them; the granular kernels (build_histograms, best_splits) stay on the
 interface as the parity surface. Boosting state (raw predictions) and
 the data live where the backend wants them (`device`): opaque handles flow
 Driver -> grad_hess -> grow_tree -> apply_delta without a host round
@@ -85,15 +85,18 @@ class DeviceBackend(abc.ABC):
 
     @abc.abstractmethod
     def init_pred(self, y: Any, base: float) -> Any:
-        """Initial raw scores [R] filled with `base`."""
+        """Initial raw scores [R] filled with `base` ([R, C] for
+        softmax)."""
 
     @abc.abstractmethod
     def load_pred(self, raw: np.ndarray) -> Any:
-        """Adopt host raw scores [R] as the boosting state."""
+        """Adopt host raw scores [R] or [R, C] as the boosting state (or as
+        eval-set margins)."""
 
     @abc.abstractmethod
     def grad_hess(self, pred: Any, y: Any) -> tuple[Any, Any]:
-        """Loss gradients/hessians at `pred`: f32 [R]."""
+        """Loss gradients/hessians at `pred`, times the instance weights:
+        f32 [R], or [R, C] for softmax."""
 
     @abc.abstractmethod
     def apply_row_mask(self, g: Any, h: Any, mask: Any) -> tuple[Any, Any]:
@@ -116,25 +119,38 @@ class DeviceBackend(abc.ABC):
     # --- fused rounds (optional: the Driver takes them when present) ---
     #
     # grow_rounds(data, pred, y, n_rounds, first_round=0) runs n_rounds
-    # boosting rounds on the device and returns device handles
-    # (packed trees [n_rounds, 6, N] f32, the new pred, losses [n_rounds]
-    # f32: the loss after each round, loss_value's semantics). Bagging
-    # masks and quantized-gradient rounding keys come from the absolute
-    # round first_round + k. grow_rounds_masked(data, pred, y, n_rounds,
-    # fmasks, first_round=0) adds the host-drawn colsample masks, bool
-    # [n_rounds, F]. The reference's contract
-    # (ddt_tpu/backends/tpu.py:798-845), one output column.
+    # boosting rounds on the device, C trees a round, and returns device
+    # handles (packed trees [n_rounds, 6, N] f32, [n_rounds, C, 6, N] for
+    # softmax; the new pred; losses [n_rounds] f32: the loss after each
+    # round, loss_value's semantics). Bagging masks and quantized-gradient
+    # rounding keys come from the absolute round first_round + k.
+    # grow_rounds_masked(data, pred, y, n_rounds, fmasks, first_round=0)
+    # adds the host-drawn colsample masks, bool [n_rounds, C, F].
+    # grow_rounds_eval(data, pred, y, n_rounds, val_data, val_pred, val_y,
+    # metric, first_round=0, fmasks=None) also adds each tree to the eval
+    # margins and returns the new margins and the metric after each round,
+    # scores [n_rounds] f32. The reference's contract
+    # (ddt_tpu/backends/tpu.py:798-1095).
     grow_rounds = None
     grow_rounds_masked = None
+    grow_rounds_eval = None
 
-    def fetch_rounds(self, trees: Any, losses: Any
-                     ) -> tuple[np.ndarray, np.ndarray]:
-        """Resolve grow_rounds' trees and losses to host arrays."""
-        return np.asarray(trees), np.asarray(losses)
+    def fetch_rounds(self, trees: Any, losses: Any, scores: Any = None
+                     ) -> tuple:
+        """Resolve grow_rounds' trees and losses (and eval scores) to host
+        arrays."""
+        out = (np.asarray(trees), np.asarray(losses))
+        return out if scores is None else out + (np.asarray(scores),)
+
+    @abc.abstractmethod
+    def eval_round(self, val_data: Any, val_pred: Any, handles: list,
+                   val_y: Any, metric: str) -> tuple[Any, Any]:
+        """Add one round's trees (a grow_tree handle per class) to the eval
+        margins: (new margins, the metric, a device scalar)."""
 
     @abc.abstractmethod
     def apply_delta(self, pred: Any, delta: Any, class_idx: int) -> Any:
-        """pred updated by delta."""
+        """pred updated by delta (in column class_idx of an [R, C] pred)."""
 
     @abc.abstractmethod
     def loss_value(self, pred: Any, y: Any) -> float:

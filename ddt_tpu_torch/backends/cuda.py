@@ -18,16 +18,22 @@ ops/predict_lut (kernels K4 / K5), walked down int4 -> int8 -> f32 when a
 fits guard refuses the shape; otherwise the traversal kernel's f32
 tables. `resolved_predict_impl(token)` reports the tier.
 
-Fused rounds (port of TPUDevice.grow_rounds / grow_rounds_masked): one
-boosting round (gradients -> bagging mask -> grow_tree -> pred += delta
--> packed tree and loss) is one function, `_round`, whose per-round
-inputs (the round index, the colsample mask) are tensors. On "cuda" it is
-captured once as a CUDA graph (`_RoundGraph`) and replayed once a round,
-so a round costs the host a replay and a few stream-ordered copies where
-the granular loop issues every launch of the level loop; on "cpu" the
-same function runs eagerly, which is how the tests hold it bitwise to the
-granular loop. A failed capture or replay raises: the fused path never
-falls back to the granular loop or to the CPU.
+Fused rounds (port of TPUDevice.grow_rounds / grow_rounds_masked /
+grow_rounds_eval): one boosting round (gradients -> bagging mask -> one
+tree per output column, each added to pred -> packed trees and loss, and
+with an eval set each tree also routed through the validation rows and
+the round's metric taken by its tensor twin) is one function, `_round`,
+whose per-round inputs (the round index, the colsample masks) are
+tensors. On "cuda" it is captured once as a CUDA graph (`_RoundGraph`)
+and replayed once a round, so a round costs the host a replay and a few
+stream-ordered copies where the granular loop issues every launch of the
+level loop; on "cpu" the same function runs eagerly, which is how the
+tests hold it bitwise to the granular loop. What the round computes
+(classes, weights, missing and categorical routing, the eval step) is
+decided by the config and the call, in Python, before the capture: the
+graph holds no branch on a tensor value. A failed capture or replay
+raises: the fused path never falls back to the granular loop or to the
+CPU.
 """
 
 from __future__ import annotations
@@ -50,7 +56,7 @@ from ddt_tpu_torch.ops import histogram as hist_ops
 from ddt_tpu_torch.ops import predict as predict_ops
 from ddt_tpu_torch.ops import predict_lut, predict_lut_cuda, sampling
 from ddt_tpu_torch.ops import split as split_ops
-from ddt_tpu_torch.utils import launches
+from ddt_tpu_torch.utils import launches, metrics
 
 log = logging.getLogger("ddt_tpu_torch.backends.cuda")
 
@@ -63,9 +69,33 @@ graph_replays = 0
 class LabelHandle(NamedTuple):
     """Labels on the device: the opaque `y` the Driver threads through
     grad_hess / loss_value (per-dataset state lives in handles, not on
-    the backend, which is cached and shared)."""
+    the backend, which is cached and shared). `valid` holds the instance
+    weights (all ones without them), as the reference's handle does; it
+    scales g and h and weights the loss only when `weighted`, so an
+    unweighted round runs no extra kernel."""
 
-    y: torch.Tensor     # f32 [R]
+    y: torch.Tensor         # f32 [R] (class ids for softmax)
+    valid: torch.Tensor     # f32 [R] instance weights, or ones
+    weighted: bool = False
+
+
+class _Eval(NamedTuple):
+    """An eval set inside a fused round: binned rows, margins (updated in
+    place), labels and the metric's tensor twin."""
+
+    data: torch.Tensor
+    pred: torch.Tensor
+    y: LabelHandle
+    metric: str
+
+
+def _pack(tree) -> torch.Tensor:
+    """One [6, N] f32 record (base.PACKED_FIELDS) of a grown tree: a
+    single device->host copy carries it."""
+    return torch.stack([
+        tree.feature.float(), tree.threshold_bin.float(),
+        tree.is_leaf.float(), tree.leaf_value, tree.split_gain,
+        tree.default_left.float()])
 
 
 class CUDADevice(DeviceBackend):
@@ -89,6 +119,9 @@ class CUDADevice(DeviceBackend):
         self._predict_cache: dict[str, tuple] = {}
         self._predict_impl_resolved: dict[str, str] = {}
         self._cache_lock = threading.Lock()
+        # F -> the bool [F] categorical mask, built once outside any
+        # capture (building it copies from the host).
+        self._cat_masks: dict[int, torch.Tensor | None] = {}
         # The captured round of the last fused block (one at a time) and
         # the host seconds its warm-up round and capture took.
         self._graph: _RoundGraph | None = None
@@ -136,10 +169,29 @@ class CUDADevice(DeviceBackend):
     def upload_labels(self, y: np.ndarray,
                       sample_weight: np.ndarray | None = None
                       ) -> LabelHandle:
-        if sample_weight is not None:
-            raise NotImplementedError(
-                "sample_weight is not ported yet (ROADMAP.md)")
-        return LabelHandle(self._put(np.asarray(y, np.float32)))
+        """Labels, and the instance weights validated as the reference's
+        Driver validates them (float [R], finite, >= 0, not all zero)."""
+        y = np.asarray(y, np.float32)
+        if sample_weight is None:
+            return LabelHandle(self._put(y), torch.ones(
+                y.shape[0], dtype=torch.float32, device=self.device))
+        w = np.asarray(sample_weight, np.float32)
+        if w.shape != y.shape:
+            raise ValueError(f"sample_weight must be [R]={y.shape[0]}, "
+                             f"got {w.shape}")
+        if not np.all(np.isfinite(w)) or (w < 0).any():
+            raise ValueError("sample_weight must be finite and >= 0")
+        if not (w > 0).any():
+            raise ValueError("sample_weight is all zero")
+        return LabelHandle(self._put(y), self._put(w), True)
+
+    def cat_mask(self, n_features: int) -> torch.Tensor | None:
+        """The bool [F] mask of cfg.cat_features on the device (None
+        without categorical features), built once per width."""
+        if n_features not in self._cat_masks:
+            self._cat_masks[n_features] = grow_ops.cat_feature_mask(
+                self.cfg.cat_features, n_features, self.device)
+        return self._cat_masks[n_features]
 
     # ------------------------------------------------------------------ #
     # granular kernels (parity surface)
@@ -166,20 +218,30 @@ class CUDADevice(DeviceBackend):
     # ------------------------------------------------------------------ #
 
     def init_pred(self, y: LabelHandle, base: float) -> torch.Tensor:
-        return torch.full(y.y.shape, base, dtype=torch.float32,
+        """[R] filled with `base`, or [R, C] for softmax (base 0)."""
+        C = self.cfg.n_outputs
+        shape = y.y.shape if C == 1 else (y.y.shape[0], C)
+        return torch.full(shape, base, dtype=torch.float32,
                           device=self.device)
 
     def load_pred(self, raw: np.ndarray) -> torch.Tensor:
         return self._put(np.asarray(raw, np.float32))
 
     def grad_hess(self, pred, y: LabelHandle):
-        return grad_ops.grad_hess(pred, y.y, self.cfg.loss)
+        """(g, h) f32 [R], or [R, C] for softmax, times the weights."""
+        g, h = grad_ops.grad_hess(pred, y.y, self.cfg.loss)
+        if y.weighted:
+            v = y.valid[:, None] if g.dim() == 2 else y.valid
+            g, h = g * v, h * v
+        return g, h
 
     def apply_row_mask(self, g, h, mask):
-        """Bagging: g and h times the 0/1 row mask (bool [R], a tensor on
-        the device or a host array), so a masked row adds nothing, and
-        quantizes to a q of 0."""
+        """Bagging: g and h ([R] or [R, C]) times the 0/1 row mask (bool
+        [R], a tensor on the device or a host array), so a masked row adds
+        nothing, and quantizes to a q of 0."""
         m = self._tensor(mask).to(torch.float32)
+        if g.dim() == 2:
+            m = m[:, None]
         return g * m, h * m
 
     def grow_tree(self, data, g, h, feature_mask=None,
@@ -189,10 +251,16 @@ class CUDADevice(DeviceBackend):
         `feature_mask` (bool [F], host or device) is the colsample mask;
         `tree_id` (the absolute tree index) keys the quantized-gradient
         rounding with cfg.seed when cfg.grad_dtype != "f32"."""
+        tree = self._grow(data, g, h, feature_mask, tree_id)
+        return _pack(tree), grow_ops.tree_predict_delta(
+            tree, self.cfg.learning_rate)
+
+    def _grow(self, data, g, h, feature_mask,
+              tree_id) -> grow_ops.TreeArrays:
         cfg = self.cfg
         if feature_mask is not None:
             feature_mask = self._tensor(feature_mask).to(torch.bool)
-        tree = grow_ops.grow_tree(
+        return grow_ops.grow_tree(
             data, g.contiguous(), h.contiguous(),
             max_depth=cfg.max_depth, n_bins=cfg.n_bins,
             reg_lambda=cfg.reg_lambda,
@@ -200,96 +268,189 @@ class CUDADevice(DeviceBackend):
             min_split_gain=cfg.min_split_gain,
             hist_subtraction=self.hist_subtraction,
             grad_dtype=cfg.grad_dtype, quant_tree_id=tree_id,
-            quant_seed=cfg.seed, feature_mask=feature_mask)
-        delta = grow_ops.tree_predict_delta(tree, cfg.learning_rate)
-        # One [6, N] f32 record (base.PACKED_FIELDS): a single
-        # device->host copy per tree.
-        packed = torch.stack([
-            tree.feature.float(), tree.threshold_bin.float(),
-            tree.is_leaf.float(), tree.leaf_value, tree.split_gain,
-            tree.default_left.float()])
-        return packed, delta
+            quant_seed=cfg.seed, feature_mask=feature_mask,
+            missing_bin=cfg.missing_policy == "learn",
+            cat_mask=self.cat_mask(data.shape[1]))
 
     def fetch_tree(self, handle) -> HostTree:
         return unpack_tree(handle.cpu().numpy())
 
     def apply_delta(self, pred, delta, class_idx: int):
-        if class_idx != 0:
-            raise ValueError("one output column (softmax is not ported yet)")
-        return pred + delta
+        """pred + delta, into column class_idx of an [R, C] pred."""
+        if pred.dim() == 1:
+            if class_idx != 0:
+                raise ValueError(f"class {class_idx} of a one-column pred")
+            return pred + delta
+        out = pred.clone()
+        out[:, class_idx] += delta
+        return out
+
+    def _loss(self, pred, y: LabelHandle) -> torch.Tensor:
+        return grad_ops.mean_loss(pred, y.y, self.cfg.loss,
+                                  y.valid if y.weighted else None)
 
     def loss_value(self, pred, y: LabelHandle) -> float:
-        return float(grad_ops.mean_loss(pred, y.y, self.cfg.loss))
+        return float(self._loss(pred, y))
+
+    def _route(self, ev: _Eval, tree, class_idx: int) -> None:
+        """Add one tree (TreeArrays, or a packed [6, N] record) to the eval
+        margins in place."""
+        if isinstance(tree, torch.Tensor):
+            tree = grow_ops.TreeArrays(
+                tree[0].to(torch.int32), tree[1].to(torch.int32),
+                tree[2] > 0.5, tree[3], tree[4], tree[5] > 0.5, None)
+        cfg = self.cfg
+        grow_ops.apply_tree_pred(
+            ev.data, ev.pred, tree.feature, tree.threshold_bin,
+            tree.is_leaf, tree.leaf_value,
+            tree.default_left if cfg.missing_policy == "learn" else None,
+            max_depth=cfg.max_depth, learning_rate=cfg.learning_rate,
+            class_idx=class_idx, missing_bin_value=cfg.missing_bin_value,
+            cat_mask=self.cat_mask(ev.data.shape[1]))
+
+    @staticmethod
+    def _score(ev: _Eval) -> torch.Tensor:
+        fn = metrics.device_metric(ev.metric, n_classes=(
+            ev.pred.shape[1] if ev.pred.dim() == 2 else 1))
+        if fn is None:
+            raise ValueError(f"metric {ev.metric!r} has no device twin "
+                             "for these margins")
+        return fn(ev.y.y, ev.pred)
+
+    def eval_round(self, val_data, val_pred, handles, val_y: LabelHandle,
+                   metric: str):
+        """Add one round's trees (a packed handle per class, from
+        grow_tree) to the eval-set margins: (new margins, the metric as an
+        f32 0-dim device tensor). `val_pred` itself is left as it was."""
+        ev = _Eval(val_data, val_pred.clone(), val_y, metric)
+        for c, handle in enumerate(handles):
+            self._route(ev, handle, c)
+        return ev.pred, self._score(ev)
 
     # ------------------------------------------------------------------ #
     # fused rounds
     # ------------------------------------------------------------------ #
 
     def _round(self, data, pred, y: LabelHandle, rnd: torch.Tensor,
-               fmask: torch.Tensor | None):
+               fmasks: torch.Tensor | None, ev: _Eval | None = None):
         """One boosting round, every per-round input read from a tensor
         (`rnd`: 0-dim int64 absolute round, the bagging and rounding key;
-        `fmask`: bool [F] colsample mask or None). Adds the tree's delta to
-        `pred` in place and returns (packed tree [6, N], mean loss after
-        the round). The granular loop's steps in its order, so its trees
-        are the granular loop's bit for bit wherever the device's sums are
+        `fmasks`: bool [C, F] colsample masks or None). Grows one tree per
+        output column c from the round's gradients (quantization tree id
+        rnd * C + c) and adds each to column c of `pred` in place, and,
+        with `ev`, to the eval margins. Returns (packed trees [6, N], or
+        [C, 6, N]; mean loss after the round; the eval metric or None).
+        The granular loop's steps in its order, so its trees are the
+        granular loop's bit for bit wherever the device's sums are
         deterministic."""
         cfg = self.cfg
+        C = cfg.n_outputs
         g, h = self.grad_hess(pred, y)
         if cfg.subsample < 1.0:
             keep = sampling.row_keep(cfg.seed, rnd, 0, pred.shape[0],
                                      cfg.subsample, device=pred.device)
             g, h = self.apply_row_mask(g, h, keep)
-        packed, delta = self.grow_tree(data, g, h, feature_mask=fmask,
-                                       tree_id=rnd)
-        pred.add_(delta)
-        return packed, grad_ops.mean_loss(pred, y.y, cfg.loss)
+        if C > 1:
+            # [C, R]: each class's column reaches the kernel contiguous.
+            g, h = g.t().contiguous(), h.t().contiguous()
+        packs = []
+        for c in range(C):
+            tree = self._grow(
+                data, g[c] if C > 1 else g, h[c] if C > 1 else h,
+                None if fmasks is None else fmasks[c],
+                rnd * C + c if C > 1 else rnd)
+            delta = grow_ops.tree_predict_delta(tree, cfg.learning_rate)
+            (pred[:, c] if C > 1 else pred).add_(delta)
+            if ev is not None:
+                self._route(ev, tree, c)
+            packs.append(_pack(tree))
+        trees = torch.stack(packs) if C > 1 else packs[0]
+        return (trees, self._loss(pred, y),
+                None if ev is None else self._score(ev))
 
     def grow_rounds(self, data, pred, y: LabelHandle, n_rounds: int,
                     first_round: int = 0):
         """n_rounds boosting rounds from the absolute round first_round:
-        (packed trees [n_rounds, 6, N], new pred, losses [n_rounds]), all
-        on the device. `pred` itself is left as it was."""
-        return self._grow_rounds(data, pred, y, n_rounds, first_round, None)
+        (packed trees [n_rounds, 6, N] or [n_rounds, C, 6, N], new pred,
+        losses [n_rounds]), all on the device. `pred` itself is left as it
+        was."""
+        return self._grow_rounds(data, pred, y, n_rounds, first_round,
+                                 None)[:3]
+
+    def _fmasks(self, data, n_rounds: int, fmasks) -> torch.Tensor:
+        """Host colsample masks, bool [n_rounds, C, F] ([n_rounds, F] with
+        one class), checked and uploaded once."""
+        fm = np.asarray(fmasks, bool)
+        C, F = self.cfg.n_outputs, data.shape[1]
+        if fm.ndim == 2 and C == 1:
+            fm = fm[:, None, :]
+        if fm.shape != (n_rounds, C, F):
+            raise ValueError(f"fmasks must be [{n_rounds}, {C}, {F}], got "
+                             f"{np.asarray(fmasks).shape}")
+        return self._put(fm)
 
     def grow_rounds_masked(self, data, pred, y: LabelHandle, n_rounds: int,
                            fmasks: np.ndarray, first_round: int = 0):
-        """grow_rounds with one host-drawn colsample mask a round, bool
-        [n_rounds, F], uploaded once."""
-        fm = np.asarray(fmasks, bool)
-        if fm.shape != (n_rounds, data.shape[1]):
-            raise ValueError(f"fmasks must be [{n_rounds}, "
-                             f"{data.shape[1]}], got {fm.shape}")
+        """grow_rounds with one host-drawn colsample mask a round and
+        class, bool [n_rounds, C, F] ([n_rounds, F] with one class)."""
         return self._grow_rounds(data, pred, y, n_rounds, first_round,
-                                 self._put(fm))
+                                 self._fmasks(data, n_rounds, fmasks))[:3]
 
-    def _grow_rounds(self, data, pred, y, n_rounds, first_round, fmasks):
+    def grow_rounds_eval(self, data, pred, y: LabelHandle, n_rounds: int,
+                         val_data, val_pred, val_y: LabelHandle,
+                         metric: str, first_round: int = 0,
+                         fmasks: np.ndarray | None = None):
+        """grow_rounds with the eval set scored inside the round: each
+        tree is added to the eval margins as it is grown and the metric's
+        tensor twin takes the round's score. Returns (trees, new pred,
+        losses, new eval margins, scores [n_rounds] f32), all on the
+        device; `pred` and `val_pred` are left as they were."""
+        fm = None if fmasks is None else self._fmasks(data, n_rounds, fmasks)
+        return self._grow_rounds(data, pred, y, n_rounds, first_round, fm,
+                                 _Eval(val_data, val_pred, val_y, metric))
+
+    def _grow_rounds(self, data, pred, y, n_rounds, first_round, fmasks,
+                     ev=None):
         if n_rounds < 1:
             raise ValueError(f"n_rounds must be >= 1, got {n_rounds}")
         if self.device.type == "cuda":
             with self._graph_lock:
-                key = _RoundGraph.key_of(data, y, fmasks is not None)
+                key = _RoundGraph.key_of(data, pred, y, fmasks is not None,
+                                         ev)
                 if self._graph is None or self._graph.key != key:
                     self._graph = None          # frees the old pool first
-                    self._graph = _RoundGraph(self, data, y,
-                                              fmasks is not None)
+                    self._graph = _RoundGraph(self, data, pred, y,
+                                              fmasks is not None, ev)
                     self.last_capture_s = self._graph.capture_s
-                return self._graph.run(pred, n_rounds, first_round, fmasks)
+                return self._graph.run(pred, n_rounds, first_round, fmasks,
+                                       None if ev is None else ev.pred)
         pred = pred.clone()
-        trees, losses = [], []
+        if ev is not None:
+            ev = ev._replace(pred=ev.pred.clone())
+        trees, losses, scores = [], [], []
         for k in range(n_rounds):
             rnd = torch.tensor(first_round + k, dtype=torch.int64)
-            tree, loss = self._round(data, pred, y, rnd,
-                                     None if fmasks is None else fmasks[k])
+            tree, loss, score = self._round(
+                data, pred, y, rnd, None if fmasks is None else fmasks[k],
+                ev)
             trees.append(tree)
             losses.append(loss)
-        return torch.stack(trees), pred, torch.stack(losses)
+            scores.append(score)
+        out = (torch.stack(trees), pred, torch.stack(losses))
+        if ev is None:
+            return out
+        return out + (ev.pred, torch.stack(scores))
 
-    def fetch_rounds(self, trees, losses) -> tuple[np.ndarray, np.ndarray]:
-        """One device->host copy for a block's trees and losses."""
-        n = trees.numel()
-        flat = torch.cat([trees.reshape(-1), losses.float()]).cpu().numpy()
-        return flat[:n].reshape(tuple(trees.shape)), flat[n:]
+    def fetch_rounds(self, trees, losses, scores=None) -> tuple:
+        """One device->host copy for a block's trees and losses (and eval
+        scores, when given): (trees, losses[, scores]) as host arrays."""
+        n, k = trees.numel(), losses.numel()
+        parts = [trees.reshape(-1), losses.float()]
+        if scores is not None:
+            parts.append(scores.float())
+        flat = torch.cat(parts).cpu().numpy()
+        out = (flat[:n].reshape(tuple(trees.shape)), flat[n:n + k])
+        return out if scores is None else out + (flat[n + k:],)
 
     # ------------------------------------------------------------------ #
     # inference
@@ -411,59 +572,84 @@ class CUDADevice(DeviceBackend):
 
 class _RoundGraph:
     """One boosting round (CUDADevice._round) captured as a CUDA graph for
-    one (data, labels, masked) key, replayed once a round.
+    one key, replayed once a round.
 
     Static inputs: `pred` (the boosting state, which the round updates in
-    place), `rnd` (0-dim int64 round) and, when masked, `fmask` (bool [F]).
-    Before each replay they are written by stream-ordered copies; each
-    replay's tree and loss are copied into the block's slot k, so a block
-    ends in one device->host fetch. Nothing per round is a python value
-    baked into the graph. The key is the data's and labels' addresses
-    and shape: the graph reads whatever lies there, so a new dataset at
-    other addresses recaptures (the config is the backend's own)."""
+    place), `rnd` (0-dim int64 round), when masked `fmask` (bool [C, F]),
+    and with an eval set its margins `vpred`. Before each block the
+    caller's pred (and margins) are copied in, before each replay the
+    round and masks; each replay's trees, loss and score are copied into
+    the block's slot k, so a block ends in one device->host fetch.
+    Nothing per round is a python value baked into the graph.
+
+    The key is what the graph reads where it lies: the data's, labels'
+    and weights' addresses, shapes and strides, pred's shape, and with
+    an eval set its rows', labels' and metric's (its margins are copied
+    into the graph's own buffer, so their address is not read). A new
+    dataset or eval set at other addresses recaptures; the config is the
+    backend's own."""
 
     def __init__(self, backend: CUDADevice, data: torch.Tensor,
-                 y: LabelHandle, masked: bool):
+                 pred: torch.Tensor, y: LabelHandle, masked: bool,
+                 ev: _Eval | None):
         global graph_captures
         dev = data.device
         R, F = data.shape
-        self.key = self.key_of(data, y, masked)
-        self.pred = torch.zeros(R, dtype=torch.float32, device=dev)
+        C = backend.cfg.n_outputs
+        self.key = self.key_of(data, pred, y, masked, ev)
+        self.pred = torch.zeros_like(pred)
         self.rnd = torch.zeros((), dtype=torch.int64, device=dev)
-        self.fmask = (torch.ones(F, dtype=torch.bool, device=dev)
+        self.fmask = (torch.ones((C, F), dtype=torch.bool, device=dev)
                       if masked else None)
+        self.ev = None if ev is None else ev._replace(
+            pred=torch.zeros_like(ev.pred))
         t0 = time.perf_counter()
         # One round outside the graph first: it loads the kernels'
-        # libraries, plans their launches, queries occupancy and sets
-        # their shared-memory attribute, none of which may happen inside
-        # a capture. Its launches run, so they count.
-        backend._round(data, self.pred, y, self.rnd, self.fmask)
+        # libraries, plans their launches, queries occupancy, sets their
+        # shared-memory attribute and builds the categorical mask, none of
+        # which may happen inside a capture. Its launches run, so they
+        # count.
+        backend._round(data, self.pred, y, self.rnd, self.fmask, self.ev)
         torch.cuda.synchronize(dev)
         self.graph = torch.cuda.CUDAGraph()
         with launches.recording() as rec, torch.cuda.graph(
                 self.graph, capture_error_mode="thread_local"):
-            self.tree, self.loss = backend._round(data, self.pred, y,
-                                                  self.rnd, self.fmask)
+            self.tree, self.loss, self.score = backend._round(
+                data, self.pred, y, self.rnd, self.fmask, self.ev)
         torch.cuda.synchronize(dev)
         self.recording = rec
         self.capture_s = time.perf_counter() - t0
         graph_captures += 1
-        log.info("captured a boosting round (%d rows x %d features) in "
-                 "%.1f ms", R, F, 1e3 * self.capture_s)
+        log.info("captured a boosting round (%d rows x %d features, %d "
+                 "trees%s) in %.1f ms", R, F, C,
+                 "" if ev is None else ", eval", 1e3 * self.capture_s)
 
     @staticmethod
-    def key_of(data: torch.Tensor, y: LabelHandle, masked: bool) -> tuple:
-        return (data.device, data.data_ptr(), tuple(data.shape),
-                data.stride(), y.y.data_ptr(), masked)
+    def _where(t: torch.Tensor) -> tuple:
+        return (t.data_ptr(), tuple(t.shape), t.stride())
+
+    @classmethod
+    def key_of(cls, data: torch.Tensor, pred: torch.Tensor, y: LabelHandle,
+               masked: bool, ev: _Eval | None) -> tuple:
+        key = (data.device, cls._where(data), tuple(pred.shape),
+               cls._where(y.y), cls._where(y.valid), y.weighted, masked)
+        if ev is None:
+            return key
+        return key + (cls._where(ev.data), tuple(ev.pred.shape),
+                      cls._where(ev.y.y), ev.metric)
 
     def run(self, pred: torch.Tensor, n_rounds: int, first_round: int,
-            fmasks: torch.Tensor | None):
+            fmasks: torch.Tensor | None, vpred: torch.Tensor | None = None):
         global graph_replays
         dev = self.pred.device
         trees = torch.empty((n_rounds,) + tuple(self.tree.shape),
                             dtype=torch.float32, device=dev)
         losses = torch.empty(n_rounds, dtype=torch.float32, device=dev)
+        scores = (None if self.ev is None else
+                  torch.empty(n_rounds, dtype=torch.float32, device=dev))
         self.pred.copy_(pred)
+        if self.ev is not None:
+            self.ev.pred.copy_(vpred)
         for k in range(n_rounds):
             self.rnd.fill_(first_round + k)
             if fmasks is not None:
@@ -471,6 +657,11 @@ class _RoundGraph:
             self.graph.replay()
             trees[k].copy_(self.tree)
             losses[k].copy_(self.loss)
+            if scores is not None:
+                scores[k].copy_(self.score)
             self.recording.replayed()
             graph_replays += 1
-        return trees, self.pred.clone(), losses
+        out = (trees, self.pred.clone(), losses)
+        if self.ev is None:
+            return out
+        return out + (self.ev.pred.clone(), scores)

@@ -75,7 +75,7 @@ def _synced(fn):
     return out, time.perf_counter() - t0
 
 
-def _profiled(fn) -> dict:
+def profiled(fn) -> dict:
     """Wall time, device busy time, host launch calls and the top kernels
     of fn() under torch.profiler (CPU + CUDA activities)."""
     from torch.profiler import ProfilerActivity, profile
@@ -193,7 +193,7 @@ def main() -> int:
         lp = loops[dt]
         for fused in (True, False):
             r0 = cuda_backend.graph_replays
-            prof = _profiled(lambda: lp.run(fused, k))
+            prof = profiled(lambda: lp.run(fused, k))
             _emit({"phase": "profile_boost", "grad_dtype": dt,
                    "loop": "fused" if fused else "granular", "trees": k,
                    "ms_per_tree": 1e3 * prof["wall_s"] / k,
@@ -204,7 +204,7 @@ def main() -> int:
                        (cuda_backend.graph_replays - r0) / k,
                    "hist_kernel_ms_per_tree": prof["hist_kernel_ms"] / k,
                    **prof})
-    prof = _profiled(lambda: api.predict(res, Xb, binned=True))
+    prof = profiled(lambda: api.predict(res, Xb, binned=True))
     _emit({"phase": "profile_predict_cached", **prof})
     print(smi, flush=True)
     return 0

@@ -1,17 +1,17 @@
 """Training configuration of the PyTorch/CUDA port.
 
 Port of ddt_tpu/config.py: a frozen TrainConfig with only the fields the
-port's path reads. Fields of the reference that are not ported yet
-(softmax, missing-value and categorical training, meshes, compressed
-histogram collectives, ...) are absent, not silently ignored: passing one
-raises TypeError.
+port's path reads, validated as the reference validates them
+(ddt_tpu/config.py:214-215, 298-330). Fields of the reference that are
+not ported yet (meshes, compressed histogram collectives, fault plans,
+...) are absent, not silently ignored: passing one raises TypeError.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
-LOSSES = ("logloss", "mse")
+LOSSES = ("logloss", "mse", "softmax")
 DEVICES = ("cuda", "cpu")
 #: cfg.grad_dtype values ("f32" = quantization off; ops/grad.py).
 GRAD_DTYPES = ("f32", "int16", "int8")
@@ -27,7 +27,8 @@ class TrainConfig:
     max_depth: int = 6          # levels of splits; complete heap layout
     n_bins: int = 255
     learning_rate: float = 0.1
-    loss: str = "logloss"       # logloss | mse
+    loss: str = "logloss"       # logloss | mse | softmax
+    n_classes: int = 2          # used when loss == "softmax"
 
     # --- regularisation (XGBoost-style gain formula) ---
     reg_lambda: float = 1.0     # L2 on leaf weights
@@ -37,6 +38,19 @@ class TrainConfig:
     # --- sampling (ops/sampling: stateless counter hashes of cfg.seed) ---
     subsample: float = 1.0           # row fraction per boosting round
     colsample_bytree: float = 1.0    # feature fraction per tree
+
+    # --- missing values ---
+    # "zero": NaN maps to bin 0. "learn": the top bin (n_bins-1) is
+    # reserved for NaN and every split learns a default direction for the
+    # rows in it (ops/split.best_splits_impl scores both).
+    missing_policy: str = "zero"   # zero | learn
+
+    # --- categorical features ---
+    # Feature indices split one-vs-rest ("bin == k goes left") instead of
+    # ordinally; their columns must be identity-binned category ids
+    # (data/quantizer.fit_bin_mapper(cat_features=...) or
+    # data/categorical's encoders). Normalised to a sorted tuple.
+    cat_features: tuple = ()
 
     # Sibling subtraction (ops/grow.level_histograms): levels >= 1 build
     # only left-child histograms and recover right children as
@@ -76,6 +90,8 @@ class TrainConfig:
     def __post_init__(self) -> None:
         if self.loss not in LOSSES:
             raise ValueError(f"loss must be one of {LOSSES}, got {self.loss!r}")
+        if self.loss == "softmax" and self.n_classes < 2:
+            raise ValueError("softmax needs n_classes >= 2")
         if self.device not in DEVICES:
             raise ValueError(
                 f"device must be one of {DEVICES}, got {self.device!r}")
@@ -105,6 +121,40 @@ class TrainConfig:
                 f"{self.predict_impl!r} (the port has one f32 scoring "
                 "path: 'auto'; the reference's 'pallas'/'onehot' choose "
                 "between its two TPU paths)")
+        if self.missing_policy not in ("zero", "learn"):
+            raise ValueError(
+                f"missing_policy must be zero|learn, got "
+                f"{self.missing_policy!r}")
+        if self.missing_policy == "learn" and self.n_bins < 3:
+            raise ValueError(
+                "missing_policy='learn' reserves the top bin; n_bins >= 3")
+        # A list (even an empty one) must become a tuple, or the backend
+        # cache key is unhashable.
+        object.__setattr__(
+            self, "cat_features",
+            tuple(sorted(int(f) for f in self.cat_features)))
+        if self.cat_features:
+            if self.cat_features[0] < 0:
+                raise ValueError("cat_features indices must be >= 0")
+            if self.missing_policy == "learn":
+                raise ValueError(
+                    "cat_features with missing_policy='learn' is not "
+                    "supported: the reserved NaN bin would silently merge "
+                    "the encoder's top category id into its neighbor "
+                    "(categorical columns are integer-coded and never "
+                    "NaN, so use missing_policy='zero')")
+
+    @property
+    def n_outputs(self) -> int:
+        """Output columns, and trees a boosting round: n_classes for
+        softmax, else 1."""
+        return self.n_classes if self.loss == "softmax" else 1
+
+    @property
+    def missing_bin_value(self) -> int:
+        """Bin reserved for NaN rows under missing_policy='learn', -1
+        otherwise."""
+        return self.n_bins - 1 if self.missing_policy == "learn" else -1
 
     def replace(self, **kw) -> "TrainConfig":
         return dataclasses.replace(self, **kw)

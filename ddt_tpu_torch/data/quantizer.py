@@ -17,8 +17,8 @@ api.train / api.predict and the serving gate use; `feature_bincounts`
 counts a tensor on its device.
 
 NaN policy: "zero" maps NaN to bin 0; "learn" reserves the TOP bin
-(n_bins-1) for NaN (the reference trains a default direction for it; the
-port's trainer does not yet, but its mappers and scoring honour the bin).
+(n_bins-1) for NaN, and training learns a default direction for it at
+every split (TrainConfig.missing_policy="learn").
 """
 
 from __future__ import annotations

@@ -24,8 +24,8 @@ from ddt_tpu_torch.utils.atomic import atomic_savez
 @dataclasses.dataclass
 class TreeEnsemble:
     """Boosted ensemble as stacked per-tree arrays, [n_trees, n_nodes_total]
-    each. For softmax models (loaded from the reference; the port does not
-    train them yet) tree t scores class t % n_classes."""
+    each. For softmax models tree t scores class t % n_classes (round
+    t // n_classes)."""
 
     feature: np.ndarray        # int32  [T, N] split feature (-1 on leaves)
     threshold_bin: np.ndarray  # int32  [T, N] split bin (go left if <=)
@@ -136,6 +136,25 @@ class TreeEnsemble:
     def predict_raw(self, X: np.ndarray, binned: bool = False) -> np.ndarray:
         """Raw (margin) scores. Binary/regression: [R]; softmax: [R, C]."""
         return self.aggregate_leaves(self._traverse_np(X, binned=binned))
+
+    def predict_raw_roundwise(self, X: np.ndarray,
+                              binned: bool = False) -> np.ndarray:
+        """predict_raw in the fit loop's own f32 order: the base, then one
+        sequential add of lr * leaf per tree, in tree order (predict_raw's
+        pairwise vals.sum differs in ULPs). Checkpoint resume rebuilds the
+        boosting state with it, so a resumed run is bitwise an
+        uninterrupted one."""
+        leaf_idx = self._traverse_np(X, binned=binned)
+        if self.loss == "softmax":
+            # aggregate_leaves' softmax branch already adds tree by tree.
+            return self.aggregate_leaves(leaf_idx)
+        vals = np.take_along_axis(self.leaf_value,
+                                  leaf_idx.astype(np.int64), axis=1)
+        vals = (vals * self.learning_rate).astype(np.float32)
+        out = np.full((leaf_idx.shape[1],), self.base_score, np.float32)
+        for t in range(self.n_trees):
+            out += vals[t]
+        return out
 
     def predict(self, X: np.ndarray, binned: bool = False) -> np.ndarray:
         """Probability predictions (or raw values for mse)."""

@@ -1,9 +1,11 @@
 """Loss gradients/hessians, the training loss, per-leaf (G, H) sums, and
 the quantized-gradient step.
 
-Port of ddt_tpu/ops/grad.py (binary logloss and mse; softmax is not
-ported yet). Elementwise PyTorch in float32, on whatever device the
-tensors live on.
+Port of ddt_tpu/ops/grad.py: binary logloss, mse and softmax (g, h of
+[R, C] for C classes). Elementwise PyTorch in float32, on whatever device
+the tensors live on. Instance weights ride the `valid` vector, as in the
+reference: the backend multiplies g and h by it, and `mean_loss` takes
+the weighted mean.
 
 QUANTIZED GRADIENTS (cfg.grad_dtype): once per tree the f32 gradients
 round onto one shared grid,
@@ -52,11 +54,15 @@ _G_SALT = 0x67AD5C01
 _H_SALT = 0x48E55CA3
 
 
-def base_score_np(y: np.ndarray, loss: str) -> float:
+def base_score_np(y: np.ndarray, loss: str,
+                  sample_weight: np.ndarray | None = None) -> float:
     """Raw-score init on host, as the Driver computes it: log-odds of the
-    mean label for logloss, the mean for mse (the reference's
-    reference/numpy_trainer.base_score without sample weights)."""
-    mean = float(np.mean(y))
+    (weighted) mean label for logloss, the mean for mse, 0 for softmax
+    (the reference's reference/numpy_trainer.base_score)."""
+    if loss == "softmax":
+        return 0.0
+    mean = (float(np.mean(y)) if sample_weight is None
+            else float(np.average(y, weights=sample_weight)))
     if loss == "logloss":
         p = float(np.clip(mean, 1e-6, 1 - 1e-6))
         return float(np.log(p / (1 - p)))
@@ -73,33 +79,49 @@ def base_score(y: torch.Tensor, loss: str) -> torch.Tensor:
         return torch.log(p / (1 - p))
     if loss == "mse":
         return m
+    if loss == "softmax":
+        return torch.zeros((), dtype=torch.float32, device=y.device)
     raise ValueError(loss)
 
 
-def mean_loss(pred_raw: torch.Tensor, y: torch.Tensor,
-              loss: str) -> torch.Tensor:
-    """Mean training loss over the rows (f32 scalar)."""
+def mean_loss(pred_raw: torch.Tensor, y: torch.Tensor, loss: str,
+              valid: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean training loss (f32 scalar): over the rows, or weighted by
+    `valid` (the instance weights), whose sum is clamped at 1e-12 only
+    (a clamp at 1 would shrink the loss of fractional weights)."""
     yf = y.to(torch.float32)
     if loss == "logloss":
         # Stable logistic loss: log(1 + e^x) - x*y.
         per = torch.logaddexp(torch.zeros_like(pred_raw), pred_raw) \
             - pred_raw * yf
+    elif loss == "mse":
+        per = torch.square(pred_raw - yf)
+    elif loss == "softmax":
+        logp = torch.log_softmax(pred_raw.to(torch.float32), dim=1)
+        per = -logp.gather(1, y.to(torch.int64)[:, None])[:, 0]
+    else:
+        raise ValueError(loss)
+    if valid is None:
         return per.sum() / max(pred_raw.shape[0], 1)
-    if loss == "mse":
-        return torch.square(pred_raw - yf).sum() / max(pred_raw.shape[0], 1)
-    raise ValueError(loss)
+    v = valid.to(torch.float32)
+    return (per * v).sum() / v.sum().clamp(min=1e-12)
 
 
 def grad_hess(pred_raw: torch.Tensor, y: torch.Tensor,
               loss: str) -> tuple[torch.Tensor, torch.Tensor]:
-    """(g, h) of the loss with respect to the raw scores, f32 [R]."""
+    """(g, h) of the loss with respect to the raw scores: f32 [R], or
+    [R, C] for softmax (one-vs-all: p - onehot(y), p * (1 - p))."""
     pred = pred_raw.to(torch.float32)
-    yf = y.to(torch.float32)
     if loss == "logloss":
         p = torch.sigmoid(pred)
-        return p - yf, p * (1.0 - p)
+        return p - y.to(torch.float32), p * (1.0 - p)
     if loss == "mse":
-        return pred - yf, torch.ones_like(pred)
+        return pred - y.to(torch.float32), torch.ones_like(pred)
+    if loss == "softmax":
+        p = torch.softmax(pred, dim=1)
+        onehot = (y.to(torch.int64)[:, None] == torch.arange(
+            pred.shape[1], device=pred.device)[None, :]).to(torch.float32)
+        return p - onehot, p * (1.0 - p)
     raise ValueError(loss)
 
 

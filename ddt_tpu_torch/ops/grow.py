@@ -1,8 +1,8 @@
 """Whole-tree growth: the level loop on one device.
 
-Port of ddt_tpu/ops/grow.py for one device, ordinal splits, f32 or
-quantized gradients, with an optional colsample feature mask (no mesh,
-feature axis, missing-value or categorical training yet). Per level:
+Port of ddt_tpu/ops/grow.py for one device: f32 or quantized gradients,
+an optional colsample feature mask, learned missing-value directions and
+one-vs-rest categorical splits (no mesh or feature axis yet). Per level:
 histograms (ops/histogram: the CUDA kernel on the card, the plain segment
 form on the CPU) -> node totals -> best splits (ops/split) -> node values
 and split decisions -> row routing. Every step is a PyTorch op queued on
@@ -19,7 +19,13 @@ the gain scan.
 Row routing keeps a dense per-row heap node id. The reference packs the
 per-node tables into one int32 and selects each row's entry with a one-hot
 compare+reduce, because gathers are slow on a TPU; here each row's entry is
-a gather, which selects the same integers.
+a gather, which selects the same integers. A row goes right when its bin
+is above the node's threshold; at a categorical node when its bin is not
+the node's category; and a row in the reserved missing bin (n_bins - 1,
+missing_policy="learn") follows the opposite of the node's learned
+default direction (`go_right`, shared with `apply_tree_pred`, which
+routes the validation rows of the Driver's eval set through a finished
+tree: the reference's ops/stream.apply_tree_pred).
 """
 
 from __future__ import annotations
@@ -76,6 +82,35 @@ def level_histograms(Xb, g, h, node_index, n_level: int, n_bins: int, *,
     return hist.reshape((n_level,) + hist_left.shape[1:])
 
 
+def go_right(fv: torch.Tensor, thr: torch.Tensor, cat: torch.Tensor | None,
+             dl: torch.Tensor | None, missing_bin_value: int
+             ) -> torch.Tensor:
+    """The routing rule (bool): per row its bin `fv` and its node's
+    threshold `thr`, categorical flag `cat` and default direction `dl`
+    (None where the model has no such nodes or no missing bin)."""
+    right = fv > thr
+    if cat is not None:
+        # One-vs-rest: the matched category goes left.
+        right = torch.where(cat, fv != thr, right)
+    if dl is not None and missing_bin_value >= 0:
+        right = torch.where(fv == missing_bin_value, ~dl, right)
+    return right
+
+
+def cat_feature_mask(cat_features, n_features: int,
+                     device) -> torch.Tensor | None:
+    """bool [n_features] of the one-vs-rest columns, or None when there are
+    none (the reference's ops/split.cat_feature_vec)."""
+    if not cat_features:
+        return None
+    if max(cat_features) >= n_features:
+        raise ValueError(f"cat_features index {max(cat_features)} out of "
+                         f"range for {n_features} features")
+    m = torch.zeros(n_features, dtype=torch.bool, device=device)
+    m[list(cat_features)] = True
+    return m
+
+
 class TreeArrays(NamedTuple):
     """One grown tree in heap layout + per-row leaf assignment."""
 
@@ -84,7 +119,7 @@ class TreeArrays(NamedTuple):
     is_leaf: torch.Tensor        # bool  [n_nodes_total]
     leaf_value: torch.Tensor     # f32 [n_nodes_total]
     split_gain: torch.Tensor     # f32 [n_nodes_total], 0 on leaves
-    default_left: torch.Tensor   # bool  [n_nodes_total] (all False here)
+    default_left: torch.Tensor   # bool  [n_nodes_total] NaN-row direction
     leaf_of_row: torch.Tensor    # int32 [R] heap slot where each row landed
 
 
@@ -93,14 +128,19 @@ def grow_tree(Xb: torch.Tensor, g: torch.Tensor, h: torch.Tensor, *,
               min_child_weight: float, min_split_gain: float,
               hist_subtraction: bool = False, grad_dtype: str = "f32",
               quant_tree_id=0, quant_seed: int = 0,
-              feature_mask: torch.Tensor | None = None) -> TreeArrays:
+              feature_mask: torch.Tensor | None = None,
+              missing_bin: bool = False,
+              cat_mask: torch.Tensor | None = None) -> TreeArrays:
     """Grow one complete-heap tree from uint8 Xb [R, F] and f32 g, h [R]
     (the same decisions as ddt_tpu/ops/grow.grow_tree on one device).
 
     grad_dtype "int8"/"int16" quantizes g/h once, keyed by (quant_seed,
     quant_tree_id, row), the tree id an int or a 0-dim int64 tensor on
     Xb's device; feature_mask (bool [F] on Xb's device, False =
-    excluded) restricts every level's split candidates (colsample)."""
+    excluded) restricts every level's split candidates (colsample).
+    missing_bin: bin n_bins - 1 holds NaN rows and every split learns
+    their direction; cat_mask (bool [F] on Xb's device, from
+    cat_feature_mask) marks the one-vs-rest columns."""
     R, F = Xb.shape
     dev = Xb.device
     N = 2 ** (max_depth + 1) - 1
@@ -139,7 +179,8 @@ def grow_tree(Xb: torch.Tensor, g: torch.Tensor, h: torch.Tensor, *,
             Hh = Hh.to(torch.float32) * hscale
             hist = hist.to(torch.float32) * scale2
         gains, feats, bins, dls = S.best_splits_impl(
-            hist, reg_lambda, min_child_weight, feature_mask)
+            hist, reg_lambda, min_child_weight, feature_mask,
+            missing_bin=missing_bin, cat_mask=cat_mask)
         # An empty node at reg_lambda = 0 would store -0/0 = NaN, which a
         # predict-time row can reach: guarded to 0.
         value = torch.where(Hh > 0, -G / (Hh + reg_lambda), 0.0)
@@ -158,9 +199,12 @@ def grow_tree(Xb: torch.Tensor, g: torch.Tensor, h: torch.Tensor, *,
         split_here = do_split[idx] & ~frozen
         feat_r = feats[idx].to(torch.int64)
         fv = Xb.gather(1, feat_r[:, None])[:, 0].to(torch.int32)
-        go_right = (fv > bins[idx]).to(torch.int32)
-        node_id = torch.where(split_here, 2 * node_id + 1 + go_right,
-                              node_id)
+        right = go_right(
+            fv, bins[idx],
+            None if cat_mask is None else cat_mask[feats][idx],
+            dls[idx] if missing_bin else None,
+            n_bins - 1 if missing_bin else -1).to(torch.int32)
+        node_id = torch.where(split_here, 2 * node_id + 1 + right, node_id)
         frozen = frozen | ~split_here
 
         if hist_subtraction:       # the int32 form on the quantized path
@@ -189,3 +233,34 @@ def tree_predict_delta(tree: TreeArrays,
     """Per-row raw-score increment of a freshly grown tree: lr * the value
     of the slot each row landed in (no re-traversal during training)."""
     return learning_rate * tree.leaf_value[tree.leaf_of_row.to(torch.int64)]
+
+
+def apply_tree_pred(Xb: torch.Tensor, pred: torch.Tensor, feature,
+                    threshold_bin, is_leaf, leaf_value, default_left=None,
+                    *, max_depth: int, learning_rate: float,
+                    class_idx: int = 0, missing_bin_value: int = -1,
+                    cat_mask: torch.Tensor | None = None) -> None:
+    """pred (column class_idx of an [R, C] pred) += lr * the leaf value
+    each row of Xb reaches in one finished tree, in place: the Driver's
+    eval-set margins, updated tree by tree as the fit loop updates its own
+    (the same f32 product and add, in tree order). Node arrays [N] on
+    Xb's device; plain PyTorch routing by gathers (the reference's
+    ops/stream.apply_tree_pred). A row stops at the first leaf on its
+    path."""
+    node = torch.zeros(Xb.shape[0], dtype=torch.int64, device=Xb.device)
+    feature = feature.to(torch.int64)
+    thr = threshold_bin.to(torch.int32)
+    for _ in range(max_depth):
+        f = feature[node].clamp(min=0)
+        fv = Xb.gather(1, f[:, None])[:, 0].to(torch.int32)
+        right = go_right(
+            fv, thr[node], None if cat_mask is None else cat_mask[f],
+            None if default_left is None else default_left[node],
+            missing_bin_value)
+        node = torch.where(is_leaf[node], node,
+                           2 * node + 1 + right.to(torch.int64))
+    delta = learning_rate * leaf_value[node]
+    if pred.dim() == 2:
+        pred[:, class_idx].add_(delta)
+    else:
+        pred.add_(delta)

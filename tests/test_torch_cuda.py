@@ -779,3 +779,160 @@ def test_launch_counters_advance_per_replay(dev):
         == (1, 8)
     # The losses are the rounds' own: they fall as the trees add up.
     assert float(losses[-1]) < float(losses[0])
+
+
+# --------------------------------------------------------------------- #
+# the training matrix on the card: softmax, eval in the captured round,
+# weights, learned missing values, categorical splits, resume
+# --------------------------------------------------------------------- #
+
+_FIELDS = ("feature", "threshold_bin", "is_leaf", "leaf_value",
+           "split_gain", "default_left")
+
+
+def _granular_backend(cfg):
+    from ddt_tpu_torch.backends.cuda import CUDADevice
+
+    class Granular(CUDADevice):
+        grow_rounds = None
+
+    return Granular(cfg)
+
+
+def _multiclass_case(R=20_000, F=12, C=4, B=63, seed=2):
+    rng = np.random.default_rng(seed)
+    centers = rng.integers(0, B, size=(C, F))
+    y = rng.integers(0, C, R)
+    Xb = np.clip(centers[y] + rng.integers(-12, 13, size=(R, F)), 0, B - 1)
+    return Xb.astype(np.uint8), y.astype(np.int32)
+
+
+@pytest.mark.parametrize("metric", ["logloss", "accuracy"])
+def test_captured_softmax_round_with_eval_equals_granular(dev, metric):
+    """int8 histograms are exact: the captured softmax round with the eval
+    step, weights, bagging and colsample equals the granular loop bit for
+    bit, eval scores included."""
+    from ddt_tpu_torch.backends import get_backend
+    from ddt_tpu_torch.config import TrainConfig
+    from ddt_tpu_torch.driver import Driver
+
+    Xb, y = _multiclass_case()
+    w = np.random.default_rng(4).integers(0, 3, len(y)).astype(np.float32)
+    cfg = TrainConfig(n_trees=6, max_depth=5, n_bins=63, loss="softmax",
+                      n_classes=4, grad_dtype="int8", subsample=0.8,
+                      colsample_bytree=0.7, seed=3, fused_block_rounds=4)
+    kw = dict(eval_set=(Xb[16_000:], y[16_000:]), eval_metric=metric,
+              early_stopping_rounds=3, sample_weight=w[:16_000])
+    fd, gd = Driver(get_backend(cfg), cfg), Driver(_granular_backend(cfg),
+                                                   cfg)
+    fused = fd.fit(Xb[:16_000], y[:16_000], **kw)
+    gran = gd.fit(Xb[:16_000], y[:16_000], **kw)
+    for k in _FIELDS:
+        np.testing.assert_array_equal(getattr(fused, k), getattr(gran, k))
+    key = f"valid_{metric}"
+    assert [r[key] for r in fd.history] == [r[key] for r in gd.history]
+    assert fd.best_round == gd.best_round
+
+
+def test_eval_graph_key_recaptures_on_a_new_eval_set(dev):
+    from ddt_tpu_torch.backends import cuda as cuda_be
+    from ddt_tpu_torch.config import TrainConfig
+
+    Xb, y = _multiclass_case(R=8_000)
+    cfg = TrainConfig(max_depth=4, n_bins=63, loss="softmax", n_classes=4,
+                      grad_dtype="int8")
+    be = cuda_be.CUDADevice(cfg)
+    data, yd = be.upload(Xb[:6000]), be.upload_labels(y[:6000])
+    pred = be.init_pred(yd, 0.0)
+    v1, vy1 = be.upload(Xb[6000:]), be.upload_labels(y[6000:])
+    vp = torch.zeros((2000, 4), device=dev)
+    c0 = cuda_be.graph_captures
+    out = be.grow_rounds_eval(data, pred, yd, 3, v1, vp, vy1, "logloss")
+    be.grow_rounds_eval(data, out[1], yd, 2, v1, out[3], vy1, "logloss",
+                        first_round=3)
+    assert cuda_be.graph_captures - c0 == 1
+    v2 = be.upload(Xb[6000:].copy())           # same rows, new address
+    again = be.grow_rounds_eval(data, pred, yd, 3, v2, vp, vy1, "logloss")
+    assert cuda_be.graph_captures - c0 == 2
+    assert torch.equal(again[4], out[4])       # same scores from rows
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("case", ["missing", "categorical"])
+def test_missing_and_categorical_fused_equal_granular(dev, case):
+    from ddt_tpu_torch.backends import get_backend
+    from ddt_tpu_torch.config import TrainConfig
+    from ddt_tpu_torch.driver import Driver
+
+    rng = np.random.default_rng(7)
+    R, F, B = 20_000, 8, 31
+    Xb = rng.integers(0, B, size=(R, F)).astype(np.uint8)
+    logit = (Xb[:, 0].astype(np.float32) - 14) / 5 + (Xb[:, 2] == 7) * 2.0
+    if case == "missing":
+        Xb[rng.random((R, F)) < 0.1] = B - 1
+        logit += (Xb[:, 1] == B - 1) * 1.5
+        kw = dict(missing_policy="learn")
+    else:
+        kw = dict(cat_features=(2, 5))
+    y = (rng.random(R) < 1 / (1 + np.exp(-logit))).astype(np.float32)
+    cfg = TrainConfig(n_trees=5, max_depth=4, n_bins=B, grad_dtype="int8",
+                      fused_block_rounds=2, **kw)
+    fused = Driver(get_backend(cfg), cfg).fit(Xb, y)
+    gran = Driver(_granular_backend(cfg), cfg).fit(Xb, y)
+    for k in _FIELDS:
+        np.testing.assert_array_equal(getattr(fused, k), getattr(gran, k))
+    if case == "missing":
+        assert fused.default_left.any()
+    else:
+        assert np.isin(fused.feature, (2, 5)).any()
+    got, want = _score_both(fused, Xb, dev)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_int8_resume_is_bitwise_on_card(dev, tmp_path):
+    from ddt_tpu_torch.backends import get_backend
+    from ddt_tpu_torch.config import TrainConfig
+    from ddt_tpu_torch.driver import Driver
+
+    Xb, y = _multiclass_case(R=12_000)
+    cfg = TrainConfig(n_trees=6, max_depth=4, n_bins=63, loss="softmax",
+                      n_classes=4, grad_dtype="int8")
+    ev = dict(eval_set=(Xb[10_000:], y[10_000:]))
+    whole = Driver(get_backend(cfg), cfg)
+    full = whole.fit(Xb[:10_000], y[:10_000], **ev)
+    ck = str(tmp_path / "ck")
+    Driver(get_backend(cfg), cfg.replace(n_trees=3), checkpoint_dir=ck,
+           checkpoint_every=2).fit(Xb[:10_000], y[:10_000], **ev)
+    again = Driver(get_backend(cfg), cfg, checkpoint_dir=ck,
+                   checkpoint_every=2)
+    resumed = again.fit(Xb[:10_000], y[:10_000], **ev)
+    for k in _FIELDS:
+        np.testing.assert_array_equal(getattr(full, k), getattr(resumed, k))
+    assert [r["valid_logloss"] for r in again.history] == \
+        [r["valid_logloss"] for r in whole.history[3:]]
+
+
+def test_hist_kernel_at_covertype_width(dev):
+    """K1 at 54 features x 255 bins: a node's table is 110 KB, so two
+    nodes share a range and 64 nodes run as 32 ranges."""
+    R, F, B, N = 50_000, 54, 255, 64
+    plan = hist_cuda.plan_tiles(N, F, B, _build.smem_limit(dev))
+    assert (plan.nr, plan.n_ranges, plan.n_slabs) == (2, 32, 1)
+    Xb, g, h, ni = _hist_case(R, F, B, N, seed=3)
+    args = [torch.from_numpy(a).to(dev) for a in (Xb, g, h, ni)]
+    got = hist_cuda.build_histograms_cuda(*args, N, B)
+    want = histogram.build_histograms_segment(*args, N, B)
+    tol = torch.from_numpy(_hist_tol(Xb, g, h, ni, N, B)).to(dev)
+    assert bool(((got - want).abs() <= tol).all())
+
+
+def test_traverse_depth8_seven_classes_many_trees(dev):
+    """K3 at the trained Covertype model's shape class (depth 8, 7
+    classes, trees staged pass by pass) equals its plain version bitwise
+    at every batch size."""
+    ens = _rand_ens(700, 8, 54, 255, C=7, exact=False, seed=4)
+    X = np.random.default_rng(4).integers(0, 255, size=(5000, 54),
+                                          dtype=np.uint8)
+    for n in (1, 256, 5000):
+        got, want = _score_both(ens, X[:n], dev)
+        np.testing.assert_array_equal(got, want)

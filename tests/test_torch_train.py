@@ -113,7 +113,7 @@ def test_driver_fetch_pipeline_stores_every_tree(data):
 
 
 @pytest.mark.parametrize("bad", [
-    dict(loss="softmax"), dict(device="tpu"), dict(n_bins=0),
+    dict(loss="softmax", n_classes=1), dict(device="tpu"), dict(n_bins=0),
     dict(n_bins=257), dict(max_depth=0), dict(hist_subtraction="maybe"),
     dict(grad_dtype="int4"), dict(grad_dtype="bf16"), dict(subsample=0.0),
     dict(subsample=1.5), dict(colsample_bytree=0.0),
@@ -124,9 +124,9 @@ def test_config_validation(bad):
         TrainConfig(**bad)
 
 
-@pytest.mark.parametrize("unported", ["hist_comms_dtype", "missing_policy",
-                                      "cat_features", "backend",
-                                      "n_classes"])
+@pytest.mark.parametrize("unported", ["hist_comms_dtype", "n_partitions",
+                                      "fault_plan", "backend",
+                                      "hist_impl"])
 def test_unported_fields_are_absent(unported):
     with pytest.raises(TypeError):
         TrainConfig(**{unported: 1})
