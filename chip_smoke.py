@@ -158,8 +158,30 @@ Phases:
              categorical, weights (f32) and covertype (int8): trees
              identical except at bf16-boundary ties, AUC or accuracy
              within 0.005
+    Row partitions over NCCL
+ 23 multi    BASELINE config 3 (synthetic_ctr: 13 numeric + 26 frequency-
+             binned categorical columns as cat_features, 255 bins, depth 6,
+             100 rounds) at 1M rows a rank, on P = min(4, cards) NCCL ranks
+             started by parallel/spawn, one card each, every rank calling
+             api.train with the same rows: f32 with split_comms allreduce
+             and reduce_scatter, int8 allreduce. Held: every rank's
+             ensemble bitwise equal; int8 bitwise equal to one card trained
+             on the same P x 1M rows; f32's first divergence from that run
+             reported and its AUC within 0.005; the collectives' modeled
+             bytes equal to collective_bytes_per_tree a round run; K1 and
+             K3 launched on every rank. Times: api.train wall, fused ms a
+             round, the NCCL kernels' share of a profiled window, the
+             collectives a round, and the one card's ms a round over the
+             ranks'. With one card the same code runs one NCCL rank (the
+             captured round holds its collectives) and the phase says the
+             multi-rank wire was not witnessed.
   then the {"kernels": [...]} line (K1 and K3 report covertype, the other
   paths' launches under "paths"), nvidia-smi's line, and the ok line.
+
+    python3 chip_smoke.py --phase multi
+
+runs the device, build and multi phases alone (the call to make on a
+machine with several cards) and ends with the same ok line.
 """
 
 from __future__ import annotations
@@ -177,7 +199,6 @@ import torch
 from ddt_tpu_torch import _build, api
 from ddt_tpu_torch.backends import cuda as cuda_backend
 from ddt_tpu_torch.backends import get_backend
-from ddt_tpu_torch.backends.cuda import CUDADevice
 from ddt_tpu_torch.breakdown import profiled
 from ddt_tpu_torch.config import TrainConfig
 from ddt_tpu_torch.data.categorical import fit_categorical_encoder
@@ -191,6 +212,7 @@ from ddt_tpu_torch.models.tree import empty_ensemble
 from ddt_tpu_torch.ops import (grad, hist_cuda, histogram, predict,
                                predict_cuda, predict_lut, predict_lut_cuda,
                                quantize, sampling)
+from ddt_tpu_torch.parallel import spawn, tasks
 from ddt_tpu_torch.serve import ServeEngine
 from ddt_tpu_torch.utils.metrics import accuracy, auc, logloss
 
@@ -236,6 +258,12 @@ RESUME_ROUNDS = 10            # trained, then resumed to twice as many
 RESUME_EVERY = 5
 PARITY_MATRIX_ROWS = 20_000
 PARITY_MATRIX_ROUNDS = 5
+MULTI_ROWS = 1_000_000        # BASELINE config 3: rows a rank
+MULTI_ROUNDS = 100
+MULTI_BLOCK = 20              # fused blocks; rounds after the first are steady
+MULTI_PROFILE = 5             # rounds in each rank's profiled window
+MULTI_CASES = (("f32", "allreduce"), ("f32", "reduce_scatter"),
+               ("int8", "allreduce"))
 TIER_IMPL = {None: "auto", "int8": "lut", "int4": "lut4"}
 TIER_RESOLVED = {None: "f32", "int8": "lut", "int4": "lut4"}
 
@@ -352,13 +380,6 @@ def trees_match_mod_ties(full, other, min_split_gain, leaf_rtol=1e-3,
                       f"split flip tree {t} node {s}: gains {ga} vs {gb}")
     check(n_rc <= max(1, T * N // 500), f"{n_rc} root causes")
     return n_rc
-
-
-class Granular(CUDADevice):
-    """The card's backend without the fused rounds: Driver.fit takes the
-    granular loop (the fused loop's yardstick)."""
-
-    grow_rounds = None
 
 
 def first_divergence(a, b) -> dict:
@@ -846,7 +867,8 @@ def phase_fused(Xb: np.ndarray, y: np.ndarray) -> dict:
             lambda: Driver(get_backend(cfg), cfg).fit(Xd, y))
         check(cuda_backend.graph_replays - r0 == FUSED_TREES,
               f"fused {what}: {FUSED_TREES} replays")
-        gran, gran_s = synced(lambda: Driver(Granular(cfg), cfg).fit(Xd, y))
+        gran, gran_s = synced(
+            lambda: Driver(tasks.Granular(cfg), cfg).fit(Xd, y))
         capture_s = get_backend(cfg).last_capture_s
         row = {"fused_ms_per_tree": 1e3 * fused_s / FUSED_TREES,
                "fused_ms_per_tree_after_capture":
@@ -1894,7 +1916,7 @@ def phase_covertype_prefix(cov: dict) -> dict:
                   early_stopping_rounds=COV_PATIENCE)
         fd = Driver(get_backend(cfg), cfg)
         fused, fused_s = synced(lambda: fd.fit(Xd, yt, **kw))
-        gd = Driver(Granular(cfg), cfg)
+        gd = Driver(tasks.Granular(cfg), cfg)
         gran, gran_s = synced(lambda: gd.fit(Xd, yt, **kw))
         check(fd.best_round == gd.best_round,
               f"covertype prefix {dt}: best round {fd.best_round} vs "
@@ -2039,7 +2061,7 @@ def phase_weights(X: np.ndarray, y: np.ndarray, binned: dict) -> dict:
     fused, fused_s = synced(lambda: fd.fit(Xd, y, sample_weight=w))
     raw = api.predict(fused, Xd, binned=True, raw=True).astype(np.float64)
     launches = read_counters()
-    gran, gran_s = synced(lambda: Driver(Granular(cfg), cfg).fit(
+    gran, gran_s = synced(lambda: Driver(tasks.Granular(cfg), cfg).fit(
         Xd, y, sample_weight=w))
     for k in TREE_FIELDS:
         check(np.array_equal(getattr(fused, k), getattr(gran, k)),
@@ -2134,14 +2156,157 @@ def phase_covertype_parity() -> dict:
                       min_split_gain=1e-3), accuracy)
 
 
-def main() -> int:
+# --------------------------------------------------------------------- #
+# row partitions over NCCL: BASELINE config 3 on P ranks
+# --------------------------------------------------------------------- #
+
+def config3_rows(n_rows: int):
+    """BASELINE config 3's rows as phase_categorical builds them: X float32
+    [n_rows, 39] (13 numeric, 26 encoded categorical), y, the categorical
+    columns."""
+    Xn, Xc, y = synthetic_ctr(n_rows, seed=0)
+    enc = fit_categorical_encoder(Xc, n_bins=255)
+    X = np.concatenate([Xn, enc.transform(Xc).astype(np.float32)], axis=1)
+    return X, y, tuple(range(Xn.shape[1], X.shape[1]))
+
+
+def steady_ms(history) -> float:
+    """Mean ms a round of the fused blocks after the first (which holds
+    the warm-up round and the capture)."""
+    return float(np.mean([r["ms"] for r in history[MULTI_BLOCK:]]))
+
+
+def multi_launches(multi: dict, kernel: str) -> dict:
+    """The multi phase's launches of one kernel: per rank, by case."""
+    return {case: [r[kernel] for r in row["launches"]]
+            for case, row in multi["cases"].items()}
+
+
+def phase_multi(card: dict) -> dict:
+    n_cards = torch.cuda.device_count()
+    P = min(4, n_cards)
+    rows = P * MULTI_ROWS
+    t0 = time.perf_counter()
+    X, y, cat = config3_rows(rows)
+    data_s = time.perf_counter() - t0
+    base = dict(n_trees=MULTI_ROUNDS, max_depth=DEPTH, n_bins=255,
+                cat_features=cat, fused_block_rounds=MULTI_BLOCK)
+    # One card on all P x 1M rows, the yardstick (no process group).
+    alone = {}
+    for dt in ("f32", "int8"):
+        cfg = TrainConfig(grad_dtype=dt, **base)
+        res, train_s = synced(lambda: api.train(X, y, cfg))
+        alone[dt] = {"res": res, "train_s": train_s,
+                     "ms_per_round": steady_ms(res.history),
+                     "auc": auc(y, api.predict(res.ensemble, X,
+                                               mapper=res.mapper,
+                                               raw=True))}
+    cases = [c for c in MULTI_CASES if P > 1 or c[1] == "allreduce"]
+    out = {"card": card["smi"], "cards": n_cards, "ranks": P, "rows": rows,
+           "rows_per_rank": MULTI_ROWS, "data_s": data_s, "cases": {}}
+    with tempfile.TemporaryDirectory() as d:
+        xp, yp = f"{d}/x.npy", f"{d}/y.npy"
+        np.save(xp, X)
+        np.save(yp, y)
+        del X
+        t0 = time.perf_counter()
+        with spawn.Pool(P, backend="nccl", device="cuda",
+                        timeout_s=900.0) as pool:
+            out["pool_start_s"] = time.perf_counter() - t0
+            for dt, sc in cases:
+                ranks = pool.run(tasks.train_timed, xp, yp,
+                                 dict(base, grad_dtype=dt, split_comms=sc),
+                                 MULTI_PROFILE)
+                out["cases"][f"{dt}_{sc}"] = multi_case(
+                    dt, sc, ranks, alone[dt], y, P)
+    for dt in alone:
+        del alone[dt]["res"]
+    out["one_card"] = alone
+    if P == 1:
+        emit({"phase": "multi", "ranks": 1,
+              "multi_rank": "not witnessed: 1 card"})
+    emit({"phase": "multi", **out})
+    return out
+
+
+def multi_case(dt: str, sc: str, ranks: list, alone: dict,
+               y: np.ndarray, P: int) -> dict:
+    """Hold one partitioned run (a result per rank, parallel/tasks.
+    train_timed) against its ranks and the one-card run."""
+    what = f"multi {dt} {sc}"
+    e0 = ranks[0]["ensemble"]
+    for r in ranks[1:]:
+        for k in TREE_FIELDS:
+            check(np.array_equal(getattr(r["ensemble"], k), getattr(e0, k)),
+                  f"{what}: rank {r['rank']} {k} == rank 0's, bitwise")
+    one = alone["res"].ensemble
+    div = first_divergence(one, e0)
+    row = {"split_comms_resolved": ranks[0]["split_comms"],
+           "cards": [r["device"] for r in ranks], **div}
+    if dt == "int8":
+        for k in TREE_FIELDS:
+            check(np.array_equal(getattr(one, k), getattr(e0, k)),
+                  f"{what}: {k} == one card's, bitwise")
+        row["bitwise_equal_one_card"] = True
+    a = auc(y, np.concatenate([r["raw"] for r in ranks]))
+    row.update(auc=a, auc_one_card=alone["auc"])
+    check(abs(a - alone["auc"]) <= 0.005,
+          f"{what}: AUC {a} vs one card {alone['auc']}")
+    for r in ranks:
+        c = r["train_counters"]
+        rounds = c["cuda.graph_replays"] + c["cuda.graph_captures"]
+        check(c["cuda.graph_captures"] == 1
+              and c["cuda.graph_replays"] == MULTI_ROUNDS,
+              f"{what}: one capture, a replay a round: {c}")
+        check(c["comms.modeled_bytes"] == rounds * r["bytes_model"],
+              f"{what}: modeled bytes {c['comms.modeled_bytes']} == "
+              f"{rounds} rounds x {r['bytes_model']}")
+        k1 = "hist_cuda.launches" + ("_int" if dt == "int8" else "")
+        check(r["counters"][k1] > 0
+              and r["counters"]["predict_cuda.launches"] > 0,
+              f"{what}: K1 ({k1}) and K3 launched on rank {r['rank']}")
+    ms = [r["fused_ms_per_round"] for r in ranks]
+    row.update(
+        train_s=[r["train_s"] for r in ranks],
+        fused_ms_per_round=ms,
+        one_card_ms_per_round=alone["ms_per_round"],
+        one_card_train_s=alone["train_s"],
+        speedup=alone["ms_per_round"] / max(ms),
+        scaling_efficiency=alone["ms_per_round"] / max(ms) / P,
+        bytes_per_tree_model=ranks[0]["bytes_model"],
+        modeled_bytes=[r["train_counters"]["comms.modeled_bytes"]
+                       for r in ranks],
+        other_bytes=[r["train_counters"]["comms.other_bytes"]
+                     for r in ranks],
+        collectives_per_round=ranks[0]["profile"]["collectives_per_round"],
+        profile=[r["profile"] for r in ranks],
+        launches=[{"hist": r["counters"]["hist_cuda.launches"],
+                   "hist_int": r["counters"]["hist_cuda.launches_int"],
+                   "traverse": r["counters"]["predict_cuda.launches"]}
+                  for r in ranks])
+    emit({"phase": "multi", "case": f"{dt}_{sc}", "ranks": P, **row})
+    return row
+
+
+def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs a CUDA card", file=sys.stderr)
         return 2
+    if argv not in ([], ["--phase", "multi"]):
+        print(f"chip_smoke: unknown arguments {argv}; usage: chip_smoke.py "
+              "[--phase multi]", file=sys.stderr)
+        return 2
     t_start = time.perf_counter()
     card = phase_device()
     phase_build()
+    if argv:
+        phase_multi(card)
+        emit({"phase": "done", "wall_s": time.perf_counter() - t_start})
+        print(card["smi"], flush=True)
+        emit({"ok": True, "device": {"platform": "gpu", "kind": card["name"],
+                                     "count": torch.cuda.device_count()}})
+        return 0
     X, y = synthetic_binary(ROWS, n_features=FEATURES, seed=0)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     # Fixtures binned on the card (phase bin holds that bitwise to the
@@ -2175,6 +2340,7 @@ def main() -> int:
     weights = phase_weights(X, y, binned)
     resume = phase_resume()
     phase_covertype_parity()
+    multi = phase_multi(card)
     launches = main_run["launches"]
     k2 = hist_int["rows"][("int16", 64, 32)]
 
@@ -2211,7 +2377,8 @@ def main() -> int:
                  "library_ms": hist["library_ms"]},
              "missing": missing["launches"]["hist"],
              "categorical": categorical["launches"]["hist"],
-             "resume": resume["launches"]["hist"]}},
+             "resume": resume["launches"]["hist"],
+             "multi": multi_launches(multi, "hist")}},
         {"name": "traverse", "route": "cuda",
          "source": "ddt_tpu_torch/csrc/lut.cu",
          "replaces": "ddt_tpu/ops/predict_pallas.py:105",
@@ -2227,7 +2394,8 @@ def main() -> int:
                  "bound_by": trav["bound_by"]},
              "missing": missing["launches"]["traverse"],
              "categorical": categorical["launches"]["traverse"],
-             "weights": weights["launches"]["traverse"]}},
+             "weights": weights["launches"]["traverse"],
+             "multi": multi_launches(multi, "traverse")}},
         lut_entry("lut", 376),
         lut_entry("lut4", 674),
         {"name": "hist_int", "route": "cuda",
@@ -2235,7 +2403,8 @@ def main() -> int:
          "replaces": "ddt_tpu/ops/hist_pallas.py:175",
          "launches": train_q["launches"]["hist_int"],
          "paths": {"weights": weights["launches"]["hist_int"],
-                   "resume": resume["launches"]["hist_int"]},
+                   "resume": resume["launches"]["hist_int"],
+                   "multi": multi_launches(multi, "hist_int")},
          "max_abs_err": hist_int["max_abs_err"],
          "ms": hist_int["int8"]["kernel_ms"],
          "plain_ms": hist_int["int8"]["plain_ms"],
@@ -2258,4 +2427,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

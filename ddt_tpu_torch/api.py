@@ -16,11 +16,21 @@ api.train takes what ddt_tpu.api.train takes for one device: softmax
 (loss="softmax", n_classes), missing_policy="learn", cat_features,
 sample_weight, eval_set / eval_metric / early_stopping_rounds and
 checkpoint_dir / checkpoint_every.
+
+Row partitions (cfg.n_partitions > 1): every rank of an initialised
+torch.distributed group of n_partitions ranks calls train with the same
+full X and y, as the reference's one controller sees all of X. The edges
+are fitted on the host from all rows, the same on every rank (a digest
+of them is all-gathered and the ranks must agree); each rank then bins
+only its block of the padded rows on its device (parallel/mesh.
+row_block), and the reference bin counts are summed over the ranks. Every
+rank returns the same ensemble.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 
 import numpy as np
 import torch
@@ -32,6 +42,7 @@ from ddt_tpu_torch.data.quantizer import (BinMapper, feature_bincounts,
                                           fit_bin_mapper)
 from ddt_tpu_torch.driver import Driver
 from ddt_tpu_torch.models.tree import TreeEnsemble
+from ddt_tpu_torch.parallel import comms, mesh
 
 
 @dataclasses.dataclass
@@ -70,6 +81,41 @@ def fill_raw_thresholds(ens: TreeEnsemble, mapper: BinMapper) -> None:
     ens.has_raw_thresholds = True
 
 
+def _check_ranks_agree(be: DeviceBackend, X, mapper: BinMapper | None
+                       ) -> None:
+    """All-gather a digest of the rows' shape and the fitted edges and
+    raise on every rank if any rank's differs."""
+    h = hashlib.blake2b(repr(tuple(X.shape)).encode(), digest_size=8)
+    if mapper is not None:
+        for k, v in sorted(mapper.save().items()):
+            h.update(k.encode())
+            h.update(np.ascontiguousarray(v).tobytes())
+    mine = torch.tensor([int.from_bytes(h.digest(), "little", signed=True)],
+                        dtype=torch.int64, device=be.device)
+    every = comms.all_gather(mine, be.group)
+    if not bool((every == mine).all()):
+        raise ValueError(
+            "the ranks disagree on the training rows' shape or the fitted "
+            "bin edges: every rank must call train with the same X, y and "
+            "config")
+
+
+def _bin_rows(be: DeviceBackend, X, mapper: BinMapper):
+    """X binned on the backend's device, and the mapper's reference bin
+    counts: all rows on one device; under row partitions this rank's
+    padded block (a RowBlock), the counts summed over the ranks."""
+    if be.group is None:
+        Xb = mapper.transform_device(X, be.device)
+        mapper.ref_counts = feature_bincounts(
+            Xb, mapper.n_bins).cpu().numpy()
+        return Xb
+    start, stop, local = mesh.row_block(X.shape[0], be.world, be.rank)
+    Xloc = mapper.transform_device(X[start:stop], be.device)
+    mapper.ref_counts = comms.psum(feature_bincounts(
+        Xloc, mapper.n_bins), be.group).cpu().numpy()
+    return mesh.RowBlock(mesh.pad_rows(Xloc, local), X.shape[0])
+
+
 def train(
     X: np.ndarray,
     y: np.ndarray,
@@ -94,6 +140,7 @@ def train(
         cfg = TrainConfig(**cfg_overrides)
     elif cfg_overrides:
         cfg = cfg.replace(**cfg_overrides)
+    mesh.check_partitions(cfg.n_partitions)
     be = backend if backend is not None else get_backend(cfg)
     if binned:
         Xb = X if isinstance(X, torch.Tensor) else np.asarray(X)
@@ -119,9 +166,10 @@ def train(
                     "by this BinMapper; refit it with "
                     f"cat_features={tuple(sorted(cfg.cat_features))} so "
                     "category ids survive binning")
-        Xb = mapper.transform_device(X, be.device)
-        mapper.ref_counts = feature_bincounts(
-            Xb, mapper.n_bins).cpu().numpy()
+    if be.group is not None:
+        _check_ranks_agree(be, X, mapper)
+    if not binned:
+        Xb = _bin_rows(be, X, mapper)
     if eval_set is not None:
         Xv, yv = eval_set
         if not isinstance(Xv, torch.Tensor):

@@ -53,6 +53,11 @@ class DeviceBackend(abc.ABC):
     name: str = "abstract"
     #: Where the backend keeps data and state (a torch.device).
     device: Any = None
+    #: The torch.distributed process group of the row partitions it trains
+    #: over (None: one device), the group's size and this process's rank.
+    group: Any = None
+    world: int = 1
+    rank: int = 0
 
     def __init__(self, cfg: TrainConfig):
         self.cfg = cfg
@@ -60,14 +65,22 @@ class DeviceBackend(abc.ABC):
     # --- data plane ---
 
     @abc.abstractmethod
-    def upload(self, Xb: Any) -> Any:
+    def upload(self, Xb: Any, shard: bool = True) -> Any:
         """Ship the binned uint8 matrix [R, F] (host, or a tensor) to the
-        device."""
+        device: under row partitions this rank's block, unless `shard` is
+        False (an eval set, which every rank scores whole)."""
 
     @abc.abstractmethod
     def upload_labels(self, y: np.ndarray,
-                      sample_weight: np.ndarray | None = None) -> Any:
-        """Ship labels [R] (with optional per-row weights)."""
+                      sample_weight: np.ndarray | None = None,
+                      shard: bool = True) -> Any:
+        """Ship labels [R] (with optional per-row weights), cut as
+        `upload` cuts the rows."""
+
+    def row_start(self, n_local: int) -> int:
+        """Global id of this rank's first row, its block holding n_local
+        rows (0 on one device): the bagging and rounding draws' base."""
+        return self.rank * n_local
 
     # --- granular kernels (the parity surface) ---
 

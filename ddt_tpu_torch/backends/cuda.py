@@ -34,6 +34,20 @@ decided by the config and the call, in Python, before the capture: the
 graph holds no branch on a tensor value. A failed capture or replay
 raises: the fused path never falls back to the granular loop or to the
 CPU.
+
+Row partitions (cfg.n_partitions > 1, port of TPUDevice's row mesh): in a
+process with an initialised torch.distributed group of n_partitions
+ranks, the backend binds to the rank's card (cuda:<LOCAL_RANK>, or the
+CPU), keeps the group, and resolves cfg.split_comms once. `upload` and
+`upload_labels` keep the rank's block of the padded rows (parallel/mesh.
+row_block; pad rows weigh 0, so their g, h and loss vanish), or take a
+RowBlock api.train binned on the device as it is; an eval set is uploaded
+whole on every rank (`shard=False`). Every collective of a round (the
+histogram collective, node totals and winners under reduce-scatter, the
+quantization statistics, the leaf sums, the loss) is an NCCL call on the
+current stream, so the captured round holds them and each replay runs
+them: the communicator exists before the capture, made by the bin-range
+check of `upload` and by the warm-up round.
 """
 
 from __future__ import annotations
@@ -56,6 +70,7 @@ from ddt_tpu_torch.ops import histogram as hist_ops
 from ddt_tpu_torch.ops import predict as predict_ops
 from ddt_tpu_torch.ops import predict_lut, predict_lut_cuda, sampling
 from ddt_tpu_torch.ops import split as split_ops
+from ddt_tpu_torch.parallel import comms, mesh
 from ddt_tpu_torch.utils import launches, metrics
 
 log = logging.getLogger("ddt_tpu_torch.backends.cuda")
@@ -99,7 +114,8 @@ def _pack(tree) -> torch.Tensor:
 
 
 class CUDADevice(DeviceBackend):
-    """Single-device histogram-GBDT backend on PyTorch tensors."""
+    """Histogram-GBDT backend on PyTorch tensors: one device, or one rank
+    of a row-partitioned process group."""
 
     name = "cuda"
     PREDICT_CACHE_MAX = 4
@@ -110,7 +126,21 @@ class CUDADevice(DeviceBackend):
             raise RuntimeError(
                 "device='cuda' but torch.cuda.is_available() is False; "
                 "pass device='cpu' to run the plain versions on the CPU")
-        self.device = torch.device(cfg.device)
+        if cfg.n_partitions > 1:
+            mesh.check_partitions(cfg.n_partitions)
+        # A rank's scoring backend (n_partitions=1 in a larger group)
+        # keeps no group and runs no collective. Driver.fit refuses to
+        # train with a config whose n_partitions is not the world size.
+        self.group = mesh.group_for(cfg.n_partitions)
+        self.device = (mesh.rank_device(cfg.device)
+                       if mesh.is_initialized()
+                       else torch.device(cfg.device))
+        if self.group is not None:
+            comms.check_group(self.device, self.group)
+        self.world = comms.world(self.group)
+        self.rank = comms.rank(self.group)
+        self.split_comms = comms.resolve_split_comms(
+            cfg.split_comms, row_shards=self.world)
         self.hist_subtraction = grow_ops.resolve_hist_subtraction(
             cfg.hist_subtraction, self.device.type,
             integer_hists=cfg.grad_dtype != "f32")
@@ -155,35 +185,86 @@ class CUDADevice(DeviceBackend):
                 f"{tuple(Xb.shape)}")
         return Xb.to(self.device).contiguous()
 
-    def upload(self, Xb) -> torch.Tensor:
+    def collective_bytes_per_tree(self, n_features: int) -> int:
+        """The histogram collectives' modeled payload of one tree per rank
+        (comms.hist_allreduce_bytes at this backend's resolved comms); 0
+        without a group."""
+        if self.group is None:
+            return 0
+        return comms.hist_allreduce_bytes(
+            self.cfg.max_depth, n_features, self.cfg.n_bins,
+            partitions=self.world, mode=self.split_comms,
+            comms_dtype=self.cfg.hist_comms_dtype,
+            subtraction=self.hist_subtraction,
+            grad_dtype=self.cfg.grad_dtype)
+
+    def _block(self, a, put) -> torch.Tensor:
+        """This rank's padded block of the host array or tensor `a` ([R,
+        ...]; only the block is copied), on the device through `put`."""
+        a = a if isinstance(a, torch.Tensor) else np.asarray(a)
+        start, stop, local = mesh.row_block(a.shape[0], self.world,
+                                            self.rank)
+        return mesh.pad_rows(put(a[start:stop]), local)
+
+    def upload(self, Xb, shard: bool = True) -> torch.Tensor:
         """The binned matrix on the device (see device_rows), its bin range
-        checked by one max on the device and one scalar read."""
-        Xd = self.device_rows(Xb)
-        if Xd.numel():
-            top = int(Xd.max())
-            if top >= self.cfg.n_bins:
-                raise ValueError(f"binned data holds bin {top} >= n_bins="
-                                 f"{self.cfg.n_bins}")
+        checked by one max on the device and one scalar read. Under row
+        partitions (and `shard`), this rank's padded block: a RowBlock is
+        taken as it is, a whole matrix is cut; the range check is then a
+        MAX all-reduce over the ranks."""
+        sharded = self.group is not None and shard
+        if isinstance(Xb, mesh.RowBlock):
+            if not sharded:
+                raise ValueError("a RowBlock is one rank's rows: it needs "
+                                 "row partitions and shard=True")
+            local = mesh.row_block(Xb.n_rows, self.world, self.rank)[2]
+            Xd = self.device_rows(Xb.rows)
+            if Xd.shape[0] != local:
+                raise ValueError(f"RowBlock holds {Xd.shape[0]} rows, this "
+                                 f"rank's block of {Xb.n_rows} is {local}")
+        elif sharded:
+            Xd = self._block(Xb, self.device_rows)
+        else:
+            Xd = self.device_rows(Xb)
+        top = (Xd.max() if Xd.numel() else torch.zeros(
+            (), dtype=torch.uint8, device=self.device)).to(torch.int32)
+        if sharded:
+            top = comms.pmax(top.reshape(1), self.group)
+        top = int(top.reshape(-1)[0])
+        if top >= self.cfg.n_bins:
+            raise ValueError(f"binned data holds bin {top} >= n_bins="
+                             f"{self.cfg.n_bins}")
         return Xd
 
     def upload_labels(self, y: np.ndarray,
-                      sample_weight: np.ndarray | None = None
-                      ) -> LabelHandle:
+                      sample_weight: np.ndarray | None = None,
+                      shard: bool = True) -> LabelHandle:
         """Labels, and the instance weights validated as the reference's
-        Driver validates them (float [R], finite, >= 0, not all zero)."""
+        Driver validates them (float [R], finite, >= 0, not all zero).
+        Under row partitions (and `shard`), this rank's padded block, its
+        pad rows weighing 0 (weighted whenever the rows do not split
+        evenly, on every rank alike)."""
         y = np.asarray(y, np.float32)
-        if sample_weight is None:
-            return LabelHandle(self._put(y), torch.ones(
-                y.shape[0], dtype=torch.float32, device=self.device))
-        w = np.asarray(sample_weight, np.float32)
-        if w.shape != y.shape:
-            raise ValueError(f"sample_weight must be [R]={y.shape[0]}, "
-                             f"got {w.shape}")
-        if not np.all(np.isfinite(w)) or (w < 0).any():
-            raise ValueError("sample_weight must be finite and >= 0")
-        if not (w > 0).any():
-            raise ValueError("sample_weight is all zero")
-        return LabelHandle(self._put(y), self._put(w), True)
+        w = None
+        if sample_weight is not None:
+            w = np.asarray(sample_weight, np.float32)
+            if w.shape != y.shape:
+                raise ValueError(f"sample_weight must be [R]={y.shape[0]}, "
+                                 f"got {w.shape}")
+            if not np.all(np.isfinite(w)) or (w < 0).any():
+                raise ValueError("sample_weight must be finite and >= 0")
+            if not (w > 0).any():
+                raise ValueError("sample_weight is all zero")
+        if self.group is None or not shard:
+            if w is None:
+                return LabelHandle(self._put(y), torch.ones(
+                    y.shape[0], dtype=torch.float32, device=self.device))
+            return LabelHandle(self._put(y), self._put(w), True)
+        R = y.shape[0]
+        valid = np.ones(R, np.float32) if w is None else w
+        return LabelHandle(self._block(y, self._put),
+                           self._block(valid, self._put),
+                           w is not None or R % self.world != 0)
 
     def cat_mask(self, n_features: int) -> torch.Tensor | None:
         """The bool [F] mask of cfg.cat_features on the device (None
@@ -199,14 +280,17 @@ class CUDADevice(DeviceBackend):
 
     def build_histograms(self, data, g, h, node_index, n_nodes):
         """f32 sums for float g/h; the raw int32 histogram for int8/int16
-        (quantized) g/h."""
+        (quantized) g/h. Under row partitions, of every rank's rows (an
+        all-reduce on cfg.hist_comms_dtype's wire)."""
         g, h = self._tensor(g), self._tensor(h)
         if g.is_floating_point():
             g, h = g.float(), h.float()
-        return hist_ops.build_histograms(
+        hist = hist_ops.build_histograms(
             data, g.contiguous(), h.contiguous(),
             self._tensor(node_index).to(torch.int32).contiguous(),
             n_nodes, self.cfg.n_bins)
+        return comms.hist_reduce(hist, self.group, mode="allreduce",
+                                 comms_dtype=self.cfg.hist_comms_dtype)
 
     def best_splits(self, hist):
         return split_ops.best_splits_impl(
@@ -270,7 +354,9 @@ class CUDADevice(DeviceBackend):
             grad_dtype=cfg.grad_dtype, quant_tree_id=tree_id,
             quant_seed=cfg.seed, feature_mask=feature_mask,
             missing_bin=cfg.missing_policy == "learn",
-            cat_mask=self.cat_mask(data.shape[1]))
+            cat_mask=self.cat_mask(data.shape[1]), group=self.group,
+            split_comms=self.split_comms,
+            hist_comms_dtype=cfg.hist_comms_dtype)
 
     def fetch_tree(self, handle) -> HostTree:
         return unpack_tree(handle.cpu().numpy())
@@ -287,7 +373,8 @@ class CUDADevice(DeviceBackend):
 
     def _loss(self, pred, y: LabelHandle) -> torch.Tensor:
         return grad_ops.mean_loss(pred, y.y, self.cfg.loss,
-                                  y.valid if y.weighted else None)
+                                  y.valid if y.weighted else None,
+                                  group=self.group)
 
     def loss_value(self, pred, y: LabelHandle) -> float:
         return float(self._loss(pred, y))
@@ -347,7 +434,8 @@ class CUDADevice(DeviceBackend):
         C = cfg.n_outputs
         g, h = self.grad_hess(pred, y)
         if cfg.subsample < 1.0:
-            keep = sampling.row_keep(cfg.seed, rnd, 0, pred.shape[0],
+            R = pred.shape[0]
+            keep = sampling.row_keep(cfg.seed, rnd, self.row_start(R), R,
                                      cfg.subsample, device=pred.device)
             g, h = self.apply_row_mask(g, h, keep)
         if C > 1:

@@ -14,6 +14,10 @@ synchronize:
   fused (Driver._fit_fused: replays of one captured round) beside the
   granular loop (Driver._fit_granular), with the capture's one-off cost
   (its warm-up round and the capture) apart;
+- the fused loop at BASELINE config 3's layout (synthetic_ctr, 1M rows:
+  13 numeric + 26 frequency-binned one-vs-rest columns, 255 bins, depth
+  6, 100 trees), f32 and int8, the second of two runs (the first holds
+  the capture): the one-card figure chip_smoke's `multi` phase scales;
 - scoring: api.predict on the float rows (upload, binning, first call:
   pushdown, upload and packing of the model; then a cache hit), and a
   cached call on binned rows.
@@ -35,13 +39,15 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 from ddt_tpu_torch import api
 from ddt_tpu_torch.backends import cuda as cuda_backend
 from ddt_tpu_torch.backends import get_backend
 from ddt_tpu_torch.config import TrainConfig
-from ddt_tpu_torch.data.datasets import synthetic_binary
+from ddt_tpu_torch.data.categorical import fit_categorical_encoder
+from ddt_tpu_torch.data.datasets import synthetic_binary, synthetic_ctr
 from ddt_tpu_torch.data.quantizer import fit_bin_mapper
 from ddt_tpu_torch.driver import Driver
 from ddt_tpu_torch.models.tree import empty_ensemble
@@ -131,6 +137,24 @@ class _Loops:
         return loop(self.data, self.y, pred, ens)
 
 
+def config3_fused(cfg: TrainConfig) -> None:
+    """The fused loop's ms a tree at config 3's layout, f32 and int8."""
+    Xn, Xc, y = synthetic_ctr(ROWS, seed=0)
+    enc = fit_categorical_encoder(Xc, n_bins=255)
+    X = np.concatenate([Xn, enc.transform(Xc).astype(np.float32)], axis=1)
+    cat = tuple(range(Xn.shape[1], X.shape[1]))
+    mapper = fit_bin_mapper(X, n_bins=255, cat_features=cat, seed=0)
+    Xb = mapper.transform_device(X, torch.device("cuda"))
+    for dt in BOOST_GRAD_DTYPES:
+        lp = _Loops(cfg.replace(grad_dtype=dt, cat_features=cat), Xb, y)
+        lp.run(True, N_TREES)
+        _, fused_s = _synced(lambda: lp.run(True, N_TREES))
+        _emit({"phase": "boost_config3", "grad_dtype": dt,
+               "trees": N_TREES, "rows": ROWS, "features": X.shape[1],
+               "categorical": len(cat),
+               "fused_ms_per_tree": 1e3 * fused_s / N_TREES})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("breakdown: needs a CUDA card", file=sys.stderr)
@@ -179,6 +203,7 @@ def main() -> int:
                "graph_replays": cuda_backend.graph_replays - r0})
         if dt == "f32":
             res = first
+    config3_fused(cfg)
 
     _, first_s = _synced(lambda: api.predict(res, X, mapper=mapper))
     _, cached_s = _synced(lambda: api.predict(res, X, mapper=mapper))

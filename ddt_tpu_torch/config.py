@@ -3,8 +3,9 @@
 Port of ddt_tpu/config.py: a frozen TrainConfig with only the fields the
 port's path reads, validated as the reference validates them
 (ddt_tpu/config.py:214-215, 298-330). Fields of the reference that are
-not ported yet (meshes, compressed histogram collectives, fault plans,
-...) are absent, not silently ignored: passing one raises TypeError.
+not ported yet (the feature and host mesh axes, slab-pipelined
+collectives, fault plans, ...) are absent, not silently ignored: passing
+one raises TypeError.
 """
 
 from __future__ import annotations
@@ -15,6 +16,11 @@ LOSSES = ("logloss", "mse", "softmax")
 DEVICES = ("cuda", "cpu")
 #: cfg.grad_dtype values ("f32" = quantization off; ops/grad.py).
 GRAD_DTYPES = ("f32", "int16", "int8")
+#: cfg.split_comms values (parallel/comms.resolve_split_comms resolves
+#: "auto") and cfg.hist_comms_dtype values (the histogram collective's
+#: wire dtype, parallel/comms.hist_reduce).
+SPLIT_COMMS = ("auto", "allreduce", "reduce_scatter")
+COMMS_DTYPES = ("f32", "bf16", "int32_fixed")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,6 +85,25 @@ class TrainConfig:
     predict_impl: str = "auto"  # auto | lut | lut4
 
     # --- system ---
+    # Row partitions (data parallel): one process per partition, joined by
+    # torch.distributed (NCCL on the cards, gloo on the CPU); must equal
+    # the process group's world size. Every rank passes the same full
+    # rows; each keeps and bins its contiguous block of the rows padded to
+    # a multiple of n_partitions (parallel/mesh.row_block), and every rank
+    # grows the same trees.
+    n_partitions: int = 1
+    # The histogram collective of split finding (parallel/comms.py):
+    # "allreduce" sums the [n, F, B, 2] level histogram on every rank;
+    # "reduce_scatter" hands each rank one merged F/P feature slab, finds
+    # the slab's best splits there and all-gathers the per-rank winners
+    # (comms.combine_shard_winners: the single-device argmax's pick).
+    # "auto" is reduce_scatter whenever rows are partitioned.
+    split_comms: str = "auto"   # auto | allreduce | reduce_scatter
+    # Wire dtype of the histogram collective (never on by default):
+    # "bf16" rounds each partial to bf16 and sums in f32; "int32_fixed"
+    # sums on a shared fixed-point grid in int32, independent of the
+    # reduction order. comms.comms_error_bound bounds both.
+    hist_comms_dtype: str = "f32"   # f32 | bf16 | int32_fixed
     # Rounds a block of the fused boosting loop (Driver._fit_fused): each
     # block replays one captured round that many times (on the card, a
     # CUDA graph) and fetches its trees to the host once.
@@ -107,6 +132,27 @@ class TrainConfig:
             raise ValueError(
                 f"grad_dtype must be f32|int16|int8, got "
                 f"{self.grad_dtype!r}")
+        if self.n_partitions < 1:
+            raise ValueError(
+                f"n_partitions must be >= 1, got {self.n_partitions}")
+        if self.split_comms not in SPLIT_COMMS:
+            raise ValueError(
+                f"split_comms must be auto|allreduce|reduce_scatter, got "
+                f"{self.split_comms!r}")
+        if self.hist_comms_dtype not in COMMS_DTYPES:
+            raise ValueError(
+                f"hist_comms_dtype must be f32|bf16|int32_fixed, got "
+                f"{self.hist_comms_dtype!r}")
+        if self.grad_dtype != "f32" and self.hist_comms_dtype != "f32":
+            # Quantized-gradient histograms are already integer partials
+            # on one shared grid and merge exactly: compressing them again
+            # would quantize twice.
+            raise ValueError(
+                f"grad_dtype={self.grad_dtype!r} with hist_comms_dtype="
+                f"{self.hist_comms_dtype!r} would double-quantize the "
+                "histogram collective: quantized-gradient partials are "
+                "integer values on one shared grid and merge exactly as "
+                "they are; keep hist_comms_dtype='f32'")
         if self.hist_subtraction not in ("auto", "on", "off"):
             raise ValueError(
                 f"hist_subtraction must be auto|on|off, got "

@@ -40,6 +40,16 @@ class) (ops/sampling); the bagging mask is drawn on the gradients' device
 by the hash's tensor twin, bit for bit the reference's row_keep_np, so no
 per-round mask crosses the bus. Instance weights ride LabelHandle.valid;
 eval metrics stay unweighted, as in the reference.
+
+Row partitions (cfg.n_partitions > 1, one process a rank): every rank
+calls fit with the same full labels (and rows, or its RowBlock from
+api.train); cfg.n_partitions must equal the process group's world size.
+The base score is computed on the host from the full labels, identical on
+every rank; the backend keeps the rank's block of rows and labels and
+reduces the histograms and the loss over the ranks; an eval set is scored
+whole on every rank (the trees are the same everywhere, so the metric is
+too, with no collective); the bagging draws start at the rank's global
+row. Checkpoints under partitions are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -56,6 +66,7 @@ from ddt_tpu_torch.config import TrainConfig
 from ddt_tpu_torch.models.tree import TreeEnsemble, empty_ensemble
 from ddt_tpu_torch.ops import sampling
 from ddt_tpu_torch.ops.grad import base_score_np
+from ddt_tpu_torch.parallel import mesh
 from ddt_tpu_torch.utils import checkpoint
 from ddt_tpu_torch.utils.metrics import GREATER_IS_BETTER, default_metric
 
@@ -112,6 +123,11 @@ class Driver:
         if checkpoint_dir is not None and checkpoint_every < 1:
             raise ValueError(
                 f"checkpoint_every must be >= 1, got {checkpoint_every}")
+        if checkpoint_dir is not None and cfg.n_partitions > 1:
+            raise ValueError(
+                "checkpoint_dir with n_partitions > 1 is not ported yet "
+                "(ROADMAP Queue 1 item 4's remainder: checkpoints under "
+                "partitions)")
         self.backend = backend
         self.cfg = cfg
         self.checkpoint_dir = checkpoint_dir
@@ -133,9 +149,14 @@ class Driver:
         `sample_weight` (float [R], >= 0, not all zero) weights each row's
         g, h and loss, and the base score."""
         cfg = self.cfg
+        mesh.check_partitions(cfg.n_partitions)
         Xb = self._check_rows(Xb)
         y = np.asarray(y)
-        R, F = Xb.shape
+        # A RowBlock holds every row only at one rank (checkpoints, the
+        # one reader of `rows` below, refuse more).
+        rows = Xb.rows if isinstance(Xb, mesh.RowBlock) else Xb
+        R = Xb.n_rows if isinstance(Xb, mesh.RowBlock) else Xb.shape[0]
+        F = rows.shape[1]
         C = cfg.n_outputs
         if y.shape != (R,):
             raise ValueError(f"y must be [R]={R}, got {y.shape}")
@@ -158,7 +179,7 @@ class Driver:
             if start > 0:
                 pred = self.backend.load_pred(
                     ens.truncate(start * C).predict_raw_roundwise(
-                        _host(Xb), binned=True))
+                        _host(rows), binned=True))
                 log.info("resumed from checkpoint at round %d", start)
 
         ev = None
@@ -173,6 +194,9 @@ class Driver:
 
     @staticmethod
     def _check_rows(Xb):
+        if isinstance(Xb, mesh.RowBlock):
+            Driver._check_rows(Xb.rows)
+            return Xb
         if not isinstance(Xb, torch.Tensor):
             Xb = np.asarray(Xb)
         if Xb.dtype not in (np.uint8, torch.uint8) or Xb.ndim != 2:
@@ -198,8 +222,9 @@ class Driver:
         if start > 0:
             raw = ens.truncate(start * C).predict_raw_roundwise(
                 _host(Xv), binned=True).astype(np.float32)
-        return (self.backend.upload(Xv), self.backend.load_pred(raw),
-                self.backend.upload_labels(np.asarray(yv)),
+        return (self.backend.upload(Xv, shard=False),
+                self.backend.load_pred(raw),
+                self.backend.upload_labels(np.asarray(yv), shard=False),
                 _Stop(metric, patience))
 
     def _store(self, ens: TreeEnsemble, slot: int, tree) -> None:
@@ -234,8 +259,9 @@ class Driver:
             t0 = time.perf_counter()
             g, h = self.backend.grad_hess(pred, y_dev)
             if cfg.subsample < 1.0:
-                keep = sampling.row_keep(cfg.seed, rnd, 0, R, cfg.subsample,
-                                         device=g.device)
+                keep = sampling.row_keep(cfg.seed, rnd,
+                                         self.backend.row_start(R), R,
+                                         cfg.subsample, device=g.device)
                 g, h = self.backend.apply_row_mask(g, h, keep)
             handles = []
             for c in range(C):

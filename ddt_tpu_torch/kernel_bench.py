@@ -1,6 +1,6 @@
 """Kernel times on the card, for this checkout and others.
 
-    python -m ddt_tpu_torch.kernel_bench [--kernels hist,lut,traverse]
+    python -m ddt_tpu_torch.kernel_bench [--kernels hist,lut,traverse,leaf]
                                          [--other DIR ...]
 
 Every time is taken with chip_smoke.py's timer (one launch a call, CUDA
@@ -32,6 +32,16 @@ version first (both sum tree by tree in one order); K4 fp16 also at
 LUT_SWEEP rows (L2 flushed), where the mappings cross. Where the checkout
 has it, csrc/lut.cu's empty kernel is timed the same way: the latency
 floor of one launch.
+
+leaf: `ops/grad.leaf_gh_sums`'s index_add_ (not a kernel of the port's
+own: the level loop's per-node (G, H) sums) on 1M f32 rows, every row
+active, uniform node indices at LEAF_NODES nodes, with LEAF_SPREAD
+partials a node and with one (`ops/grad._leaf_gh_sums`; a checkout
+without it is skipped), L2 warm as in the loop. Each is checked against
+an f64 sum first and its largest error reported: the spread form within
+the histograms' 1e-5 * the sum of |g| (|h|) + 1e-6; the one-partial form,
+one f32 accumulator a node that rounds at every add, within the
+recursive-summation bound (R - 1) * 2^-24 * the sum of |g| (|h|).
 
 traverse: the f32 traversal kernel (K3) through chip_smoke.device_operands
 (ops/predict_cuda.pack_tables, then traverse_cuda) on the 100-tree and
@@ -85,6 +95,8 @@ LUT_CASES = (("K4 fp16", "255", "float16"), ("K4 int8", "255", "int8"),
              ("K5 255 bins", "255", "int4"), ("K5 15 bins", "15", "int4"),
              ("K4 fp16 1000 trees", "255x1000", "float16"),
              ("K5 1000 trees", "255x1000", "int4"))
+#: Nodes of the leaf-sum cases (a depth-6 tree's levels and leaves).
+LEAF_NODES = (1, 2, 4, 8, 16, 32, 64)
 #: (name, model) of each K3 case; the first also takes the sweep.
 TRAVERSE_CASES = (("K3 100 trees", "255"), ("K3 1000 trees", "255x1000"))
 HERE = Path(__file__).resolve().parent.parent
@@ -277,6 +289,39 @@ def _traverse_times(cs, models: Path) -> dict:
     return out
 
 
+def _leaf_times(cs) -> dict:
+    import torch
+
+    from ddt_tpu_torch.ops import grad
+
+    if not hasattr(grad, "_leaf_gh_sums"):
+        return {"skipped": "no ops/grad._leaf_gh_sums"}
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    g = torch.randn(cs.ROWS, device=dev, generator=gen)
+    h = torch.rand(cs.ROWS, device=dev, generator=gen)
+    active = torch.ones(cs.ROWS, dtype=torch.bool, device=dev)
+    mass = torch.stack([g.abs().sum(), h.abs().sum()]).double()
+    tols = {grad.LEAF_SPREAD: 1e-5 * mass + 1e-6,
+            1: (cs.ROWS - 1) * 2.0 ** -24 * mass}
+    out = {"spread": grad.LEAF_SPREAD}
+    for n in LEAF_NODES:
+        idx = torch.randint(0, n, (cs.ROWS,), device=dev, generator=gen)
+        want = torch.zeros((n, 2), dtype=torch.float64, device=dev)
+        want.index_add_(0, idx, torch.stack([g, h], 1).double())
+        row = {}
+        for k, tol in tols.items():
+            err = (grad._leaf_gh_sums(idx, active, g, h, n, k).double()
+                   - want).abs()
+            cs.check(bool((err <= tol).all()),
+                     f"leaf sums, {n} nodes, spread {k}: against f64")
+            row[f"spread {k}"] = cs.time_ms(
+                lambda: grad._leaf_gh_sums(idx, active, g, h, n, k), REPS)
+            row[f"spread {k} max_abs_err"] = err.max(dim=0).values.tolist()
+        out[str(n)] = row
+    return out
+
+
 def _worker(repo: str, kernels: list, models: str) -> None:
     """Times the kernels of the package at `repo`; one JSON line."""
     sys.path[0] = repo          # not this file's directory
@@ -288,6 +333,8 @@ def _worker(repo: str, kernels: list, models: str) -> None:
         out["lut"] = _lut_times(cs, Path(models))
     if "traverse" in kernels:
         out["traverse"] = _traverse_times(cs, Path(models))
+    if "leaf" in kernels:
+        out["leaf"] = _leaf_times(cs)
     cs.emit(out)
 
 
@@ -312,7 +359,7 @@ def _summary(label: str, r: dict, cs, acc: dict) -> None:
             for m in MODES}
         s["hist_tree_levels_per_tree"] = {m: sum(h["tree_levels"][m])
                                           for m in MODES}
-    for k in ("lut", "traverse"):
+    for k in ("lut", "traverse", "leaf"):
         if k in r:
             s[k] = r[k]
     row.append(s)

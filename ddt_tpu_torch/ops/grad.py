@@ -36,6 +36,7 @@ import torch
 
 from ddt_tpu_torch.config import GRAD_DTYPES
 from ddt_tpu_torch.ops import sampling
+from ddt_tpu_torch.parallel import comms
 
 #: Symmetric quantized range per dtype (the most negative two's-complement
 #: value is deliberately unused).
@@ -85,10 +86,13 @@ def base_score(y: torch.Tensor, loss: str) -> torch.Tensor:
 
 
 def mean_loss(pred_raw: torch.Tensor, y: torch.Tensor, loss: str,
-              valid: torch.Tensor | None = None) -> torch.Tensor:
+              valid: torch.Tensor | None = None,
+              group=None) -> torch.Tensor:
     """Mean training loss (f32 scalar): over the rows, or weighted by
-    `valid` (the instance weights), whose sum is clamped at 1e-12 only
-    (a clamp at 1 would shrink the loss of fractional weights)."""
+    `valid` (the instance weights, 0 on a rank's pad rows), whose sum is
+    clamped at 1e-12 only (a clamp at 1 would shrink the loss of
+    fractional weights). With a process group, the mean over every rank's
+    rows: one all-reduce of the (sum, count) pair."""
     yf = y.to(torch.float32)
     if loss == "logloss":
         # Stable logistic loss: log(1 + e^x) - x*y.
@@ -102,9 +106,15 @@ def mean_loss(pred_raw: torch.Tensor, y: torch.Tensor, loss: str,
     else:
         raise ValueError(loss)
     if valid is None:
-        return per.sum() / max(pred_raw.shape[0], 1)
-    v = valid.to(torch.float32)
-    return (per * v).sum() / v.sum().clamp(min=1e-12)
+        pair = torch.stack([per.sum(), torch.full(
+            (), float(pred_raw.shape[0]), device=per.device)])
+        floor = 1.0
+    else:
+        v = valid.to(torch.float32)
+        pair = torch.stack([(per * v).sum(), v.sum()])
+        floor = 1e-12
+    pair = comms.psum(pair, group)
+    return pair[0] / pair[1].clamp(min=floor)
 
 
 def grad_hess(pred_raw: torch.Tensor, y: torch.Tensor,
@@ -125,22 +135,38 @@ def grad_hess(pred_raw: torch.Tensor, y: torch.Tensor,
     raise ValueError(loss)
 
 
+#: Partial sums a node keeps apart before they are added (leaf_gh_sums):
+#: row i adds into partial i % LEAF_SPREAD of its node.
+LEAF_SPREAD = 256
+
+
 def leaf_gh_sums(idx: torch.Tensor, active: torch.Tensor, g: torch.Tensor,
                  h: torch.Tensor, n_last: int) -> torch.Tensor:
-    """[n_last, 2] per-leaf (G, H) sums of the active rows. The reference
-    contracts a one-hot on the MXU; here one index_add_ (the f32 sums
-    agree to summation order, which leaf values are tolerance-compared
-    on). Integer (quantized) g/h sum exactly into int32; the caller
-    dequantizes."""
-    if not g.is_floating_point():
-        gh = torch.stack([torch.where(active, g, 0),
-                          torch.where(active, h, 0)], dim=1).to(torch.int32)
-        out = torch.zeros((n_last, 2), dtype=torch.int32, device=g.device)
-        return out.index_add_(0, idx.to(torch.int64), gh)
-    gh = torch.stack([torch.where(active, g, 0.0),
-                      torch.where(active, h, 0.0)], dim=1).float()
-    out = torch.zeros((n_last, 2), dtype=torch.float32, device=g.device)
-    return out.index_add_(0, idx.to(torch.int64), gh)
+    """[n_last, 2] per-node (G, H) sums of the active rows (`idx` the
+    node of each row). The reference contracts a one-hot on the MXU; here
+    one index_add_ into LEAF_SPREAD partials a node, then a sum over them:
+    on the card index_add_ adds with atomics, and with one partial a node
+    the rows of a level with few nodes would all add into the same few
+    addresses, one at a time (`kernel_bench.py --kernels leaf` times both
+    forms). The f32 sums agree to summation order, which leaf values and
+    node totals are tolerance-compared on. Integer (quantized) g/h sum
+    exactly into int32; the caller dequantizes."""
+    return _leaf_gh_sums(idx, active, g, h, n_last, LEAF_SPREAD)
+
+
+def _leaf_gh_sums(idx, active, g, h, n_last: int,
+                  spread: int) -> torch.Tensor:
+    """leaf_gh_sums with `spread` partials a node."""
+    acc = torch.float32 if g.is_floating_point() else torch.int32
+    gh = torch.stack([torch.where(active, g, 0),
+                      torch.where(active, h, 0)], dim=1).to(acc)
+    R = g.shape[0]
+    k = max(1, min(spread, R))
+    slot = idx.to(torch.int64) * k + torch.arange(
+        R, dtype=torch.int64, device=g.device) % k
+    out = torch.zeros((n_last * k, 2), dtype=acc, device=g.device)
+    out.index_add_(0, slot, gh)
+    return out.view(n_last, k, 2).sum(dim=1, dtype=acc)
 
 
 # --------------------------------------------------------------------- #
@@ -205,14 +231,17 @@ def quant_scale_np(max_abs: float, sum_abs: float,
     return scale if scale > 0 else np.float32(1.0)
 
 
-def grad_abs_stats(g: torch.Tensor, h: torch.Tensor):
-    """(max|g|, sum|g|, max|h|, sum|h|) as 0-dim f32 tensors. The max is
-    exact in any order; the f32 sum's order differs between devices by
-    ULPs, which the cap term's power-of-two snap absorbs except at an
-    exact frexp boundary."""
+def grad_abs_stats(g: torch.Tensor, h: torch.Tensor, group=None):
+    """(max|g|, sum|g|, max|h|, sum|h|) as 0-dim f32 tensors, over every
+    rank's rows with a process group (one MAX and one SUM all-reduce).
+    The max is exact in any order; the f32 sum's order differs between
+    devices and partition counts by ULPs, which the cap term's
+    power-of-two snap absorbs except at an exact frexp boundary."""
     ag = g.to(torch.float32).abs()
     ah = h.to(torch.float32).abs()
-    return ag.max(), ag.sum(), ah.max(), ah.sum()
+    maxes = comms.pmax(torch.stack([ag.max(), ah.max()]), group)
+    sums = comms.psum(torch.stack([ag.sum(), ah.sum()]), group)
+    return maxes[0], sums[0], maxes[1], sums[1]
 
 
 def quantize_with_scales(g: torch.Tensor, h: torch.Tensor,
@@ -239,20 +268,25 @@ def quantize_with_scales(g: torch.Tensor, h: torch.Tensor,
 
 def quantize_gradients(g: torch.Tensor, h: torch.Tensor, *,
                        grad_dtype: str, tree_id, seed: int,
-                       row_start: int = 0):
+                       row_start: int = 0, group=None,
+                       n_rows_global: int | None = None):
     """One tree's quantization step on g's device: scales from the |g|,
-    |h| stats, then seeded stochastic rounding (`tree_id` an int or a
-    0-dim int64 tensor, as in quantize_with_scales). Returns (qg, qh, gscale,
-    hscale); dequantize any integer aggregate A of the q's as A * scale,
-    once. Refuses row counts past GRAD_ROW_LIMIT, where the sum cap no
-    longer guarantees int32 headroom."""
-    if g.shape[0] >= GRAD_ROW_LIMIT:
+    |h| stats (over every rank's rows with a process group), then seeded
+    stochastic rounding keyed by the global row id (this rank's rows
+    start at `row_start`; `tree_id` an int or a 0-dim int64 tensor, as in
+    quantize_with_scales). Returns (qg, qh, gscale, hscale); dequantize
+    any integer aggregate A of the q's as A * scale, once. Refuses
+    `n_rows_global` (default: g's rows) past GRAD_ROW_LIMIT, where the
+    sum cap no longer guarantees int32 headroom."""
+    if n_rows_global is None:
+        n_rows_global = g.shape[0]
+    if n_rows_global >= GRAD_ROW_LIMIT:
         raise ValueError(
-            f"quantized gradients over {g.shape[0]} rows exceed the int32 "
-            f"overflow proof's row ceiling ({GRAD_ROW_LIMIT}): sum|q| <= "
-            "2^30 + n_rows must stay under INT32_MAX (see ops/grad.py); "
-            "use grad_dtype='f32'")
-    mg, sg, mh, sh = grad_abs_stats(g, h)
+            f"quantized gradients over {n_rows_global} rows exceed the "
+            f"int32 overflow proof's row ceiling ({GRAD_ROW_LIMIT}): "
+            "sum|q| <= 2^30 + n_rows must stay under INT32_MAX (see "
+            "ops/grad.py); use grad_dtype='f32'")
+    mg, sg, mh, sh = grad_abs_stats(g, h, group)
     # quant_scale is elementwise: both channels in one pass.
     gscale, hscale = quant_scale(torch.stack([mg, mh]),
                                  torch.stack([sg, sh]), grad_dtype)

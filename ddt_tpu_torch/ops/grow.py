@@ -1,13 +1,30 @@
-"""Whole-tree growth: the level loop on one device.
+"""Whole-tree growth: the level loop, on one device or on each rank of a
+row-partitioned process group.
 
-Port of ddt_tpu/ops/grow.py for one device: f32 or quantized gradients,
-an optional colsample feature mask, learned missing-value directions and
-one-vs-rest categorical splits (no mesh or feature axis yet). Per level:
-histograms (ops/histogram: the CUDA kernel on the card, the plain segment
-form on the CPU) -> node totals -> best splits (ops/split) -> node values
-and split decisions -> row routing. Every step is a PyTorch op queued on
-the tensors' device; the host reads nothing until the Driver fetches the
-finished tree.
+Port of ddt_tpu/ops/grow.py: f32 or quantized gradients, an optional
+colsample feature mask, learned missing-value directions, one-vs-rest
+categorical splits, and row partitions over a process group (no feature
+axis yet). Per level: histograms (ops/histogram: the CUDA kernel on the
+card, the plain segment form on the CPU) -> the histogram collective ->
+node totals -> best splits (ops/split) -> node values and split decisions
+-> row routing. Every step is a PyTorch op queued on the tensors' device
+(the collectives are stream-ordered too); the host reads nothing until
+the Driver fetches the finished tree.
+
+Row partitions (`group`, a torch.distributed process group; None on one
+device): each rank holds a block of rows and grows the same tree. The
+histogram collective (parallel/comms.hist_reduce) runs after the
+left-child build and before the sibling subtraction, so only left
+children move from level 1 on, and the carry is the merged form. Under
+split_comms="allreduce" every rank holds the whole merged histogram and
+runs the same split search. Under "reduce_scatter" rank i holds the
+merged F/P feature slab i (`col_ids` maps its columns to global ids,
+padded columns >= F never valid): node totals then come from the row
+vectors through an all-reduce, the split search runs on the slab and
+comms.combine_shard_winners picks the single-device argmax's winner.
+Quantized gradients take their scales from every rank's rows and their
+rounding draws from global row ids; the final leaf sums are all-reduced.
+Routing stays rank-local: the decisions are the same on every rank.
 
 Quantized gradients (grad_dtype "int8" | "int16"): g/h are quantized once
 per tree (ops/grad.quantize_gradients); histograms, node totals and leaf
@@ -37,6 +54,7 @@ import torch
 from ddt_tpu_torch.ops import grad as grad_ops
 from ddt_tpu_torch.ops import histogram as H
 from ddt_tpu_torch.ops import split as S
+from ddt_tpu_torch.parallel import comms
 
 
 def resolve_hist_subtraction(flag: str, device_type: str,
@@ -60,22 +78,30 @@ def resolve_hist_subtraction(flag: str, device_type: str,
 
 
 def level_histograms(Xb, g, h, node_index, n_level: int, n_bins: int, *,
-                     parent_hist=None, parent_split=None) -> torch.Tensor:
-    """One level's [n_level, F, B, 2] histograms.
+                     parent_hist=None, parent_split=None,
+                     reduce=None) -> torch.Tensor:
+    """One level's [n_level, F, B, 2] histograms, merged over the ranks by
+    `reduce` (the histogram collective; None on one device): the merged
+    F/P slab under reduce-scatter.
 
-    With the previous level's histograms and split decisions, only LEFT
-    children are built from rows (half the kernel work); each right child
-    is parent - left, and children of parents that did not split are
-    exactly zero (otherwise a frozen parent's phantom right child would
-    inherit its mass and could win a split no training row reaches).
-    Dtype-generic: on the quantized path the carry and the left build are
-    int32 and the subtraction is exact."""
+    With the previous level's (merged) histograms and split decisions,
+    only LEFT children are built from rows and merged (half the kernel
+    work and half the payload); each right child is parent - left, and
+    children of parents that did not split are exactly zero (otherwise a
+    frozen parent's phantom right child would inherit its mass and could
+    win a split no training row reaches). Dtype-generic: on the quantized
+    path the carry and the left build are int32 and the subtraction is
+    exact."""
+    if reduce is None:
+        def reduce(x):
+            return x
     if parent_hist is None or n_level < 2:
-        return H.build_histograms(Xb, g, h, node_index, n_level, n_bins)
+        return reduce(H.build_histograms(Xb, g, h, node_index, n_level,
+                                         n_bins))
     half = n_level // 2
     is_left = (node_index >= 0) & (node_index % 2 == 0)
     li = torch.where(is_left, node_index // 2, -1).to(torch.int32)
-    hist_left = H.build_histograms(Xb, g, h, li, half, n_bins)
+    hist_left = reduce(H.build_histograms(Xb, g, h, li, half, n_bins))
     gate = parent_split.reshape(half, 1, 1, 1)
     hist_right = torch.where(gate, parent_hist - hist_left, 0)
     hist = torch.stack([hist_left, hist_right], dim=1)
@@ -130,20 +156,48 @@ def grow_tree(Xb: torch.Tensor, g: torch.Tensor, h: torch.Tensor, *,
               quant_tree_id=0, quant_seed: int = 0,
               feature_mask: torch.Tensor | None = None,
               missing_bin: bool = False,
-              cat_mask: torch.Tensor | None = None) -> TreeArrays:
+              cat_mask: torch.Tensor | None = None, group=None,
+              split_comms: str = "allreduce",
+              hist_comms_dtype: str = "f32") -> TreeArrays:
     """Grow one complete-heap tree from uint8 Xb [R, F] and f32 g, h [R]
-    (the same decisions as ddt_tpu/ops/grow.grow_tree on one device).
+    (the same decisions as ddt_tpu/ops/grow.grow_tree).
 
     grad_dtype "int8"/"int16" quantizes g/h once, keyed by (quant_seed,
-    quant_tree_id, row), the tree id an int or a 0-dim int64 tensor on
-    Xb's device; feature_mask (bool [F] on Xb's device, False =
+    quant_tree_id, global row), the tree id an int or a 0-dim int64
+    tensor on Xb's device; feature_mask (bool [F] on Xb's device, False =
     excluded) restricts every level's split candidates (colsample).
     missing_bin: bin n_bins - 1 holds NaN rows and every split learns
     their direction; cat_mask (bool [F] on Xb's device, from
-    cat_feature_mask) marks the one-vs-rest columns."""
+    cat_feature_mask) marks the one-vs-rest columns. With `group`, Xb, g
+    and h are this rank's block of a row-partitioned matrix (rank r's
+    rows start at global row r * R) and split_comms ("allreduce" |
+    "reduce_scatter", resolved) and hist_comms_dtype pick the histogram
+    collective (module docstring)."""
     R, F = Xb.shape
     dev = Xb.device
     N = 2 ** (max_depth + 1) - 1
+    P = comms.world(group)
+    rs = split_comms == "reduce_scatter" and group is not None
+
+    def hist_collective(hs):
+        if rs:
+            hs = comms.pad_to_multiple(hs, 1, P)
+        return comms.hist_reduce(
+            hs, group, mode="reduce_scatter" if rs else "allreduce",
+            comms_dtype=hist_comms_dtype, scatter_dim=1)
+
+    fm_loc, cm_loc = feature_mask, cat_mask
+    if rs:
+        # Rank i's slab holds global columns i * b .. i * b + b - 1 of F
+        # padded to P * b; padded columns (>= F) are never candidates.
+        b = -(-F // P)
+        col_ids = comms.rank(group) * b + torch.arange(
+            b, dtype=torch.int64, device=dev)
+        valid_loc = col_ids < F
+        cid = col_ids.clamp(max=F - 1)
+        fm_loc = valid_loc if feature_mask is None else \
+            feature_mask[cid] & valid_loc
+        cm_loc = None if cat_mask is None else cat_mask[cid] & valid_loc
 
     feature = torch.full((N,), -1, dtype=torch.int32, device=dev)
     threshold_bin = torch.zeros(N, dtype=torch.int32, device=dev)
@@ -160,7 +214,8 @@ def grow_tree(Xb: torch.Tensor, g: torch.Tensor, h: torch.Tensor, *,
     if quant:
         g, h, gscale, hscale = grad_ops.quantize_gradients(
             g, h, grad_dtype=grad_dtype, tree_id=quant_tree_id,
-            seed=quant_seed)
+            seed=quant_seed, row_start=comms.rank(group) * R, group=group,
+            n_rows_global=R * P)
         scale2 = torch.stack([gscale, hscale])    # [2] dequantize vector
 
     for depth in range(max_depth):
@@ -170,8 +225,17 @@ def grow_tree(Xb: torch.Tensor, g: torch.Tensor, h: torch.Tensor, *,
             .to(torch.int32)
         hist = level_histograms(Xb, g, h, node_index, n_level, n_bins,
                                 parent_hist=prev_hist,
-                                parent_split=prev_split)
-        G, Hh = S.node_totals(hist)
+                                parent_split=prev_split,
+                                reduce=hist_collective)
+        if rs:
+            # The slabs hold different columns: node totals from the row
+            # vectors, one all-reduce of the [n_level, 2] pair.
+            GH = comms.psum(grad_ops.leaf_gh_sums(
+                node_index.clamp(min=0), node_index >= 0, g, h, n_level),
+                group)
+            G, Hh = GH[:, 0], GH[:, 1]
+        else:
+            G, Hh = S.node_totals(hist)
         hist_q = hist
         if quant:
             # The one dequantize per level: integer sums, then * scale.
@@ -179,8 +243,13 @@ def grow_tree(Xb: torch.Tensor, g: torch.Tensor, h: torch.Tensor, *,
             Hh = Hh.to(torch.float32) * hscale
             hist = hist.to(torch.float32) * scale2
         gains, feats, bins, dls = S.best_splits_impl(
-            hist, reg_lambda, min_child_weight, feature_mask,
-            missing_bin=missing_bin, cat_mask=cat_mask)
+            hist, reg_lambda, min_child_weight, fm_loc,
+            missing_bin=missing_bin, cat_mask=cm_loc)
+        if rs:
+            gains, feats, bins, dls = comms.combine_shard_winners(
+                gains, col_ids[feats.to(torch.int64)].to(torch.int32), bins,
+                dls, group, n_features=F, n_bins=n_bins,
+                missing_bin=missing_bin)
         # An empty node at reg_lambda = 0 would store -0/0 = NaN, which a
         # predict-time row can reach: guarded to 0.
         value = torch.where(Hh > 0, -G / (Hh + reg_lambda), 0.0)
@@ -215,7 +284,8 @@ def grow_tree(Xb: torch.Tensor, g: torch.Tensor, h: torch.Tensor, *,
     n_last = 1 << max_depth
     active = ~frozen
     idx = (node_id - offset).clamp(0, n_last - 1)
-    GH = grad_ops.leaf_gh_sums(idx, active, g, h, n_last)
+    GH = comms.psum(grad_ops.leaf_gh_sums(idx, active, g, h, n_last),
+                    group, modeled=True)
     Gl, Hl = GH[:, 0], GH[:, 1]
     if quant:
         Gl = Gl.to(torch.float32) * gscale

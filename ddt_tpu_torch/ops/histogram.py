@@ -19,7 +19,8 @@ Two implementations of the one function:
   tensors, where it is also the CPU tests' reference.
 
 `build_histograms` dispatches on the tensors' device. It never hands a
-CUDA tensor to the plain version.
+CUDA tensor to the plain version. Under row partitions the caller merges
+the ranks' histograms (parallel/comms.hist_reduce).
 """
 
 from __future__ import annotations

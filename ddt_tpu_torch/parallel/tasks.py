@@ -1,0 +1,244 @@
+"""What a rank runs under parallel/spawn: the functions the distributed
+test suites (tests/test_torch_comms.py, tests/test_torch_distributed.py)
+and chip_smoke.py's `multi` phase send to their ranks.
+
+They live in the package so that a rank imports torch and the port and
+nothing else (the test modules import JAX). Each takes the pool's device
+("cpu" or "cuda") first, works on this rank's share of host arrays every
+rank was sent whole, and returns host values (numpy arrays, ensembles,
+dicts), which the pool pickles back in rank order.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from ddt_tpu_torch import api
+from ddt_tpu_torch.backends import cuda as cuda_backend
+from ddt_tpu_torch.backends import get_backend
+from ddt_tpu_torch.backends.cuda import CUDADevice
+from ddt_tpu_torch.config import TrainConfig
+from ddt_tpu_torch.ops import hist_cuda, predict_cuda
+from ddt_tpu_torch.parallel import comms, mesh
+
+#: Counters a training task reads before and after its run.
+COUNTERS = ((hist_cuda, "launches"), (hist_cuda, "launches_int"),
+            (predict_cuda, "launches"), (comms, "calls"),
+            (comms, "modeled_bytes"), (comms, "other_bytes"),
+            (cuda_backend, "graph_captures"), (cuda_backend, "graph_replays"))
+
+
+#: Kernels listed by a profiled window, by device time.
+TOP_KERNELS = 8
+
+
+class Granular(CUDADevice):
+    """The backend without the fused rounds: Driver.fit takes the
+    granular loop."""
+
+    grow_rounds = None
+
+
+def _sync() -> None:
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def _counters() -> dict:
+    _sync()
+    return {f"{m.__name__.rsplit('.', 1)[-1]}.{n}": getattr(m, n)
+            for m, n in COUNTERS}
+
+
+def _since(before: dict) -> dict:
+    return {k: v - before[k] for k, v in _counters().items()}
+
+
+def _world() -> int:
+    return comms.world(dist.group.WORLD)
+
+
+def _rank() -> int:
+    return comms.rank(dist.group.WORLD)
+
+
+def _config(device: str, cfg_kw: dict) -> TrainConfig:
+    """TrainConfig for this rank: n_partitions the world size unless
+    cfg_kw names one (the refusal tests do)."""
+    return TrainConfig(**{"device": device, "n_partitions": _world(),
+                          **cfg_kw})
+
+
+def train(device: str, X, y, cfg_kw: dict, fit_kw: dict | None = None,
+          loop: str = "fused") -> dict:
+    """api.train on this rank: X, y the full rows (float, or binned with
+    fit_kw binned=True), the granular loop with loop="granular". Returns
+    the ensemble, the history, the counters' moves over the run and the
+    backend's modeled collective bytes a tree."""
+    cfg = _config(device, cfg_kw)
+    be = Granular(cfg) if loop == "granular" else get_backend(cfg)
+    before = _counters()
+    res = api.train(X, y, cfg, backend=be, **(fit_kw or {}))
+    return {"ensemble": res.ensemble, "history": res.history,
+            "best_round": res.best_round, "counters": _since(before),
+            "bytes_model": be.collective_bytes_per_tree(
+                res.ensemble.n_features),
+            "split_comms": be.split_comms, "rank": be.rank}
+
+
+def train_shifted(device: str, X, y, cfg_kw: dict, shift: float) -> None:
+    """api.train of X + rank * shift on this rank: ranks whose rows
+    disagree (api.train must refuse them)."""
+    api.train(X + np.float32(_rank() * shift), y,
+              _config(device, cfg_kw))
+
+
+def backend_reuse(device: str, cfg_kw: dict) -> tuple[bool, bool]:
+    """Whether get_backend hands this rank its scoring backend
+    (n_partitions=1) again from the cache, and a new training backend
+    (n_partitions the world size) on every call."""
+    score = _config(device, dict(cfg_kw, n_partitions=1))
+    grow = _config(device, cfg_kw)
+    return (get_backend(score) is get_backend(score),
+            get_backend(grow) is not get_backend(grow))
+
+
+def hist_reduce(device: str, parts: list, perm: list, mode: str,
+                comms_dtype: str) -> np.ndarray:
+    """comms.hist_reduce of partial parts[perm[rank]] (padded on the
+    feature dim for reduce-scatter, as ops/grow pads)."""
+    dev = mesh.rank_device(device)
+    group = dist.group.WORLD
+    x = torch.from_numpy(parts[perm[_rank()]]).to(dev)
+    if mode == "reduce_scatter":
+        x = comms.pad_to_multiple(x, 1, _world())
+    return comms.hist_reduce(x, group, mode=mode,
+                             comms_dtype=comms_dtype).cpu().numpy()
+
+
+def combine(device: str, winners: list, n_features: int, n_bins: int,
+            missing_bin: bool) -> tuple:
+    """comms.combine_shard_winners of this rank's slab winner
+    winners[rank] = (gains, feats, bins, dls)."""
+    dev = mesh.rank_device(device)
+    args = [torch.from_numpy(np.asarray(a)).to(dev)
+            for a in winners[_rank()]]
+    out = comms.combine_shard_winners(
+        *args, dist.group.WORLD, n_features=n_features, n_bins=n_bins,
+        missing_bin=missing_bin)
+    return tuple(t.cpu().numpy() for t in out)
+
+
+def granular_hist(device: str, Xb: np.ndarray, g: np.ndarray,
+                  h: np.ndarray, node_index: np.ndarray, n_nodes: int,
+                  cfg_kw: dict) -> np.ndarray:
+    """The backend's granular build_histograms over the rows split into
+    rank blocks (pad rows frozen): every rank's merged histogram."""
+    cfg = _config(device, cfg_kw)
+    be = get_backend(cfg)
+    data = be.upload(Xb)
+
+    def block(a, fill):
+        start, stop, local = mesh.row_block(len(a), be.world, be.rank)
+        out = np.full(local, fill, a.dtype)
+        out[:stop - start] = a[start:stop]
+        return out
+
+    return be.build_histograms(data, block(g, 0), block(h, 0),
+                               block(node_index, -1),
+                               n_nodes).cpu().numpy()
+
+
+def check_cuda_group(device: str) -> str | None:
+    """The refusal of a CUDA tensor on this (non-NCCL) group: its
+    message, or None when nothing refused."""
+    try:
+        comms.check_group(torch.device("cuda"), dist.group.WORLD)
+    except RuntimeError as e:
+        return str(e)
+    return None
+
+
+def _profile_share(fn) -> dict:
+    """Device time of the NCCL kernels against all device time and the
+    wall time of fn() (torch.profiler, CPU + CUDA activities)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    _sync()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        _sync()
+        wall = time.perf_counter() - t0
+    rows = sorted(((getattr(e, "self_device_time_total", 0.0) * 1e-6,
+                    e.count, e.key) for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not e.key.startswith("Activity Buffer")),
+                  reverse=True)
+    busy = sum(r[0] for r in rows)
+    nccl = [r for r in rows if "nccl" in r[2].lower()]
+    nccl_s = sum(r[0] for r in nccl)
+    return {"wall_s": wall, "device_busy_s": busy, "nccl_device_s": nccl_s,
+            "nccl_kernels": sum(r[1] for r in nccl),
+            "nccl_share_of_busy": nccl_s / busy if busy > 0 else None,
+            "nccl_share_of_wall": nccl_s / wall if wall > 0 else None,
+            "top": [{"name": k[:80], "device_s": t, "count": c}
+                    for t, c, k in rows[:TOP_KERNELS]]}
+
+
+def train_timed(device: str, x_path: str, y_path: str, cfg_kw: dict,
+                profile_rounds: int) -> dict:
+    """chip_smoke's `multi` phase on one rank: api.train of the rows in
+    x_path / y_path (.npy, read memory-mapped: a rank reads its block and
+    the edge-fitting sample), timed; api.predict of the rank's block
+    through K3; then `profile_rounds` fused rounds replayed under
+    torch.profiler for the collectives' share of a round. Returns the
+    ensemble, the rank's raw scores, the counters over train + predict,
+    times and the profile."""
+    X = np.load(x_path, mmap_mode="r")
+    y = np.load(y_path)
+    cfg = _config(device, cfg_kw)
+    be = get_backend(cfg)
+    before = _counters()
+    t0 = time.perf_counter()
+    res = api.train(X, y, cfg, backend=be)
+    _sync()
+    train_s = time.perf_counter() - t0
+    trained = _counters()
+    start, stop, _ = mesh.row_block(len(y), be.world, be.rank)
+    raw = api.predict(res.ensemble, X[start:stop], mapper=res.mapper,
+                      raw=True, cfg=cfg.replace(n_partitions=1))
+    counters = _since(before)
+    train_counters = {k: trained[k] - before[k] for k in trained}
+    # The profiled window: replays of the round on the same rows.
+    local = mesh.row_block(len(y), be.world, be.rank)[2]
+    data = be.upload(mesh.RowBlock(mesh.pad_rows(
+        res.mapper.transform_device(X[start:stop], be.device), local),
+        len(y)))
+    yh = be.upload_labels(y)
+    pred = be.init_pred(yh, res.ensemble.base_score)
+    be.grow_rounds(data, pred, yh, 1)
+    calls = comms.calls
+    prof = _profile_share(lambda: be.grow_rounds(data, pred, yh,
+                                                 profile_rounds))
+    prof["ms_per_round"] = 1e3 * prof["wall_s"] / profile_rounds
+    prof["collectives_per_round"] = (comms.calls - calls) / profile_rounds
+    blk = cfg.fused_block_rounds
+    steady = [r["ms"] for r in res.history[blk:]]
+    return {"ensemble": res.ensemble, "raw": raw.astype(np.float32),
+            "rank": be.rank, "device": str(be.device),
+            "card": (torch.cuda.get_device_name(be.device)
+                     if be.device.type == "cuda" else "cpu"),
+            "split_comms": be.split_comms, "train_s": train_s,
+            "fused_ms_per_round": float(np.mean(steady)) if steady else None,
+            "counters": counters, "train_counters": train_counters,
+            "bytes_model": be.collective_bytes_per_tree(
+                res.ensemble.n_features),
+            "profile": prof}

@@ -2,8 +2,9 @@
 
 Each kernel wrapper keeps plain integer counters on its module
 (ops/hist_cuda.launches and .launches_int, ops/predict_cuda.launches,
-ops/predict_lut_cuda.launches_lut and .launches_lut4); chip_smoke zeroes
-them just before a path and reads them just after. A wrapper calls
+ops/predict_lut_cuda.launches_lut and .launches_lut4), and parallel/comms
+its collectives and their bytes; chip_smoke zeroes them just before a
+path and reads them just after. A wrapper calls
 `count(module, name)` where it launches its kernel. Inside a CUDA-graph
 capture nothing runs: the launch goes into the capture's `Recording`
 instead, and every replay of the graph adds what its capture recorded
@@ -47,10 +48,12 @@ def recording():
         _local.rec = prev
 
 
-def count(module: str, name: str) -> None:
-    """One launch of the kernel behind counter `module`.`name`: added now,
-    or recorded when the current stream is capturing a graph. A capture
-    with no Recording open raises: its replays would go uncounted."""
+def count(module: str, name: str, n: int = 1) -> None:
+    """One launch of the kernel behind counter `module`.`name` (or `n` of
+    whatever that counter counts, such as a collective's bytes): added
+    now, or recorded when the current stream is capturing a graph. A
+    capture with no Recording open raises: its replays would go
+    uncounted."""
     if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
         rec = getattr(_local, "rec", None)
         if rec is None:
@@ -59,7 +62,7 @@ def count(module: str, name: str) -> None:
                 "capture with no launch recording open (wrap the capture "
                 "in utils.launches.recording())")
         key = (module, name)
-        rec.counts[key] = rec.counts.get(key, 0) + 1
+        rec.counts[key] = rec.counts.get(key, 0) + n
         return
     mod = sys.modules[module]
-    setattr(mod, name, getattr(mod, name) + 1)
+    setattr(mod, name, getattr(mod, name) + n)

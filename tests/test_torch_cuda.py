@@ -936,3 +936,60 @@ def test_traverse_depth8_seven_classes_many_trees(dev):
     for n in (1, 256, 5000):
         got, want = _score_both(ens, X[:n], dev)
         np.testing.assert_array_equal(got, want)
+
+
+def _nccl_case():
+    rng = np.random.default_rng(8)
+    X = rng.standard_normal((60_000, 12)).astype(np.float32)
+    y = (X[:, 0] + 0.5 * X[:, 1] * X[:, 2]
+         + rng.standard_normal(60_000) > 0).astype(np.float32)
+    kw = dict(n_trees=6, max_depth=5, n_bins=63, grad_dtype="int8",
+              subsample=0.8, seed=1, fused_block_rounds=3)
+    return X, y, kw
+
+
+def test_nccl_world_one_captured_round_equals_granular(dev):
+    """One NCCL rank: the round's collectives are captured with it and
+    replayed (the comms counters move per replay), and the int8 trees
+    equal the granular loop's and the no-group run's bit for bit."""
+    from ddt_tpu_torch import api
+    from ddt_tpu_torch.config import TrainConfig
+    from ddt_tpu_torch.parallel import spawn, tasks
+
+    X, y, kw = _nccl_case()
+    with spawn.Pool(1, backend="nccl", device="cuda") as pool:
+        fused = pool.run(tasks.train, X, y, kw)[0]
+        gran = pool.run(tasks.train, X, y, kw, None, "granular")[0]
+    c = fused["counters"]
+    assert c["cuda.graph_captures"] == 1 and c["cuda.graph_replays"] == 6
+    # The warm-up round before the capture runs its collectives too.
+    assert c["comms.modeled_bytes"] == 7 * fused["bytes_model"] > 0
+    assert gran["counters"]["comms.calls"] > 0
+    alone = api.train(X, y, TrainConfig(**kw)).ensemble
+    for k in _FIELDS:
+        np.testing.assert_array_equal(getattr(fused["ensemble"], k),
+                                      getattr(gran["ensemble"], k))
+        np.testing.assert_array_equal(getattr(fused["ensemble"], k),
+                                      getattr(alone, k))
+
+
+@pytest.mark.parametrize("split_comms", ["allreduce", "reduce_scatter"])
+def test_two_nccl_ranks_int8_equal_one_card(dev, split_comms):
+    """Two ranks on two cards grow the one card's int8 trees bit for
+    bit."""
+    from ddt_tpu_torch import api
+    from ddt_tpu_torch.config import TrainConfig
+    from ddt_tpu_torch.parallel import spawn, tasks
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 cards (NCCL lets no two ranks share one); "
+                    f"this machine has {torch.cuda.device_count()}")
+    X, y, kw = _nccl_case()
+    kw = dict(kw, split_comms=split_comms)
+    outs = spawn.spawn(tasks.train, 2, "nccl", "cuda", X, y, kw)
+    alone = api.train(X, y, TrainConfig(**kw)).ensemble
+    for o in outs:
+        assert o["split_comms"] == split_comms
+        for k in _FIELDS:
+            np.testing.assert_array_equal(getattr(o["ensemble"], k),
+                                          getattr(alone, k))

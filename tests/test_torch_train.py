@@ -124,7 +124,8 @@ def test_config_validation(bad):
         TrainConfig(**bad)
 
 
-@pytest.mark.parametrize("unported", ["hist_comms_dtype", "n_partitions",
+@pytest.mark.parametrize("unported", ["feature_partitions",
+                                      "host_partitions", "hist_comms_slabs",
                                       "fault_plan", "backend",
                                       "hist_impl"])
 def test_unported_fields_are_absent(unported):
