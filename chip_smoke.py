@@ -164,7 +164,8 @@ Phases:
              100 rounds) at 1M rows a rank, on P = min(4, cards) NCCL ranks
              started by parallel/spawn, one card each, every rank calling
              api.train with the same rows: f32 with split_comms allreduce
-             and reduce_scatter, int8 allreduce. Held: every rank's
+             and reduce_scatter (hist_comms_slabs 1 and 4), int8
+             allreduce. Held: every rank's
              ensemble bitwise equal; int8 bitwise equal to one card trained
              on the same P x 1M rows; f32's first divergence from that run
              reported and its AUC within 0.005; the collectives' modeled
@@ -175,13 +176,41 @@ Phases:
              ranks'. With one card the same code runs one NCCL rank (the
              captured round holds its collectives) and the phase says the
              multi-rank wire was not witnessed.
+    The 2D mesh, the hosts axis, slabs and checkpoints under partitions
+ 24 mesh2d   BASELINE config 5's width (stress_binned_chunk: 1024 binned
+             features, 255 bins, binary) at 1M rows in all, depth 6, 20
+             rounds in fused blocks of 10. On one card first: K1 on one
+             tree's levels at the shapes a rank sees (1M x 1024, a (2, 2)
+             rank's 500k x 512, a (1, 4) rank's 1M x 256: kernel, plain,
+             library and bound), and the one-card f32 and int8 runs (wall,
+             ms a round, K1 ms a round from a profiled window, AUC). Then
+             on four NCCL ranks (four cards): mesh (2, 2) in f32 (it
+             resolves to reduce_scatter) and int8, (1, 4) in f32 (it
+             resolves to allreduce), and 2 emulated hosts x 2 rows in f32
+             with hist_comms_slabs 4 and 1, and in int8 with 4. Held:
+             every rank's ensemble bitwise equal; int8 bitwise equal to
+             the one card's (slabs too); f32's first divergence reported
+             and AUC within 0.005; the counted modeled bytes equal to
+             (replays + the warm-up round) x the model a tree
+             (16,716,224 B at (2, 2) and (1, 4)); f32 slabs 4 against 1
+             AUC within 0.005, the first divergence reported; K1 and K3
+             launched on every rank. Times: api.train wall, ms a
+             round, K1 ms a round and the NCCL kernels' share of a profiled
+             window per rank, the routing broadcast's bytes and ms a level,
+             the speedup over one card. Then an int8 (2, 2) run stopped at
+             round 10 with a checkpoint, resumed to 20 on one card with no
+             group: bitwise the one card's. With one card the same code
+             runs one NCCL rank at mesh (1, 1) with 4 slabs and the
+             checkpoint case, and the phase says the mesh was not
+             witnessed.
   then the {"kernels": [...]} line (K1 and K3 report covertype, the other
   paths' launches under "paths"), nvidia-smi's line, and the ok line.
 
     python3 chip_smoke.py --phase multi
+    python3 chip_smoke.py --phase mesh2d
 
-runs the device, build and multi phases alone (the call to make on a
-machine with several cards) and ends with the same ok line.
+run the device, build and multi (or mesh2d) phases alone (the calls to
+make on a machine with several cards) and end with the same ok line.
 """
 
 from __future__ import annotations
@@ -202,7 +231,8 @@ from ddt_tpu_torch.backends import get_backend
 from ddt_tpu_torch.breakdown import profiled
 from ddt_tpu_torch.config import TrainConfig
 from ddt_tpu_torch.data.categorical import fit_categorical_encoder
-from ddt_tpu_torch.data.datasets import (synthetic_binary, synthetic_ctr,
+from ddt_tpu_torch.data.datasets import (stress_binned_chunk,
+                                         synthetic_binary, synthetic_ctr,
                                          synthetic_missing,
                                          synthetic_multiclass)
 from ddt_tpu_torch.data.quantizer import (BinMapper, feature_bincounts,
@@ -212,7 +242,7 @@ from ddt_tpu_torch.models.tree import empty_ensemble
 from ddt_tpu_torch.ops import (grad, hist_cuda, histogram, predict,
                                predict_cuda, predict_lut, predict_lut_cuda,
                                quantize, sampling)
-from ddt_tpu_torch.parallel import spawn, tasks
+from ddt_tpu_torch.parallel import comms, spawn, tasks
 from ddt_tpu_torch.serve import ServeEngine
 from ddt_tpu_torch.utils.metrics import accuracy, auc, logloss
 
@@ -262,8 +292,33 @@ MULTI_ROWS = 1_000_000        # BASELINE config 3: rows a rank
 MULTI_ROUNDS = 100
 MULTI_BLOCK = 20              # fused blocks; rounds after the first are steady
 MULTI_PROFILE = 5             # rounds in each rank's profiled window
-MULTI_CASES = (("f32", "allreduce"), ("f32", "reduce_scatter"),
-               ("int8", "allreduce"))
+#: (gradients, split_comms, hist_comms_slabs); slabs 4 beside 1 under
+#: reduce_scatter, config 3's default.
+MULTI_CASES = (("f32", "allreduce", 1), ("f32", "reduce_scatter", 1),
+               ("int8", "allreduce", 1), ("f32", "reduce_scatter", 4))
+MESH_ROWS = 1_000_000         # BASELINE config 5's rows, cut to one run
+MESH_FEATURES = 1024          # config 5's width, not cut
+MESH_ROUNDS = 20
+MESH_BLOCK = 10               # fused blocks; the second block is steady
+MESH_PROFILE = 3              # rounds in each rank's profiled window
+MESH_CKPT_EVERY = 10          # the checkpoint case stops here
+#: comms.hist_allreduce_bytes at depth 6, 1024 features, 255 bins with
+#: subtraction: (2, 2) under reduce-scatter and (1, 4) under allreduce.
+MESH_MODEL_BYTES = 16_716_224
+#: (case, mesh) on four cards, and on one.
+MESH_CASES_4 = (
+    ("2x2_f32", dict(mesh_shape=(2, 2))),
+    ("2x2_int8", dict(mesh_shape=(2, 2), grad_dtype="int8")),
+    ("1x4_f32", dict(mesh_shape=(1, 4))),
+    ("2hx2_slabs4_f32", dict(host_partitions=2, n_partitions=2,
+                             hist_comms_slabs=4)),
+    ("2hx2_slabs1_f32", dict(host_partitions=2, n_partitions=2,
+                             hist_comms_slabs=1)),
+    ("2hx2_slabs4_int8", dict(host_partitions=2, n_partitions=2,
+                              hist_comms_slabs=4, grad_dtype="int8")))
+MESH_CASES_1 = (("1x1_slabs4_f32", dict(mesh_shape=(1, 1),
+                                        host_partitions=1,
+                                        hist_comms_slabs=4)),)
 TIER_IMPL = {None: "auto", "int8": "lut", "int4": "lut4"}
 TIER_RESOLVED = {None: "f32", "int8": "lut", "int4": "lut4"}
 
@@ -1660,7 +1715,8 @@ def read_counters() -> dict:
 
 
 def hist_tree(Xd: torch.Tensor, levels: list, card: dict,
-              flush: torch.Tensor, seed: int) -> dict:
+              flush: torch.Tensor, seed: int,
+              reps: tuple = (20, 3, 5)) -> dict:
     """K1 on the node indices of one recorded tree, level by level, against
     its plain version (check_hist), and the tree's sums: kernel, plain and
     library (two torch.bincount) device ms, and the bound (hist_bound_ms
@@ -1690,12 +1746,12 @@ def hist_tree(Xd: torch.Tensor, levels: list, card: dict,
               "plan": hist_cuda.plan_tiles(N, F, 255,
                                            _build.smem_limit(dev)).__dict__,
               "kernel_ms": time_ms(lambda: hist_cuda.build_histograms_cuda(
-                  *args), 20, flush),
+                  *args), reps[0], flush),
               "plain_ms": time_ms(lambda: histogram.build_histograms_segment(
-                  *args), 3, flush),
+                  *args), reps[1], flush),
               "library_ms": time_ms(lambda: (
                   torch.bincount(key, wg, minlength=m),
-                  torch.bincount(key, wh, minlength=m)), 5, flush),
+                  torch.bincount(key, wh, minlength=m)), reps[2], flush),
               "bound_bytes_ms": t_bytes, "bound_ops_ms": t_ops,
               "bound_ms": max(t_bytes, t_ops), "max_abs_err": err}
         del key, wg, wh
@@ -2182,6 +2238,15 @@ def multi_launches(multi: dict, kernel: str) -> dict:
             for case, row in multi["cases"].items()}
 
 
+def mesh_launches(mesh2d: dict, kernel: str) -> dict:
+    """The mesh2d phase's launches of one kernel: per rank, by case, and
+    the one-card resume's."""
+    out = {case: [r[kernel] for r in row["launches"]]
+           for case, row in mesh2d["cases"].items()}
+    out["resume_one_card"] = mesh2d["checkpoint"]["launches"][kernel]
+    return out
+
+
 def phase_multi(card: dict) -> dict:
     n_cards = torch.cuda.device_count()
     P = min(4, n_cards)
@@ -2213,12 +2278,15 @@ def phase_multi(card: dict) -> dict:
         with spawn.Pool(P, backend="nccl", device="cuda",
                         timeout_s=900.0) as pool:
             out["pool_start_s"] = time.perf_counter() - t0
-            for dt, sc in cases:
+            for dt, sc, slabs in cases:
                 ranks = pool.run(tasks.train_timed, xp, yp,
-                                 dict(base, grad_dtype=dt, split_comms=sc),
+                                 dict(base, grad_dtype=dt, split_comms=sc,
+                                      hist_comms_slabs=slabs),
                                  MULTI_PROFILE)
-                out["cases"][f"{dt}_{sc}"] = multi_case(
-                    dt, sc, ranks, alone[dt], y, P)
+                name = f"{dt}_{sc}" + (f"_slabs{slabs}" if slabs > 1
+                                       else "")
+                out["cases"][name] = multi_case(
+                    name, dt, sc, ranks, alone[dt], y, P)
     for dt in alone:
         del alone[dt]["res"]
     out["one_card"] = alone
@@ -2229,11 +2297,11 @@ def phase_multi(card: dict) -> dict:
     return out
 
 
-def multi_case(dt: str, sc: str, ranks: list, alone: dict,
+def multi_case(name: str, dt: str, sc: str, ranks: list, alone: dict,
                y: np.ndarray, P: int) -> dict:
     """Hold one partitioned run (a result per rank, parallel/tasks.
     train_timed) against its ranks and the one-card run."""
-    what = f"multi {dt} {sc}"
+    what = f"multi {name}"
     e0 = ranks[0]["ensemble"]
     for r in ranks[1:]:
         for k in TREE_FIELDS:
@@ -2284,8 +2352,260 @@ def multi_case(dt: str, sc: str, ranks: list, alone: dict,
                    "hist_int": r["counters"]["hist_cuda.launches_int"],
                    "traverse": r["counters"]["predict_cuda.launches"]}
                   for r in ranks])
-    emit({"phase": "multi", "case": f"{dt}_{sc}", "ranks": P, **row})
+    emit({"phase": "multi", "case": name, "ranks": P, **row})
     return row
+
+
+# --------------------------------------------------------------------- #
+# the 2D rows x features mesh, the hosts axis, slab-pipelined collectives
+# and checkpoints under partitions: BASELINE config 5's width
+# --------------------------------------------------------------------- #
+
+def k1_shapes(Xd: torch.Tensor, y: np.ndarray, card: dict,
+              flush: torch.Tensor) -> dict:
+    """K1 on one tree's levels (hist_tree, fewer repetitions) at the
+    shapes a rank's K1 sees at config 5's width: one card's 1M x 1024,
+    a (2, 2) rank's 500k x 512 and a (1, 4) rank's 1M x 256."""
+    R = Xd.shape[0]
+    out = {}
+    for name, r, f in (("1x1", R, MESH_FEATURES),
+                       ("2x2", R // 2, MESH_FEATURES // 2),
+                       ("1x4", R, MESH_FEATURES // 4)):
+        Xs = Xd[:r, :f].contiguous()
+        levels = tree_levels(Xs, float(y[:r].mean()), y[:r], DEPTH)
+        t = hist_tree(Xs, levels, card, flush, seed=7, reps=(5, 1, 1))
+        out[name] = {k: t[k] for k in (
+            "kernel_ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_bytes_ms", "bound_ops_ms", "bound_by", "max_abs_err")}
+        out[name].update(rows=r, features=f,
+                         slabs=[lv["plan"]["n_slabs"]
+                                for lv in t["levels"]])
+        del Xs, levels
+    return out
+
+
+def mesh_one_card(Xb: np.ndarray, Xd: torch.Tensor, y: np.ndarray,
+                  base: dict, card: dict, flush: torch.Tensor) -> dict:
+    """The one-card yardstick on all rows (no process group), f32 and
+    int8: the trained model, api.train wall, fused ms a round after the
+    first block, AUC on the training rows (K3), and a profiled window of
+    MESH_PROFILE replays (K1's device ms a round). Then K3 on the f32
+    model at 1M x 1024 (rows too wide for a block of one row a thread:
+    the pairs mapping), bitwise its plain version, timed."""
+    out = {}
+    for dt in ("f32", "int8"):
+        cfg = TrainConfig(grad_dtype=dt, **base)
+        res, train_s = synced(lambda: api.train(Xb, y, cfg, binned=True))
+        be = get_backend(cfg)
+        data = be.upload(Xd)
+        yh = be.upload_labels(y)
+        pred = be.init_pred(yh, res.ensemble.base_score)
+        be.grow_rounds(data, pred, yh, 1)
+        prof = profiled(lambda: be.grow_rounds(data, pred, yh,
+                                               MESH_PROFILE))
+        del data, pred
+        out[dt] = {
+            "res": res, "train_s": train_s,
+            "ms_per_round": float(np.mean(
+                [r["ms"] for r in res.history[MESH_BLOCK:]])),
+            "profile_ms_per_round": 1e3 * prof["wall_s"] / MESH_PROFILE,
+            "k1_ms_per_round": prof["hist_kernel_ms"] / MESH_PROFILE,
+            "busy_share": prof["busy_share"],
+            "auc": auc(y, api.predict(res.ensemble, Xd, binned=True,
+                                      raw=True))}
+    ce = out["f32"]["res"].ensemble.compile(tree_chunk=64)
+    tables, kernel, plain = device_operands(ce, Xd.device)
+    k3 = traverse_row(kernel, plain, tables, ce, Xd, card, flush,
+                      (1, 256, 67_584), "mesh2d traverse")
+    k3["plan"] = k3_plan(tables, Xd.shape[0], Xd.shape[1])._asdict()
+    out["k3"] = k3
+    return out
+
+
+def phase_mesh2d(card: dict, flush: torch.Tensor) -> dict:
+    n_cards = torch.cuda.device_count()
+    P = 4 if n_cards >= 4 else 1
+    t0 = time.perf_counter()
+    Xb, y = stress_binned_chunk(0, MESH_ROWS, n_features=MESH_FEATURES,
+                                n_bins=255, seed=0)
+    data_s = time.perf_counter() - t0
+    base = dict(n_trees=MESH_ROUNDS, max_depth=DEPTH, n_bins=255,
+                fused_block_rounds=MESH_BLOCK)
+    Xd = torch.from_numpy(Xb).to("cuda")
+    k1 = k1_shapes(Xd, y, card, flush)
+    alone = mesh_one_card(Xb, Xd, y, base, card, flush)
+    del Xd
+    k3 = alone.pop("k3")
+    out = {"card": card["smi"], "cards": n_cards, "ranks": P,
+           "rows": MESH_ROWS, "features": MESH_FEATURES,
+           "rounds": MESH_ROUNDS, "data_s": data_s, "k1": k1, "k3": k3,
+           "cases": {},
+           "one_card": {dt: {k: v for k, v in a.items() if k != "res"}
+                        for dt, a in alone.items()}}
+    emit({"phase": "mesh2d", "k1": k1, "k3": k3,
+          "one_card": out["one_card"]})
+    cases = MESH_CASES_4 if P == 4 else MESH_CASES_1
+    with tempfile.TemporaryDirectory() as d:
+        xp, yp, ck = f"{d}/x.npy", f"{d}/y.npy", f"{d}/ckpt"
+        np.save(xp, Xb)
+        np.save(yp, y)
+        t0 = time.perf_counter()
+        with spawn.Pool(P, backend="nccl", device="cuda",
+                        timeout_s=900.0) as pool:
+            out["pool_start_s"] = time.perf_counter() - t0
+            for name, kw in cases:
+                ranks = pool.run(tasks.train_mesh, xp, yp, dict(base, **kw),
+                                 None, MESH_PROFILE)
+                out["cases"][name] = mesh_case(name, kw, ranks, alone, y, P)
+            ck_kw = dict(base, grad_dtype="int8", n_trees=MESH_CKPT_EVERY,
+                         **({"mesh_shape": (2, 2)} if P == 4
+                            else {"mesh_shape": (1, 1)}))
+            ranks = pool.run(tasks.train_mesh, xp, yp, ck_kw,
+                             dict(checkpoint_dir=ck,
+                                  checkpoint_every=MESH_CKPT_EVERY), 0)
+        out["checkpoint"] = mesh_resume(ranks, Xb, y, ck, base, alone)
+    if "2hx2_slabs4_f32" in out["cases"]:
+        out["slabs"] = mesh_slabs(out["cases"], y)
+        print("mesh2d: the hosts axis is emulated on one node: cross-node "
+              "traffic is not witnessed", flush=True)
+    if P == 1:
+        emit({"phase": "mesh2d", "ranks": 1,
+              "mesh2d": "not witnessed: 1 card"})
+    emit({"phase": "mesh2d", **{k: v for k, v in out.items()
+                                if k not in ("cases", "k1", "k3",
+                                             "one_card")}})
+    return out
+
+
+def mesh_case(name: str, kw: dict, ranks: list, alone: dict,
+              y: np.ndarray, P: int) -> dict:
+    """Hold one mesh run (a result per rank, parallel/tasks.train_mesh)
+    against its ranks, the payload model and the one-card run."""
+    what = f"mesh2d {name}"
+    dt = kw.get("grad_dtype", "f32")
+    e0 = ranks[0]["ensemble"]
+    for r in ranks[1:]:
+        for k in TREE_FIELDS:
+            check(np.array_equal(getattr(r["ensemble"], k), getattr(e0, k)),
+                  f"{what}: rank {r['rank']} {k} == rank 0's, bitwise")
+    one = alone[dt]["res"].ensemble
+    row = {"mesh": kw, "split_comms": ranks[0]["split_comms"],
+           "comms_slabs": ranks[0]["comms_slabs"],
+           "columns_per_rank": ranks[0]["columns"],
+           "cards": [r["device"] for r in ranks],
+           "coords": [r["coords"] for r in ranks],
+           **first_divergence(one, e0)}
+    if dt == "int8":
+        for k in TREE_FIELDS:
+            check(np.array_equal(getattr(one, k), getattr(e0, k)),
+                  f"{what}: {k} == one card's, bitwise")
+        row["bitwise_equal_one_card"] = True
+    # Feature shard 0's ranks score row blocks that tile the rows.
+    raw = np.concatenate([r["raw"] for r in ranks if r["raw"] is not None])
+    a = auc(y, raw[:len(y)])
+    row.update(auc=a, auc_one_card=alone[dt]["auc"])
+    check(abs(a - alone[dt]["auc"]) <= 0.005,
+          f"{what}: AUC {a} vs one card {alone[dt]['auc']}")
+    cfg = TrainConfig(**kw)
+    model = comms.hist_allreduce_bytes(
+        DEPTH, MESH_FEATURES, 255, partitions=cfg.row_shards,
+        feature_partitions=cfg.feature_partitions,
+        mode=ranks[0]["split_comms"], subtraction=True, grad_dtype=dt)
+    if name in ("2x2_f32", "1x4_f32"):
+        check(model == MESH_MODEL_BYTES,
+              f"{what}: model {model} == {MESH_MODEL_BYTES}")
+    for r in ranks:
+        c = r["train_counters"]
+        rounds = c["cuda.graph_replays"] + c["cuda.graph_captures"]
+        check(c["cuda.graph_captures"] == 1
+              and c["cuda.graph_replays"] == MESH_ROUNDS,
+              f"{what}: one capture, a replay a round: {c}")
+        check(r["bytes_model"] == model,
+              f"{what}: backend model {r['bytes_model']} == {model}")
+        check(c["comms.modeled_bytes"] == rounds * model,
+              f"{what}: modeled bytes {c['comms.modeled_bytes']} == "
+              f"{rounds} rounds x {model}")
+        k1 = "hist_cuda.launches" + ("_int" if dt == "int8" else "")
+        check(r["counters"][k1] > 0
+              and r["counters"]["predict_cuda.launches"] > 0,
+              f"{what}: K1 ({k1}) and K3 launched on rank {r['rank']}")
+    ms = [r["fused_ms_per_round"] for r in ranks]
+    prof = [r["profile"] for r in ranks]
+    row.update(
+        train_s=[r["train_s"] for r in ranks],
+        fused_ms_per_round=ms,
+        profile_ms_per_round=[p["ms_per_round"] for p in prof],
+        k1_ms_per_round=[p["k1_ms_per_round"] for p in prof],
+        nccl_share_of_wall=[p["nccl_share_of_wall"] for p in prof],
+        nccl_share_of_busy=[p["nccl_share_of_busy"] for p in prof],
+        nccl_by_kernel=prof[0]["nccl_by_kernel"],
+        one_card_ms_per_round=alone[dt]["ms_per_round"],
+        speedup=alone[dt]["ms_per_round"] / max(ms),
+        bytes_per_tree_model=model,
+        modeled_bytes=[r["train_counters"]["comms.modeled_bytes"]
+                       for r in ranks],
+        other_bytes=[r["train_counters"]["comms.other_bytes"]
+                     for r in ranks],
+        other_bytes_per_round=[p["other_bytes_per_round"] for p in prof],
+        route=[r.get("route") for r in ranks],
+        launches=[{"hist": r["counters"]["hist_cuda.launches"],
+                   "hist_int": r["counters"]["hist_cuda.launches_int"],
+                   "traverse": r["counters"]["predict_cuda.launches"]}
+                  for r in ranks])
+    emit({"phase": "mesh2d", "case": name, "ranks": P,
+          **{k: v for k, v in row.items() if k != "ensemble"}})
+    row["ensemble"] = e0
+    row["auc_value"] = a
+    return row
+
+
+def mesh_slabs(cases: dict, y: np.ndarray) -> dict:
+    """Slabs 4 against 1 on the emulated hosts axis, f32: the first
+    divergence (K1's float atomics part two f32 runs of the card beyond
+    ties by themselves, PERF.md section 6), AUC within 0.005, and the
+    round time each gives. Slabs' exactness is held in int8 (case
+    2hx2_slabs4_int8: bitwise the one card's)."""
+    s4, s1 = cases["2hx2_slabs4_f32"], cases["2hx2_slabs1_f32"]
+    check(abs(s4["auc_value"] - s1["auc_value"]) <= 0.005,
+          f"slabs 4 AUC {s4['auc_value']} vs slabs 1 {s1['auc_value']}")
+    out = {**first_divergence(s1["ensemble"], s4["ensemble"]),
+           "fused_ms_per_round": {"slabs1": max(s1["fused_ms_per_round"]),
+                                  "slabs4": max(s4["fused_ms_per_round"])},
+           "profile_ms_per_round": {
+               "slabs1": max(s1["profile_ms_per_round"]),
+               "slabs4": max(s4["profile_ms_per_round"])}}
+    emit({"phase": "mesh2d", "slabs": out})
+    return out
+
+
+def mesh_resume(ranks: list, Xb: np.ndarray, y: np.ndarray, ck: str,
+                base: dict, alone: dict) -> dict:
+    """The int8 checkpoint the mesh's rank 0 wrote after MESH_CKPT_EVERY
+    rounds, resumed to MESH_ROUNDS on one card with no process group:
+    bitwise the uninterrupted one-card run."""
+    e0 = ranks[0]["ensemble"]
+    for r in ranks[1:]:
+        for k in TREE_FIELDS:
+            check(np.array_equal(getattr(r["ensemble"], k), getattr(e0, k)),
+                  f"mesh2d checkpoint: rank {r['rank']} {k} == rank 0's")
+    zero_counters()
+    res, resume_s = synced(lambda: api.train(
+        Xb, y, TrainConfig(grad_dtype="int8", **base), binned=True,
+        checkpoint_dir=ck, checkpoint_every=MESH_CKPT_EVERY))
+    launches = read_counters()
+    check(len(res.history) == MESH_ROUNDS - MESH_CKPT_EVERY,
+          f"mesh2d checkpoint: resumed {len(res.history)} rounds")
+    one = alone["int8"]["res"].ensemble
+    for k in TREE_FIELDS:
+        check(np.array_equal(getattr(one, k), getattr(res.ensemble, k)),
+              f"mesh2d checkpoint: resumed {k} == one card's, bitwise")
+    out = {"written_by": f"{len(ranks)} NCCL rank(s), "
+                         f"{ranks[0]['coords']} ...",
+           "rounds_before": ranks[0]["history_len"],
+           "rounds_after": len(res.history), "resume_train_s": resume_s,
+           "bitwise_equal_one_card": True, "launches": launches}
+    emit({"phase": "mesh2d", "checkpoint": out})
+    return out
 
 
 def main(argv: list[str]) -> int:
@@ -2293,15 +2613,19 @@ def main(argv: list[str]) -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs a CUDA card", file=sys.stderr)
         return 2
-    if argv not in ([], ["--phase", "multi"]):
+    if argv not in ([], ["--phase", "multi"], ["--phase", "mesh2d"]):
         print(f"chip_smoke: unknown arguments {argv}; usage: chip_smoke.py "
-              "[--phase multi]", file=sys.stderr)
+              "[--phase multi|mesh2d]", file=sys.stderr)
         return 2
     t_start = time.perf_counter()
     card = phase_device()
     phase_build()
     if argv:
-        phase_multi(card)
+        if argv[1] == "multi":
+            phase_multi(card)
+        else:
+            phase_mesh2d(card, torch.empty(64 << 20, dtype=torch.uint8,
+                                           device="cuda"))
         emit({"phase": "done", "wall_s": time.perf_counter() - t_start})
         print(card["smi"], flush=True)
         emit({"ok": True, "device": {"platform": "gpu", "kind": card["name"],
@@ -2341,6 +2665,7 @@ def main(argv: list[str]) -> int:
     resume = phase_resume()
     phase_covertype_parity()
     multi = phase_multi(card)
+    mesh2d = phase_mesh2d(card, flush)
     launches = main_run["launches"]
     k2 = hist_int["rows"][("int16", 64, 32)]
 
@@ -2378,7 +2703,8 @@ def main(argv: list[str]) -> int:
              "missing": missing["launches"]["hist"],
              "categorical": categorical["launches"]["hist"],
              "resume": resume["launches"]["hist"],
-             "multi": multi_launches(multi, "hist")}},
+             "multi": multi_launches(multi, "hist"),
+             "mesh2d": mesh_launches(mesh2d, "hist")}},
         {"name": "traverse", "route": "cuda",
          "source": "ddt_tpu_torch/csrc/lut.cu",
          "replaces": "ddt_tpu/ops/predict_pallas.py:105",
@@ -2395,7 +2721,8 @@ def main(argv: list[str]) -> int:
              "missing": missing["launches"]["traverse"],
              "categorical": categorical["launches"]["traverse"],
              "weights": weights["launches"]["traverse"],
-             "multi": multi_launches(multi, "traverse")}},
+             "multi": multi_launches(multi, "traverse"),
+             "mesh2d": mesh_launches(mesh2d, "traverse")}},
         lut_entry("lut", 376),
         lut_entry("lut4", 674),
         {"name": "hist_int", "route": "cuda",
@@ -2404,7 +2731,8 @@ def main(argv: list[str]) -> int:
          "launches": train_q["launches"]["hist_int"],
          "paths": {"weights": weights["launches"]["hist_int"],
                    "resume": resume["launches"]["hist_int"],
-                   "multi": multi_launches(multi, "hist_int")},
+                   "multi": multi_launches(multi, "hist_int"),
+                   "mesh2d": mesh_launches(mesh2d, "hist_int")},
          "max_abs_err": hist_int["max_abs_err"],
          "ms": hist_int["int8"]["kernel_ms"],
          "plain_ms": hist_int["int8"]["plain_ms"],

@@ -17,14 +17,17 @@ api.train takes what ddt_tpu.api.train takes for one device: softmax
 sample_weight, eval_set / eval_metric / early_stopping_rounds and
 checkpoint_dir / checkpoint_every.
 
-Row partitions (cfg.n_partitions > 1): every rank of an initialised
-torch.distributed group of n_partitions ranks calls train with the same
-full X and y, as the reference's one controller sees all of X. The edges
-are fitted on the host from all rows, the same on every rank (a digest
-of them is all-gathered and the ranks must agree); each rank then bins
-only its block of the padded rows on its device (parallel/mesh.
-row_block), and the reference bin counts are summed over the ranks. Every
-rank returns the same ensemble.
+The mesh (cfg.world_size = host_partitions x n_partitions x
+feature_partitions > 1): every rank of an initialised torch.distributed
+group of that many ranks calls train with the same full X and y, as the
+reference's one controller sees all of X. The edges are fitted on the
+host from all rows, the same on every rank (a digest of them is
+all-gathered over the world and the ranks must agree); each rank then
+bins only its block of the padded rows on its device (parallel/mesh.
+row_block), at full width, and the backend's upload keeps its column
+slab of it; the reference bin counts are summed over the row group (the
+ranks of a feature group hold the same rows). Every rank returns the
+same ensemble.
 """
 
 from __future__ import annotations
@@ -83,8 +86,8 @@ def fill_raw_thresholds(ens: TreeEnsemble, mapper: BinMapper) -> None:
 
 def _check_ranks_agree(be: DeviceBackend, X, mapper: BinMapper | None
                        ) -> None:
-    """All-gather a digest of the rows' shape and the fitted edges and
-    raise on every rank if any rank's differs."""
+    """All-gather a digest of the rows' shape and the fitted edges over
+    the world and raise on every rank if any rank's differs."""
     h = hashlib.blake2b(repr(tuple(X.shape)).encode(), digest_size=8)
     if mapper is not None:
         for k, v in sorted(mapper.save().items()):
@@ -92,7 +95,7 @@ def _check_ranks_agree(be: DeviceBackend, X, mapper: BinMapper | None
             h.update(np.ascontiguousarray(v).tobytes())
     mine = torch.tensor([int.from_bytes(h.digest(), "little", signed=True)],
                         dtype=torch.int64, device=be.device)
-    every = comms.all_gather(mine, be.group)
+    every = comms.all_gather(mine, be.mesh.world_group)
     if not bool((every == mine).all()):
         raise ValueError(
             "the ranks disagree on the training rows' shape or the fitted "
@@ -102,9 +105,10 @@ def _check_ranks_agree(be: DeviceBackend, X, mapper: BinMapper | None
 
 def _bin_rows(be: DeviceBackend, X, mapper: BinMapper):
     """X binned on the backend's device, and the mapper's reference bin
-    counts: all rows on one device; under row partitions this rank's
-    padded block (a RowBlock), the counts summed over the ranks."""
-    if be.group is None:
+    counts: all rows on one device; on a mesh this rank's padded row
+    block at full width (a RowBlock: upload cuts the column slab), the
+    counts summed over the row group."""
+    if be.mesh is None:
         Xb = mapper.transform_device(X, be.device)
         mapper.ref_counts = feature_bincounts(
             Xb, mapper.n_bins).cpu().numpy()
@@ -140,7 +144,7 @@ def train(
         cfg = TrainConfig(**cfg_overrides)
     elif cfg_overrides:
         cfg = cfg.replace(**cfg_overrides)
-    mesh.check_partitions(cfg.n_partitions)
+    mesh.check_partitions(cfg)
     be = backend if backend is not None else get_backend(cfg)
     if binned:
         Xb = X if isinstance(X, torch.Tensor) else np.asarray(X)
@@ -166,7 +170,7 @@ def train(
                     "by this BinMapper; refit it with "
                     f"cat_features={tuple(sorted(cfg.cat_features))} so "
                     "category ids survive binning")
-    if be.group is not None:
+    if be.mesh is not None:
         _check_ranks_agree(be, X, mapper)
     if not binned:
         Xb = _bin_rows(be, X, mapper)

@@ -10,11 +10,12 @@ quantized-gradient rounding key, and the reference keys bagged runs on it
 too (ddt_tpu/backends/__init__.py), so seed stays in the key whenever
 subsample < 1 or grad_dtype != "f32".
 
-A backend that binds the process group (cfg.n_partitions the world size
-of an initialised group, parallel/mesh.group_for) is not cached: a
-process that destroys and re-initialises its group (a test pool, say)
-must never get one back that holds a dead group. Every other backend is,
-a rank's scoring backend (n_partitions=1 in a larger group) too.
+A backend that binds a mesh (cfg.world_size the world size of an
+initialised group, parallel/mesh.binds; any shape, a group of one rank
+too) is not cached: a process that destroys and re-initialises its group
+(a test pool, say) must never get one back that holds dead groups. Every
+other backend is, a rank's scoring backend (one partition in a larger
+group) too.
 """
 
 from __future__ import annotations
@@ -33,8 +34,8 @@ _LOCK = threading.Lock()        # serving threads call get_backend too
 
 def get_backend(cfg: TrainConfig) -> DeviceBackend:
     """The backend for cfg.device (cached, least recently used evicted;
-    a fresh one where it binds the process group)."""
-    if mesh.group_for(cfg.n_partitions) is not None:
+    a fresh one where it binds a mesh)."""
+    if mesh.binds(cfg):
         return CUDADevice(cfg)
     seed_live = cfg.subsample < 1.0 or cfg.grad_dtype != "f32"
     key = cfg.replace(n_trees=1, fused_block_rounds=1,

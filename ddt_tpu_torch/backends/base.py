@@ -53,9 +53,13 @@ class DeviceBackend(abc.ABC):
     name: str = "abstract"
     #: Where the backend keeps data and state (a torch.device).
     device: Any = None
-    #: The torch.distributed process group of the row partitions it trains
-    #: over (None: one device), the group's size and this process's rank.
+    #: The mesh it trains on (parallel/mesh.Mesh; None: one device), its
+    #: row group (the ranks holding this rank's columns, by row shard), its
+    #: feature group (None without feature shards), the row shards and
+    #: this rank's row shard.
+    mesh: Any = None
     group: Any = None
+    feature_group: Any = None
     world: int = 1
     rank: int = 0
 
@@ -67,8 +71,8 @@ class DeviceBackend(abc.ABC):
     @abc.abstractmethod
     def upload(self, Xb: Any, shard: bool = True) -> Any:
         """Ship the binned uint8 matrix [R, F] (host, or a tensor) to the
-        device: under row partitions this rank's block, unless `shard` is
-        False (an eval set, which every rank scores whole)."""
+        device: on a mesh this rank's row block and column slab, unless
+        `shard` is False (an eval set, which every rank scores whole)."""
 
     @abc.abstractmethod
     def upload_labels(self, y: np.ndarray,
@@ -81,6 +85,11 @@ class DeviceBackend(abc.ABC):
         """Global id of this rank's first row, its block holding n_local
         rows (0 on one device): the bagging and rounding draws' base."""
         return self.rank * n_local
+
+    def n_features(self, data: Any) -> int:
+        """Global width of uploaded training rows (data's own unless the
+        backend cut a column slab)."""
+        return data.shape[1]
 
     # --- granular kernels (the parity surface) ---
 

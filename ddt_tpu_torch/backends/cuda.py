@@ -35,19 +35,26 @@ graph holds no branch on a tensor value. A failed capture or replay
 raises: the fused path never falls back to the granular loop or to the
 CPU.
 
-Row partitions (cfg.n_partitions > 1, port of TPUDevice's row mesh): in a
-process with an initialised torch.distributed group of n_partitions
-ranks, the backend binds to the rank's card (cuda:<LOCAL_RANK>, or the
-CPU), keeps the group, and resolves cfg.split_comms once. `upload` and
-`upload_labels` keep the rank's block of the padded rows (parallel/mesh.
-row_block; pad rows weigh 0, so their g, h and loss vanish), or take a
-RowBlock api.train binned on the device as it is; an eval set is uploaded
-whole on every rank (`shard=False`). Every collective of a round (the
-histogram collective, node totals and winners under reduce-scatter, the
+The mesh (cfg.world_size = host_partitions x n_partitions x
+feature_partitions > 1, or one rank of a group of one; port of
+TPUDevice's 2D mesh): in a process with an initialised torch.distributed
+group of that many ranks, the backend binds to the rank's card
+(cuda:<LOCAL_RANK>, or the CPU) and to its `Mesh` (parallel/mesh.
+make_mesh_2d: the row, feature and world groups), and resolves
+cfg.split_comms and cfg.hist_comms_slabs once. `world` and `rank` are
+the row shards and this rank's row shard. `upload` and `upload_labels`
+keep the rank's block of the padded rows (parallel/mesh.row_block; pad
+rows weigh 0, so their g, h and loss vanish) and, with feature shards,
+the rank's padded column slab of them (parallel/mesh.column_slab); a
+RowBlock api.train binned on the device holds the block at full width
+and loses its other columns here. An eval set is uploaded whole on every
+rank (`shard=False`). Every collective of a round (the histogram
+collective, node totals, winners, the routing broadcast, the
 quantization statistics, the leaf sums, the loss) is an NCCL call on the
-current stream, so the captured round holds them and each replay runs
-them: the communicator exists before the capture, made by the bin-range
-check of `upload` and by the warm-up round.
+current stream, or on NCCL's own stream ordered by events when slabs are
+pipelined, so the captured round holds them and each replay runs them:
+every group's communicator exists before the capture, made by
+make_mesh_2d, the bin-range check of `upload` and the warm-up round.
 """
 
 from __future__ import annotations
@@ -115,7 +122,7 @@ def _pack(tree) -> torch.Tensor:
 
 class CUDADevice(DeviceBackend):
     """Histogram-GBDT backend on PyTorch tensors: one device, or one rank
-    of a row-partitioned process group."""
+    of a hosts x rows x features mesh."""
 
     name = "cuda"
     PREDICT_CACHE_MAX = 4
@@ -126,21 +133,28 @@ class CUDADevice(DeviceBackend):
             raise RuntimeError(
                 "device='cuda' but torch.cuda.is_available() is False; "
                 "pass device='cpu' to run the plain versions on the CPU")
-        if cfg.n_partitions > 1:
-            mesh.check_partitions(cfg.n_partitions)
-        # A rank's scoring backend (n_partitions=1 in a larger group)
-        # keeps no group and runs no collective. Driver.fit refuses to
-        # train with a config whose n_partitions is not the world size.
-        self.group = mesh.group_for(cfg.n_partitions)
+        if cfg.world_size > 1:
+            mesh.check_partitions(cfg)
+        # A rank's scoring backend (one partition in a larger group)
+        # binds no mesh and runs no collective. Driver.fit refuses to
+        # train with a config whose mesh is not the world.
         self.device = (mesh.rank_device(cfg.device)
                        if mesh.is_initialized()
                        else torch.device(cfg.device))
-        if self.group is not None:
-            comms.check_group(self.device, self.group)
-        self.world = comms.world(self.group)
-        self.rank = comms.rank(self.group)
+        self.mesh = mesh.group_for(cfg)
+        if self.mesh is not None:
+            comms.check_group(self.device, self.mesh.world_group)
+            self.group = self.mesh.row_group
+            self.feature_group = self.mesh.feature_group
+            self.world = self.mesh.row_shards
+            self.rank = self.mesh.row_shard
+        # Global width of the last matrix `upload` cut into a column slab.
+        self._n_features: int | None = None
         self.split_comms = comms.resolve_split_comms(
             cfg.split_comms, row_shards=self.world)
+        self.comms_slabs = comms.resolve_comms_slabs(
+            cfg.hist_comms_slabs, distributed=self.mesh is not None,
+            device_type=self.device.type)
         self.hist_subtraction = grow_ops.resolve_hist_subtraction(
             cfg.hist_subtraction, self.device.type,
             integer_hists=cfg.grad_dtype != "f32")
@@ -187,16 +201,24 @@ class CUDADevice(DeviceBackend):
 
     def collective_bytes_per_tree(self, n_features: int) -> int:
         """The histogram collectives' modeled payload of one tree per rank
-        (comms.hist_allreduce_bytes at this backend's resolved comms); 0
-        without a group."""
-        if self.group is None:
+        (comms.hist_allreduce_bytes at this backend's resolved comms and
+        mesh); 0 without a group."""
+        if self.mesh is None:
             return 0
         return comms.hist_allreduce_bytes(
             self.cfg.max_depth, n_features, self.cfg.n_bins,
-            partitions=self.world, mode=self.split_comms,
-            comms_dtype=self.cfg.hist_comms_dtype,
+            partitions=self.world,
+            feature_partitions=self.mesh.n_feature_shards,
+            mode=self.split_comms, comms_dtype=self.cfg.hist_comms_dtype,
             subtraction=self.hist_subtraction,
             grad_dtype=self.cfg.grad_dtype)
+
+    def n_features(self, data: torch.Tensor) -> int:
+        """Global width of uploaded training rows: the matrix's before the
+        column cut under feature shards, else data's own."""
+        if self.feature_group is not None and self._n_features is not None:
+            return self._n_features
+        return data.shape[1]
 
     def _block(self, a, put) -> torch.Tensor:
         """This rank's padded block of the host array or tensor `a` ([R,
@@ -208,15 +230,17 @@ class CUDADevice(DeviceBackend):
 
     def upload(self, Xb, shard: bool = True) -> torch.Tensor:
         """The binned matrix on the device (see device_rows), its bin range
-        checked by one max on the device and one scalar read. Under row
-        partitions (and `shard`), this rank's padded block: a RowBlock is
-        taken as it is, a whole matrix is cut; the range check is then a
-        MAX all-reduce over the ranks."""
-        sharded = self.group is not None and shard
+        checked by one max on the device and one scalar read. On a mesh
+        (and `shard`), this rank's padded block and, with feature shards,
+        its padded column slab: a RowBlock (the block at full width) is
+        taken, a whole matrix is cut to its block, and the block loses its
+        other columns; the range check is then a MAX all-reduce over the
+        world."""
+        sharded = self.mesh is not None and shard
         if isinstance(Xb, mesh.RowBlock):
             if not sharded:
                 raise ValueError("a RowBlock is one rank's rows: it needs "
-                                 "row partitions and shard=True")
+                                 "a mesh and shard=True")
             local = mesh.row_block(Xb.n_rows, self.world, self.rank)[2]
             Xd = self.device_rows(Xb.rows)
             if Xd.shape[0] != local:
@@ -226,10 +250,17 @@ class CUDADevice(DeviceBackend):
             Xd = self._block(Xb, self.device_rows)
         else:
             Xd = self.device_rows(Xb)
+        if sharded:
+            self._n_features = Xd.shape[1]
+            if self.feature_group is not None:
+                lo, hi, width = mesh.column_slab(
+                    Xd.shape[1], self.mesh.n_feature_shards,
+                    self.mesh.feature)
+                Xd = mesh.pad_columns(Xd[:, lo:hi], width)
         top = (Xd.max() if Xd.numel() else torch.zeros(
             (), dtype=torch.uint8, device=self.device)).to(torch.int32)
         if sharded:
-            top = comms.pmax(top.reshape(1), self.group)
+            top = comms.pmax(top.reshape(1), self.mesh.world_group)
         top = int(top.reshape(-1)[0])
         if top >= self.cfg.n_bins:
             raise ValueError(f"binned data holds bin {top} >= n_bins="
@@ -241,9 +272,10 @@ class CUDADevice(DeviceBackend):
                       shard: bool = True) -> LabelHandle:
         """Labels, and the instance weights validated as the reference's
         Driver validates them (float [R], finite, >= 0, not all zero).
-        Under row partitions (and `shard`), this rank's padded block, its
-        pad rows weighing 0 (weighted whenever the rows do not split
-        evenly, on every rank alike)."""
+        On a mesh (and `shard`), this rank's padded row block (the same on
+        every rank of its feature group), its pad rows weighing 0
+        (weighted whenever the rows do not split evenly, on every rank
+        alike)."""
         y = np.asarray(y, np.float32)
         w = None
         if sample_weight is not None:
@@ -255,7 +287,7 @@ class CUDADevice(DeviceBackend):
                 raise ValueError("sample_weight must be finite and >= 0")
             if not (w > 0).any():
                 raise ValueError("sample_weight is all zero")
-        if self.group is None or not shard:
+        if self.mesh is None or not shard:
             if w is None:
                 return LabelHandle(self._put(y), torch.ones(
                     y.shape[0], dtype=torch.float32, device=self.device))
@@ -280,8 +312,9 @@ class CUDADevice(DeviceBackend):
 
     def build_histograms(self, data, g, h, node_index, n_nodes):
         """f32 sums for float g/h; the raw int32 histogram for int8/int16
-        (quantized) g/h. Under row partitions, of every rank's rows (an
-        all-reduce on cfg.hist_comms_dtype's wire)."""
+        (quantized) g/h. On a mesh, of the row group's rows (an
+        all-reduce on cfg.hist_comms_dtype's wire) over data's columns
+        (this rank's slab under feature shards)."""
         g, h = self._tensor(g), self._tensor(h)
         if g.is_floating_point():
             g, h = g.float(), h.float()
@@ -332,7 +365,8 @@ class CUDADevice(DeviceBackend):
                   tree_id: int = 0) -> tuple[Any, Any]:
         """Returns (packed [6, N] f32 tree on the device, delta [R]): no
         host sync here; `fetch_tree` copies the tree to the host.
-        `feature_mask` (bool [F], host or device) is the colsample mask;
+        `feature_mask` (bool [F] over the global columns, host or device)
+        is the colsample mask;
         `tree_id` (the absolute tree index) keys the quantized-gradient
         rounding with cfg.seed when cfg.grad_dtype != "f32"."""
         tree = self._grow(data, g, h, feature_mask, tree_id)
@@ -344,6 +378,7 @@ class CUDADevice(DeviceBackend):
         cfg = self.cfg
         if feature_mask is not None:
             feature_mask = self._tensor(feature_mask).to(torch.bool)
+        F = self.n_features(data)
         return grow_ops.grow_tree(
             data, g.contiguous(), h.contiguous(),
             max_depth=cfg.max_depth, n_bins=cfg.n_bins,
@@ -354,9 +389,13 @@ class CUDADevice(DeviceBackend):
             grad_dtype=cfg.grad_dtype, quant_tree_id=tree_id,
             quant_seed=cfg.seed, feature_mask=feature_mask,
             missing_bin=cfg.missing_policy == "learn",
-            cat_mask=self.cat_mask(data.shape[1]), group=self.group,
+            cat_mask=self.cat_mask(F), group=self.group,
             split_comms=self.split_comms,
-            hist_comms_dtype=cfg.hist_comms_dtype)
+            hist_comms_dtype=cfg.hist_comms_dtype,
+            feature_group=self.feature_group,
+            world_group=None if self.mesh is None
+            else self.mesh.world_group,
+            n_features=F, comms_slabs=self.comms_slabs)
 
     def fetch_tree(self, handle) -> HostTree:
         return unpack_tree(handle.cpu().numpy())
@@ -469,7 +508,7 @@ class CUDADevice(DeviceBackend):
         """Host colsample masks, bool [n_rounds, C, F] ([n_rounds, F] with
         one class), checked and uploaded once."""
         fm = np.asarray(fmasks, bool)
-        C, F = self.cfg.n_outputs, data.shape[1]
+        C, F = self.cfg.n_outputs, self.n_features(data)
         if fm.ndim == 2 and C == 1:
             fm = fm[:, None, :]
         if fm.shape != (n_rounds, C, F):
@@ -682,7 +721,7 @@ class _RoundGraph:
                  ev: _Eval | None):
         global graph_captures
         dev = data.device
-        R, F = data.shape
+        R, F = data.shape[0], backend.n_features(data)
         C = backend.cfg.n_outputs
         self.key = self.key_of(data, pred, y, masked, ev)
         self.pred = torch.zeros_like(pred)

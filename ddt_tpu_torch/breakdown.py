@@ -18,6 +18,10 @@ synchronize:
   13 numeric + 26 frequency-binned one-vs-rest columns, 255 bins, depth
   6, 100 trees), f32 and int8, the second of two runs (the first holds
   the capture): the one-card figure chip_smoke's `multi` phase scales;
+- the fused loop at BASELINE config 5's width (stress_binned_chunk:
+  1M binned rows x 1024 features, 255 bins, depth 6, 20 trees), f32 and
+  int8, the second of two runs, and K1's share of a profiled window:
+  the one-card figure chip_smoke's `mesh2d` phase splits over a mesh;
 - scoring: api.predict on the float rows (upload, binning, first call:
   pushdown, upload and packing of the model; then a cache hit), and a
   cached call on binned rows.
@@ -47,7 +51,8 @@ from ddt_tpu_torch.backends import cuda as cuda_backend
 from ddt_tpu_torch.backends import get_backend
 from ddt_tpu_torch.config import TrainConfig
 from ddt_tpu_torch.data.categorical import fit_categorical_encoder
-from ddt_tpu_torch.data.datasets import synthetic_binary, synthetic_ctr
+from ddt_tpu_torch.data.datasets import (stress_binned_chunk,
+                                         synthetic_binary, synthetic_ctr)
 from ddt_tpu_torch.data.quantizer import fit_bin_mapper
 from ddt_tpu_torch.driver import Driver
 from ddt_tpu_torch.models.tree import empty_ensemble
@@ -55,6 +60,8 @@ from ddt_tpu_torch.ops.grad import base_score_np
 
 ROWS = 1_000_000
 N_TREES = 100
+STRESS_FEATURES = 1024      # BASELINE config 5's width
+STRESS_TREES = 20
 PROFILE_TREES = 5
 TOP = 12            # kernels listed per profile
 BOOST_GRAD_DTYPES = ("f32", "int8")   # boosting loops timed side by side
@@ -155,6 +162,30 @@ def config3_fused(cfg: TrainConfig) -> None:
                "fused_ms_per_tree": 1e3 * fused_s / N_TREES})
 
 
+def stress_fused(cfg: TrainConfig) -> None:
+    """The fused loop's ms a tree at config 5's width on one card, f32
+    and int8, and K1's share of a profiled window of PROFILE_TREES."""
+    Xb, y = stress_binned_chunk(0, ROWS, n_features=STRESS_FEATURES,
+                                n_bins=255, seed=0)
+    Xd = torch.from_numpy(Xb).to("cuda")
+    del Xb
+    for dt in BOOST_GRAD_DTYPES:
+        lp = _Loops(cfg.replace(grad_dtype=dt), Xd, y)
+        lp.run(True, STRESS_TREES)
+        _, fused_s = _synced(lambda: lp.run(True, STRESS_TREES))
+        prof = profiled(lambda: lp.run(True, PROFILE_TREES))
+        k1 = prof["hist_kernel_ms"] / PROFILE_TREES
+        _emit({"phase": "boost_stress", "grad_dtype": dt,
+               "trees": STRESS_TREES, "rows": ROWS,
+               "features": STRESS_FEATURES,
+               "fused_ms_per_tree": 1e3 * fused_s / STRESS_TREES,
+               "profile_ms_per_tree": 1e3 * prof["wall_s"] / PROFILE_TREES,
+               "k1_ms_per_tree": k1,
+               "k1_share_of_device": k1 * 1e-3 * PROFILE_TREES
+               / prof["device_busy_s"],
+               "busy_share": prof["busy_share"], "top": prof["top"]})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("breakdown: needs a CUDA card", file=sys.stderr)
@@ -204,6 +235,7 @@ def main() -> int:
         if dt == "f32":
             res = first
     config3_fused(cfg)
+    stress_fused(cfg)
 
     _, first_s = _synced(lambda: api.predict(res, X, mapper=mapper))
     _, cached_s = _synced(lambda: api.predict(res, X, mapper=mapper))

@@ -2,10 +2,10 @@
 
 Port of ddt_tpu/config.py: a frozen TrainConfig with only the fields the
 port's path reads, validated as the reference validates them
-(ddt_tpu/config.py:214-215, 298-330). Fields of the reference that are
-not ported yet (the feature and host mesh axes, slab-pipelined
-collectives, fault plans, ...) are absent, not silently ignored: passing
-one raises TypeError.
+(ddt_tpu/config.py:214-270, 298-330). Fields of the reference that are
+not ported yet (straggler repartition, streaming, hist_impl,
+fault plans, ...) are absent, not silently ignored: passing one raises
+TypeError.
 """
 
 from __future__ import annotations
@@ -85,13 +85,26 @@ class TrainConfig:
     predict_impl: str = "auto"  # auto | lut | lut4
 
     # --- system ---
-    # Row partitions (data parallel): one process per partition, joined by
-    # torch.distributed (NCCL on the cards, gloo on the CPU); must equal
-    # the process group's world size. Every rank passes the same full
-    # rows; each keeps and bins its contiguous block of the rows padded to
-    # a multiple of n_partitions (parallel/mesh.row_block), and every rank
-    # grows the same trees.
-    n_partitions: int = 1
+    # The mesh: host_partitions x n_partitions x feature_partitions ranks,
+    # one process a rank, joined by torch.distributed (NCCL on the cards,
+    # gloo on the CPU); the product must equal the process group's world
+    # size (parallel/mesh.make_mesh_2d lays the ranks out hosts
+    # outermost, features innermost). Every rank passes the same full
+    # rows; each keeps its contiguous block of the rows padded to a
+    # multiple of the row shards (host_partitions x n_partitions,
+    # parallel/mesh.row_block) and, with feature_partitions > 1, its
+    # contiguous column slab of F padded with zero columns to a multiple
+    # of feature_partitions (parallel/mesh.column_slab). Every rank grows
+    # the same trees.
+    n_partitions: int = 1       # row partitions (data parallel)
+    feature_partitions: int = 1  # column partitions
+    # The declarative spelling of (n_partitions, feature_partitions):
+    # normalised into them at construction and then set back to None, so
+    # both spellings give equal configs; a conflict with either raises.
+    mesh_shape: tuple | None = None
+    # The hosts axis: row shards span hosts x rows, hosts outermost (on
+    # one node the hosts are emulated; nothing differs but the names).
+    host_partitions: int = 1
     # The histogram collective of split finding (parallel/comms.py):
     # "allreduce" sums the [n, F, B, 2] level histogram on every rank;
     # "reduce_scatter" hands each rank one merged F/P feature slab, finds
@@ -104,6 +117,15 @@ class TrainConfig:
     # sums on a shared fixed-point grid in int32, independent of the
     # reduction order. comms.comms_error_bound bounds both.
     hist_comms_dtype: str = "f32"   # f32 | bf16 | int32_fixed
+    # Slab-pipelined histogram collectives (ops/grow.level_histograms):
+    # each level's build + collective splits into this many feature slabs,
+    # slab k's collective issued asynchronously before slab k+1's kernel.
+    # 0 = auto (parallel/comms.resolve_comms_slabs: 1 on every device
+    # until a card measurement says otherwise), 1 = off, N = N slabs.
+    # f32 sums may round differently with N (the wire's reduction order
+    # depends on where an element falls); integer histograms are bitwise
+    # at any N; int32_fixed quantizes each slab on its own grid.
+    hist_comms_slabs: int = 0
     # Rounds a block of the fused boosting loop (Driver._fit_fused): each
     # block replays one captured round that many times (on the card, a
     # CUDA graph) and fetches its trees to the host once.
@@ -132,9 +154,33 @@ class TrainConfig:
             raise ValueError(
                 f"grad_dtype must be f32|int16|int8, got "
                 f"{self.grad_dtype!r}")
-        if self.n_partitions < 1:
+        if self.mesh_shape is not None:
+            ms = tuple(int(v) for v in self.mesh_shape)
+            if len(ms) != 2 or any(v < 1 for v in ms):
+                raise ValueError(
+                    f"mesh_shape must be a (Pr >= 1, Pf >= 1) pair, got "
+                    f"{self.mesh_shape!r}")
+            pr, pf = ms
+            if self.n_partitions not in (1, pr):
+                raise ValueError(
+                    f"mesh_shape={ms} conflicts with n_partitions="
+                    f"{self.n_partitions}; set one, not both")
+            if self.feature_partitions not in (1, pf):
+                raise ValueError(
+                    f"mesh_shape={ms} conflicts with feature_partitions="
+                    f"{self.feature_partitions}; set one, not both")
+            object.__setattr__(self, "n_partitions", pr)
+            object.__setattr__(self, "feature_partitions", pf)
+            object.__setattr__(self, "mesh_shape", None)
+        for name in ("n_partitions", "feature_partitions",
+                     "host_partitions"):
+            if getattr(self, name) < 1:
+                raise ValueError(
+                    f"{name} must be >= 1, got {getattr(self, name)}")
+        if self.hist_comms_slabs < 0:
             raise ValueError(
-                f"n_partitions must be >= 1, got {self.n_partitions}")
+                f"hist_comms_slabs must be >= 0 (0 = auto), got "
+                f"{self.hist_comms_slabs}")
         if self.split_comms not in SPLIT_COMMS:
             raise ValueError(
                 f"split_comms must be auto|allreduce|reduce_scatter, got "
@@ -189,6 +235,17 @@ class TrainConfig:
                     "the encoder's top category id into its neighbor "
                     "(categorical columns are integer-coded and never "
                     "NaN, so use missing_policy='zero')")
+
+    @property
+    def row_shards(self) -> int:
+        """Row blocks of the mesh: host_partitions x n_partitions."""
+        return self.host_partitions * self.n_partitions
+
+    @property
+    def world_size(self) -> int:
+        """Ranks of the mesh: host_partitions x n_partitions x
+        feature_partitions."""
+        return self.row_shards * self.feature_partitions
 
     @property
     def n_outputs(self) -> int:

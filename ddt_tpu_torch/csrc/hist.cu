@@ -5,7 +5,9 @@
 // form), each in its f32 and its integer mode: one source, one planner
 // (ops/hist_cuda.plan_tiles) for both bin regimes.
 //
-// Contract (ddt_tpu/ops/histogram.py): Xb uint8 [R, F] row-major, g and h
+// Contract (ddt_tpu/ops/histogram.py): Xb uint8 [R, F] row-major with a
+// row stride `ld` >= F (a column slab of a wider matrix is read in place:
+// the slab-pipelined level loop's and a feature shard's view), g and h
 // [R], node_index int32 [R] with -1 = frozen row; output [N, F, n_bins, 2]
 // in ddt_tpu's layout, n_bins <= 256, zeroed by the wrapper. Bins >= n_bins
 // are skipped (the caller validates binned data once at upload). Modes:
@@ -93,6 +95,7 @@ struct Args {
   const int* ni;
   void* out;
   long long n_rows;
+  long long ld;   // row stride of xb in bytes (>= n_feat)
   int n_feat, n_bins, n_nodes;
   int fs;         // features per slab
   int nr;         // nodes per block (one node range)
@@ -189,7 +192,7 @@ __global__ void __launch_bounds__(kThreads) hist_kernel(const Args a) {
         }
       }
     };
-    const uint8_t* p = a.xb + r * a.n_feat + f0;
+    const uint8_t* p = a.xb + r * a.ld + f0;
     int head = (int)((4u - ((unsigned)(uintptr_t)p & 3u)) & 3u);
     if (head > fw) head = fw;
     for (int fl = 0; fl < head; ++fl) add(fl, __ldg(p + fl));
@@ -256,13 +259,14 @@ int max_blocks(int smem_bytes, int* out) {
 
 template <typename G>
 int launch(const void* xb, const void* g, const void* h, const void* ni,
-           void* out, long long n_rows, int n_feat, int n_bins, int n_nodes,
-           int fs, int nr, int blocks_x, int smem_bytes, void* stream) {
+           void* out, long long n_rows, long long ld, int n_feat, int n_bins,
+           int n_nodes, int fs, int nr, int blocks_x, int smem_bytes,
+           void* stream) {
   cudaError_t e = cudaFuncSetAttribute(
       hist_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem_bytes);
   if (e != cudaSuccess) return (int)e;
-  const Args a{(const uint8_t*)xb, g, h, (const int*)ni, out, n_rows,
+  const Args a{(const uint8_t*)xb, g, h, (const int*)ni, out, n_rows, ld,
                n_feat, n_bins, n_nodes, fs, nr, (n_feat + fs - 1) / fs};
   const int n_ranges = (n_nodes + nr - 1) / nr;
   const dim3 grid((unsigned)blocks_x, (unsigned)(a.n_slabs * n_ranges), 1);
@@ -275,32 +279,33 @@ int launch(const void* xb, const void* g, const void* h, const void* ni,
 extern "C" {
 
 // Each launches on `stream` and returns cudaGetLastError() (0 = launched).
+// Row r of xb starts at xb + r * ld.
 // Grid: blocks_x blocks along the rows, n_slabs * ceil(n_nodes / nr) tiles
 // along y. f32 g/h -> f32 histogram.
 int ddt_hist_f32(const void* xb, const void* g, const void* h,
-                 const void* ni, void* out, long long n_rows, int n_feat,
-                 int n_bins, int n_nodes, int fs, int nr, int blocks_x,
-                 int smem_bytes, void* stream) {
-  return launch<float>(xb, g, h, ni, out, n_rows, n_feat, n_bins, n_nodes,
-                       fs, nr, blocks_x, smem_bytes, stream);
+                 const void* ni, void* out, long long n_rows, long long ld,
+                 int n_feat, int n_bins, int n_nodes, int fs, int nr,
+                 int blocks_x, int smem_bytes, void* stream) {
+  return launch<float>(xb, g, h, ni, out, n_rows, ld, n_feat, n_bins,
+                       n_nodes, fs, nr, blocks_x, smem_bytes, stream);
 }
 
 // int8 g/h -> raw int32 histogram.
 int ddt_hist_i8(const void* xb, const void* g, const void* h,
-                const void* ni, void* out, long long n_rows, int n_feat,
-                int n_bins, int n_nodes, int fs, int nr, int blocks_x,
-                int smem_bytes, void* stream) {
-  return launch<int8_t>(xb, g, h, ni, out, n_rows, n_feat, n_bins, n_nodes,
-                        fs, nr, blocks_x, smem_bytes, stream);
+                const void* ni, void* out, long long n_rows, long long ld,
+                int n_feat, int n_bins, int n_nodes, int fs, int nr,
+                int blocks_x, int smem_bytes, void* stream) {
+  return launch<int8_t>(xb, g, h, ni, out, n_rows, ld, n_feat, n_bins,
+                        n_nodes, fs, nr, blocks_x, smem_bytes, stream);
 }
 
 // int16 g/h -> raw int32 histogram.
 int ddt_hist_i16(const void* xb, const void* g, const void* h,
-                 const void* ni, void* out, long long n_rows, int n_feat,
-                 int n_bins, int n_nodes, int fs, int nr, int blocks_x,
-                 int smem_bytes, void* stream) {
-  return launch<int16_t>(xb, g, h, ni, out, n_rows, n_feat, n_bins, n_nodes,
-                         fs, nr, blocks_x, smem_bytes, stream);
+                 const void* ni, void* out, long long n_rows, long long ld,
+                 int n_feat, int n_bins, int n_nodes, int fs, int nr,
+                 int blocks_x, int smem_bytes, void* stream) {
+  return launch<int16_t>(xb, g, h, ni, out, n_rows, ld, n_feat, n_bins,
+                         n_nodes, fs, nr, blocks_x, smem_bytes, stream);
 }
 
 // Blocks with `smem_bytes` of dynamic shared memory each that the current

@@ -1,6 +1,7 @@
 """Deterministic synthetic datasets (port of ddt_tpu/data/datasets.py's
-`_rng`, `synthetic_binary`, `synthetic_multiclass` and `synthetic_ctr`;
-numpy, identical output for a seed), and `synthetic_missing`, the Higgs
+`_rng`, `synthetic_binary`, `synthetic_multiclass`, `synthetic_ctr` and
+`stress_binned_chunk`; numpy, identical output for a seed), and
+`synthetic_missing`, the Higgs
 shape with NaN injected where missingness carries label signal (the
 recipe of the reference's tests/test_missing.py::_nan_data)."""
 
@@ -93,3 +94,18 @@ def synthetic_missing(
     X = X.copy()
     X[miss] = np.nan
     return X, y
+
+
+def stress_binned_chunk(chunk_start: int, chunk_rows: int,
+                        n_features: int = 1024, n_bins: int = 255,
+                        seed: int = 0) -> tuple[np.ndarray, np.ndarray]:
+    """BASELINE config 5's generator (10B rows x 1024 features): binned
+    uint8 rows [chunk_rows, n_features] uniform over the bins and binary
+    labels (bin 0 + bin 1 > n_bins). A pure function of (seed,
+    chunk_start), so any chunk can be made anew anywhere."""
+    rng = _rng(seed, 5, chunk_start)
+    Xb = rng.integers(0, n_bins, size=(chunk_rows, n_features),
+                      dtype=np.uint8)
+    y = ((Xb[:, 0].astype(np.int32) + Xb[:, 1].astype(np.int32))
+         > n_bins).astype(np.int32)
+    return Xb, y

@@ -41,19 +41,32 @@ by the hash's tensor twin, bit for bit the reference's row_keep_np, so no
 per-round mask crosses the bus. Instance weights ride LabelHandle.valid;
 eval metrics stay unweighted, as in the reference.
 
-Row partitions (cfg.n_partitions > 1, one process a rank): every rank
-calls fit with the same full labels (and rows, or its RowBlock from
-api.train); cfg.n_partitions must equal the process group's world size.
-The base score is computed on the host from the full labels, identical on
-every rank; the backend keeps the rank's block of rows and labels and
-reduces the histograms and the loss over the ranks; an eval set is scored
+The mesh (cfg.world_size = host_partitions x n_partitions x
+feature_partitions ranks, one process a rank): every rank calls fit with
+the same full labels (and rows, or its RowBlock from api.train); the
+mesh's ranks must be the process group's. The base score is computed on
+the host from the full labels, identical on every rank; the backend
+keeps the rank's block of rows and labels (and column slab) and reduces
+the histograms and the loss over its row group; an eval set is scored
 whole on every rank (the trees are the same everywhere, so the metric is
 too, with no collective); the bagging draws start at the rank's global
-row. Checkpoints under partitions are not ported yet and raise.
+row.
+
+Checkpoints on a mesh: every rank holds the same ensemble, so global rank
+0 alone writes, and an all-reduce over the world follows every save
+point (a barrier that also carries rank 0's failure to every rank): no
+rank reads or goes on before the pair has landed. A resume reads the
+directory on every rank (it must be shared between hosts), then the
+ranks all-gather the resumed round and a digest of the resumed trees and
+raise if any differs. The layout is not part of the checkpoint's
+fingerprint: a run resumes on another mesh or on one device. pred is
+rebuilt from the rank's row block at full width (a RowBlock holds it
+before the column cut), so it is the uninterrupted run's bit for bit.
 """
 
 from __future__ import annotations
 
+import hashlib
 import logging
 import time
 
@@ -66,7 +79,7 @@ from ddt_tpu_torch.config import TrainConfig
 from ddt_tpu_torch.models.tree import TreeEnsemble, empty_ensemble
 from ddt_tpu_torch.ops import sampling
 from ddt_tpu_torch.ops.grad import base_score_np
-from ddt_tpu_torch.parallel import mesh
+from ddt_tpu_torch.parallel import comms, mesh
 from ddt_tpu_torch.utils import checkpoint
 from ddt_tpu_torch.utils.metrics import GREATER_IS_BETTER, default_metric
 
@@ -123,11 +136,6 @@ class Driver:
         if checkpoint_dir is not None and checkpoint_every < 1:
             raise ValueError(
                 f"checkpoint_every must be >= 1, got {checkpoint_every}")
-        if checkpoint_dir is not None and cfg.n_partitions > 1:
-            raise ValueError(
-                "checkpoint_dir with n_partitions > 1 is not ported yet "
-                "(ROADMAP Queue 1 item 4's remainder: checkpoints under "
-                "partitions)")
         self.backend = backend
         self.cfg = cfg
         self.checkpoint_dir = checkpoint_dir
@@ -149,11 +157,11 @@ class Driver:
         `sample_weight` (float [R], >= 0, not all zero) weights each row's
         g, h and loss, and the base score."""
         cfg = self.cfg
-        mesh.check_partitions(cfg.n_partitions)
+        mesh.check_partitions(cfg)
         Xb = self._check_rows(Xb)
         y = np.asarray(y)
-        # A RowBlock holds every row only at one rank (checkpoints, the
-        # one reader of `rows` below, refuse more).
+        # Every column: a RowBlock is the rank's block before the column
+        # cut.
         rows = Xb.rows if isinstance(Xb, mesh.RowBlock) else Xb
         R = Xb.n_rows if isinstance(Xb, mesh.RowBlock) else Xb.shape[0]
         F = rows.shape[1]
@@ -176,10 +184,12 @@ class Driver:
         start = 0
         if self.checkpoint_dir is not None:
             start = checkpoint.try_resume(self.checkpoint_dir, ens, cfg)
+            if self.backend.mesh is not None:
+                self._check_resume_agrees(ens, start)
             if start > 0:
                 pred = self.backend.load_pred(
                     ens.truncate(start * C).predict_raw_roundwise(
-                        _host(rows), binned=True))
+                        self._local_rows(Xb), binned=True))
                 log.info("resumed from checkpoint at round %d", start)
 
         ev = None
@@ -203,6 +213,69 @@ class Driver:
             raise TypeError(f"Xb must be uint8 binned data [R, F], got "
                             f"{Xb.dtype} {tuple(Xb.shape)}")
         return Xb
+
+    def _local_rows(self, Xb) -> np.ndarray:
+        """The rows this rank's pred covers, at full width, on the host:
+        its padded row block on a mesh (a RowBlock's rows), all rows
+        without one."""
+        if isinstance(Xb, mesh.RowBlock):
+            return _host(Xb.rows)
+        rows = _host(Xb)
+        be = self.backend
+        if be.mesh is None:
+            return rows
+        start, stop, local = mesh.row_block(rows.shape[0], be.world,
+                                            be.rank)
+        out = np.zeros((local,) + rows.shape[1:], rows.dtype)
+        out[:stop - start] = rows[start:stop]
+        return out
+
+    def _check_resume_agrees(self, ens: TreeEnsemble, start: int) -> None:
+        """All-gather the resumed round and a digest of the resumed trees
+        over the world; raise on every rank if any rank's differ."""
+        h = hashlib.blake2b(digest_size=8)
+        k = start * self.cfg.n_outputs
+        for name in PACKED_FIELDS:
+            h.update(np.ascontiguousarray(getattr(ens, name)[:k]).tobytes())
+        mine = torch.tensor(
+            [start, int.from_bytes(h.digest(), "little", signed=True)],
+            dtype=torch.int64, device=self.backend.device)
+        every = comms.all_gather(mine, self.backend.mesh.world_group)
+        if not bool((every == mine).all()):
+            raise RuntimeError(
+                "the ranks resumed different checkpoints (round, digest "
+                f"per rank: {every.tolist()}): every rank must read the "
+                "same checkpoint_dir")
+
+    def _save(self, ens: TreeEnsemble, rounds: int,
+              every: int | None = None) -> None:
+        """checkpoint.maybe_save; on a mesh the save by global rank 0
+        alone, then an all-reduce over the world that every rank waits
+        for, which carries rank 0's failure to all of them."""
+        be = self.backend
+        if be.mesh is None:
+            checkpoint.maybe_save(self.checkpoint_dir, ens, self.cfg,
+                                  rounds, every)
+            return
+        if self.checkpoint_dir is None or (every is not None
+                                           and rounds % every != 0):
+            return
+        world = be.mesh.world_group
+        err = None
+        if comms.rank(world) == 0:
+            try:
+                checkpoint.save_checkpoint(self.checkpoint_dir, ens,
+                                           self.cfg, rounds)
+            except OSError as e:
+                err = e
+        failed = comms.psum(torch.tensor(
+            [0 if err is None else 1], dtype=torch.int32,
+            device=be.device), world)
+        if err is not None:
+            raise err
+        if int(failed[0]):
+            raise RuntimeError(f"rank 0 failed to write the checkpoint of "
+                               f"round {rounds} to {self.checkpoint_dir}")
 
     def _eval_state(self, eval_set, eval_metric, patience, ens, start, bs):
         """(eval rows, margins and labels on the device, the stop rule)."""
@@ -244,13 +317,13 @@ class Driver:
         if stop is not None:
             self.best_round, self.best_score = stop.best_round, \
                 stop.best_score
-        checkpoint.maybe_save(self.checkpoint_dir, ens, self.cfg, rounds)
+        self._save(ens, rounds)
         return ens
 
     def _fit_granular(self, data, y_dev, pred, ens: TreeEnsemble,
                       start: int = 0, ev=None) -> TreeEnsemble:
         cfg = self.cfg
-        R, F = data.shape
+        R, F = data.shape[0], self.backend.n_features(data)
         C = cfg.n_outputs
         stop = None
         if ev is not None:
@@ -291,8 +364,7 @@ class Driver:
                 ens = ens.truncate((stop.best_round + 1) * C)
                 return self._finish(ens, stop, stop.best_round + 1)
             if self.checkpoint_dir is not None:
-                checkpoint.maybe_save(self.checkpoint_dir, ens, cfg, rnd + 1,
-                                      self.checkpoint_every)
+                self._save(ens, rnd + 1, self.checkpoint_every)
         return self._finish(ens, stop, cfg.n_trees)
 
     def _fit_fused(self, data, y_dev, pred, ens: TreeEnsemble,
@@ -301,7 +373,7 @@ class Driver:
         grow_rounds_eval: K rounds a call, one fetch of their trees,
         losses and eval scores."""
         cfg = self.cfg
-        F = data.shape[1]
+        F = self.backend.n_features(data)
         C = cfg.n_outputs
         stop = None
         if ev is not None:
@@ -355,6 +427,5 @@ class Driver:
                     return self._finish(ens, stop, stop.best_round + 1)
             rnd += K
             if rnd < cfg.n_trees:
-                checkpoint.maybe_save(self.checkpoint_dir, ens, cfg, rnd,
-                                      self.checkpoint_every)
+                self._save(ens, rnd, self.checkpoint_every)
         return self._finish(ens, stop, cfg.n_trees)

@@ -1,30 +1,60 @@
 """Whole-tree growth: the level loop, on one device or on each rank of a
-row-partitioned process group.
+hosts x rows x features mesh.
 
 Port of ddt_tpu/ops/grow.py: f32 or quantized gradients, an optional
 colsample feature mask, learned missing-value directions, one-vs-rest
-categorical splits, and row partitions over a process group (no feature
-axis yet). Per level: histograms (ops/histogram: the CUDA kernel on the
-card, the plain segment form on the CPU) -> the histogram collective ->
-node totals -> best splits (ops/split) -> node values and split decisions
--> row routing. Every step is a PyTorch op queued on the tensors' device
-(the collectives are stream-ordered too); the host reads nothing until
-the Driver fetches the finished tree.
+categorical splits, row and feature partitions over process groups, and
+slab-pipelined histogram collectives. Per level: histograms
+(ops/histogram: the CUDA kernel on the card, the plain segment form on the
+CPU) -> the histogram collective -> node totals -> best splits (ops/split)
+-> node values and split decisions -> row routing. Every step is a
+PyTorch op queued on the tensors' device (the collectives are
+stream-ordered too); the host reads nothing until the Driver fetches the
+finished tree.
 
-Row partitions (`group`, a torch.distributed process group; None on one
-device): each rank holds a block of rows and grows the same tree. The
-histogram collective (parallel/comms.hist_reduce) runs after the
-left-child build and before the sibling subtraction, so only left
-children move from level 1 on, and the carry is the merged form. Under
-split_comms="allreduce" every rank holds the whole merged histogram and
-runs the same split search. Under "reduce_scatter" rank i holds the
-merged F/P feature slab i (`col_ids` maps its columns to global ids,
-padded columns >= F never valid): node totals then come from the row
-vectors through an all-reduce, the split search runs on the slab and
-comms.combine_shard_winners picks the single-device argmax's winner.
-Quantized gradients take their scales from every rank's rows and their
-rounding draws from global row ids; the final leaf sums are all-reduced.
-Routing stays rank-local: the decisions are the same on every rank.
+Row partitions (`group`, the row group: every rank holding the same
+columns, by row shard; None on one device): each rank holds a block of
+rows and grows the same tree. The histogram collective (parallel/comms.
+hist_reduce) runs after the left-child build and before the sibling
+subtraction, so only left children move from level 1 on, and the carry
+is the merged form. Under split_comms="allreduce" every rank of the row
+group holds the whole merged histogram of its columns. Under
+"reduce_scatter" rank i holds the merged F/P slab i of them (`col_ids`
+maps its columns to local ids, padded columns never valid): node totals
+then come from the row vectors through an all-reduce, the split search
+runs on the slab and comms.combine_shard_winners picks the single-device
+argmax's winner. Quantized gradients take their scales from the row
+group's rows and their rounding draws from global row ids; the final
+leaf sums are all-reduced over the row group.
+
+Feature partitions (`feature_group`, every rank holding the same rows,
+by feature shard): Xb is the rank's column slab [R, F / Pf] of the
+global matrix (zero columns pad the last, and never win), global column
+f_lo + j at local j. Node totals come from the row vectors; the split
+search runs on the rank's columns (the colsample and categorical masks,
+global [n_features], are sliced to them) and the winners, with global
+feature ids, are combined over the feature group (allreduce) or over the
+world (reduce-scatter, where every rank owns a distinct column set).
+f32 node totals and leaf sums are feature shard 0's, broadcast over the
+feature group (the card's float atomics round each rank's differently).
+The
+winning column lives on one feature shard: each rank gathers a row's bin
+where it owns the column and 0 elsewhere, and an int32 all-reduce over
+the feature group hands every rank the bin (ddt_tpu/ops/grow.py:547-565;
+R x 4 bytes a level, counted in comms.other_bytes).
+
+Slabs (`comms_slabs` > 1, ddt_tpu/ops/grow.py:100-220): a level's build
+and collective split into feature slabs (`slab_widths`, aligned to the
+row shards so only the last pads under reduce-scatter); each slab's
+kernel reads its columns in place and its collective is issued
+asynchronously, so slab k's wire overlaps slab k+1's kernel, and all are
+waited before the concatenation. Integer sums are bitwise at any slab
+count; f32 sums may round differently (the wire's reduction order
+depends on where an element falls in its chunks); int32_fixed quantizes
+each slab on its own grid.
+
+Routing stays rank-local without a feature axis: the decisions are the
+same on every rank.
 
 Quantized gradients (grad_dtype "int8" | "int16"): g/h are quantized once
 per tree (ops/grad.quantize_gradients); histograms, node totals and leaf
@@ -77,12 +107,34 @@ def resolve_hist_subtraction(flag: str, device_type: str,
     return integer_hists or device_type == "cuda"
 
 
+def slab_widths(F: int, slabs: int, row_shards: int) -> list[int]:
+    """Feature-slab widths of the slab-pipelined build + collective (the
+    reference's grow._slab_widths): each but the last a multiple of
+    `row_shards`, so that under reduce-scatter only the last slab pads.
+    [F] when pipelining is off or F too narrow to split."""
+    if slabs <= 1:
+        return [F]
+    fc = -(-F // (slabs * row_shards)) * row_shards
+    if fc <= 0 or fc >= F:
+        return [F]
+    return [min(fc, F - i) for i in range(0, F, fc)]
+
+
+def _no_reduce(x, async_op: bool = False):
+    return comms.Pending(x) if async_op else x
+
+
 def level_histograms(Xb, g, h, node_index, n_level: int, n_bins: int, *,
                      parent_hist=None, parent_split=None,
-                     reduce=None) -> torch.Tensor:
+                     reduce=None, widths=None) -> torch.Tensor:
     """One level's [n_level, F, B, 2] histograms, merged over the ranks by
-    `reduce` (the histogram collective; None on one device): the merged
-    F/P slab under reduce-scatter.
+    `reduce(hist, async_op)` (the histogram collective; None on one
+    device): the merged slab under reduce-scatter.
+
+    `widths` (slab_widths) pipelines the build and the collective over
+    feature slabs: each slab's kernel reads columns [lo, lo + w) of Xb in
+    place and its collective is issued asynchronously before the next
+    slab's kernel; the merged slabs are concatenated.
 
     With the previous level's (merged) histograms and split decisions,
     only LEFT children are built from rows and merged (half the kernel
@@ -93,15 +145,26 @@ def level_histograms(Xb, g, h, node_index, n_level: int, n_bins: int, *,
     path the carry and the left build are int32 and the subtraction is
     exact."""
     if reduce is None:
-        def reduce(x):
-            return x
+        reduce = _no_reduce
+    widths = widths or [Xb.shape[1]]
+
+    def build_reduced(ni, n_nodes):
+        if len(widths) == 1:
+            return reduce(H.build_histograms(Xb, g, h, ni, n_nodes, n_bins))
+        pending, lo = [], 0
+        for w in widths:
+            hs = H.build_histograms(Xb[:, lo:lo + w], g, h, ni, n_nodes,
+                                    n_bins)
+            pending.append(reduce(hs, async_op=True))
+            lo += w
+        return torch.cat([p.wait() for p in pending], dim=1)
+
     if parent_hist is None or n_level < 2:
-        return reduce(H.build_histograms(Xb, g, h, node_index, n_level,
-                                         n_bins))
+        return build_reduced(node_index, n_level)
     half = n_level // 2
     is_left = (node_index >= 0) & (node_index % 2 == 0)
     li = torch.where(is_left, node_index // 2, -1).to(torch.int32)
-    hist_left = reduce(H.build_histograms(Xb, g, h, li, half, n_bins))
+    hist_left = build_reduced(li, half)
     gate = parent_split.reshape(half, 1, 1, 1)
     hist_right = torch.where(gate, parent_hist - hist_left, 0)
     hist = torch.stack([hist_left, hist_right], dim=1)
@@ -158,46 +221,82 @@ def grow_tree(Xb: torch.Tensor, g: torch.Tensor, h: torch.Tensor, *,
               missing_bin: bool = False,
               cat_mask: torch.Tensor | None = None, group=None,
               split_comms: str = "allreduce",
-              hist_comms_dtype: str = "f32") -> TreeArrays:
+              hist_comms_dtype: str = "f32", feature_group=None,
+              world_group=None, n_features: int | None = None,
+              comms_slabs: int = 1) -> TreeArrays:
     """Grow one complete-heap tree from uint8 Xb [R, F] and f32 g, h [R]
     (the same decisions as ddt_tpu/ops/grow.grow_tree).
 
     grad_dtype "int8"/"int16" quantizes g/h once, keyed by (quant_seed,
     quant_tree_id, global row), the tree id an int or a 0-dim int64
-    tensor on Xb's device; feature_mask (bool [F] on Xb's device, False =
-    excluded) restricts every level's split candidates (colsample).
-    missing_bin: bin n_bins - 1 holds NaN rows and every split learns
-    their direction; cat_mask (bool [F] on Xb's device, from
-    cat_feature_mask) marks the one-vs-rest columns. With `group`, Xb, g
-    and h are this rank's block of a row-partitioned matrix (rank r's
-    rows start at global row r * R) and split_comms ("allreduce" |
-    "reduce_scatter", resolved) and hist_comms_dtype pick the histogram
-    collective (module docstring)."""
+    tensor on Xb's device; feature_mask (bool [n_features] on Xb's
+    device, False = excluded) restricts every level's split candidates
+    (colsample). missing_bin: bin n_bins - 1 holds NaN rows and every
+    split learns their direction; cat_mask (bool [n_features] on Xb's
+    device, from cat_feature_mask) marks the one-vs-rest columns. With
+    `group` (the row group), Xb, g and h are this rank's block of a
+    row-partitioned matrix (row shard s's rows start at global row s * R)
+    and split_comms ("allreduce" | "reduce_scatter", resolved),
+    hist_comms_dtype and comms_slabs pick the histogram collective. With
+    `feature_group`, Xb holds this rank's columns [f * F, (f + 1) * F) of
+    the n_features global ones (f the rank in the feature group; columns
+    past n_features are padding), and `world_group` is every rank (the
+    winner combine under reduce-scatter). Returned feature ids are
+    global (module docstring)."""
     R, F = Xb.shape
     dev = Xb.device
     N = 2 ** (max_depth + 1) - 1
     P = comms.world(group)
     rs = split_comms == "reduce_scatter" and group is not None
+    fsh = feature_group is not None
+    Fg = F if n_features is None else n_features
+    f_lo = comms.rank(feature_group) * F
+    widths = slab_widths(F, comms_slabs, P)
 
-    def hist_collective(hs):
+    def hist_collective(hs, async_op=False):
         if rs:
             hs = comms.pad_to_multiple(hs, 1, P)
         return comms.hist_reduce(
             hs, group, mode="reduce_scatter" if rs else "allreduce",
-            comms_dtype=hist_comms_dtype, scatter_dim=1)
+            comms_dtype=hist_comms_dtype, scatter_dim=1, async_op=async_op)
 
     fm_loc, cm_loc = feature_mask, cat_mask
+    if fsh:
+        # The rank's columns: global ids f_lo + j, real below Fg (the
+        # zero padding never wins); the global masks sliced to them.
+        gid = f_lo + torch.arange(F, dtype=torch.int64, device=dev)
+        real = gid < Fg
+        gcl = gid.clamp(max=Fg - 1)
+        fm_loc = real if feature_mask is None else feature_mask[gcl] & real
+        cm_loc = None if cat_mask is None else cat_mask[gcl] & real
     if rs:
-        # Rank i's slab holds global columns i * b .. i * b + b - 1 of F
-        # padded to P * b; padded columns (>= F) are never candidates.
-        b = -(-F // P)
-        col_ids = comms.rank(group) * b + torch.arange(
-            b, dtype=torch.int64, device=dev)
+        # Rank i's scattered slab: from each pipelined slab of width w
+        # (padded to P * b) its contiguous block of b local columns;
+        # padded ids (>= F) are never candidates.
+        parts, lo = [], 0
+        for w in widths:
+            b = -(-w // P)
+            parts.append(lo + comms.rank(group) * b + torch.arange(
+                b, dtype=torch.int64, device=dev))
+            lo += w
+        col_ids = parts[0] if len(parts) == 1 else torch.cat(parts)
         valid_loc = col_ids < F
         cid = col_ids.clamp(max=F - 1)
-        fm_loc = valid_loc if feature_mask is None else \
-            feature_mask[cid] & valid_loc
-        cm_loc = None if cat_mask is None else cat_mask[cid] & valid_loc
+        fm_loc = valid_loc if fm_loc is None else fm_loc[cid] & valid_loc
+        cm_loc = None if cm_loc is None else cm_loc[cid] & valid_loc
+    # The winner combine: over every rank holding a distinct column set.
+    combine_group = world_group if rs and fsh else group if rs \
+        else feature_group
+
+    def row_sums(x, modeled=False):
+        """x summed over the row group. The ranks of a feature group hold
+        the same rows, but on the card their local f32 sums (index_add_
+        atomics) round in different orders: feature shard 0's total is
+        broadcast so every rank keeps the same node totals and leaves."""
+        x = comms.psum(x, group, modeled=modeled)
+        if fsh and x.is_floating_point():
+            x = comms.broadcast_first(x, feature_group)
+        return x
 
     feature = torch.full((N,), -1, dtype=torch.int32, device=dev)
     threshold_bin = torch.zeros(N, dtype=torch.int32, device=dev)
@@ -226,13 +325,12 @@ def grow_tree(Xb: torch.Tensor, g: torch.Tensor, h: torch.Tensor, *,
         hist = level_histograms(Xb, g, h, node_index, n_level, n_bins,
                                 parent_hist=prev_hist,
                                 parent_split=prev_split,
-                                reduce=hist_collective)
-        if rs:
-            # The slabs hold different columns: node totals from the row
+                                reduce=hist_collective, widths=widths)
+        if rs or fsh:
+            # The ranks hold different columns: node totals from the row
             # vectors, one all-reduce of the [n_level, 2] pair.
-            GH = comms.psum(grad_ops.leaf_gh_sums(
-                node_index.clamp(min=0), node_index >= 0, g, h, n_level),
-                group)
+            GH = row_sums(grad_ops.leaf_gh_sums(
+                node_index.clamp(min=0), node_index >= 0, g, h, n_level))
             G, Hh = GH[:, 0], GH[:, 1]
         else:
             G, Hh = S.node_totals(hist)
@@ -246,9 +344,11 @@ def grow_tree(Xb: torch.Tensor, g: torch.Tensor, h: torch.Tensor, *,
             hist, reg_lambda, min_child_weight, fm_loc,
             missing_bin=missing_bin, cat_mask=cm_loc)
         if rs:
+            feats = col_ids[feats.to(torch.int64)].to(torch.int32)
+        if combine_group is not None:
             gains, feats, bins, dls = comms.combine_shard_winners(
-                gains, col_ids[feats.to(torch.int64)].to(torch.int32), bins,
-                dls, group, n_features=F, n_bins=n_bins,
+                gains, feats + f_lo, bins, dls, combine_group,
+                n_features=F * comms.world(feature_group), n_bins=n_bins,
                 missing_bin=missing_bin)
         # An empty node at reg_lambda = 0 would store -0/0 = NaN, which a
         # predict-time row can reach: guarded to 0.
@@ -267,10 +367,19 @@ def grow_tree(Xb: torch.Tensor, g: torch.Tensor, h: torch.Tensor, *,
         idx = (node_id - offset).clamp(0, n_level - 1).to(torch.int64)
         split_here = do_split[idx] & ~frozen
         feat_r = feats[idx].to(torch.int64)
-        fv = Xb.gather(1, feat_r[:, None])[:, 0].to(torch.int32)
+        if fsh:
+            # The owner of the winning column gathers, the others add 0.
+            loc = feat_r - f_lo
+            own = (loc >= 0) & (loc < F)
+            fv = torch.where(own, Xb.gather(
+                1, loc.clamp(0, F - 1)[:, None])[:, 0].to(torch.int32), 0)
+            fv = comms.psum(fv, feature_group)
+        else:
+            fv = Xb.gather(1, feat_r[:, None])[:, 0].to(torch.int32)
         right = go_right(
             fv, bins[idx],
-            None if cat_mask is None else cat_mask[feats][idx],
+            None if cat_mask is None
+            else cat_mask[feats.clamp(max=Fg - 1)][idx],
             dls[idx] if missing_bin else None,
             n_bins - 1 if missing_bin else -1).to(torch.int32)
         node_id = torch.where(split_here, 2 * node_id + 1 + right, node_id)
@@ -284,8 +393,8 @@ def grow_tree(Xb: torch.Tensor, g: torch.Tensor, h: torch.Tensor, *,
     n_last = 1 << max_depth
     active = ~frozen
     idx = (node_id - offset).clamp(0, n_last - 1)
-    GH = comms.psum(grad_ops.leaf_gh_sums(idx, active, g, h, n_last),
-                    group, modeled=True)
+    GH = row_sums(grad_ops.leaf_gh_sums(idx, active, g, h, n_last),
+                  modeled=True)
     Gl, Hl = GH[:, 0], GH[:, 1]
     if quant:
         Gl = Gl.to(torch.float32) * gscale

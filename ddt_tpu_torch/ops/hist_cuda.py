@@ -30,6 +30,10 @@ limit, so every shape the trainer produces runs as one launch; it raises
 only if one feature of one node does not fit, which cannot happen at
 <= 256 bins.
 
+Xb may be a column slab of a wider row-major matrix, read in place: the
+kernel takes the row stride (the slab-pipelined level loop of ops/grow
+hands it such views).
+
 The plain version of the same function is ops/histogram.
 build_histograms_segment; ops/histogram.build_histograms dispatches CUDA
 tensors here and CPU tensors there. This wrapper never falls back: a CPU
@@ -121,8 +125,8 @@ def _lib():
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         for entry, _, _ in _MODES.values():
             fn = getattr(lib, entry)
-            fn.argtypes = [vp, vp, vp, vp, vp, i64, i32, i32, i32, i32, i32,
-                           i32, i32, vp]
+            fn.argtypes = [vp, vp, vp, vp, vp, i64, i64, i32, i32, i32, i32,
+                           i32, i32, i32, vp]
             fn.restype = i32
         lib.ddt_hist_max_blocks.argtypes = [i32, i32, ctypes.POINTER(i32)]
         lib.ddt_hist_max_blocks.restype = i32
@@ -160,8 +164,12 @@ def _check_operands(Xb, g, h, node_index, n_nodes, n_bins):
             raise TypeError(f"{name} must be a CUDA tensor, got {t.device}")
         if t.dtype != dt:
             raise TypeError(f"{name} must be {dt}, got {t.dtype}")
-        if not t.is_contiguous():
+        if t is not Xb and not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    if Xb.dim() != 2 or (Xb.shape[1] > 1 and Xb.stride(1) != 1) \
+            or (Xb.shape[0] > 1 and Xb.stride(0) < Xb.shape[1]):
+        raise ValueError("Xb must be row-major [R, F] with unit column "
+                         f"stride, got strides {tuple(Xb.stride())}")
         if t.device != Xb.device:
             raise ValueError(f"{name} is on {t.device}, Xb on {Xb.device}")
     R = Xb.shape[0]
@@ -177,9 +185,10 @@ def build_histograms_cuda(Xb: torch.Tensor, g: torch.Tensor,
                           h: torch.Tensor, node_index: torch.Tensor,
                           n_nodes: int, n_bins: int) -> torch.Tensor:
     """[n_nodes, F, n_bins, 2] on Xb's card: f32 for f32 g/h, int32 for
-    int8/int16 g/h. Xb uint8 [R, F], g and h [R] of one of those dtypes
-    (the same for both), node_index int32 [R] (-1 = frozen), all
-    contiguous CUDA tensors on one device."""
+    int8/int16 g/h. Xb uint8 [R, F] row-major (contiguous, or a column
+    slab of a wider matrix: its row stride is passed on), g and h [R] of
+    one of those dtypes (the same for both), node_index int32 [R] (-1 =
+    frozen), contiguous; all CUDA tensors on one device."""
     _check_operands(Xb, g, h, node_index, n_nodes, n_bins)
     entry, mode, out_dtype = _MODES[g.dtype]
     R, F = Xb.shape
@@ -197,8 +206,8 @@ def build_histograms_cuda(Xb: torch.Tensor, g: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         status = getattr(lib, entry)(
             Xb.data_ptr(), g.data_ptr(), h.data_ptr(), node_index.data_ptr(),
-            out.data_ptr(), R, F, n_bins, n_nodes, plan.fs, plan.nr,
-            blocks_x, plan.smem_bytes, stream)
+            out.data_ptr(), R, Xb.stride(0) if R > 1 else F, F, n_bins,
+            n_nodes, plan.fs, plan.nr, blocks_x, plan.smem_bytes, stream)
     _build.check(status, f"hist kernel launch ({entry})")
     _launches.count(__name__, "launches" if out_dtype == torch.float32
                     else "launches_int")

@@ -129,12 +129,20 @@ def plan_launch(n_rows: int, n_trees: int, max_depth: int, n_features: int,
     that is fewer), at which the batch fits one wave of blocks, as many an
     SM as their shared memory allows, each staging as many trees a pass
     as fit; where no block size gives such a wave, PAIRS_BLOCKS_PER_SM
-    blocks an SM with passes sized for that share. Raises ValueError when
-    one tree and a block's rows do not fit."""
+    blocks an SM with passes sized for that share.
+
+    Rows too wide for a block of one row a thread (1024 features at
+    depth 6: BASELINE config 5) take the pairs mapping at every batch
+    size with f32 leaves (K3, the last rung of the tier ladder, which
+    has no tier below it); the quantized tiers' fits guards step such
+    models down to K3 first. Raises ValueError when one tree and a
+    block's rows do not fit, or a quantized tier's rows are too wide."""
     smem_limit -= STATIC_SMEM
     tb = record_bytes(max_depth, leaf_dtype)
     T = max(n_trees, 1)
-    if smem_bytes(1, max_depth, n_features, leaf_dtype) > smem_limit:
+    wide = smem_bytes(1, max_depth, n_features, leaf_dtype) > smem_limit
+    if wide and (leaf_dtype != "float32"
+                 or _pairs_smem(1, 1, tb, n_features) > smem_limit):
         raise ValueError(
             f"one depth-{max_depth} {leaf_dtype} tree record with "
             f"{n_features} features needs "
@@ -149,10 +157,10 @@ def plan_launch(n_rows: int, n_trees: int, max_depth: int, n_features: int,
         takes its dynamic bytes, the static ones and the reserve."""
         return (smem_limit + per_block) // k - per_block
 
-    rb = next(h * THREADS for h in ROWS_PER_THREAD
-              if smem_bytes(1, max_depth, n_features, leaf_dtype,
-                            h * THREADS) <= smem_limit)
-    if n_rows >= sm_count * rb:
+    rb = next((h * THREADS for h in ROWS_PER_THREAD
+               if smem_bytes(1, max_depth, n_features, leaf_dtype,
+                             h * THREADS) <= smem_limit), None)
+    if rb is not None and n_rows >= sm_count * rb:
         sub = min(T, (smem_limit - n_features * rb) // tb)
         if sub < T:
             shared = (share(PASS_BLOCKS_PER_SM) - n_features * rb) // tb

@@ -9,9 +9,9 @@ reference's `axis_name=None`). NCCL carries CUDA tensors and gloo CPU
 tensors; a CUDA tensor handed to a group of another backend raises
 (`check_group`): there is no quiet path through the host.
 
-- `psum` / `pmax` / `all_gather` / `reduce_scatter`: `dist.all_reduce`,
-  `reduce_scatter_tensor` and `all_gather_into_tensor`, each returning a
-  new tensor. `reduce_scatter` splits a chosen dim (the feature dim of a
+- `psum` / `pmax` / `all_gather` / `reduce_scatter` /
+  `broadcast_first`: `dist.all_reduce`, `reduce_scatter_tensor`,
+  `all_gather_into_tensor` and `broadcast`, each returning a new tensor. `reduce_scatter` splits a chosen dim (the feature dim of a
   [n, F, B, 2] histogram), which it first moves outermost, so rank i gets
   contiguous block i of the dim, padded to a multiple of the world size
   by the caller (`pad_to_multiple`).
@@ -22,20 +22,31 @@ tensors; a CUDA tensor handed to a group of another backend raises
   does not depend on the reduction order). `comms_error_bound` bounds
   either compressed wire. Integer (quantized-gradient) histograms merge
   exactly as they are and refuse compression.
-- `combine_shard_winners`: the reduce-scatter epilogue. Each rank found
-  the best split of its feature slab; one all-gather of a packed [4, n]
-  int32 record (gain bits, feature, bin, direction) and the single-device
-  argmax's tie-break (maximum gain, then the smallest global flattened
-  candidate index, the right-direction block first under a missing bin;
-  a -inf slab never wins) pick the global winner on every rank.
+  With `async_op=True` it returns a `Pending` whose `wait()` gives the
+  merged tensor: the slab-pipelined level loop (ops/grow) issues slab k's
+  collective before slab k+1's kernel and waits for all of them before
+  the concatenation (on NCCL a wait orders the current stream after the
+  collective, so a captured round holds the overlap).
+- `combine_shard_winners`: the epilogue of a sharded split search. Each
+  rank found the best split of its columns; one all-gather of a packed
+  [4, n] int32 record (gain bits, feature, bin, direction) and the
+  single-device argmax's tie-break (maximum gain, then the smallest
+  global flattened candidate index, the right-direction block first
+  under a missing bin; a -inf slab never wins) pick the global winner on
+  every rank. It gathers over the world under reduce-scatter (every
+  (row, feature) rank owns a distinct column set) and over the feature
+  group under allreduce on a 2D mesh.
+- `resolve_split_comms` / `resolve_comms_slabs`: the config's "auto"
+  choices, resolved once per backend.
 
 Counters (read around a path, as the kernels' launch counters are, and
 counted per replay of a captured round through utils/launches):
 `calls` collectives, `modeled_bytes` the payload that
 `hist_allreduce_bytes` models (histograms as reduced, winners as
 gathered, the final leaf sums), `other_bytes` the rest (node totals under
-reduce-scatter, int32_fixed scales, quantization statistics, losses,
-digests).
+reduce-scatter or a feature axis, the routing broadcast over the feature
+group, int32_fixed scales, quantization statistics, losses, digests,
+checkpoint barriers).
 """
 
 from __future__ import annotations
@@ -94,14 +105,35 @@ def _nbytes(x: torch.Tensor) -> int:
     return x.numel() * x.element_size()
 
 
-def _all_reduce(x: torch.Tensor, group, op, modeled: bool) -> torch.Tensor:
+class Pending:
+    """An issued collective: `wait()` waits for it (on NCCL: orders the
+    current stream after it) and returns its result. It holds the
+    collective's tensors until then."""
+
+    def __init__(self, out: torch.Tensor, work=None, post=None, keep=()):
+        self._out, self._work, self._post, self._keep = out, work, post, keep
+
+    def wait(self) -> torch.Tensor:
+        if self._work is not None:
+            self._work.wait()
+            self._work = None
+        self._keep = ()
+        return self._out if self._post is None else self._post(self._out)
+
+
+def _all_reduce_pending(x: torch.Tensor, group, op, modeled: bool,
+                        async_op: bool = False) -> Pending:
     if group is None:
-        return x
+        return Pending(x)
     check_group(x.device, group)
     out = x.contiguous().clone()
     _count(_nbytes(out), modeled)
-    dist.all_reduce(out, op=op, group=group)
-    return out
+    return Pending(out, dist.all_reduce(out, op=op, group=group,
+                                        async_op=async_op))
+
+
+def _all_reduce(x: torch.Tensor, group, op, modeled: bool) -> torch.Tensor:
+    return _all_reduce_pending(x, group, op, modeled).wait()
 
 
 def psum(x: torch.Tensor, group, modeled: bool = False) -> torch.Tensor:
@@ -112,6 +144,20 @@ def psum(x: torch.Tensor, group, modeled: bool = False) -> torch.Tensor:
 def pmax(x: torch.Tensor, group) -> torch.Tensor:
     """Elementwise maximum of x over the group's ranks."""
     return _all_reduce(x, group, dist.ReduceOp.MAX, False)
+
+
+def broadcast_first(x: torch.Tensor, group) -> torch.Tensor:
+    """x of the group's first rank, on every rank of the group (a new
+    tensor; x itself without a group). Ranks that computed the same
+    value in another f32 summation order (float atomics) agree on it
+    this way."""
+    if group is None:
+        return x
+    check_group(x.device, group)
+    out = x.contiguous().clone()
+    _count(_nbytes(out), False)
+    dist.broadcast(out, src=dist.get_global_rank(group, 0), group=group)
+    return out
 
 
 def all_gather(x: torch.Tensor, group, modeled: bool = False
@@ -129,12 +175,11 @@ def all_gather(x: torch.Tensor, group, modeled: bool = False
     return out.view((P,) + tuple(x.shape))
 
 
-def reduce_scatter(x: torch.Tensor, group, dim: int,
-                   modeled: bool = False) -> torch.Tensor:
-    """Sum x over the group and hand rank i contiguous block i of `dim`
-    (whose extent must be a multiple of the world size: pad first)."""
+def _reduce_scatter_pending(x: torch.Tensor, group, dim: int,
+                            modeled: bool, async_op: bool = False
+                            ) -> Pending:
     if group is None:
-        return x
+        return Pending(x)
     P = world(group)
     if x.shape[dim] % P:
         raise ValueError(
@@ -145,8 +190,17 @@ def reduce_scatter(x: torch.Tensor, group, dim: int,
     out = torch.empty((src.shape[0] // P,) + tuple(src.shape[1:]),
                       dtype=src.dtype, device=src.device)
     _count(_nbytes(out), modeled)
-    dist.reduce_scatter_tensor(out, src, group=group)
-    return out.movedim(0, dim).contiguous()
+    work = dist.reduce_scatter_tensor(out, src, group=group,
+                                      async_op=async_op)
+    return Pending(out, work, lambda o: o.movedim(0, dim).contiguous(),
+                   keep=(src,))
+
+
+def reduce_scatter(x: torch.Tensor, group, dim: int,
+                   modeled: bool = False) -> torch.Tensor:
+    """Sum x over the group and hand rank i contiguous block i of `dim`
+    (whose extent must be a multiple of the world size: pad first)."""
+    return _reduce_scatter_pending(x, group, dim, modeled).wait()
 
 
 def pad_to_multiple(x: torch.Tensor, dim: int, multiple: int
@@ -161,21 +215,31 @@ def pad_to_multiple(x: torch.Tensor, dim: int, multiple: int
     return torch.cat([x, x.new_zeros(shape)], dim=dim)
 
 
-def _reduce(x, group, mode: str, scatter_dim: int):
+def _reduce(x, group, mode: str, scatter_dim: int,
+            async_op: bool) -> Pending:
     if mode == "reduce_scatter":
-        return reduce_scatter(x, group, scatter_dim, modeled=True)
-    return psum(x, group, modeled=True)
+        return _reduce_scatter_pending(x, group, scatter_dim, True,
+                                       async_op)
+    return _all_reduce_pending(x, group, dist.ReduceOp.SUM, True, async_op)
 
 
 def hist_reduce(hist: torch.Tensor, group, *, mode: str = "allreduce",
-                comms_dtype: str = "f32", scatter_dim: int = 1
-                ) -> torch.Tensor:
+                comms_dtype: str = "f32", scatter_dim: int = 1,
+                async_op: bool = False):
     """Merge the ranks' partial histograms: replicated
     (mode="allreduce") or scattered along `scatter_dim`
     (mode="reduce_scatter", the dim pre-padded to the world size), on an
     f32, bf16 or int32_fixed wire (see the module docstring). Integer
     histograms merge exactly and refuse compression; a single process
-    (group None) has no wire and rounds nothing."""
+    (group None) has no wire and rounds nothing. With `async_op`, a
+    Pending whose wait() gives the merged tensor (int32_fixed's scale
+    MAX runs before the return)."""
+    p = _hist_reduce(hist, group, mode, comms_dtype, scatter_dim, async_op)
+    return p if async_op else p.wait()
+
+
+def _hist_reduce(hist, group, mode, comms_dtype, scatter_dim,
+                 async_op) -> Pending:
     if comms_dtype not in COMMS_DTYPES:
         raise ValueError(
             f"comms_dtype must be one of {COMMS_DTYPES}, got {comms_dtype!r}")
@@ -190,12 +254,12 @@ def hist_reduce(hist: torch.Tensor, group, *, mode: str = "allreduce",
                 "live on one shared fixed-point grid, so quantizing them "
                 "again per collective would void the quantized-gradient "
                 "error bound; keep hist_comms_dtype='f32'")
-        return _reduce(hist, group, mode, scatter_dim)
+        return _reduce(hist, group, mode, scatter_dim, async_op)
     if group is None or comms_dtype == "f32":
-        return _reduce(hist, group, mode, scatter_dim)
+        return _reduce(hist, group, mode, scatter_dim, async_op)
     if comms_dtype == "bf16":
         return _reduce(hist.to(torch.bfloat16).to(torch.float32), group,
-                       mode, scatter_dim)
+                       mode, scatter_dim, async_op)
     # int32_fixed: one grid for every rank (scale from the global
     # max-abs), each partial capped so the int32 sum cannot overflow, the
     # dequantize after the integer reduce. torch.round rounds half to
@@ -207,7 +271,8 @@ def hist_reduce(hist: torch.Tensor, group, *, mode: str = "allreduce",
     scale = torch.where(m > 0, m / cap,
                         torch.ones((), dtype=torch.float32, device=dev))
     q = torch.round(hist / scale).to(torch.int32)
-    return _reduce(q, group, mode, scatter_dim).to(torch.float32) * scale
+    p = _reduce(q, group, mode, scatter_dim, async_op)
+    return Pending(p, post=lambda pp: pp.wait().to(torch.float32) * scale)
 
 
 def comms_error_bound(comms_dtype: str, partitions: int,
@@ -264,7 +329,8 @@ def combine_shard_winners(gains: torch.Tensor, feats: torch.Tensor,
 def resolve_split_comms(flag: str, *, row_shards: int) -> str:
     """cfg.split_comms -> "allreduce" | "reduce_scatter": "auto" (and a
     forced "reduce_scatter") scatter exactly when rows are partitioned
-    (row_shards > 1); with one rank there is no wire to scatter."""
+    (row_shards = hosts x rows > 1), on any mesh with a row wire; a pure
+    feature mesh, or one rank, has no row wire to scatter."""
     if flag not in SPLIT_COMMS:
         raise ValueError(
             f"split_comms must be one of {SPLIT_COMMS}, got {flag!r}")
@@ -273,18 +339,44 @@ def resolve_split_comms(flag: str, *, row_shards: int) -> str:
     return "reduce_scatter" if row_shards > 1 else "allreduce"
 
 
+#: hist_comms_slabs=0 ("auto") on a distributed run, by device type.
+#: 1 (no pipelining): on four H100s 4 slabs made the round slower at
+#: BASELINE config 5's width (+10%) and at config 3's (2.15x), K1's extra
+#: launches costing more than the wire they hide (PERF.md section 6).
+AUTO_COMMS_SLABS = {"cuda": 1, "cpu": 1}
+
+
+def resolve_comms_slabs(flag: int, *, distributed: bool,
+                        device_type: str) -> int:
+    """cfg.hist_comms_slabs -> the slab count of the level loop's
+    pipelined build + collective (port of ddt_tpu/parallel/comms.py:
+    365-391): N >= 1 is taken as it is; 0 ("auto") is 1 without a wire,
+    else AUTO_COMMS_SLABS of the device."""
+    if flag < 0:
+        raise ValueError(f"hist_comms_slabs must be >= 0, got {flag}")
+    if flag >= 1:
+        return flag
+    if not distributed:
+        return 1
+    return AUTO_COMMS_SLABS[device_type]
+
+
 def hist_allreduce_bytes_by_level(max_depth: int, n_features: int,
                                   n_bins: int, *, partitions: int = 1,
                                   mode: str = "allreduce",
                                   subtraction: bool = False,
                                   comms_dtype: str = "f32",
+                                  feature_partitions: int = 1,
                                   grad_dtype: str = "f32") -> list[int]:
     """Per-level payload of the histogram collective for one tree, per
-    rank (levels 0..max_depth-1): the level's histogram (left children
-    only from level 1 with subtraction) as the rank holds it after the
-    collective, at the wire's bytes per value (int32 partials on the
-    quantized path), plus under reduce-scatter the winner combine's
-    gathered [P, 4, n_level] int32 record."""
+    rank (levels 0..max_depth-1; the reference's telemetry/counters.
+    hist_allreduce_bytes_by_level): the level's histogram (left children
+    only from level 1 with subtraction) over the rank's F / Pf columns as
+    the rank holds it after the collective, at the wire's bytes per value
+    (int32 partials on the quantized path), plus the winner combine's
+    gathered [4, n_level] int32 records: from every rank (P x Pf) under
+    reduce-scatter, from the Pf feature shards under allreduce on a
+    feature axis. `partitions` counts the row shards (hosts x rows)."""
     if grad_dtype != "f32" and comms_dtype != "f32":
         raise ValueError(
             f"grad_dtype={grad_dtype!r} with comms_dtype={comms_dtype!r}: "
@@ -292,17 +384,21 @@ def hist_allreduce_bytes_by_level(max_depth: int, n_features: int,
     val_bytes = 4 if grad_dtype != "f32" else COMMS_DTYPE_BYTES[comms_dtype]
     per_entry = val_bytes * 2                            # (g, h) pairs
     P = max(1, partitions)
+    Pf = max(1, feature_partitions)
+    f_dev = -(-n_features // Pf)
     out = []
     for d in range(max_depth):
         nodes = 1 << d
         if subtraction and d >= 1:
             nodes //= 2
         if mode == "reduce_scatter":
-            f_pad = -(-n_features // P) * P
+            f_pad = -(-f_dev // P) * P
             total = nodes * (f_pad // P) * n_bins * per_entry
-            total += P * (1 << d) * 4 * 4
+            total += P * Pf * (1 << d) * 4 * 4
         else:
-            total = nodes * n_features * n_bins * per_entry
+            total = nodes * f_dev * n_bins * per_entry
+            if Pf > 1:
+                total += Pf * (1 << d) * 4 * 4
         out.append(total)
     return out
 

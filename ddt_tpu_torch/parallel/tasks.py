@@ -24,6 +24,7 @@ from ddt_tpu_torch.backends.cuda import CUDADevice
 from ddt_tpu_torch.config import TrainConfig
 from ddt_tpu_torch.ops import hist_cuda, predict_cuda
 from ddt_tpu_torch.parallel import comms, mesh
+from ddt_tpu_torch.utils import checkpoint
 
 #: Counters a training task reads before and after its run.
 COUNTERS = ((hist_cuda, "launches"), (hist_cuda, "launches_int"),
@@ -66,11 +67,18 @@ def _rank() -> int:
     return comms.rank(dist.group.WORLD)
 
 
+#: TrainConfig fields that lay out the mesh.
+LAYOUT = ("n_partitions", "feature_partitions", "host_partitions",
+          "mesh_shape")
+
+
 def _config(device: str, cfg_kw: dict) -> TrainConfig:
     """TrainConfig for this rank: n_partitions the world size unless
-    cfg_kw names one (the refusal tests do)."""
-    return TrainConfig(**{"device": device, "n_partitions": _world(),
-                          **cfg_kw})
+    cfg_kw names a layout (the 2D, hosts and refusal tests do)."""
+    kw = {"device": device, **cfg_kw}
+    if not any(k in cfg_kw for k in LAYOUT):
+        kw["n_partitions"] = _world()
+    return TrainConfig(**kw)
 
 
 def train(device: str, X, y, cfg_kw: dict, fit_kw: dict | None = None,
@@ -87,7 +95,34 @@ def train(device: str, X, y, cfg_kw: dict, fit_kw: dict | None = None,
             "best_round": res.best_round, "counters": _since(before),
             "bytes_model": be.collective_bytes_per_tree(
                 res.ensemble.n_features),
-            "split_comms": be.split_comms, "rank": be.rank}
+            "split_comms": be.split_comms, "rank": be.rank,
+            "global_rank": _rank(), "comms_slabs": be.comms_slabs}
+
+
+def train_saves(device: str, X, y, cfg_kw: dict, fit_kw: dict) -> dict:
+    """tasks.train with checkpoint writes counted on this rank: the
+    result's "saves" is how many checkpoints this rank wrote."""
+    saves = []
+    real = checkpoint.save_checkpoint
+
+    def counted(*a, **kw):
+        saves.append(a[3])
+        return real(*a, **kw)
+
+    checkpoint.save_checkpoint = counted
+    try:
+        out = train(device, X, y, cfg_kw, fit_kw)
+    finally:
+        checkpoint.save_checkpoint = real
+    return dict(out, saves=saves)
+
+
+def train_own_dir(device: str, X, y, cfg_kw: dict, base: str) -> None:
+    """api.train with a checkpoint directory of this rank's own,
+    base/rank<r> (ranks that would resume different checkpoints: the
+    Driver must refuse them)."""
+    api.train(X, y, _config(device, cfg_kw),
+              checkpoint_dir=f"{base}/rank{_rank()}", checkpoint_every=1)
 
 
 def train_shifted(device: str, X, y, cfg_kw: dict, shift: float) -> None:
@@ -186,6 +221,10 @@ def _profile_share(fn) -> dict:
     nccl = [r for r in rows if "nccl" in r[2].lower()]
     nccl_s = sum(r[0] for r in nccl)
     return {"wall_s": wall, "device_busy_s": busy, "nccl_device_s": nccl_s,
+            "hist_device_s": sum(r[0] for r in rows
+                                 if "hist_kernel" in r[2]),
+            "nccl_by_kernel": [{"name": k[:80], "device_s": t, "count": c}
+                               for t, c, k in nccl],
             "nccl_kernels": sum(r[1] for r in nccl),
             "nccl_share_of_busy": nccl_s / busy if busy > 0 else None,
             "nccl_share_of_wall": nccl_s / wall if wall > 0 else None,
@@ -242,3 +281,93 @@ def train_timed(device: str, x_path: str, y_path: str, cfg_kw: dict,
             "bytes_model": be.collective_bytes_per_tree(
                 res.ensemble.n_features),
             "profile": prof}
+
+
+def _mean_ms(fn, reps: int) -> float:
+    """Mean ms of fn() over `reps` calls after one untimed call: CUDA
+    events around them on a card (device time), else the host clock
+    around calls that end in a synchronize."""
+    fn()
+    _sync()
+    if not torch.cuda.is_available():
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return 1e3 * (time.perf_counter() - t0) / reps
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    for _ in range(reps):
+        fn()
+    e.record()
+    _sync()
+    return s.elapsed_time(e) / reps
+
+
+def train_mesh(device: str, x_path: str, y_path: str, cfg_kw: dict,
+               fit_kw: dict | None, profile_rounds: int) -> dict:
+    """chip_smoke's `mesh2d` phase on one rank: api.train of the binned
+    rows in x_path / y_path (.npy, read memory-mapped: a rank reads its
+    row block and keeps its column slab), timed; api.predict of the
+    rank's row block through K3 (the ranks of feature shard 0 return the
+    scores: their blocks tile the rows). With `profile_rounds`, that many
+    fused rounds on the same rows replayed under torch.profiler (K1's and
+    the NCCL kernels' device time) and, with feature shards, the routing
+    broadcast (an int32 [R_local] all-reduce over the feature group) timed
+    alone. Returns the ensemble, the scores, counters
+    over train + predict and over train alone, times and the profile."""
+    X = np.load(x_path, mmap_mode="r")
+    y = np.load(y_path)
+    cfg = _config(device, cfg_kw)
+    be = get_backend(cfg)
+    before = _counters()
+    t0 = time.perf_counter()
+    res = api.train(X, y, cfg, backend=be, binned=True, **(fit_kw or {}))
+    _sync()
+    train_s = time.perf_counter() - t0
+    trained = _counters()
+    start, stop, local = mesh.row_block(len(y), be.world, be.rank)
+    block = torch.from_numpy(np.ascontiguousarray(X[start:stop])).to(
+        be.device)
+    raw = api.predict(res.ensemble, block, binned=True, raw=True,
+                      cfg=TrainConfig(device=device))
+    counters = _since(before)
+    m = be.mesh
+    out = {"ensemble": res.ensemble, "rank": _rank(),
+           "coords": (m.host, m.row, m.feature),
+           "raw": raw.astype(np.float32) if m.feature == 0 else None,
+           "device": str(be.device),
+           "split_comms": be.split_comms, "comms_slabs": be.comms_slabs,
+           "columns": mesh.column_slab(X.shape[1], m.n_feature_shards,
+                                       m.feature)[2],
+           "train_s": train_s, "history_len": len(res.history),
+           "fused_ms_per_round": float(np.mean(
+               [r["ms"] for r in res.history[cfg.fused_block_rounds:]]))
+           if len(res.history) > cfg.fused_block_rounds else None,
+           "counters": counters,
+           "train_counters": {k: trained[k] - before[k] for k in trained},
+           "bytes_model": be.collective_bytes_per_tree(
+               res.ensemble.n_features)}
+    if profile_rounds:
+        data = be.upload(mesh.RowBlock(mesh.pad_rows(block, local),
+                                       len(y)))
+        del block
+        yh = be.upload_labels(y)
+        pred = be.init_pred(yh, res.ensemble.base_score)
+        be.grow_rounds(data, pred, yh, 1)
+        other = comms.other_bytes
+        prof = _profile_share(lambda: be.grow_rounds(data, pred, yh,
+                                                     profile_rounds))
+        prof["ms_per_round"] = 1e3 * prof["wall_s"] / profile_rounds
+        prof["k1_ms_per_round"] = 1e3 * prof["hist_device_s"] \
+            / profile_rounds
+        prof["other_bytes_per_round"] = (comms.other_bytes - other) \
+            / profile_rounds
+        out["profile"] = prof
+        if be.feature_group is not None:
+            fv = torch.zeros(local, dtype=torch.int32, device=be.device)
+            out["route"] = {
+                "bytes_per_level": local * 4,
+                "ms_per_level": _mean_ms(
+                    lambda: comms.psum(fv, be.feature_group), 20)}
+    return out

@@ -49,9 +49,13 @@ _HISTORY_RE = re.compile(re.escape(HISTORY_PREFIX) + r"(\d+)$")
 KEEP_LAST = 3
 CURSOR_SCHEMA = 2
 #: Fields that may differ across a resume: the round target (resuming to
-#: train further is the point) and where and how the rounds run.
+#: train further is the point) and where and how the rounds run, the
+#: partition layout included (the reference's list,
+#: ddt_tpu/utils/checkpoint.py:75-86): a run checkpointed on one mesh
+#: resumes on another, or on one device.
 _SYSTEM_FIELDS = ("n_trees", "device", "fused_block_rounds",
-                  "predict_impl")
+                  "predict_impl", "n_partitions", "feature_partitions",
+                  "host_partitions", "mesh_shape")
 
 
 def cfg_fingerprint(cfg: TrainConfig) -> dict:

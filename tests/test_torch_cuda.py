@@ -993,3 +993,86 @@ def test_two_nccl_ranks_int8_equal_one_card(dev, split_comms):
         for k in _FIELDS:
             np.testing.assert_array_equal(getattr(o["ensemble"], k),
                                           getattr(alone, k))
+
+
+@pytest.mark.parametrize("mode", ["f32", "int8"])
+def test_hist_kernel_on_a_1024_column_slab(dev, mode):
+    """K1 at BASELINE config 5's width: a 1024-column slab of a wider
+    matrix (a view, row stride 2048) at 500k rows, against its plain
+    version; ~10 feature slabs a node range inside the kernel."""
+    R, F, B, N = 500_000, 1024, 255, 4
+    rng = np.random.default_rng(11)
+    wide = torch.from_numpy(rng.integers(0, B, size=(R, 2 * F),
+                                         dtype=np.uint8)).to(dev)
+    Xs = wide[:, F:]
+    assert Xs.stride() == (2 * F, 1)
+    ni = torch.from_numpy(rng.integers(-1, N, R).astype(np.int32)).to(dev)
+    if mode == "int8":
+        g = torch.from_numpy(rng.integers(-127, 128, R).astype(np.int8))
+        h = torch.from_numpy(rng.integers(0, 128, R).astype(np.int8))
+    else:
+        g = torch.from_numpy(rng.standard_normal(R).astype(np.float32))
+        h = torch.from_numpy(rng.random(R).astype(np.float32))
+    g, h = g.to(dev), h.to(dev)
+    plan = hist_cuda.plan_tiles(N, F, B, _build.smem_limit(dev))
+    assert plan.n_slabs >= 9 and plan.nr == 1
+    got = hist_cuda.build_histograms_cuda(Xs, g, h, ni, N, B)
+    want = histogram.build_histograms_segment(Xs, g, h, ni, N, B)
+    if mode == "int8":
+        assert torch.equal(got, want)
+        return
+    tol = 1e-5 * histogram.build_histograms_segment(
+        Xs, g.abs(), h.abs(), ni, N, B) + 1e-6
+    assert bool(((got - want).abs() <= tol).all())
+
+
+def test_hist_kernel_refuses_a_column_strided_view(dev):
+    Xb = torch.zeros((64, 8), dtype=torch.uint8, device=dev)
+    g = torch.zeros(8, dtype=torch.float32, device=dev)
+    ni = torch.zeros(8, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="row-major"):
+        hist_cuda.build_histograms_cuda(Xb.t(), g, g, ni, 1, 16)
+
+
+@pytest.mark.parametrize("layout", [
+    dict(mesh_shape=(1, 2), hist_comms_slabs=2),
+    dict(mesh_shape=(2, 2)),
+    dict(host_partitions=2, n_partitions=2, hist_comms_slabs=4)],
+    ids=["1x2_slabs2", "2x2", "2hx2_slabs4"])
+def test_nccl_mesh_subgroups_captured_int8_equal_one_card(dev, layout):
+    """The row, feature and world groups' communicators inside one
+    captured round: one capture, a replay a round, the modeled bytes
+    counted per replay, and int8 trees bitwise the one card's."""
+    from ddt_tpu_torch import api
+    from ddt_tpu_torch.config import TrainConfig
+    from ddt_tpu_torch.parallel import spawn, tasks
+
+    world = TrainConfig(**layout).world_size
+    if torch.cuda.device_count() < world:
+        pytest.skip(f"needs {world} cards (NCCL lets no two ranks share "
+                    f"one); this machine has {torch.cuda.device_count()}")
+    X, y, kw = _nccl_case()
+    outs = spawn.spawn(tasks.train, world, "nccl", "cuda", X, y,
+                       dict(kw, **layout))
+    alone = api.train(X, y, TrainConfig(**kw)).ensemble
+    for o in outs:
+        c = o["counters"]
+        assert c["cuda.graph_captures"] == 1
+        assert c["cuda.graph_replays"] == kw["n_trees"]
+        assert c["comms.modeled_bytes"] == \
+            (kw["n_trees"] + 1) * o["bytes_model"] > 0
+        for k in _FIELDS:
+            np.testing.assert_array_equal(getattr(o["ensemble"], k),
+                                          getattr(alone, k))
+
+
+def test_traverse_kernel_at_config5_width(dev):
+    """K3 at 1024 features x depth 6: a block of one row a thread does not
+    fit shared memory, so every batch takes the pairs mapping; bitwise
+    its plain version at serving and bulk sizes."""
+    ens = _rand_ens(20, 6, 1024, 255, C=1, exact=False, seed=9)
+    X = np.random.default_rng(9).integers(0, 255, size=(100_000, 1024),
+                                          dtype=np.uint8)
+    for n in (1, 256, 100_000):
+        got, want = _score_both(ens, X[:n], dev)
+        np.testing.assert_array_equal(got, want)

@@ -17,8 +17,10 @@ tests/test_distributed.py and tests/test_comms.py hold its mesh:
 - every rank's ensemble bitwise equal; fused equal to granular; the
   collectives' modeled bytes equal to the payload model a tree; the
   granular distributed histogram equal to the numpy oracle's on all rows;
+- checkpoints on a mesh: written by global rank 0 alone, resumed on the
+  same mesh or on one process with no group, bitwise (int8);
 - the refusals: no group, a world-size mismatch, ranks that fitted other
-  edges, checkpoints under partitions.
+  edges, ranks that would resume different checkpoints.
 """
 
 import numpy as np
@@ -266,14 +268,58 @@ def test_scoring_backend_cached_on_a_rank(pools, P):
     assert outs == [(P > 1, True)] * P
 
 
-def test_checkpoint_refused_under_partitions(pools, binary, tmp_path):
+def _mesh_kw(n_trees):
+    return dict(BASE, n_trees=n_trees, grad_dtype="int8", subsample=0.9)
+
+
+def test_checkpoint_resume_on_the_same_mesh(pools, binary, tmp_path):
+    """(2, 2), int8: stopped after 3 of 6 rounds and resumed on the same
+    mesh, bitwise the uninterrupted run and the single device's."""
     X, y = binary
-    with pytest.raises(RuntimeError, match="checkpoint_dir with "
-                                           "n_partitions > 1"):
-        pools(2).run(tasks.train, X, y, BASE,
-                     dict(checkpoint_dir=str(tmp_path)))
-    # The pool survives a refusal: the next run trains.
-    _run(pools, 2, X, y, BASE)
+    mesh_kw = dict(_mesh_kw(6), mesh_shape=(2, 2))
+    whole = _run(pools, 4, X, y, mesh_kw)[0]["ensemble"]
+    _bitwise(whole, api.train(X, y, TrainConfig(device="cpu",
+                                                **_mesh_kw(6))).ensemble)
+    ck = dict(checkpoint_dir=str(tmp_path), checkpoint_every=3)
+    _run(pools, 4, X, y, dict(mesh_kw, n_trees=3), ck)
+    resumed = _run(pools, 4, X, y, mesh_kw, ck)[0]
+    assert len(resumed["history"]) == 3
+    _bitwise(resumed["ensemble"], whole)
+
+
+@pytest.mark.parametrize("layout", [dict(mesh_shape=(2, 2)),
+                                    dict(host_partitions=2, n_partitions=2)],
+                         ids=["2x2", "2hx2"])
+def test_checkpoint_of_a_mesh_resumes_on_one_process(pools, binary, tmp_path,
+                                                     layout):
+    """A 4-rank checkpoint resumes with no group at all (the layout is not
+    in the fingerprint), bitwise the uninterrupted single-device run."""
+    X, y = binary
+    ck = dict(checkpoint_dir=str(tmp_path), checkpoint_every=3)
+    _run(pools, 4, X, y, dict(_mesh_kw(3), **layout), ck)
+    cfg = TrainConfig(device="cpu", **_mesh_kw(6))
+    resumed = api.train(X, y, cfg, **ck)
+    assert len(resumed.history) == 3
+    _bitwise(resumed.ensemble, api.train(X, y, cfg).ensemble)
+
+
+def test_checkpoint_written_by_rank_0_read_by_every_rank(pools, binary,
+                                                         tmp_path):
+    """Global rank 0 alone writes; every rank resumes the same round;
+    ranks that would resume different checkpoints are refused."""
+    X, y = binary
+    kw = dict(_mesh_kw(4), mesh_shape=(2, 2))
+    ck = dict(checkpoint_dir=str(tmp_path / "shared"), checkpoint_every=2)
+    outs = pools(4).run(tasks.train_saves, X, y, dict(kw, n_trees=2), ck)
+    assert [o["saves"] for o in outs] == [[2], [], [], []]
+    outs = pools(4).run(tasks.train_saves, X, y, kw, ck)
+    assert [o["saves"] for o in outs] == [[4], [], [], []]
+    assert [len(o["history"]) for o in outs] == [2] * 4
+    api.train(X, y, TrainConfig(device="cpu", **_mesh_kw(2)),
+              checkpoint_dir=str(tmp_path / "own" / "rank0"),
+              checkpoint_every=1)
+    with pytest.raises(RuntimeError, match="resumed different checkpoints"):
+        pools(4).run(tasks.train_own_dir, X, y, kw, str(tmp_path / "own"))
 
 
 @pytest.mark.parametrize("grad_dtype", ["f32", "int8"])

@@ -425,6 +425,21 @@ def test_k3_plan_stages_1000_trees_pass_by_pass():
         plan(1, 100, 15, 28, "float32", 1, **H100)
 
 
+def test_k3_plan_takes_pairs_for_rows_too_wide_for_a_block():
+    """1024 features at depth 6 (BASELINE config 5): 256 rows of 1 KB
+    beside a tree exceed shared memory, so K3 takes the pairs mapping at
+    every batch size, every row covered within the card; the quantized
+    tiers still refuse (their fits guards step down to K3 first)."""
+    plan = predict_lut_cuda.plan_launch
+    for R in (1, 256, 67_584, 500_000, 1_000_000):
+        p = plan(R, 20, 6, 1024, "float32", 1, **H100)
+        assert p.pairs and p.sub == 20 and p.smem <= H100["smem_limit"]
+        assert p.blocks * p.rows >= R > (p.blocks - 1) * p.rows
+    for leaf_dtype in ("float16", "int8", "int4"):
+        with pytest.raises(ValueError, match="shared memory"):
+            plan(1_000_000, 20, 6, 1024, leaf_dtype, 1, **H100)
+
+
 def test_k3_plan_spreads_a_large_batch_over_two_blocks_an_sm():
     """100 trees: the pairs mapping takes the fewest rows a block that let
     one wave hold the batch (42 rows, three blocks an SM, at 16,384

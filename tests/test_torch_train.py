@@ -124,8 +124,9 @@ def test_config_validation(bad):
         TrainConfig(**bad)
 
 
-@pytest.mark.parametrize("unported", ["feature_partitions",
-                                      "host_partitions", "hist_comms_slabs",
+@pytest.mark.parametrize("unported", ["straggler_repartition",
+                                      "straggler_skew_threshold",
+                                      "matmul_input_dtype",
                                       "fault_plan", "backend",
                                       "hist_impl"])
 def test_unported_fields_are_absent(unported):
