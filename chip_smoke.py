@@ -16,15 +16,17 @@ outside the pair.
 Phases:
   1 device   card name, nvidia-smi's name and power limit, datasheet peaks
   2 build    nvcc of every csrc/*.cu (all at once), seconds
-  3 hist     the histogram kernel against its plain version at the Higgs
-             shape (1M x 28, 255 bins, nodes 1..32, 10% frozen rows), and
-             at 128 and 64 bins; |diff| <= 1e-5 * sum|g| (|h|) over the
-             cell's own rows + 1e-6 (float atomics: run-to-run order); times
-             of the kernel, the plain version, two torch.bincount calls
-             (the library yardstick) and the bound; then the same check,
-             time and bound on the node indices of one main-path tree
-             grown on the card (left children only from level 1 on), per
-             level and summed per tree
+  3 hist     the histogram kernel's exact mode (the f32 training mode:
+             int64 fixed-point sums) against its plain version, bitwise,
+             at the Higgs shape (1M x 28, 255 bins, nodes 1..32, 10% frozen
+             rows), and at 128 and 64 bins; times of the kernel, the plain
+             version, two int64 index_add_ calls (the library yardstick,
+             bitwise too) and the bound; beside them on the same inputs
+             its float-atomic f32 mode (|diff| <= 1e-5 * sum|g| (|h|) over
+             the cell's own rows + 1e-6) and two torch.bincount calls;
+             then the same checks, times and bound on the node indices of
+             one main-path tree grown on the card (left children only
+             from level 1 on), per level and summed per tree
   4 traverse the traversal kernel (K3, csrc/lut.cu ddt_traverse_f32)
              against its plain version: bitwise on an exact-grid ensemble
              (leaves multiples of 1/8) with missing and categorical
@@ -52,11 +54,10 @@ Phases:
              time beside its byte bound, the H2D upload timed apart; the
              card's feature_bincounts bitwise against numpy
   5c fused   20 trees at 1M x 28: the fused loop (replays of a captured
-             round) against the granular loop on the card: int8 trees
-             bitwise, f32 trees identical except at bf16-boundary ties (the
-             float atomics differ run to run), bagging 0.8 + colsample 0.8
-             in int8 bitwise, a block cap of 7 against one block bitwise;
-             ms a tree of both loops
+             round) against the granular loop on the card: int8 and f32
+             trees bitwise, bagging 0.8 + colsample 0.8 in int8 bitwise, a
+             block cap of 7 against one block bitwise; ms a tree of both
+             loops
   6 trained  the traversal kernel against its plain version on the trained
              ensemble, bitwise, at 1M rows and at every size of phase 4,
              and its times
@@ -134,12 +135,11 @@ Phases:
              the loop apart (blocks of 20 rounds: ms a round, a profiled
              5-round window's busy share and kernels), K1 on one covertype
              tree's node indices level by level (kernel, plain, library,
-             bound), and K3 on the trained model bitwise against its plain
-             version at 1, 256 and 116,203 rows, with its bound
+             bound; the float-atomic mode's time beside it), and K3 on the
+             trained model bitwise against its plain version at 1, 256 and
+             116,203 rows, with its bound
  18 covertype_prefix  20 rounds with the eval set, fused against granular:
-             int8 trees and eval scores bitwise; f32 on the same best round
-             and eval accuracy within 0.005, the trees' first divergence
-             reported (K1's float atomics part them at noise-level gains)
+             int8 and f32 trees and eval scores bitwise
  19 missing  1M x 28 (synthetic_missing: 10% NaN, informative on 3
              features), missing_policy "learn" against "zero", 100 rounds,
              depth 6, 800k rows train: learned AUC >= zero policy's on the
@@ -152,8 +152,7 @@ Phases:
              bitwise; the training loss is the weighted mean (to 1e-4)
  22 resume   covertype at 100k rows (20k eval): 10 rounds with
              checkpoint_every=5, resumed to 20, against an uninterrupted
-             20: int8 bitwise (trees and eval scores); f32 reported as in
-             18, eval accuracy within 0.005
+             20: int8 and f32 bitwise (trees and eval scores)
     parity_matrix  card against CPU at 20k rows, 5 rounds, for missing,
              categorical, weights (f32) and covertype (int8): trees
              identical except at bf16-boundary ties, AUC or accuracy
@@ -203,14 +202,35 @@ Phases:
              runs one NCCL rank at mesh (1, 1) with 4 slabs and the
              checkpoint case, and the phase says the mesh was not
              witnessed.
+    Out of core
+ 25 stream   BASELINE config 5's width streamed: 4M x 1024 stress rows in
+             8 chunks of 512k held once in pinned host memory, depth 6, 2
+             rounds, f32 and int8, the device chunk cache off (every pass
+             over the wire) and on, against the in-memory trainer on the
+             same rows. Held: trees bitwise equal; h2d_bytes exactly the
+             chunk bytes x the passes (x 1 with the cache); K1 launched
+             once a chunk-level; predict_streaming bitwise api.predict at
+             the f32, lut and lut4 tiers; K4 and K5 at 1024 features
+             bitwise their plain versions (the pairs mapping). Times: ms a
+             round of each run, H2D GB/s, and a profiled cache-off f32
+             round's staging, H2D and K1 times apart with their overlap
+             and the launches a chunk-level; K4 / K5 at 1024 features
+             against their bound.
   then the {"kernels": [...]} line (K1 and K3 report covertype, the other
-  paths' launches under "paths"), nvidia-smi's line, and the ok line.
+  paths' launches under "paths", "stream" included; K1's entry is its
+  exact mode, with the float-atomic mode's time as cas_ms), nvidia-smi's
+  line, and the ok line.
 
     python3 chip_smoke.py --phase multi
     python3 chip_smoke.py --phase mesh2d
+    python3 chip_smoke.py --phase stream
 
-run the device, build and multi (or mesh2d) phases alone (the calls to
-make on a machine with several cards) and end with the same ok line.
+run the device, build and multi (or mesh2d, or stream) phases alone (the
+calls to make on a machine with several cards, or with the host memory
+for the witness) and end with the same ok line. `--phase stream` then
+trains 1 round f32 at depth 6 over a chunk set larger than the card's
+memory, held in pageable host memory, where /proc/meminfo's MemAvailable
+allows, and prints its size, or "not witnessed: host memory".
 """
 
 from __future__ import annotations
@@ -244,6 +264,7 @@ from ddt_tpu_torch.ops import (grad, hist_cuda, histogram, predict,
                                quantize, sampling)
 from ddt_tpu_torch.parallel import comms, spawn, tasks
 from ddt_tpu_torch.serve import ServeEngine
+from ddt_tpu_torch.streaming import fit_streaming, predict_streaming
 from ddt_tpu_torch.utils.metrics import accuracy, auc, logloss
 
 ROWS = 1_000_000
@@ -319,6 +340,16 @@ MESH_CASES_4 = (
 MESH_CASES_1 = (("1x1_slabs4_f32", dict(mesh_shape=(1, 1),
                                         host_partitions=1,
                                         hist_comms_slabs=4)),)
+#: Out-of-core training (phase stream): BASELINE config 5's width, 4M
+#: rows in 8 chunks of 512k held once in pinned host memory, 2 rounds at
+#: depth 6, f32 and int8, the device chunk cache off and on.
+STREAM_CHUNK = 524_288
+STREAM_CHUNKS = 8
+STREAM_ROUNDS = 2
+STREAM_LUT_ROWS = 65_536        # rows a K4 / K5 call at 1024 features
+#: --phase stream's witness: a chunk set past the card's memory, where the
+#: host holds it (plus this much to spare), 1 round f32 at depth 6.
+WITNESS_HOST_SPARE = 8 << 30
 TIER_IMPL = {None: "auto", "int8": "lut", "int4": "lut4"}
 TIER_RESOLVED = {None: "f32", "int8": "lut", "int4": "lut4"}
 
@@ -502,6 +533,45 @@ def hist_bound_ms(ni: np.ndarray, F: int, N: int, B: int,
     return 1e3 * nbytes / card["bw"], 1e3 * ops / card["f32_add"]
 
 
+def hist_exact_bound_ms(ni: np.ndarray, F: int, N: int, B: int,
+                        card: dict) -> tuple[float, float]:
+    """(bytes time, operations time) in ms of K1's exact mode: the node
+    index of every row, Xb and f32 g/h of the active rows read once, the
+    int64 table (16 B a cell) written once; two int32 adds per active
+    (row, feature) (the low words; the high words' carries are data-
+    dependent and not counted), at the int32 rate."""
+    act = int((ni >= 0).sum())
+    nbytes = ni.size * 4 + act * (F + 8) + N * F * B * 16
+    ops = 2 * act * F
+    return 1e3 * nbytes / card["bw"], 1e3 * ops / card["int32"]
+
+
+def exact_scales(g: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """The exact mode's f32 [2] power-of-two scales of these g, h, as
+    training takes them (ops/grad.fixed_scales over their rows)."""
+    return grad.fixed_scales(grad.abs_max2(g, h), g.shape[0])
+
+
+def check_hist_exact(args: tuple, scales: torch.Tensor, what: str) -> None:
+    """K1's exact mode against its plain version (ops/histogram.
+    build_histograms_fixed_segment), bitwise, int64."""
+    got = hist_cuda.build_histograms_cuda(*args, scales=scales)
+    want = histogram.build_histograms_fixed_segment(*args, scales)
+    check(got.dtype == torch.int64 and torch.equal(got, want),
+          f"{what}: exact kernel != plain")
+
+
+def index_add_hist(key: torch.Tensor, qg: torch.Tensor, qh: torch.Tensor,
+                   m: int) -> tuple:
+    """The library yardstick of the exact mode: two int64 index_add_ over
+    the (feature, node, bin) key of every (row, feature) (key and the
+    per-(row, feature) values made beforehand)."""
+    return (torch.zeros(m, dtype=torch.int64, device=key.device)
+            .index_add_(0, key, qg),
+            torch.zeros(m, dtype=torch.int64, device=key.device)
+            .index_add_(0, key, qh))
+
+
 def check_hist(args: tuple, what: str) -> float:
     """The histogram kernel against its plain version on args = (Xb, g, h,
     node_index, n_nodes, n_bins); max |kernel - plain|. f32 within 1e-5 *
@@ -536,19 +606,24 @@ def tree_levels(Xd: torch.Tensor, p0: float, y1: np.ndarray,
         .to(Xd.device)
     h = torch.full_like(g, p0 * (1 - p0))
     levels = []
-    build = grow.H.build_histograms
+    # The f32 level loop's build: the exact mode's (a checkout before it,
+    # timed by kernel_bench --other, builds with build_histograms).
+    name = ("build_histograms_exact"
+            if hasattr(grow.H, "build_histograms_exact")
+            else "build_histograms")
+    build = getattr(grow.H, name)
 
-    def record(Xb_, g_, h_, ni, n, B):
+    def record(Xb_, g_, h_, ni, n, B, *rest, **kw):
         levels.append((ni.clone(), n))
-        return build(Xb_, g_, h_, ni, n, B)
+        return build(Xb_, g_, h_, ni, n, B, *rest, **kw)
 
-    grow.H.build_histograms = record
+    setattr(grow.H, name, record)
     try:
         grow.grow_tree(Xd, g, h, max_depth=depth, n_bins=255,
                        reg_lambda=1.0, min_child_weight=1e-3,
                        min_split_gain=0.0, hist_subtraction=True)
     finally:
-        grow.H.build_histograms = build
+        setattr(grow.H, name, build)
     torch.cuda.synchronize()
     seq = [1] + [1 << d for d in range(depth - 1)]
     check([n for _, n in levels] == seq,
@@ -605,25 +680,48 @@ def phase_hist(binned: dict, levels: list, card: dict,
             check(bool(((lib.float() - want).abs() <= tol).all()),
                   f"bincount yardstick B={B} N={N}")
             t_bytes, t_ops = hist_bound_ms(ni, FEATURES, N, B, card)
-            row = {
+            cas = {
                 "kernel_ms": time_ms(lambda: hist_cuda.build_histograms_cuda(
                     *args), 20, flush),
-                "plain_ms": time_ms(
-                    lambda: histogram.build_histograms_segment(*args), 5,
-                    flush),
                 "library_ms": time_ms(lambda: (
                     torch.bincount(key, wg, minlength=m),
                     torch.bincount(key, wh, minlength=m)), 10, flush),
-                "bound_ms": max(t_bytes, t_ops),
-                "bound_bytes_ms": t_bytes, "bound_ops_ms": t_ops,
-                "max_abs_err": err,
+                "bound_ms": max(t_bytes, t_ops), "max_abs_err": err}
+            del wg, wh, lib, tol
+            # The exact mode (what f32 training runs) on the same inputs:
+            # bitwise its plain version and the int64 index_add_
+            # yardstick, which is exact too.
+            sc = exact_scales(gd, hd)
+            check_hist_exact(args, sc, f"hist exact B={B} N={N}")
+            act = (nid >= 0)[:, None].expand(R, FEATURES).reshape(-1)
+            qg = torch.where(act, grad.to_fixed(gd, sc[0])[:, None]
+                             .expand(R, FEATURES).reshape(-1), 0)
+            qh = torch.where(act, grad.to_fixed(hd, sc[1])[:, None]
+                             .expand(R, FEATURES).reshape(-1), 0)
+            lib = torch.stack(index_add_hist(key, qg, qh, m), -1) \
+                .reshape(FEATURES, N, B, 2).permute(1, 0, 2, 3)
+            check(torch.equal(lib, histogram.build_histograms_fixed_segment(
+                *args, sc)), f"int64 index_add_ yardstick B={B} N={N}")
+            e_bytes, e_ops = hist_exact_bound_ms(ni, FEATURES, N, B, card)
+            row = {
+                "kernel_ms": time_ms(lambda: hist_cuda.build_histograms_cuda(
+                    *args, scales=sc), 20, flush),
+                "plain_ms": time_ms(
+                    lambda: histogram.build_histograms_fixed_segment(
+                        *args, sc), 5, flush),
+                "library_ms": time_ms(
+                    lambda: index_add_hist(key, qg, qh, m), 10, flush),
+                "bound_ms": max(e_bytes, e_ops),
+                "bound_bytes_ms": e_bytes, "bound_ops_ms": e_ops,
+                "max_abs_err": 0.0, "cas": cas,
             }
-            del key, wg, wh, lib, tol
+            del key, qg, qh, lib, act
             per_n[(B, N)] = row
             emit({"phase": "hist", "rows": R, "features": FEATURES,
                   "bins": B, "nodes": N, "frozen_frac": 0.1,
                   "plan": hist_cuda.plan_tiles(
-                      N, FEATURES, B, _build.smem_limit(dev)).__dict__,
+                      N, FEATURES, B, _build.smem_limit(dev),
+                      hist_cuda.CELL_BYTES_EXACT).__dict__,
                   **row})
     # One tree of the main path with sibling subtraction (on for the
     # card) builds 1, 1, 2, 4, 8, 16 nodes at 255 bins.
@@ -633,6 +731,8 @@ def phase_hist(binned: dict, levels: list, card: dict,
                       "bound_bytes_ms", "bound_ops_ms")}
     tree["bound_by"] = ("bytes" if tree["bound_bytes_ms"]
                         >= tree["bound_ops_ms"] else "operations")
+    tree["cas_kernel_ms"] = sum(per_n[(255, n)]["cas"]["kernel_ms"]
+                                for n in seq)
     emit({"phase": "hist", "per_tree_main_path": list(seq), **tree})
     # The same tree on the main path's own node indices: from level 1 on
     # only left children are built, so about half the rows are -1.
@@ -640,8 +740,10 @@ def phase_hist(binned: dict, levels: list, card: dict,
                      flush, seed=7)
     emit({"phase": "hist", "per_tree_main_path_indices": list(seq),
           "synthetic_kernel_ms": tree["kernel_ms"], **real})
-    return {**tree, "max_abs_err": max(max_err, real["max_abs_err"]),
-            "main_path_indices_ms": real["kernel_ms"]}
+    return {**tree, "max_abs_err": 0.0, "cas_max_abs_err": max(
+        max_err, real["cas_max_abs_err"]),
+            "main_path_indices_ms": real["kernel_ms"],
+            "main_path_indices_cas_ms": real["cas_kernel_ms"]}
 
 
 def exact_grid_ensemble(T, depth, F, B, C, cat, seed=0):
@@ -774,11 +876,7 @@ def synced(fn):
 def phase_main(X: np.ndarray, y: np.ndarray) -> dict:
     cfg = TrainConfig(n_trees=N_TREES, max_depth=DEPTH, n_bins=255,
                       device="cuda")
-    hist_cuda.launches = 0
-    hist_cuda.launches_int = 0
-    predict_cuda.launches = 0
-    quantize.transforms = 0
-    cuda_backend.graph_replays = 0
+    zero_counters()
     with HostTransformCount() as host_bins:
         t0 = time.perf_counter()
         res = api.train(X, y, cfg)
@@ -787,12 +885,10 @@ def phase_main(X: np.ndarray, y: np.ndarray) -> dict:
         p = api.predict(res.ensemble, X, mapper=res.mapper)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-    launches = {"hist": hist_cuda.launches,
-                "traverse": predict_cuda.launches,
-                "binning": quantize.transforms,
-                "graph_replays": cuda_backend.graph_replays,
-                "host_transforms": host_bins.calls}
+    launches = {**read_counters(), "host_transforms": host_bins.calls}
     check(launches["hist"] > 0, "histogram kernel launched on main path")
+    check(launches["hist_f32_atomics"] == 0,
+          "the float-atomic histogram mode is on no training path")
     check(hist_cuda.launches_int == 0,
           "integer histogram mode not launched on the f32 path")
     check(launches["traverse"] > 0, "traversal kernel launched on main path")
@@ -930,17 +1026,12 @@ def phase_fused(Xb: np.ndarray, y: np.ndarray) -> dict:
                    1e3 * (fused_s - capture_s) / FUSED_TREES,
                "granular_ms_per_tree": 1e3 * gran_s / FUSED_TREES,
                "capture_s": capture_s}
-        if cfg.grad_dtype == "f32":
-            row["tie_root_causes"] = trees_match_mod_ties(gran, fused,
-                                                          1e-3)
-            row["identical_trees"] = int(np.sum(np.all(
-                (gran.feature == fused.feature)
-                & (gran.threshold_bin == fused.threshold_bin), axis=1)))
-        else:
-            for k in TREE_FIELDS:
-                check(np.array_equal(getattr(gran, k), getattr(fused, k)),
-                      f"fused {what}: {k} == granular, bitwise")
-            row["bitwise_equal"] = True
+        # Exact histograms (f32 in fixed point, int8 in int32): the
+        # graph's trees are the granular loop's bit for bit.
+        for k in TREE_FIELDS:
+            check(np.array_equal(getattr(gran, k), getattr(fused, k)),
+                  f"fused {what}: {k} == granular, bitwise")
+        row["bitwise_equal"] = True
         out[what] = row
         emit({"phase": "fused", "case": what, "rows": len(Xb),
               "trees": FUSED_TREES, "depth": DEPTH, **row})
@@ -1599,16 +1690,14 @@ def phase_train_quant(X: np.ndarray, y: np.ndarray, binned: dict,
                       main_run: dict) -> dict:
     cfg = TrainConfig(n_trees=N_TREES, max_depth=DEPTH, n_bins=255,
                       grad_dtype="int8")
-    hist_cuda.launches = 0
-    hist_cuda.launches_int = 0
-    predict_cuda.launches = 0
+    zero_counters()
     t0 = time.perf_counter()
     res = api.train(X, y, cfg)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     p = api.predict(res.ensemble, X, mapper=res.mapper)
     launches = {"hist_int": hist_cuda.launches_int,
-                "hist_f32": hist_cuda.launches,
+                "hist_f32": hist_cuda.launches + hist_cuda.launches_exact,
                 "traverse": predict_cuda.launches}
     check(launches["hist_int"] > 0, "integer histogram mode launched")
     check(launches["hist_f32"] == 0, "f32 histogram mode not launched")
@@ -1659,14 +1748,13 @@ def phase_parity_quant(X: np.ndarray, y: np.ndarray) -> dict:
                       n_bins=PARITY_Q_BINS, min_split_gain=1e-3,
                       grad_dtype="int16", subsample=0.8,
                       colsample_bytree=0.8)
-    hist_cuda.launches = 0
-    hist_cuda.launches_int = 0
+    zero_counters()
     t0 = time.perf_counter()
     on_card = api.train(Xs, ys, cfg, device="cuda")
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     launches = {"hist_int": hist_cuda.launches_int,
-                "hist_f32": hist_cuda.launches}
+                "hist_f32": hist_cuda.launches + hist_cuda.launches_exact}
     check(launches["hist_int"] > 0 and launches["hist_f32"] == 0,
           f"parity_quant launches {launches}")
     on_cpu = api.train(Xs, ys, cfg, device="cpu")
@@ -1697,68 +1785,91 @@ def phase_parity_quant(X: np.ndarray, y: np.ndarray) -> dict:
 # --------------------------------------------------------------------- #
 
 def zero_counters() -> None:
+    hist_cuda.launches_exact = 0
     hist_cuda.launches = 0
     hist_cuda.launches_int = 0
     predict_cuda.launches = 0
+    predict_lut_cuda.launches_lut = 0
+    predict_lut_cuda.launches_lut4 = 0
     quantize.transforms = 0
     cuda_backend.graph_replays = 0
     cuda_backend.graph_captures = 0
+    cuda_backend.h2d_bytes = 0
 
 
 def read_counters() -> dict:
+    """The counters since zero_counters: "hist" is K1's exact mode (the
+    f32 training paths'), "hist_f32_atomics" its float-atomic mode (on
+    no training path), "hist_int" its integer mode."""
     torch.cuda.synchronize()
-    return {"hist": hist_cuda.launches, "hist_int": hist_cuda.launches_int,
+    return {"hist": hist_cuda.launches_exact,
+            "hist_f32_atomics": hist_cuda.launches,
+            "hist_int": hist_cuda.launches_int,
             "traverse": predict_cuda.launches,
+            "lut": predict_lut_cuda.launches_lut,
+            "lut4": predict_lut_cuda.launches_lut4,
             "binning": quantize.transforms,
             "graph_replays": cuda_backend.graph_replays,
-            "graph_captures": cuda_backend.graph_captures}
+            "graph_captures": cuda_backend.graph_captures,
+            "h2d_bytes": cuda_backend.h2d_bytes}
 
 
 def hist_tree(Xd: torch.Tensor, levels: list, card: dict,
               flush: torch.Tensor, seed: int,
               reps: tuple = (20, 3, 5)) -> dict:
-    """K1 on the node indices of one recorded tree, level by level, against
-    its plain version (check_hist), and the tree's sums: kernel, plain and
-    library (two torch.bincount) device ms, and the bound (hist_bound_ms
-    per level: each row's node index, Xb and g/h of the active rows and
-    the table once)."""
+    """K1's exact mode (what f32 training runs) on the node indices of one
+    recorded tree, level by level, bitwise its plain version
+    (check_hist_exact), and the tree's sums: kernel, plain and library
+    (two int64 index_add_) device ms, and the bound (hist_exact_bound_ms
+    per level). Beside them on the same inputs, `cas_kernel_ms`: the f32
+    float-atomic mode it replaced (checked with check_hist's
+    tolerance)."""
     dev = Xd.device
     R, F = Xd.shape
     rng = np.random.default_rng(seed)
     gd = torch.from_numpy(rng.standard_normal(R).astype(np.float32)).to(dev)
     hd = torch.from_numpy((0.25 * rng.random(R)).astype(np.float32)).to(dev)
+    sc = exact_scales(gd, hd)
     out = {"kernel_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
            "bound_bytes_ms": 0.0, "bound_ops_ms": 0.0, "bound_ms": 0.0,
-           "max_abs_err": 0.0, "levels": []}
+           "cas_kernel_ms": 0.0, "max_abs_err": 0.0, "cas_max_abs_err": 0.0,
+           "levels": []}
     for ni, N in levels:
         args = (Xd, gd, hd, ni, N, 255)
-        err = check_hist(args, f"hist F={F} N={N}")
+        check_hist_exact(args, sc, f"hist exact F={F} N={N}")
+        err = check_hist(args, f"hist f32 F={F} N={N}")
         key = ((torch.arange(F, device=dev)[None, :] * N
                 + ni.clamp(min=0).long()[:, None]) * 255
                + Xd.long()).reshape(-1)
-        wg = torch.where(ni >= 0, gd, 0.0)[:, None].expand(R, F) \
-            .reshape(-1).contiguous()
-        wh = torch.where(ni >= 0, hd, 0.0)[:, None].expand(R, F) \
-            .reshape(-1).contiguous()
+        act = (ni >= 0)[:, None].expand(R, F).reshape(-1)
+        qg = torch.where(act, grad.to_fixed(gd, sc[0])[:, None]
+                         .expand(R, F).reshape(-1), 0)
+        qh = torch.where(act, grad.to_fixed(hd, sc[1])[:, None]
+                         .expand(R, F).reshape(-1), 0)
         m = F * N * 255
-        t_bytes, t_ops = hist_bound_ms(ni.cpu().numpy(), F, N, 255, card)
+        t_bytes, t_ops = hist_exact_bound_ms(ni.cpu().numpy(), F, N, 255,
+                                             card)
         lv = {"nodes": N, "active_rows": int((ni >= 0).sum()),
-              "plan": hist_cuda.plan_tiles(N, F, 255,
-                                           _build.smem_limit(dev)).__dict__,
+              "plan": hist_cuda.plan_tiles(
+                  N, F, 255, _build.smem_limit(dev),
+                  hist_cuda.CELL_BYTES_EXACT).__dict__,
               "kernel_ms": time_ms(lambda: hist_cuda.build_histograms_cuda(
-                  *args), reps[0], flush),
-              "plain_ms": time_ms(lambda: histogram.build_histograms_segment(
-                  *args), reps[1], flush),
-              "library_ms": time_ms(lambda: (
-                  torch.bincount(key, wg, minlength=m),
-                  torch.bincount(key, wh, minlength=m)), reps[2], flush),
+                  *args, scales=sc), reps[0], flush),
+              "cas_kernel_ms": time_ms(
+                  lambda: hist_cuda.build_histograms_cuda(*args), reps[0],
+                  flush),
+              "plain_ms": time_ms(
+                  lambda: histogram.build_histograms_fixed_segment(
+                      *args, sc), reps[1], flush),
+              "library_ms": time_ms(lambda: index_add_hist(key, qg, qh, m),
+                                    reps[2], flush),
               "bound_bytes_ms": t_bytes, "bound_ops_ms": t_ops,
-              "bound_ms": max(t_bytes, t_ops), "max_abs_err": err}
-        del key, wg, wh
-        for k in ("kernel_ms", "plain_ms", "library_ms", "bound_bytes_ms",
-                  "bound_ops_ms", "bound_ms"):
+              "bound_ms": max(t_bytes, t_ops), "cas_max_abs_err": err}
+        del key, qg, qh, act
+        for k in ("kernel_ms", "cas_kernel_ms", "plain_ms", "library_ms",
+                  "bound_bytes_ms", "bound_ops_ms", "bound_ms"):
             out[k] += lv[k]
-        out["max_abs_err"] = max(out["max_abs_err"], err)
+        out["cas_max_abs_err"] = max(out["cas_max_abs_err"], err)
         out["levels"].append(lv)
     out["bound_by"] = ("bytes" if out["bound_bytes_ms"]
                        >= out["bound_ops_ms"] else "operations")
@@ -1860,8 +1971,9 @@ def phase_covertype(card: dict, flush: torch.Tensor) -> dict:
     rounds = len(res.history)
     best = res.best_round
     stopped = rounds < COV_ROUNDS
-    check(launches["hist"] > 0 and launches["hist_int"] == 0,
-          f"covertype: f32 histogram kernel only, {launches}")
+    check(launches["hist"] > 0 and launches["hist_int"] == 0
+          and launches["hist_f32_atomics"] == 0,
+          f"covertype: the exact histogram mode only, {launches}")
     check(launches["traverse"] > 0, "covertype: traversal kernel launched")
     check(launches["binning"] == 3,
           "covertype: train rows, eval rows and predict rows binned on "
@@ -1961,8 +2073,8 @@ def phase_covertype(card: dict, flush: torch.Tensor) -> dict:
 
 def phase_covertype_prefix(cov: dict) -> dict:
     """COV_PREFIX rounds with the eval set, fused against granular on the
-    card: int8 trees and scores bitwise, f32 trees identical except at
-    bf16-boundary ties; the same best round."""
+    card: trees and eval scores bitwise, int8 and f32 (whose histograms
+    are exact too); the same best round."""
     Xd, yt, Xvd, yv = cov["Xd"], cov["yt"], cov["Xvd"], cov["yv"]
     out = {}
     for dt in ("int8", "f32"):
@@ -1981,27 +2093,13 @@ def phase_covertype_prefix(cov: dict) -> dict:
         row = {"best_round": fd.best_round, "best_logloss": [sf, sg],
                "fused_ms_per_round": 1e3 * fused_s / COV_PREFIX,
                "granular_ms_per_round": 1e3 * gran_s / COV_PREFIX}
-        if dt == "int8":
-            for k in TREE_FIELDS:
-                check(np.array_equal(getattr(fused, k), getattr(gran, k)),
-                      f"covertype prefix int8: {k} fused == granular")
-            check([r["valid_logloss"] for r in fd.history]
-                  == [r["valid_logloss"] for r in gd.history],
-                  "covertype prefix int8: eval scores bitwise")
-            row["bitwise_equal"] = True
-        else:
-            # K1's float atomics add each cell in a run-to-run order. At
-            # this size a nearly pure node's G^2/H terms reach ~1e5 and
-            # its split gains (~0.1-1) sit inside that sum's rounding, so
-            # the two runs may part there by more than a bf16 tie: the
-            # trees are reported, and the models held to the same best
-            # round and, as card and CPU are, eval accuracy within 0.005.
-            row.update(first_divergence(gran, fused))
-            row["eval_accuracy"] = [eval_accuracy(m, Xvd, yv)
-                                    for m in (fused, gran)]
-            check(abs(row["eval_accuracy"][0] - row["eval_accuracy"][1])
-                  <= 0.005, f"covertype prefix f32: eval accuracy "
-                  f"{row['eval_accuracy']}")
+        for k in TREE_FIELDS:
+            check(np.array_equal(getattr(fused, k), getattr(gran, k)),
+                  f"covertype prefix {dt}: {k} fused == granular")
+        check([r["valid_logloss"] for r in fd.history]
+              == [r["valid_logloss"] for r in gd.history],
+              f"covertype prefix {dt}: eval scores bitwise")
+        row["bitwise_equal"] = True
         out[dt] = row
         emit({"phase": "covertype_prefix", "grad_dtype": dt,
               "rounds": COV_PREFIX, **row})
@@ -2172,26 +2270,14 @@ def phase_resume() -> dict:
         last = [whole.history[-1]["valid_logloss"],
                 again.history[-1]["valid_logloss"]]
         row = {"resume_s": resume_s, "final_logloss": last}
-        if dt == "int8":
-            for k in TREE_FIELDS:
-                check(np.array_equal(getattr(full, k), getattr(resumed, k)),
-                      f"resume int8: {k} == uninterrupted, bitwise")
-            check([r["valid_logloss"] for r in again.history]
-                  == [r["valid_logloss"]
-                      for r in whole.history[RESUME_ROUNDS:]],
-                  "resume int8: eval scores == uninterrupted")
-            row["bitwise_equal"] = True
-        else:
-            # f32 histograms sum with float atomics in a run-to-run order,
-            # so the first run's trees and the uninterrupted run's may part
-            # (see phase_covertype_prefix): the resume cannot be bitwise on
-            # the card, and is held to eval accuracy within 0.005.
-            row.update(first_divergence(full, resumed))
-            row["eval_accuracy"] = [eval_accuracy(m, Xvd, yv)
-                                    for m in (full, resumed)]
-            check(abs(row["eval_accuracy"][0] - row["eval_accuracy"][1])
-                  <= 0.005, f"resume f32: eval accuracy "
-                  f"{row['eval_accuracy']}")
+        for k in TREE_FIELDS:
+            check(np.array_equal(getattr(full, k), getattr(resumed, k)),
+                  f"resume {dt}: {k} == uninterrupted, bitwise")
+        check([r["valid_logloss"] for r in again.history]
+              == [r["valid_logloss"]
+                  for r in whole.history[RESUME_ROUNDS:]],
+              f"resume {dt}: eval scores == uninterrupted")
+        row["bitwise_equal"] = True
         out[dt] = row
         emit({"phase": "resume", "grad_dtype": dt, "rows": RESUME_ROWS,
               "rounds": [RESUME_ROUNDS, 2 * RESUME_ROUNDS],
@@ -2329,7 +2415,7 @@ def multi_case(name: str, dt: str, sc: str, ranks: list, alone: dict,
         check(c["comms.modeled_bytes"] == rounds * r["bytes_model"],
               f"{what}: modeled bytes {c['comms.modeled_bytes']} == "
               f"{rounds} rounds x {r['bytes_model']}")
-        k1 = "hist_cuda.launches" + ("_int" if dt == "int8" else "")
+        k1 = "hist_cuda.launches_" + ("int" if dt == "int8" else "exact")
         check(r["counters"][k1] > 0
               and r["counters"]["predict_cuda.launches"] > 0,
               f"{what}: K1 ({k1}) and K3 launched on rank {r['rank']}")
@@ -2348,7 +2434,8 @@ def multi_case(name: str, dt: str, sc: str, ranks: list, alone: dict,
                      for r in ranks],
         collectives_per_round=ranks[0]["profile"]["collectives_per_round"],
         profile=[r["profile"] for r in ranks],
-        launches=[{"hist": r["counters"]["hist_cuda.launches"],
+        launches=[{"hist": r["counters"]["hist_cuda.launches_exact"],
+                   "hist_f32_atomics": r["counters"]["hist_cuda.launches"],
                    "hist_int": r["counters"]["hist_cuda.launches_int"],
                    "traverse": r["counters"]["predict_cuda.launches"]}
                   for r in ranks])
@@ -2376,7 +2463,8 @@ def k1_shapes(Xd: torch.Tensor, y: np.ndarray, card: dict,
         t = hist_tree(Xs, levels, card, flush, seed=7, reps=(5, 1, 1))
         out[name] = {k: t[k] for k in (
             "kernel_ms", "plain_ms", "library_ms", "bound_ms",
-            "bound_bytes_ms", "bound_ops_ms", "bound_by", "max_abs_err")}
+            "bound_bytes_ms", "bound_ops_ms", "bound_by", "max_abs_err",
+            "cas_kernel_ms")}
         out[name].update(rows=r, features=f,
                          slabs=[lv["plan"]["n_slabs"]
                                 for lv in t["levels"]])
@@ -2525,7 +2613,7 @@ def mesh_case(name: str, kw: dict, ranks: list, alone: dict,
         check(c["comms.modeled_bytes"] == rounds * model,
               f"{what}: modeled bytes {c['comms.modeled_bytes']} == "
               f"{rounds} rounds x {model}")
-        k1 = "hist_cuda.launches" + ("_int" if dt == "int8" else "")
+        k1 = "hist_cuda.launches_" + ("int" if dt == "int8" else "exact")
         check(r["counters"][k1] > 0
               and r["counters"]["predict_cuda.launches"] > 0,
               f"{what}: K1 ({k1}) and K3 launched on rank {r['rank']}")
@@ -2548,7 +2636,8 @@ def mesh_case(name: str, kw: dict, ranks: list, alone: dict,
                      for r in ranks],
         other_bytes_per_round=[p["other_bytes_per_round"] for p in prof],
         route=[r.get("route") for r in ranks],
-        launches=[{"hist": r["counters"]["hist_cuda.launches"],
+        launches=[{"hist": r["counters"]["hist_cuda.launches_exact"],
+                   "hist_f32_atomics": r["counters"]["hist_cuda.launches"],
                    "hist_int": r["counters"]["hist_cuda.launches_int"],
                    "traverse": r["counters"]["predict_cuda.launches"]}
                   for r in ranks])
@@ -2561,10 +2650,10 @@ def mesh_case(name: str, kw: dict, ranks: list, alone: dict,
 
 def mesh_slabs(cases: dict, y: np.ndarray) -> dict:
     """Slabs 4 against 1 on the emulated hosts axis, f32: the first
-    divergence (K1's float atomics part two f32 runs of the card beyond
-    ties by themselves, PERF.md section 6), AUC within 0.005, and the
-    round time each gives. Slabs' exactness is held in int8 (case
-    2hx2_slabs4_int8: bitwise the one card's)."""
+    divergence (each rank's table is exact, but the f32 wire's reduction
+    order depends on where an element falls in its chunks, ops/grow),
+    AUC within 0.005, and the round time each gives. Slabs' exactness is
+    held in int8 (case 2hx2_slabs4_int8: bitwise the one card's)."""
     s4, s1 = cases["2hx2_slabs4_f32"], cases["2hx2_slabs1_f32"]
     check(abs(s4["auc_value"] - s1["auc_value"]) <= 0.005,
           f"slabs 4 AUC {s4['auc_value']} vs slabs 1 {s1['auc_value']}")
@@ -2608,24 +2697,280 @@ def mesh_resume(ranks: list, Xb: np.ndarray, y: np.ndarray, ck: str,
     return out
 
 
+# --------------------------------------------------------------------- #
+# out-of-core training and scoring: BASELINE config 5's width streamed
+# --------------------------------------------------------------------- #
+
+def stress_chunks(n_chunks: int, pinned: bool) -> tuple:
+    """n_chunks chunks of STREAM_CHUNK stress rows (stress_binned_chunk at
+    1024 features, 255 bins), made by 8 threads into one host tensor
+    (pinned, or pageable): (rows uint8 [n * STREAM_CHUNK, 1024], labels,
+    seconds)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    t0 = time.perf_counter()
+    R = n_chunks * STREAM_CHUNK
+    rows = torch.empty((R, MESH_FEATURES), dtype=torch.uint8,
+                       pin_memory=pinned)
+    y = np.empty(R, np.int32)
+    view = rows.numpy()
+
+    def make(c):
+        lo = c * STREAM_CHUNK
+        Xc, yc = stress_binned_chunk(lo, STREAM_CHUNK,
+                                     n_features=MESH_FEATURES, n_bins=255,
+                                     seed=0)
+        view[lo:lo + STREAM_CHUNK] = Xc
+        y[lo:lo + STREAM_CHUNK] = yc
+
+    with ThreadPoolExecutor(8) as ex:
+        list(ex.map(make, range(n_chunks)))
+    return rows, y, time.perf_counter() - t0
+
+
+def chunk_source(rows: torch.Tensor, y: np.ndarray, n_chunks: int):
+    """chunk_fn over the host tensor: chunk c is a view of its rows (a
+    pinned view is transferred as it is), with a label side channel."""
+    def f(c):
+        lo = c * STREAM_CHUNK
+        return rows[lo:lo + STREAM_CHUNK], y[lo:lo + STREAM_CHUNK]
+
+    f.labels = lambda c: y[c * STREAM_CHUNK:(c + 1) * STREAM_CHUNK]
+    f.n_features = rows.shape[1]
+    return f
+
+
+def stream_run(src, n_chunks: int, cfg: TrainConfig, cache) -> dict:
+    """One fit_streaming run with the counters zeroed around it and the
+    staging's transfer times recorded: the ensemble, wall seconds, the
+    counters and the staging's {stage_s, h2d_ms, transfers}."""
+    be = get_backend(cfg)
+    zero_counters()
+    if be.stager is not None:
+        be.stager.reset_stats()
+        be.stager.timing = True
+    ens, wall = synced(lambda: fit_streaming(src, n_chunks, cfg,
+                                             backend=be,
+                                             device_chunk_cache=cache))
+    counters = read_counters()
+    stats = be.stager.stats()
+    be.stager.timing = False
+    return {"ensemble": ens, "wall_s": wall, "counters": counters,
+            "staging": stats}
+
+
+def phase_stream(card: dict, flush: torch.Tensor) -> dict:
+    """BASELINE config 5's width streamed: 4M x 1024 stress rows in 8
+    chunks of 512k held once in pinned host memory, 2 rounds at depth 6,
+    f32 and int8, the device chunk cache off (every pass over the wire)
+    and on, against the in-memory trainer on the same 4M rows. Held:
+    trees bitwise equal; h2d_bytes exactly the chunk bytes moved; K1
+    launched once a chunk-level; predict_streaming bitwise api.predict at
+    the f32, lut and lut4 tiers; K4 and K5 at 1024 features bitwise their
+    plain versions. Reported: ms a round, H2D GB/s, the staging, H2D and
+    K1 times apart and their overlap (a profiled cache-off f32 round),
+    launches a chunk-level."""
+    n = STREAM_CHUNKS
+    rows, y, data_s = stress_chunks(n, pinned=True)
+    src = chunk_source(rows, y, n)
+    nbytes = rows.numel()
+    base = dict(n_trees=STREAM_ROUNDS, max_depth=DEPTH, n_bins=255)
+    out = {"rows": len(y), "features": MESH_FEATURES, "chunks": n,
+           "chunk_rows": STREAM_CHUNK, "rounds": STREAM_ROUNDS,
+           "depth": DEPTH, "data_s": data_s, "chunk_bytes": nbytes // n,
+           "card": card["smi"], "runs": {}}
+    Xd = rows.to("cuda")
+    passes = STREAM_ROUNDS * (DEPTH + 1)
+    for dt in ("f32", "int8"):
+        cfg = TrainConfig(grad_dtype=dt, **base)
+        zero_counters()
+        be = get_backend(cfg)
+        mem, mem_s = synced(lambda: Driver(be, cfg).fit(Xd, y))
+        mem_counters = read_counters()
+        # The in-memory loop's steady rate: replays of the round captured
+        # on handles uploaded once (Driver.fit uploads its labels anew, so
+        # each fit captures again).
+        data, yh = be.upload(Xd), be.upload_labels(y)
+        pred = be.init_pred(yh, mem.base_score)
+        be.grow_rounds(data, pred, yh, 1)
+        _, steady_s = synced(lambda: be.fetch_rounds(
+            *be.grow_rounds(data, pred, yh, STREAM_ROUNDS)[::2]))
+        del data, pred
+        row = {"wall_s": mem_s, "steady_s": steady_s,
+               "ms_per_round": 1e3 * steady_s / STREAM_ROUNDS,
+               "counters": mem_counters}
+        out["runs"][f"in_memory_{dt}"] = row
+        emit({"phase": "stream", "case": f"in_memory_{dt}", "rows": len(y),
+              **{k: v for k, v in row.items() if k != "counters"},
+              "launches": mem_counters})
+        for cache in (False, True):
+            name = f"{dt}_cache_{'on' if cache else 'off'}"
+            r = stream_run(src, n, cfg, cache)
+            c = r["counters"]
+            for k in TREE_FIELDS:
+                check(np.array_equal(getattr(mem, k),
+                                     getattr(r["ensemble"], k)),
+                      f"stream {name}: {k} == in-memory, bitwise")
+            want = nbytes * (1 if cache else passes)
+            check(c["h2d_bytes"] == want,
+                  f"stream {name}: h2d_bytes {c['h2d_bytes']} == {want}")
+            k1 = c["hist"] if dt == "f32" else c["hist_int"]
+            check(k1 == n * STREAM_ROUNDS * DEPTH,
+                  f"stream {name}: {k1} K1 launches, one a chunk-level")
+            check(c["hist_f32_atomics"] == 0,
+                  f"stream {name}: no float-atomic histogram launch")
+            st = r["staging"]
+            row = {"wall_s": r["wall_s"],
+                   "ms_per_round": 1e3 * r["wall_s"] / STREAM_ROUNDS,
+                   "bitwise_equal_in_memory": True, "counters": c,
+                   "h2d_transfers": st["transfers"],
+                   "h2d_ms": st["h2d_ms"], "stage_s": st["stage_s"],
+                   "h2d_gb_per_s": (c["h2d_bytes"] / st["h2d_ms"] / 1e6
+                                    if st["h2d_ms"] else None),
+                   "k1_launches_per_chunk_level": k1 / (
+                       n * STREAM_ROUNDS * DEPTH)}
+            out["runs"][name] = row
+            emit({"phase": "stream", "case": name, "rows": len(y),
+                  **{k: v for k, v in row.items() if k != "counters"},
+                  "launches": c})
+            if dt == "f32" and not cache:
+                f32_model = r["ensemble"]
+    # The time split of one cache-off f32 round: a profiled window.
+    cfg1 = TrainConfig(grad_dtype="f32", **dict(base, n_trees=1))
+    be = get_backend(cfg1)
+    be.stager.reset_stats()
+    be.stager.timing = True
+    prof = profiled(lambda: fit_streaming(src, n, cfg1, backend=be,
+                                          device_chunk_cache=False))
+    st = be.stager.stats()
+    be.stager.timing = False
+    parts_ms = 1e3 * st["stage_s"] + st["h2d_ms"] + prof["hist_kernel_ms"]
+    wall_ms = 1e3 * prof["wall_s"]
+    split = {"wall_ms": wall_ms, "stage_ms": 1e3 * st["stage_s"],
+             "h2d_ms": st["h2d_ms"], "k1_ms": prof["hist_kernel_ms"],
+             "device_busy_ms": 1e3 * prof["device_busy_s"],
+             "busy_share": prof["busy_share"],
+             "overlap_ms": max(0.0, parts_ms - wall_ms),
+             "h2d_gb_per_s": nbytes * (DEPTH + 1) / st["h2d_ms"] / 1e6,
+             "device_launches_per_chunk_level":
+                 prof["device_launches"] / (n * (DEPTH + 1)),
+             "host_launch_calls_per_chunk_level":
+                 prof["host_launch_calls"] / (n * (DEPTH + 1)),
+             "top": prof["top"]}
+    out["time_split_f32_cache_off_1_round"] = split
+    emit({"phase": "stream", "time_split_f32_cache_off_1_round": split})
+    # Scoring: predict_streaming bitwise api.predict at every tier; K4 and
+    # K5 at 1024 features against their plain versions.
+    zero_counters()
+    lut = {}
+    for impl in ("auto", "lut", "lut4"):
+        be = get_backend(TrainConfig(n_bins=255, predict_impl=impl))
+        got, s_ = synced(lambda: predict_streaming(src, n, f32_model,
+                                                   backend=be))
+        want = api.predict(f32_model, Xd, binned=True, raw=True,
+                           backend=be)
+        check(np.array_equal(got, want),
+              f"stream predict_streaming {impl} == api.predict")
+        tier = be.resolved_predict_impl(f32_model.cache_token())
+        check(tier == {"auto": "f32"}.get(impl, impl),
+              f"stream predict {impl}: served by {tier}")
+        lut[impl] = {"predict_streaming_s": s_, "rows_per_s": len(y) / s_,
+                     "tier": tier}
+    out["predict_counters"] = read_counters()
+    check(out["predict_counters"]["lut"] > 0
+          and out["predict_counters"]["lut4"] > 0
+          and out["predict_counters"]["traverse"] > 0,
+          f"stream predict: K3, K4 and K5 launched {out['predict_counters']}")
+    ce = f32_model.compile(tree_chunk=64)
+    Xs = Xd[:STREAM_LUT_ROWS].contiguous()
+    for name, tables in (("lut", ce.quantize()),
+                         ("lut4", ce.quantize(leaf_dtype="int4"))):
+        _, kernel, plain = lut_callables(tables, Xs.device)
+        check(torch.equal(kernel(Xs), plain(Xs)),
+              f"stream {name} at 1024 features: kernel == plain, bitwise")
+        row = lut_measure(f"stream {name}", tables, ce, f32_model.n_trees,
+                          Xs, card, flush)
+        row["plan"] = predict_lut_cuda.plan_launch(
+            STREAM_LUT_ROWS, tables.n_trees_padded, DEPTH, MESH_FEATURES,
+            tables.leaf_dtype, 1, _build.smem_limit(Xs.device),
+            predict_lut_cuda.sm_count(Xs.device))._asdict()
+        row["bitwise_equal"] = True
+        lut[f"{name}_1024"] = row
+    out["scoring"] = lut
+    emit({"phase": "stream", "scoring": lut,
+          "predict_counters": out["predict_counters"]})
+    del Xd, rows
+    torch.cuda.empty_cache()
+    emit({"phase": "stream", **{k: v for k, v in out.items()
+                                if k not in ("runs", "scoring",
+                                             "time_split_f32_cache_off_1_round")}})
+    return out
+
+
+def stream_witness(card: dict) -> dict:
+    """1 round f32 at depth 6 over a chunk set larger than the card's
+    memory, held in pageable host memory, where /proc/meminfo's
+    MemAvailable holds it and WITNESS_HOST_SPARE; else the reason."""
+    total = torch.cuda.get_device_properties(0).total_memory
+    chunk_bytes = STREAM_CHUNK * MESH_FEATURES
+    n = total // chunk_bytes + 1
+    need = n * chunk_bytes + WITNESS_HOST_SPARE
+    avail = 0
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                avail = int(line.split()[1]) * 1024
+    out = {"card_bytes": total, "chunks": int(n),
+           "chunk_set_bytes": int(n * chunk_bytes),
+           "host_mem_available": avail, "needed": int(need)}
+    if avail < need:
+        out["witness"] = "not witnessed: host memory"
+        emit({"phase": "stream_witness", **out})
+        return out
+    rows, y, data_s = stress_chunks(int(n), pinned=False)
+    src = chunk_source(rows, y, int(n))
+    cfg = TrainConfig(n_trees=1, max_depth=DEPTH, n_bins=255)
+    r = stream_run(src, int(n), cfg, True)
+    c = r["counters"]
+    check(c["hist"] == n * DEPTH, f"witness: {c['hist']} K1 launches")
+    ens = r["ensemble"]
+    check(bool(np.isfinite(ens.leaf_value).all())
+          and (~ens.is_leaf[0, :(1 << DEPTH) - 1]).any(),
+          "witness: a finite tree with splits")
+    st = r["staging"]
+    out.update(witness=f"{n * chunk_bytes / 1e9:.1f} GB of chunks over a "
+               f"card of {total / 1e9:.1f} GB", data_s=data_s,
+               wall_s=r["wall_s"], h2d_bytes=c["h2d_bytes"],
+               stage_s=st["stage_s"], h2d_ms=st["h2d_ms"],
+               h2d_gb_per_s=c["h2d_bytes"] / max(st["h2d_ms"], 1e-9) / 1e6,
+               counters=c)
+    emit({"phase": "stream_witness", **out})
+    del rows
+    return out
+
+
 def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs a CUDA card", file=sys.stderr)
         return 2
-    if argv not in ([], ["--phase", "multi"], ["--phase", "mesh2d"]):
+    if argv not in ([], ["--phase", "multi"], ["--phase", "mesh2d"],
+                    ["--phase", "stream"]):
         print(f"chip_smoke: unknown arguments {argv}; usage: chip_smoke.py "
-              "[--phase multi|mesh2d]", file=sys.stderr)
+              "[--phase multi|mesh2d|stream]", file=sys.stderr)
         return 2
     t_start = time.perf_counter()
     card = phase_device()
     phase_build()
     if argv:
+        flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
         if argv[1] == "multi":
             phase_multi(card)
+        elif argv[1] == "mesh2d":
+            phase_mesh2d(card, flush)
         else:
-            phase_mesh2d(card, torch.empty(64 << 20, dtype=torch.uint8,
-                                           device="cuda"))
+            phase_stream(card, flush)
+            stream_witness(card)
         emit({"phase": "done", "wall_s": time.perf_counter() - t_start})
         print(card["smi"], flush=True)
         emit({"ok": True, "device": {"platform": "gpu", "kind": card["name"],
@@ -2666,45 +3011,63 @@ def main(argv: list[str]) -> int:
     phase_covertype_parity()
     multi = phase_multi(card)
     mesh2d = phase_mesh2d(card, flush)
+    stream = phase_stream(card, flush)
     launches = main_run["launches"]
     k2 = hist_int["rows"][("int16", 64, 32)]
 
     def lut_entry(name, line):
         r = lut[name]
+        wide = stream["scoring"][f"{name}_1024"]
         return {"name": name, "route": "cuda",
                 "source": "ddt_tpu_torch/csrc/lut.cu",
                 "replaces": f"ddt_tpu/ops/predict_lut.py:{line}",
                 "launches": served[name], "max_abs_err": r["max_abs_err"],
                 "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                "library_ms": None}
+                "library_ms": None,
+                "paths": {"stream_1024_features": {
+                    "launches": stream["predict_counters"][name],
+                    "ms": wide["kernel_ms"], "plain_ms": wide["plain_ms"],
+                    "bound_ms": wide["bound_ms"],
+                    "bound_by": wide["bound_by"], "max_abs_err": 0.0}}}
 
     k1, k3 = cov["hist"], cov["traverse"]
     cov_launches = cov["row"]["launches"]
+    runs = stream["runs"]
     emit({"kernels": [
-        # K1 and K3 report this slice's main path (covertype: depth 8,
-        # 54 features, 7 classes; K1 a tree, K3 on the trained model);
-        # each other path's launches, counted from zero around it, and
-        # the Higgs main path's numbers are under "paths".
+        # K1 and K3 report the covertype path (depth 8, 54 features, 7
+        # classes; K1 a tree in its exact mode, the f32 training mode,
+        # with the float-atomic mode it replaced timed on the same inputs
+        # as cas_ms; K3 on the trained model); each other path's
+        # launches, counted from zero around it, and the Higgs main
+        # path's numbers are under "paths".
         {"name": "hist", "route": "cuda",
          "source": "ddt_tpu_torch/csrc/hist.cu",
          "replaces": "ddt_tpu/ops/hist_pallas.py:175",
          "launches": cov_launches["hist"], "max_abs_err": k1["max_abs_err"],
          "ms": k1["kernel_ms"], "plain_ms": k1["plain_ms"],
          "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
-         "library_ms": k1["library_ms"],
+         "library_ms": k1["library_ms"], "cas_ms": k1["cas_kernel_ms"],
          "paths": {
              "main_higgs": {
                  "launches": launches["hist"],
                  "max_abs_err": hist["max_abs_err"],
                  "ms": hist["kernel_ms"], "plain_ms": hist["plain_ms"],
                  "bound_ms": hist["bound_ms"], "bound_by": hist["bound_by"],
-                 "library_ms": hist["library_ms"]},
+                 "library_ms": hist["library_ms"],
+                 "cas_ms": hist["cas_kernel_ms"]},
              "missing": missing["launches"]["hist"],
              "categorical": categorical["launches"]["hist"],
              "resume": resume["launches"]["hist"],
              "multi": multi_launches(multi, "hist"),
-             "mesh2d": mesh_launches(mesh2d, "hist")}},
+             "mesh2d": mesh_launches(mesh2d, "hist"),
+             "mesh2d_k1_1m_x_1024": {
+                 k: mesh2d["k1"]["1x1"][k] for k in (
+                     "kernel_ms", "cas_kernel_ms", "plain_ms",
+                     "library_ms", "bound_ms", "bound_by")},
+             "stream": {name: row["counters"]["hist"]
+                        for name, row in runs.items()
+                        if name.startswith(("f32", "in_memory_f32"))}}},
         {"name": "traverse", "route": "cuda",
          "source": "ddt_tpu_torch/csrc/lut.cu",
          "replaces": "ddt_tpu/ops/predict_pallas.py:105",
@@ -2722,7 +3085,8 @@ def main(argv: list[str]) -> int:
              "categorical": categorical["launches"]["traverse"],
              "weights": weights["launches"]["traverse"],
              "multi": multi_launches(multi, "traverse"),
-             "mesh2d": mesh_launches(mesh2d, "traverse")}},
+             "mesh2d": mesh_launches(mesh2d, "traverse"),
+             "stream_predict": stream["predict_counters"]["traverse"]}},
         lut_entry("lut", 376),
         lut_entry("lut4", 674),
         {"name": "hist_int", "route": "cuda",
@@ -2732,7 +3096,10 @@ def main(argv: list[str]) -> int:
          "paths": {"weights": weights["launches"]["hist_int"],
                    "resume": resume["launches"]["hist_int"],
                    "multi": multi_launches(multi, "hist_int"),
-                   "mesh2d": mesh_launches(mesh2d, "hist_int")},
+                   "mesh2d": mesh_launches(mesh2d, "hist_int"),
+                   "stream": {name: row["counters"]["hist_int"]
+                              for name, row in runs.items()
+                              if "int8" in name}},
          "max_abs_err": hist_int["max_abs_err"],
          "ms": hist_int["int8"]["kernel_ms"],
          "plain_ms": hist_int["int8"]["plain_ms"],

@@ -138,6 +138,11 @@ class DeviceBackend(abc.ABC):
         """Resolve a grow_tree handle to host node arrays."""
         return handle
 
+    def block_bounds(self, n_rows: int) -> tuple[int, int, int]:
+        """(start, stop, local rows with padding) of this process's block
+        of an n_rows streamed chunk: the whole chunk on one device."""
+        return 0, n_rows, n_rows
+
     # --- fused rounds (optional: the Driver takes them when present) ---
     #
     # grow_rounds(data, pred, y, n_rounds, first_round=0) runs n_rounds

@@ -77,6 +77,7 @@ from ddt_tpu_torch.ops import histogram as hist_ops
 from ddt_tpu_torch.ops import predict as predict_ops
 from ddt_tpu_torch.ops import predict_lut, predict_lut_cuda, sampling
 from ddt_tpu_torch.ops import split as split_ops
+from ddt_tpu_torch.ops import stream as stream_ops
 from ddt_tpu_torch.parallel import comms, mesh
 from ddt_tpu_torch.utils import launches, metrics
 
@@ -86,6 +87,10 @@ log = logging.getLogger("ddt_tpu_torch.backends.cuda")
 #: around the main path).
 graph_captures = 0
 graph_replays = 0
+#: Bytes of binned chunk rows the streamed trainer and scorer moved host
+#: to device (upload_chunk / upload_row_shards: a rank's block, padding
+#: included), counted per transfer since the last reset.
+h2d_bytes = 0
 
 
 class LabelHandle(NamedTuple):
@@ -171,6 +176,8 @@ class CUDADevice(DeviceBackend):
         self._graph: _RoundGraph | None = None
         self._graph_lock = threading.Lock()
         self.last_capture_s: float | None = None
+        # Pinned staging of streamed chunks (the card only; `stager`).
+        self._stager: _ChunkStager | None = None
 
     def _put(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -311,17 +318,25 @@ class CUDADevice(DeviceBackend):
     # ------------------------------------------------------------------ #
 
     def build_histograms(self, data, g, h, node_index, n_nodes):
-        """f32 sums for float g/h; the raw int32 histogram for int8/int16
-        (quantized) g/h. On a mesh, of the row group's rows (an
-        all-reduce on cfg.hist_comms_dtype's wire) over data's columns
-        (this rank's slab under feature shards)."""
+        """f32 sums for float g/h, taken as training takes them: exact
+        fixed-point sums on the grid of these g/h's global max
+        (ops/histogram.build_histograms_exact), converted once; the raw
+        int32 histogram for int8/int16 (quantized) g/h. On a mesh, of the
+        row group's rows (an all-reduce on cfg.hist_comms_dtype's wire)
+        over data's columns (this rank's slab under feature shards)."""
         g, h = self._tensor(g), self._tensor(h)
+        ni = self._tensor(node_index).to(torch.int32).contiguous()
         if g.is_floating_point():
-            g, h = g.float(), h.float()
-        hist = hist_ops.build_histograms(
-            data, g.contiguous(), h.contiguous(),
-            self._tensor(node_index).to(torch.int32).contiguous(),
-            n_nodes, self.cfg.n_bins)
+            g, h = g.float().contiguous(), h.float().contiguous()
+            scales = grad_ops.fixed_scales(
+                comms.pmax(grad_ops.abs_max2(g, h), self.group),
+                g.shape[0] * self.world)
+            hist = grad_ops.from_fixed(hist_ops.build_histograms_exact(
+                data, g, h, ni, n_nodes, self.cfg.n_bins, scales), scales)
+        else:
+            hist = hist_ops.build_histograms(
+                data, g.contiguous(), h.contiguous(), ni, n_nodes,
+                self.cfg.n_bins)
         return comms.hist_reduce(hist, self.group, mode="allreduce",
                                  comms_dtype=self.cfg.hist_comms_dtype)
 
@@ -399,6 +414,11 @@ class CUDADevice(DeviceBackend):
 
     def fetch_tree(self, handle) -> HostTree:
         return unpack_tree(handle.cpu().numpy())
+
+    def fetch_grown_tree(self, tree: grow_ops.TreeArrays) -> HostTree:
+        """A finished tree's node arrays on the host (the streamed
+        trainer's trees), packed into one device->host copy."""
+        return self.fetch_tree(_pack(tree))
 
     def apply_delta(self, pred, delta, class_idx: int):
         """pred + delta, into column class_idx of an [R, C] pred."""
@@ -580,6 +600,215 @@ class CUDADevice(DeviceBackend):
         return out if scores is None else out + (flat[n + k:],)
 
     # ------------------------------------------------------------------ #
+    # streaming (streaming.fit_streaming / predict_streaming)
+    # ------------------------------------------------------------------ #
+
+    @property
+    def stager(self) -> "_ChunkStager | None":
+        """The pinned staging of streamed chunks on the card, made at first
+        use (None on the CPU)."""
+        if self._stager is None and self.device.type == "cuda":
+            self._stager = _ChunkStager(self.device)
+        return self._stager
+
+    def block_bounds(self, n_rows: int) -> tuple[int, int, int]:
+        """(start, stop, local) of this rank's block of an n_rows chunk:
+        the padded row block of parallel/mesh.row_block."""
+        if self.mesh is None:
+            return 0, n_rows, n_rows
+        return mesh.row_block(n_rows, self.world, self.rank)
+
+    def chunk_row_start(self, chunk_start: int, n_rows: int) -> int:
+        """Global id of this rank's first row of a chunk whose first row
+        is global row `chunk_start`: the bagging and rounding draws' base
+        (pad rows past the chunk carry zero weight)."""
+        return chunk_start + self.block_bounds(n_rows)[0]
+
+    def upload_chunk(self, Xc, keep: bool = False) -> torch.Tensor:
+        """A streamed chunk's binned rows (uint8 [r, F], a host array or a
+        tensor, pinned or not) on the device: this rank's padded block
+        on a mesh. On the card through the double-buffered pinned staging
+        on a side stream (`_ChunkStager`): the copy of the next chunk
+        runs under the current chunk's kernels, and the returned tensor
+        is a staging buffer, valid until the upload after next, unless
+        `keep` (a tensor of its own, for the chunk cache). Counts
+        h2d_bytes. Bin ranges are the caller's to check (check_bins)."""
+        if not isinstance(Xc, torch.Tensor):
+            Xc = np.asarray(Xc)
+        start, stop, local = self.block_bounds(Xc.shape[0])
+        return self._upload_block(Xc[start:stop], local, keep)
+
+    def _upload_block(self, block, local: int, keep: bool) -> torch.Tensor:
+        """This rank's rows of a chunk (`local` rows with its padding) on
+        the device; see upload_chunk."""
+        global h2d_bytes
+        if self.feature_group is not None:
+            raise NotImplementedError(
+                "the streamed trainer is row-parallel only: "
+                "feature_partitions > 1 does not stream")
+        if block.dtype not in (np.uint8, torch.uint8) or block.ndim != 2:
+            raise TypeError(f"binned chunks must be uint8 [r, F], got "
+                            f"{block.dtype} {tuple(block.shape)}")
+        h2d_bytes += local * block.shape[1]
+        if self.device.type != "cuda":
+            out = torch.zeros((local, block.shape[1]), dtype=torch.uint8)
+            out[:block.shape[0]] = (block if isinstance(block, torch.Tensor)
+                                    else torch.from_numpy(
+                                        np.ascontiguousarray(block)))
+            return out
+        return self.stager.put(block, local, keep)
+
+    def upload_row_shards(self, parts: list, total_rows: int,
+                          keep: bool = False) -> torch.Tensor:
+        """A host-sharded chunk (data/chunks.HostShardedChunks): `parts`
+        are the sub-shards this process owns, in order, which together
+        must be exactly this rank's rows of the chunk; uploaded as
+        upload_chunk uploads the rank's block, other ranks' rows never
+        read. One process: the parts are the whole chunk."""
+        rows = (np.concatenate(parts) if len(parts) > 1
+                else np.asarray(parts[0]))
+        start, stop, local = self.block_bounds(total_rows)
+        if rows.shape[0] != stop - start:
+            raise ValueError(
+                f"rank {self.rank} owns {rows.shape[0]} rows of this "
+                f"chunk but its block is {stop - start}; host-sharded "
+                "chunks need sub-shards that cut at the ranks' blocks "
+                "(one process a rank, uniform sub-shard sizes)")
+        return self._upload_block(rows, local, keep)
+
+    def check_bins(self, data: torch.Tensor) -> None:
+        """Raise when an uploaded chunk holds a bin >= n_bins: one device
+        max and one scalar read (a MAX all-reduce over the world on a
+        mesh), as `upload` checks."""
+        top = (data.max() if data.numel() else torch.zeros(
+            (), dtype=torch.uint8, device=self.device)).to(torch.int32)
+        if self.mesh is not None:
+            top = comms.pmax(top.reshape(1), self.mesh.world_group)
+        top = int(top.reshape(-1)[0])
+        if top >= self.cfg.n_bins:
+            raise ValueError(f"binned data holds bin {top} >= n_bins="
+                             f"{self.cfg.n_bins}")
+
+    def _chunk_grads(self, pred, y: LabelHandle, class_idx: int, rnd: int,
+                     row_start: int):
+        cfg = self.cfg
+        keep = None
+        if cfg.subsample < 1.0:
+            keep = sampling.row_keep(cfg.seed, rnd, row_start,
+                                     pred.shape[0], cfg.subsample,
+                                     device=pred.device)
+        return stream_ops.chunk_grads(pred, y.y, y.valid, y.weighted,
+                                      cfg.loss, class_idx, keep)
+
+    def _tree_id(self, rnd: int, class_idx: int) -> int:
+        C = self.cfg.n_outputs
+        return rnd * C + class_idx if C > 1 else rnd
+
+    def stream_values(self, pred, y: LabelHandle, class_idx: int, rnd: int,
+                      row_start: int, scales, ints: bool = True):
+        """What one chunk's rows add for class `class_idx`: on the exact
+        path (scales: f32 [2] 2^k) the f32 (g, h), or with `ints` their
+        int64 rint(g * 2^k); under quantized gradients (scales: the
+        round's (gscale, hscale)) the int8/int16 q's."""
+        cfg = self.cfg
+        g, h = self._chunk_grads(pred, y, class_idx, rnd, row_start)
+        if cfg.grad_dtype == "f32":
+            if not ints:
+                return g, h
+            return grad_ops.to_fixed(g, scales[0]), \
+                grad_ops.to_fixed(h, scales[1])
+        return grad_ops.quantize_with_scales(
+            g, h, scales[0], scales[1], grad_dtype=cfg.grad_dtype,
+            tree_id=self._tree_id(rnd, class_idx), seed=cfg.seed,
+            row_start=row_start)
+
+    def stream_level_hist(self, data, pred, y: LabelHandle, tree,
+                          depth: int, out: torch.Tensor, class_idx: int = 0,
+                          rnd: int = 0, row_start: int = 0,
+                          build_left: bool = False, scales=None):
+        """Add one uploaded chunk's level-`depth` histogram of class
+        `class_idx` into `out` (int64 [2^depth, F, B, 2] on the exact
+        path, int32 under quantized gradients; [2^(depth-1), ...] LEFT
+        children with `build_left`). `tree` is the partial tree's
+        (feature, threshold_bin, is_leaf, default_left) on the device;
+        `scales` the tree's (ops/grad.fixed_scales, or the quantized
+        (gscale, hscale)); `rnd` / `row_start` key the bagging and
+        rounding draws. The rank-local table: the trainer reduces it over
+        the row group once a level."""
+        cfg = self.cfg
+        g, h = self.stream_values(pred, y, class_idx, rnd, row_start,
+                                  scales, ints=False)
+        return stream_ops.stream_level_hist(
+            data, g, h, tree, depth, out, n_bins=cfg.n_bins,
+            scales=scales if cfg.grad_dtype == "f32" else None,
+            build_left=build_left, missing_bin_value=cfg.missing_bin_value,
+            cat_mask=self.cat_mask(data.shape[1]))
+
+    def stream_leaf_gh(self, data, pred, y: LabelHandle, tree,
+                       out: torch.Tensor, class_idx: int = 0, rnd: int = 0,
+                       row_start: int = 0, scales=None) -> torch.Tensor:
+        """Add one chunk's final-level (G, H) integer sums into `out`
+        [2^max_depth, 2] (int64, or int32 quantized); returns the rows'
+        leaf slots (int32 [R])."""
+        cfg = self.cfg
+        qg, qh = self.stream_values(pred, y, class_idx, rnd, row_start,
+                                    scales)
+        return stream_ops.stream_leaf_gh(
+            data, qg, qh, tree, cfg.max_depth, out,
+            missing_bin_value=cfg.missing_bin_value,
+            cat_mask=self.cat_mask(data.shape[1]))
+
+    def stream_grad_stats(self, pred, y: LabelHandle, rnd: int = 0,
+                          row_start: int = 0) -> torch.Tensor:
+        """One chunk's per-class statistics, no chunk read: f32 [C, 2]
+        max |g|, |h| (the exact path's scales) or [C, 4] with the sums
+        (quantized gradients)."""
+        return stream_ops.stream_grad_stats(
+            self._class_grads(pred, y, rnd, row_start),
+            self.cfg.grad_dtype == "f32")
+
+    def _class_grads(self, pred, y, rnd, row_start) -> list:
+        return [self._chunk_grads(pred, y, c, rnd, row_start)
+                for c in range(self.cfg.n_outputs)]
+
+    def stream_round_start(self, pred, y: LabelHandle, slots, leaf_values,
+                           rnd: int = 0, row_start: int = 0
+                           ) -> torch.Tensor:
+        """The previous round's trees added to pred (in place) from the
+        resident leaf slots ([C, R] int32; leaf_values: an f32 [N] tensor
+        a class), then the new round's stream_grad_stats: no chunk read
+        (ops/stream.stream_round_start)."""
+        return stream_ops.stream_round_start(
+            pred, slots, leaf_values, self.cfg.learning_rate,
+            lambda p: self._class_grads(p, y, rnd, row_start),
+            self.cfg.grad_dtype == "f32")
+
+    def stream_update_pred(self, data, pred, tree_full,
+                           class_idx: int = 0) -> None:
+        """pred += one finished tree's lr * leaf value per row of `data`,
+        in place (tree_full: feature, threshold_bin, is_leaf, leaf_value,
+        default_left, host arrays or tensors)."""
+        cfg = self.cfg
+        feat, thr, leaf, val, dl = (self._tensor(a) for a in tree_full)
+        stream_ops.stream_update_pred(
+            data, pred, feat, thr, leaf, val,
+            dl if cfg.missing_policy == "learn" else None,
+            max_depth=cfg.max_depth, learning_rate=cfg.learning_rate,
+            class_idx=class_idx, missing_bin_value=cfg.missing_bin_value,
+            cat_mask=self.cat_mask(data.shape[1]))
+
+    def score_device(self, ens: TreeEnsemble, Xd: torch.Tensor
+                     ) -> torch.Tensor:
+        """Raw margins of uploaded binned rows, left on the device (the
+        tier predict_raw serves)."""
+        ce, ops = self._prepared(ens, None)
+        if isinstance(ops, predict_lut.LutOperands):
+            return ops.score(Xd)
+        return predict_ops.predict_prepared(
+            ops, Xd, learning_rate=ce.learning_rate, base=ce.base_score,
+            tree_chunk=ce.tree_chunk, missing_bin_value=ce.missing_bin_value)
+
+    # ------------------------------------------------------------------ #
     # inference
     # ------------------------------------------------------------------ #
 
@@ -695,6 +924,120 @@ class CUDADevice(DeviceBackend):
                 base=ce.base_score, tree_chunk=ce.tree_chunk,
                 missing_bin_value=ce.missing_bin_value)
         return out.cpu().numpy()
+
+
+class _ChunkStager:
+    """Double-buffered pinned staging of streamed chunks on a side stream.
+
+    `put(rows, local, keep)` takes this rank's block of a chunk (a host
+    array, or a tensor: a pinned one is copied from as it is) and returns
+    it on the card as [local, F] uint8, zero pad rows below. A pageable
+    block is first copied into one of two pinned host buffers (host
+    staging; the buffer's previous transfer is waited for first); the
+    transfer runs on the side stream, which waits until the compute
+    stream is done with the device buffer it overwrites (the event
+    recorded at the upload after that buffer's chunk), and the compute
+    stream waits for the transfer. The next chunk's host staging and
+    transfer thus run while the current chunk's kernels do. `keep`
+    transfers into a tensor of its own (the chunk cache) instead of a
+    staging buffer; the side stream then waits for the compute stream,
+    which is the cached chunk's one upload.
+
+    Measures, while `timing` is set: host staging seconds and the
+    transfers' device milliseconds (event pairs on the side stream)."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.side = torch.cuda.Stream(device)
+        self.host = [None, None]        # pinned uint8 buffers
+        self.dev = [None, None]         # device uint8 buffers
+        self.src = [None, None]         # the source a transfer reads
+        self.copied = [None, None]      # transfer-done events
+        self.used = [None, None]        # compute-done events
+        self.i = 0
+        self.last = None                # the slot of the previous put
+        self.timing = False
+        self.stage_s = 0.0
+        self._events: list = []
+
+    def stats(self) -> dict:
+        """{"stage_s", "h2d_ms", "transfers"} since the last reset_stats
+        (synchronises on the recorded transfers)."""
+        ms = 0.0
+        for a, b in self._events:
+            b.synchronize()
+            ms += a.elapsed_time(b)
+        return {"stage_s": self.stage_s, "h2d_ms": ms,
+                "transfers": len(self._events)}
+
+    def reset_stats(self) -> None:
+        self.stage_s, self._events = 0.0, []
+
+    def put(self, rows, local: int, keep: bool) -> torch.Tensor:
+        cur = torch.cuda.current_stream(self.device)
+        if self.last is not None:
+            # Everything queued so far read the previous slot's buffer.
+            ev = torch.cuda.Event()
+            ev.record(cur)
+            self.used[self.last] = ev
+        k = self.i
+        self.i ^= 1
+        n, F = rows.shape[0], rows.shape[1]
+        nbytes = local * F
+        if self.copied[k] is not None:
+            self.copied[k].synchronize()    # the pinned buffer is free
+        self.src[k] = None
+        if isinstance(rows, torch.Tensor) and rows.device.type == "cuda":
+            src = rows.contiguous()
+            self.side.wait_stream(cur)
+        elif isinstance(rows, torch.Tensor) and rows.is_pinned():
+            src = rows.contiguous()
+        else:
+            t0 = time.perf_counter()
+            if self.host[k] is None or self.host[k].numel() < n * F:
+                self.host[k] = torch.empty(max(n * F, 1), dtype=torch.uint8,
+                                           pin_memory=True)
+            src = self.host[k][:n * F].view(n, F)
+            # torch's copy spreads a large copy over the intra-op threads.
+            src.copy_(rows if isinstance(rows, torch.Tensor)
+                      else torch.from_numpy(np.ascontiguousarray(rows)))
+            if self.timing:
+                self.stage_s += time.perf_counter() - t0
+        if keep:
+            dst = torch.empty((local, F), dtype=torch.uint8,
+                              device=self.device)
+            self.side.wait_stream(cur)
+        else:
+            if self.dev[k] is None or self.dev[k].numel() < nbytes:
+                if self.used[k] is not None:
+                    self.used[k].synchronize()
+                self.dev[k] = torch.empty(max(nbytes, 1), dtype=torch.uint8,
+                                          device=self.device)
+            dst = self.dev[k][:nbytes].view(local, F)
+            if self.used[k] is not None:
+                self.side.wait_event(self.used[k])
+        with torch.cuda.stream(self.side):
+            if self.timing:
+                a = torch.cuda.Event(enable_timing=True)
+                a.record(self.side)
+            dst[:n].copy_(src, non_blocking=True)
+            if local > n:
+                dst[n:].zero_()
+            if self.timing:
+                b = torch.cuda.Event(enable_timing=True)
+                b.record(self.side)
+                self._events.append((a, b))
+            done = torch.cuda.Event()
+            done.record(self.side)
+        self.copied[k] = done
+        self.src[k] = src
+        cur.wait_event(done)
+        if keep:
+            dst.record_stream(self.side)
+            self.last = None
+        else:
+            self.last = k
+        return dst
 
 
 class _RoundGraph:

@@ -9,9 +9,15 @@
 // row stride `ld` >= F (a column slab of a wider matrix is read in place:
 // the slab-pipelined level loop's and a feature shard's view), g and h
 // [R], node_index int32 [R] with -1 = frozen row; output [N, F, n_bins, 2]
-// in ddt_tpu's layout, n_bins <= 256, zeroed by the wrapper. Bins >= n_bins
+// in ddt_tpu's layout, n_bins <= 256, which the kernel ADDS into (the
+// wrapper zeroes it, or hands a table to accumulate in). Bins >= n_bins
 // are skipped (the caller validates binned data once at upload). Modes:
-// - f32: g, h float, output float (`ddt_hist_f32`);
+// - exact (what f32 training runs): g, h float and two power-of-two
+//   scales 2^k on the device; each row is rounded once, q = rint(g * 2^k)
+//   (|q| <= 2^30, ops/grad.fixed_scales), and the output is the int64
+//   histogram of the q's (`ddt_hist_fx`): 64-bit fixed point, order-free;
+// - f32: g, h float, output float (`ddt_hist_f32`), float atomics: the
+//   yardstick the exact mode replaced on every training path;
 // - integer (quantized gradients): g, h int8 or int16, output the RAW int32
 //   histogram (`ddt_hist_i8`, `ddt_hist_i16`); the caller dequantizes once.
 //
@@ -32,20 +38,33 @@
 //    at different words so that they add into different features. No
 //    division per element.
 // 2. Node ranges: a block's table holds as many nodes as its shared memory
-//    does (4 at 255 bins and F = 28, 16 at 64 bins). A level with more
+//    does (8-byte cells: 4 at 255 bins and F = 28, 16 at 64 bins; the
+//    exact mode's 16-byte cells hold half: 2 at F = 28, 1 at F = 54, and
+//    at F = 1024 a node takes feature slabs of 56 columns, 19 of them,
+//    where 8-byte cells take 10 of 113). A level with more
 //    nodes runs one range per grid row; every range scans the node index,
 //    but a row's bytes, g and h are read only by the range of its node, so
 //    the extra ranges cost 4 B a row each.
-// 3. f32 mode: one 64-bit compare-and-swap adds a (row, feature)'s g and h
-//    together (one CAS loop where two f32 atomicAdds are two). Integer
-//    mode: two native 32-bit adds, skipped per channel when its q is 0 and
-//    per row when both are (every bagged-out row).
-// 4. The flush is a TMA bulk reduction: a cell is 8 bytes in both modes,
-//    laid out as the output is, so each node's row of cells is one
-//    contiguous segment of the output and one `cp.reduce.async.bulk ...
-//    .add` adds it in L2, instead of one global atomic per cell. Segments
-//    whose ends are not 16-byte aligned (odd F with odd n_bins) fall back
-//    to atomics.
+// 3. Exact mode: a cell is two int64 (16 bytes). A 64-bit shared add is a
+//    CAS loop on sm_90, so each int64 add is a native 32-bit atomicAdd on
+//    the low word that returns the old word, then, only when it is not 0,
+//    an add of carry - (q < 0) on the high word (the sign extension of a
+//    negative q is -1 there). Every add's carry is taken from the word it
+//    really added to, so the cell is the exact two's-complement sum once
+//    the block synchronises, in any order. A row's g and h are rounded
+//    once (rint of an exact power-of-two product: bitwise the plain
+//    version's torch.round), not once per feature. f32 mode: one 64-bit
+//    compare-and-swap adds a (row, feature)'s g and h together (one CAS
+//    loop where two f32 atomicAdds are two). Integer mode: two native
+//    32-bit adds. The exact and integer modes skip a channel whose value
+//    is 0 and a row where both are (every bagged-out row).
+// 4. The flush is a TMA bulk reduction: a cell is laid out as the output
+//    is (16 bytes in exact mode, 8 in the others), so each node's row of
+//    cells is one contiguous segment of the output and one
+//    `cp.reduce.async.bulk ... .add` (.u64 in exact mode: two's complement
+//    makes it the s64 add) adds it in L2, instead of one global atomic
+//    per cell. Segments whose ends are not 16-byte aligned (odd F with
+//    odd n_bins, 8-byte cells only) fall back to atomics.
 // 5. The grid is sized to the card (blocks resident at once for the plan's
 //    shared memory); each block walks a contiguous share of the rows and
 //    flushes once.
@@ -72,12 +91,17 @@
 // ~0.25 ms a level at 1M rows, ~20x the byte bound, and in f32 it would
 // need TF32, which is not f32.
 //
-// Numerics: f32 mode adds full f32 g and h; float atomics make the
+// Numerics: exact mode rounds each row once onto the tree's 2^-k grid and
+// sums in int64: exact and order-free, bitwise equal to the plain version
+// every run, and a table summed over chunks equals the whole table. Its
+// one rounding costs at most 2^-(k+1) a row (k from the global max, so
+// 2^-31 of max|g| at most rows counts), against the reference's f32 sums,
+// and the CPU suites hold the trees to the reference's with the tie-aware
+// comparator. f32 mode adds full f32 g and h; float atomics make the
 // summation order, and so the last bits of each sum, change from run to
-// run (the seam documented in ddt_tpu/ops/split.py); histograms are held
-// to a stated f32 tolerance, trees to the tie-aware comparator. Integer
-// mode is exact and order-free: bitwise equal to the plain version, every
-// run.
+// run; it is held to a stated f32 tolerance and runs on no training path.
+// Integer mode is exact and order-free: bitwise equal to the plain
+// version, every run.
 
 #include <cstdint>
 #include <type_traits>
@@ -93,6 +117,7 @@ struct Args {
   const void* g;
   const void* h;
   const int* ni;
+  const float* scale;  // exact mode: (2^k for g, 2^k for h) on the device
   void* out;
   long long n_rows;
   long long ld;   // row stride of xb in bytes (>= n_feat)
@@ -106,14 +131,26 @@ __device__ __forceinline__ void fence_async_shared() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// Cell element of each output kind: 0 f32, 1 int32, 2 int64 (exact).
+template <int kOut>
+using OutT = typename std::conditional<
+    kOut == 0, float,
+    typename std::conditional<kOut == 1, int, unsigned long long>::type>::
+    type;
+
 // Queues an add of `bytes` of shared memory at `src` into global memory
-// at `dst`, elementwise, in L2 (f32 or s32 adds). bulk_wait() commits the
-// queued adds and waits until their sources have been read.
-template <bool kInt>
+// at `dst`, elementwise, in L2 (f32, s32 or u64 adds). bulk_wait() commits
+// the queued adds and waits until their sources have been read.
+template <int kOut>
 __device__ __forceinline__ void bulk_reduce_add(void* dst, const void* src,
                                                 unsigned bytes) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(src);
-  if constexpr (kInt) {
+  if constexpr (kOut == 2) {
+    asm volatile(
+        "cp.reduce.async.bulk.global.shared::cta.bulk_group.add.u64 "
+        "[%0], [%1], %2;\n" ::"l"(dst), "r"(s), "r"(bytes)
+        : "memory");
+  } else if constexpr (kOut == 1) {
     asm volatile(
         "cp.reduce.async.bulk.global.shared::cta.bulk_group.add.s32 "
         "[%0], [%1], %2;\n" ::"l"(dst), "r"(s), "r"(bytes)
@@ -131,12 +168,25 @@ __device__ __forceinline__ void bulk_wait() {
   asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 
-// G: the g/h element type (float, int8_t, int16_t).
-template <typename G>
+// Adds a signed 32-bit v into the int64 at w[0] (low word), w[1] (high):
+// a native 32-bit add on the low word, then the high word's carry minus
+// the sign extension, skipped when that is 0.
+__device__ __forceinline__ void add_s64(unsigned* w, int v) {
+  const unsigned old = atomicAdd(w, (unsigned)v);
+  const int hi = (int)(old + (unsigned)v < old) - (int)(v < 0);
+  if (hi != 0) atomicAdd(w + 1, (unsigned)hi);
+}
+
+// G: the g/h element type (float, int8_t, int16_t); kFx: exact mode (G is
+// float, cells are int64 pairs).
+template <typename G, bool kFx>
 __global__ void __launch_bounds__(kThreads) hist_kernel(const Args a) {
   constexpr bool kInt = !std::is_same<G, float>::value;
-  // A cell is (g, h) of one (node, feature, bin): 8 bytes, two f32 or two
-  // int32, in the output's layout.
+  constexpr int kOut = kFx ? 2 : kInt ? 1 : 0;
+  // 64-bit words a cell takes: (g, h) of one (node, feature, bin), two
+  // f32 or two int32 (one word), or two int64 (two words), in the
+  // output's layout.
+  constexpr int kW = kFx ? 2 : 1;
   extern __shared__ __align__(16) unsigned long long cells[];
 
   const int slab = blockIdx.y % a.n_slabs;
@@ -149,7 +199,12 @@ __global__ void __launch_bounds__(kThreads) hist_kernel(const Args a) {
   const int per_node = fw * B;  // cells per node
   const int n_cells = nw * per_node;
 
-  for (int i = threadIdx.x; i < n_cells; i += kThreads) cells[i] = 0ull;
+  for (int i = threadIdx.x; i < n_cells * kW; i += kThreads) cells[i] = 0ull;
+  float gs = 0.f, hs = 0.f;
+  if constexpr (kFx) {
+    gs = __ldg(a.scale);
+    hs = __ldg(a.scale + 1);
+  }
   __syncthreads();
 
   const G* __restrict__ gp = static_cast<const G*>(a.g);
@@ -164,16 +219,27 @@ __global__ void __launch_bounds__(kThreads) hist_kernel(const Args a) {
   // features added in turn. Lanes start at different words, so the 32
   // rows of a warp touch several features at once.
   auto add_row = [&](long long r, int ln) {
-    unsigned long long* t = cells + ln * per_node;
+    unsigned long long* t = cells + ln * per_node * kW;
     const G gv = __ldg(gp + r);
     const G hv = __ldg(hp + r);
-    if constexpr (kInt) {
+    // Exact mode: the row's fixed-point values, rounded once (an exact
+    // product by a power of two, then round half to even).
+    int qg = 0, qh = 0;
+    if constexpr (kFx) {
+      qg = __float2int_rn(__fmul_rn(gv, gs));
+      qh = __float2int_rn(__fmul_rn(hv, hs));
+      if (qg == 0 && qh == 0) return;  // adds nothing
+    } else if constexpr (kInt) {
       if (gv == 0 && hv == 0) return;  // adds nothing
     }
     auto add = [&](int fl, unsigned b) {
       if (b >= (unsigned)B) return;
-      unsigned long long* c = t + fl * B + b;
-      if constexpr (kInt) {
+      unsigned long long* c = t + (fl * B + b) * kW;
+      if constexpr (kFx) {
+        unsigned* w = reinterpret_cast<unsigned*>(c);
+        if (qg != 0) add_s64(w, qg);
+        if (qh != 0) add_s64(w + 2, qh);
+      } else if constexpr (kInt) {
         int* w = reinterpret_cast<int*>(c);
         if (gv != 0) atomicAdd(w, (int)gv);
         if (hv != 0) atomicAdd(w + 1, (int)hv);
@@ -223,14 +289,15 @@ __global__ void __launch_bounds__(kThreads) hist_kernel(const Args a) {
 
   // One segment per node: cells [ln * per_node, (ln + 1) * per_node) go to
   // output cells of node n0 + ln, features [f0, f0 + fw).
-  using Out = typename std::conditional<kInt, int, float>::type;
+  using Out = OutT<kOut>;
   Out* out = static_cast<Out*>(a.out);
   for (int ln = 0; ln < nw; ++ln) {
     Out* dst = out + ((long long)(n0 + ln) * a.n_feat + f0) * B * 2;
-    const Out* src = reinterpret_cast<const Out*>(cells + ln * per_node);
-    const unsigned bytes = (unsigned)per_node * 8u;
+    const Out* src =
+        reinterpret_cast<const Out*>(cells + ln * per_node * kW);
+    const unsigned bytes = (unsigned)per_node * 8u * kW;
     if ((((uintptr_t)dst | (uintptr_t)src | bytes) & 15u) == 0) {
-      if (threadIdx.x == 0) bulk_reduce_add<kInt>(dst, src, bytes);
+      if (threadIdx.x == 0) bulk_reduce_add<kOut>(dst, src, bytes);
     } else {
       for (int i = threadIdx.x; i < per_node * 2; i += kThreads) {
         const Out v = src[i];
@@ -241,15 +308,15 @@ __global__ void __launch_bounds__(kThreads) hist_kernel(const Args a) {
   if (threadIdx.x == 0) bulk_wait();
 }
 
-template <typename G>
+template <typename G, bool kFx>
 int max_blocks(int smem_bytes, int* out) {
   cudaError_t e = cudaFuncSetAttribute(
-      hist_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      hist_kernel<G, kFx>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem_bytes);
   int per_sm = 0, dev = 0, sms = 0;
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, hist_kernel<G>, kThreads, (size_t)smem_bytes);
+        &per_sm, hist_kernel<G, kFx>, kThreads, (size_t)smem_bytes);
   if (e == cudaSuccess) e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -257,20 +324,22 @@ int max_blocks(int smem_bytes, int* out) {
   return (int)e;
 }
 
-template <typename G>
+template <typename G, bool kFx = false>
 int launch(const void* xb, const void* g, const void* h, const void* ni,
-           void* out, long long n_rows, long long ld, int n_feat, int n_bins,
-           int n_nodes, int fs, int nr, int blocks_x, int smem_bytes,
-           void* stream) {
+           const void* scale, void* out, long long n_rows, long long ld,
+           int n_feat, int n_bins, int n_nodes, int fs, int nr, int blocks_x,
+           int smem_bytes, void* stream) {
   cudaError_t e = cudaFuncSetAttribute(
-      hist_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      hist_kernel<G, kFx>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem_bytes);
   if (e != cudaSuccess) return (int)e;
-  const Args a{(const uint8_t*)xb, g, h, (const int*)ni, out, n_rows, ld,
-               n_feat, n_bins, n_nodes, fs, nr, (n_feat + fs - 1) / fs};
+  const Args a{(const uint8_t*)xb, g, h, (const int*)ni,
+               (const float*)scale, out, n_rows, ld, n_feat, n_bins,
+               n_nodes, fs, nr, (n_feat + fs - 1) / fs};
   const int n_ranges = (n_nodes + nr - 1) / nr;
   const dim3 grid((unsigned)blocks_x, (unsigned)(a.n_slabs * n_ranges), 1);
-  hist_kernel<G><<<grid, kThreads, smem_bytes, (cudaStream_t)stream>>>(a);
+  hist_kernel<G, kFx>
+      <<<grid, kThreads, smem_bytes, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -281,41 +350,59 @@ extern "C" {
 // Each launches on `stream` and returns cudaGetLastError() (0 = launched).
 // Row r of xb starts at xb + r * ld.
 // Grid: blocks_x blocks along the rows, n_slabs * ceil(n_nodes / nr) tiles
-// along y. f32 g/h -> f32 histogram.
+// along y. `scale` is read in exact mode only. Every entry adds into out.
+// f32 g/h and scales (2^k_g, 2^k_h) -> int64 fixed-point histogram.
+int ddt_hist_fx(const void* xb, const void* g, const void* h,
+                const void* ni, const void* scale, void* out,
+                long long n_rows, long long ld, int n_feat, int n_bins,
+                int n_nodes, int fs, int nr, int blocks_x, int smem_bytes,
+                void* stream) {
+  return launch<float, true>(xb, g, h, ni, scale, out, n_rows, ld, n_feat,
+                             n_bins, n_nodes, fs, nr, blocks_x, smem_bytes,
+                             stream);
+}
+
+// f32 g/h -> f32 histogram (float atomics).
 int ddt_hist_f32(const void* xb, const void* g, const void* h,
-                 const void* ni, void* out, long long n_rows, long long ld,
-                 int n_feat, int n_bins, int n_nodes, int fs, int nr,
-                 int blocks_x, int smem_bytes, void* stream) {
-  return launch<float>(xb, g, h, ni, out, n_rows, ld, n_feat, n_bins,
+                 const void* ni, const void* scale, void* out,
+                 long long n_rows, long long ld, int n_feat, int n_bins,
+                 int n_nodes, int fs, int nr, int blocks_x, int smem_bytes,
+                 void* stream) {
+  return launch<float>(xb, g, h, ni, scale, out, n_rows, ld, n_feat, n_bins,
                        n_nodes, fs, nr, blocks_x, smem_bytes, stream);
 }
 
 // int8 g/h -> raw int32 histogram.
 int ddt_hist_i8(const void* xb, const void* g, const void* h,
-                const void* ni, void* out, long long n_rows, long long ld,
-                int n_feat, int n_bins, int n_nodes, int fs, int nr,
-                int blocks_x, int smem_bytes, void* stream) {
-  return launch<int8_t>(xb, g, h, ni, out, n_rows, ld, n_feat, n_bins,
-                        n_nodes, fs, nr, blocks_x, smem_bytes, stream);
+                const void* ni, const void* scale, void* out,
+                long long n_rows, long long ld, int n_feat, int n_bins,
+                int n_nodes, int fs, int nr, int blocks_x, int smem_bytes,
+                void* stream) {
+  return launch<int8_t>(xb, g, h, ni, scale, out, n_rows, ld, n_feat,
+                        n_bins, n_nodes, fs, nr, blocks_x, smem_bytes,
+                        stream);
 }
 
 // int16 g/h -> raw int32 histogram.
 int ddt_hist_i16(const void* xb, const void* g, const void* h,
-                 const void* ni, void* out, long long n_rows, long long ld,
-                 int n_feat, int n_bins, int n_nodes, int fs, int nr,
-                 int blocks_x, int smem_bytes, void* stream) {
-  return launch<int16_t>(xb, g, h, ni, out, n_rows, ld, n_feat, n_bins,
-                         n_nodes, fs, nr, blocks_x, smem_bytes, stream);
+                 const void* ni, const void* scale, void* out,
+                 long long n_rows, long long ld, int n_feat, int n_bins,
+                 int n_nodes, int fs, int nr, int blocks_x, int smem_bytes,
+                 void* stream) {
+  return launch<int16_t>(xb, g, h, ni, scale, out, n_rows, ld, n_feat,
+                         n_bins, n_nodes, fs, nr, blocks_x, smem_bytes,
+                         stream);
 }
 
 // Blocks with `smem_bytes` of dynamic shared memory each that the current
-// card holds at once, for mode 0 (f32), 1 (int8) or 2 (int16). Returns the
-// CUDA error code.
+// card holds at once, for mode 0 (f32), 1 (int8), 2 (int16) or 3 (exact).
+// Returns the CUDA error code.
 int ddt_hist_max_blocks(int mode, int smem_bytes, int* out) {
   *out = 0;
-  if (mode == 0) return max_blocks<float>(smem_bytes, out);
-  if (mode == 1) return max_blocks<int8_t>(smem_bytes, out);
-  if (mode == 2) return max_blocks<int16_t>(smem_bytes, out);
+  if (mode == 0) return max_blocks<float, false>(smem_bytes, out);
+  if (mode == 1) return max_blocks<int8_t, false>(smem_bytes, out);
+  if (mode == 2) return max_blocks<int16_t, false>(smem_bytes, out);
+  if (mode == 3) return max_blocks<float, true>(smem_bytes, out);
   return (int)cudaErrorInvalidValue;
 }
 

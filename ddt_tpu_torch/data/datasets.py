@@ -1,11 +1,16 @@
 """Deterministic synthetic datasets (port of ddt_tpu/data/datasets.py's
 `_rng`, `synthetic_binary`, `synthetic_multiclass`, `synthetic_ctr` and
-`stress_binned_chunk`; numpy, identical output for a seed), and
+`stress_binned_chunk`; numpy, identical output for a seed),
 `synthetic_missing`, the Higgs
 shape with NaN injected where missingness carries label signal (the
-recipe of the reference's tests/test_missing.py::_nan_data)."""
+recipe of the reference's tests/test_missing.py::_nan_data), and
+`load_file` (.npz, numeric .csv[.gz] and libsvm files; data/chunks.
+shard_file reads through it)."""
 
 from __future__ import annotations
+
+import gzip
+import os
 
 import numpy as np
 
@@ -109,3 +114,254 @@ def stress_binned_chunk(chunk_start: int, chunk_rows: int,
     y = ((Xb[:, 0].astype(np.int32) + Xb[:, 1].astype(np.int32))
          > n_bins).astype(np.int32)
     return Xb, y
+
+
+def _open_maybe_gzip(path: str):
+    if path.endswith(".gz"):
+        return gzip.open(path, "rt")
+    return open(path, "r")
+
+
+def _looks_integer_labels(col: np.ndarray) -> bool:
+    """Small-cardinality integer-valued column => plausible label column."""
+    if not np.all(np.isfinite(col)):
+        return False
+    r = np.round(col)
+    return bool(np.all(np.abs(col - r) < 1e-6) and np.unique(r).size <= 64)
+
+def _split_label(M: np.ndarray, label_col: str) -> tuple[np.ndarray, np.ndarray]:
+    if M.ndim != 2 or M.shape[1] < 2:
+        raise ValueError(f"tabular file must be 2-D with >=2 columns, "
+                         f"got shape {M.shape}")
+    if label_col == "first":
+        y, X = M[:, 0], M[:, 1:]
+    elif label_col == "last":
+        y, X = M[:, -1], M[:, :-1]
+    elif label_col == "auto":
+        # Pick the side that looks like a small-cardinality integer label;
+        # ties go to FIRST (the UCI Higgs convention this repo's primary
+        # config uses). When NEITHER side qualifies (e.g. a float
+        # regression target), auto refuses rather than silently training
+        # on a feature column — the caller must say first/last.
+        first_ok = _looks_integer_labels(M[:, 0])
+        last_ok = _looks_integer_labels(M[:, -1])
+        if not first_ok and not last_ok:
+            raise ValueError(
+                "label_col='auto' could not identify a label column "
+                "(neither the first nor the last column is a small-"
+                "cardinality integer column — float regression targets "
+                "are indistinguishable from features); pass "
+                "label_col='first' or 'last' (--label-col in the CLI)"
+            )
+        if first_ok:
+            y, X = M[:, 0], M[:, 1:]
+        else:
+            y, X = M[:, -1], M[:, :-1]
+    else:
+        raise ValueError(f"label_col must be first|last|auto, got {label_col!r}")
+    return X, y
+
+
+def _finalize_xy(
+    X: np.ndarray, y: np.ndarray, normalize_labels: bool
+) -> tuple[np.ndarray, np.ndarray]:
+    X = np.ascontiguousarray(X, dtype=np.float32)
+    y = np.asarray(y)
+    if y.ndim != 1 or len(y) != len(X):
+        raise ValueError(f"y must be 1-D with len(X)={len(X)}, got {y.shape}")
+    if not np.all(np.isfinite(y.astype(np.float64))):
+        raise ValueError("labels contain NaN/inf")
+    r = np.round(y.astype(np.float64))
+    if np.all(np.abs(y.astype(np.float64) - r) < 1e-9):
+        yi = r.astype(np.int64)
+        if normalize_labels:
+            u = np.unique(yi)
+            # External classification conventions -> 0-based class ids:
+            # libsvm's binary -1/+1, and EXACTLY-1..k sets (Covertype's
+            # 1..7). The contiguity + size>=2 requirement keeps a slice
+            # that merely lacks some class (e.g. all-positive {1}) from
+            # being silently relabeled. Inherently ambiguous cases (a
+            # 0-based file where class 0 never occurs looks like 1..k)
+            # have the normalize_labels=False escape hatch.
+            if u.size == 2 and u[0] == -1 and u[1] == 1:
+                yi = (yi > 0).astype(np.int64)
+            elif (2 <= u.size <= 64 and u[0] == 1
+                  and u[-1] == u.size
+                  and np.array_equal(u, np.arange(1, u.size + 1))):
+                yi = yi - 1
+        if np.abs(yi).max() < 2 ** 31:
+            return X, yi.astype(np.int32)
+        return X, y.astype(np.float32)
+    return X, y.astype(np.float32)
+
+
+# Densified-libsvm guardrail: refuse rows x max_index allocations past this
+# many float32s (~1 GiB) — hash-indexed CTR files (max index ~2^20+) must go
+# through a sparse/streaming pipeline, not this dense loader.
+_LIBSVM_DENSE_MAX_ELEMS = 1 << 28
+
+
+def _is_libsvm_data_line(data: str) -> bool:
+    """Structurally a libsvm data line: float label + idx:val tokens. A CSV
+    header merely CONTAINING ':' (e.g. 'ts:utc,label,f1') fails this."""
+    parts = data.split()
+    if len(parts) < 2:
+        return False
+    try:
+        float(parts[0])
+        for tok in parts[1:]:
+            i, v = tok.split(":", 1)
+            int(i)
+            float(v)
+        return True
+    except ValueError:
+        return False
+
+
+def _load_libsvm(
+    path: str, n_features: int | None = None, max_rows: int | None = None
+) -> tuple[np.ndarray, np.ndarray]:
+    labels: list[float] = []
+    rows: list[list[tuple[int, float]]] = []
+    max_idx = 0
+    with _open_maybe_gzip(path) as f:
+        for ln, line in enumerate(f, 1):
+            if max_rows is not None and len(rows) >= max_rows:
+                break
+            line = line.split("#", 1)[0].strip()
+            if not line:
+                continue
+            parts = line.split()
+            try:
+                labels.append(float(parts[0]))
+                feats = []
+                for tok in parts[1:]:
+                    i, v = tok.split(":", 1)
+                    i = int(i)
+                    if i < 1:
+                        raise ValueError("libsvm indices are 1-based")
+                    feats.append((i, float(v)))
+                    max_idx = max(max_idx, i)
+                rows.append(feats)
+            except (ValueError, IndexError) as e:
+                raise ValueError(f"{path}:{ln}: bad libsvm line: {e}") from e
+    if n_features is not None:
+        if max_idx > n_features:
+            raise ValueError(
+                f"{path}: feature index {max_idx} exceeds n_features="
+                f"{n_features}"
+            )
+        max_idx = n_features   # pin width: sparse tails must not shrink X
+    if len(rows) * max_idx > _LIBSVM_DENSE_MAX_ELEMS:
+        raise ValueError(
+            f"{path}: densifying {len(rows)} x {max_idx} would allocate "
+            f">{_LIBSVM_DENSE_MAX_ELEMS * 4 >> 30} GiB; this loader is "
+            "dense-only — pass max_rows to trim, or preprocess hash-indexed "
+            "sparse data (e.g. via data.categorical.hash_bin_categoricals) "
+            "instead of widening it"
+        )
+    X = np.zeros((len(rows), max_idx), dtype=np.float32)
+    for r, feats in enumerate(rows):
+        for i, v in feats:
+            X[r, i - 1] = v
+    return X, np.asarray(labels)
+
+
+def load_file(
+    path: str,
+    label_col: str = "auto",
+    max_rows: int | None = None,
+    normalize_labels: bool | None = None,
+    n_features: int | None = None,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Load (X float32 [R,F], y [R]) from an on-disk dataset file.
+
+    Supported: .npz with arrays X and y; .csv[.gz] numeric tables (label
+    column picked by `label_col`: first|last|auto — pass label_col="last"
+    for regression CSVs whose float target auto cannot detect); libsvm
+    sparse text (sniffed by ':' tokens regardless of extension).
+
+    `normalize_labels` maps external CLASSIFICATION label conventions to
+    0-based class ids ({-1,+1} -> {0,1}; 1-based sets like Covertype's 1..7
+    shifted down). Default: True for text formats (which carry those
+    conventions), False for .npz (our own format — y is taken verbatim).
+    Pass False explicitly when loading integer regression targets from
+    text.
+
+    `n_features` pins the expected column count (pass the model's
+    n_features when loading a scoring set): libsvm files are padded to it
+    (a sparse scoring file whose rows never touch the last features must
+    not shrink X), and any wider/mismatched file raises. Raises ValueError
+    on schema problems instead of training on garbage.
+    """
+    if not os.path.exists(path):
+        raise FileNotFoundError(path)
+    base = path[:-3] if path.endswith(".gz") else path
+    ext = os.path.splitext(base)[1].lower()
+    if ext == ".npz":
+        with np.load(path) as d:
+            if "X" not in d or "y" not in d:
+                raise ValueError(
+                    f"{path}: .npz must contain arrays 'X' and 'y' "
+                    f"(has {sorted(d.files)})"
+                )
+            X, y = d["X"], d["y"]
+        if max_rows:
+            X, y = X[:max_rows], y[:max_rows]
+        if n_features is not None and X.shape[1] != n_features:
+            raise ValueError(
+                f"{path}: expected {n_features} feature columns, "
+                f"got {X.shape[1]}"
+            )
+        return _finalize_xy(X, y, normalize_labels or False)
+    if normalize_labels is None:
+        normalize_labels = True
+    # Text: find the first line that is DATA (a non-parsing first line is a
+    # CSV header — skipped, and never used for format sniffing, so header
+    # names containing ':' can't misroute a CSV to the libsvm parser).
+    # `skip` counts PHYSICAL lines consumed before the first data line —
+    # np.loadtxt's skiprows is physical, so blank/comment-only lines ahead
+    # of a header must be counted too, not just the header itself.
+    with _open_maybe_gzip(path) as f:
+        first = ""
+        skip = 0
+        n_headers = 0
+        for line in f:
+            data = line.split("#", 1)[0]
+            if not data.strip():
+                skip += 1              # blank or comment-only line
+                continue
+            try:
+                [float(t) for t in data.replace(",", " ").split()]
+                first = data
+                break
+            except ValueError:
+                if _is_libsvm_data_line(data):
+                    first = data
+                    break
+                skip += 1              # header line
+                n_headers += 1
+                if n_headers > 1:
+                    raise ValueError(
+                        f"{path}: not a numeric CSV (two non-parsing "
+                        "leading lines) and not libsvm format"
+                    ) from None
+    if _is_libsvm_data_line(first) or ext in (".libsvm", ".svm"):
+        return _finalize_xy(
+            *_load_libsvm(path, n_features=n_features, max_rows=max_rows),
+            normalize_labels,
+        )
+    # CSV: `skip` header rows were detected above; np.loadtxt's subset.
+    M = None
+    if M is None:
+        with _open_maybe_gzip(path) as f:
+            M = np.loadtxt(f, delimiter=",", skiprows=skip,
+                           max_rows=max_rows, dtype=np.float64)
+    if M.ndim == 1:
+        M = M[None, :]
+    X, y = _split_label(M, label_col)
+    if n_features is not None and X.shape[1] != n_features:
+        raise ValueError(
+            f"{path}: expected {n_features} feature columns, got {X.shape[1]}"
+        )
+    return _finalize_xy(X, y, normalize_labels)

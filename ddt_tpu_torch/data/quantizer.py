@@ -11,6 +11,9 @@ Bin semantics (shared by every kernel of both packages):
 A split "(feature f, threshold bin t)" routes rows with bin <= t LEFT.
 The raw-value threshold equivalent is edges[t] (go left iff v <= edges[t]).
 
+`fit_bin_mapper_streaming` fits the same edges from streamed raw chunks
+(a priority reservoir), bitwise the reference's.
+
 `BinMapper.transform` bins on the host with numpy; `transform_device`
 bins on a torch device (ops/quantize), bit for bit the same, and is what
 api.train / api.predict and the serving gate use; `feature_bincounts`
@@ -205,3 +208,54 @@ def quantize(
     mapper = fit_bin_mapper(X, n_bins=n_bins, max_sample=max_sample,
                             seed=seed, missing_policy=missing_policy)
     return mapper.transform(X), mapper
+
+
+def fit_bin_mapper_streaming(
+    chunk_fn,
+    n_chunks: int,
+    n_bins: int = 255,
+    max_sample: int = 200_000,
+    seed: int = 0,
+    missing_policy: str = "zero",
+    cat_features: tuple = (),
+) -> BinMapper:
+    """Fit bin edges from STREAMED raw-float chunks (the 10B-row config's
+    L7 story: no full matrix ever materialises). A priority-based
+    reservoir keeps a uniform `max_sample`-row subsample across chunks —
+    each row draws a U(0,1) priority from a per-(seed, chunk) generator
+    and the globally smallest `max_sample` priorities survive — then the
+    edges are fitted exactly like `fit_bin_mapper` on that sample.
+    Deterministic given (seed, chunk order); with
+    max_sample >= total rows the sample IS the dataset, so the edges
+    equal the in-memory fit's (np.quantile is order-invariant).
+
+    `chunk_fn(c) -> (X_chunk float [rows_c, F], y_chunk)` — the same
+    signature `streaming.fit_streaming` consumes (y is ignored here)."""
+    buf = None          # [k, F] sampled rows
+    pri = None          # [k] their priorities
+    for c in range(n_chunks):
+        Xc = np.asarray(chunk_fn(c)[0], np.float32)
+        pc = np.random.default_rng((seed, 15485863, c)).random(len(Xc))
+        if buf is None:
+            buf, pri = Xc, pc
+        else:
+            if len(pri) >= max_sample:
+                # Saturated: a newcomer survives only by beating the
+                # current worst kept priority — pre-filter so the append
+                # shrinks as 1/chunks_seen instead of copying the whole
+                # reservoir + chunk every time (identical output: the
+                # filtered-out rows could never be among the k smallest).
+                sel = pc < pri.max()
+                Xc, pc = Xc[sel], pc[sel]
+                if not len(pc):
+                    continue
+            buf = np.concatenate([buf, Xc])
+            pri = np.concatenate([pri, pc])
+        if len(pri) > max_sample:
+            keep = np.argpartition(pri, max_sample)[:max_sample]
+            buf, pri = buf[keep], pri[keep]
+    if buf is None:
+        raise ValueError("no chunks")
+    return fit_bin_mapper(buf, n_bins=n_bins, max_sample=len(buf),
+                          seed=seed, missing_policy=missing_policy,
+                          cat_features=cat_features)

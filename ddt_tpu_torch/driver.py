@@ -185,7 +185,7 @@ class Driver:
         if self.checkpoint_dir is not None:
             start = checkpoint.try_resume(self.checkpoint_dir, ens, cfg)
             if self.backend.mesh is not None:
-                self._check_resume_agrees(ens, start)
+                self.check_resume_agrees(ens, start)
             if start > 0:
                 pred = self.backend.load_pred(
                     ens.truncate(start * C).predict_raw_roundwise(
@@ -230,7 +230,7 @@ class Driver:
         out[:stop - start] = rows[start:stop]
         return out
 
-    def _check_resume_agrees(self, ens: TreeEnsemble, start: int) -> None:
+    def check_resume_agrees(self, ens: TreeEnsemble, start: int) -> None:
         """All-gather the resumed round and a digest of the resumed trees
         over the world; raise on every rank if any rank's differ."""
         h = hashlib.blake2b(digest_size=8)
@@ -247,7 +247,7 @@ class Driver:
                 f"per rank: {every.tolist()}): every rank must read the "
                 "same checkpoint_dir")
 
-    def _save(self, ens: TreeEnsemble, rounds: int,
+    def save_checkpoint(self, ens: TreeEnsemble, rounds: int,
               every: int | None = None) -> None:
         """checkpoint.maybe_save; on a mesh the save by global rank 0
         alone, then an all-reduce over the world that every rank waits
@@ -317,7 +317,7 @@ class Driver:
         if stop is not None:
             self.best_round, self.best_score = stop.best_round, \
                 stop.best_score
-        self._save(ens, rounds)
+        self.save_checkpoint(ens, rounds)
         return ens
 
     def _fit_granular(self, data, y_dev, pred, ens: TreeEnsemble,
@@ -364,7 +364,7 @@ class Driver:
                 ens = ens.truncate((stop.best_round + 1) * C)
                 return self._finish(ens, stop, stop.best_round + 1)
             if self.checkpoint_dir is not None:
-                self._save(ens, rnd + 1, self.checkpoint_every)
+                self.save_checkpoint(ens, rnd + 1, self.checkpoint_every)
         return self._finish(ens, stop, cfg.n_trees)
 
     def _fit_fused(self, data, y_dev, pred, ens: TreeEnsemble,
@@ -427,5 +427,5 @@ class Driver:
                     return self._finish(ens, stop, stop.best_round + 1)
             rnd += K
             if rnd < cfg.n_trees:
-                self._save(ens, rnd, self.checkpoint_every)
+                self.save_checkpoint(ens, rnd, self.checkpoint_every)
         return self._finish(ens, stop, cfg.n_trees)

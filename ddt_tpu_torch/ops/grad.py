@@ -22,6 +22,36 @@ two, which absorbs the f32 sum-order differences between devices except
 at an exact frexp boundary. Histograms, node totals and leaf sums then
 add the integer q's and dequantize once (ops/grow.py).
 
+EXACT f32 HISTOGRAMS (cfg.grad_dtype "f32"): the sums are taken in 64-bit
+fixed point, so that no sum depends on the order of its terms. Per tree
+each channel gets one power-of-two scale 2^k from its global max|g| (or
+max|h|, over every row of every chunk and rank) and the global row count
+N (`fixed_scales`): with max < 2^e,
+
+    k = min(30, 62 - ceil(log2 N)) - e        (clamped to [-126, 126])
+    q = rint(g * 2^k)                          int32: |q| <= 2^30
+    sum over N rows                            |sum| <= N * 2^30 <= 2^62
+
+so one row's q fits 32 bits and every sum of q's fits an int64 with a bit
+to spare. g * 2^k is exact (a power of two; IEEE subnormals both ways) and
+rint rounds half to even as torch.round does, so the card's kernel and the
+plain version round every row alike. Histograms, node totals and leaf
+sums add the q's in int64 (exact, in any order: across chunks, passes,
+ranks and runs), and each aggregate converts to f32 once, A * 2^-k
+(`from_fixed`).
+
+Dynamic range: the grid step 2^-k is under max * 2^-29 (2^-30 of the
+channel's bound 2^e). A row of |x| keeps about 30 - log2(max / |x|)
+significant bits, and one under 2^-31 of the max rounds to 0; a sum over
+n rows is off by at most n half-steps. f32 keeps 24 bits of every term,
+so the grid is the coarser of the two for rows under ~2^-6 of the tree's
+max: a squared-loss target whose residuals spread over 1e6 leaves a
+typical row ~10 bits, and a cell of such rows then differs from an f32
+sum by up to ~5e-4 of its |sum| (tests/test_torch_exact.py holds the
+cells to this bound and such runs' trees to the reference's). The scale
+stays one per tree and channel, never per level or node: that is what
+lets a table add over chunks, ranks and the sibling subtraction exactly.
+
 Bit-identity with the numpy twin (`quantize_gradients_np`) needs IEEE
 operations everywhere: the scale stays a 0-dim tensor on the gradients'
 device, because PyTorch's CUDA division by a CPU scalar computes
@@ -135,6 +165,57 @@ def grad_hess(pred_raw: torch.Tensor, y: torch.Tensor,
     raise ValueError(loss)
 
 
+#: Exact f32 path: bits of one row's fixed-point value (|q| <= 2^30, an
+#: int32) and of any sum of them over the global rows (<= 2^62, an int64).
+FIXED_ROW_BITS = 30
+FIXED_SUM_BITS = 62
+
+
+def fixed_headroom(n_rows_global: int) -> int:
+    """Bits one row's |q| may take so that the sum over n_rows_global rows
+    fits FIXED_SUM_BITS: FIXED_ROW_BITS until ceil(log2 N) passes 32."""
+    return min(FIXED_ROW_BITS,
+               FIXED_SUM_BITS - max(0, int(n_rows_global) - 1).bit_length())
+
+
+def abs_max2(g: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """f32 [2] (max|g|, max|h|) of one tree's gradients (0 for no rows):
+    the exact f32 path's statistic, maxed over chunks and ranks."""
+    if g.numel() == 0:
+        return torch.zeros(2, dtype=torch.float32, device=g.device)
+    return torch.stack([g.abs().max(), h.abs().max()]).to(torch.float32)
+
+
+def fixed_scales(max_abs: torch.Tensor, n_rows_global: int) -> torch.Tensor:
+    """f32 [2] power-of-two scales 2^k (module docstring) for channels
+    bounded by max_abs [2] (global over every row) over n_rows_global
+    rows. frexp gives max = m * 2^e with m in [0.5, 1), so max < 2^e; an
+    all-zero channel has e = 0."""
+    _, e = torch.frexp(max_abs.to(torch.float32))
+    k = (fixed_headroom(n_rows_global) - e.to(torch.int32)).clamp(-126, 126)
+    return _exp2(k)
+
+
+def to_fixed(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """int64 rint(x * scale) of f32 x and a 0-dim power-of-two scale: the
+    rounding the histogram kernel's exact mode applies to each row."""
+    return torch.round(x.to(torch.float32) * scale).to(torch.int64)
+
+
+def fixed_inverse(scales: torch.Tensor) -> torch.Tensor:
+    """2^-k of f32 powers of two 2^k (k in [-126, 126]), exactly: from the
+    exponent bits, not from a division."""
+    k = ((scales.to(torch.float32).view(torch.int32) >> 23) & 0xFF) - 127
+    return _exp2(-k)
+
+
+def from_fixed(a: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """f32 of int64 fixed-point sums `a` ([..., 2]: the g and h channels
+    of `scales` [2]): one rounding to f32, then the exact multiply by
+    2^-k."""
+    return a.to(torch.float32) * fixed_inverse(scales)
+
+
 #: Partial sums a node keeps apart before they are added (leaf_gh_sums):
 #: row i adds into partial i % LEAF_SPREAD of its node.
 LEAF_SPREAD = 256
@@ -148,16 +229,17 @@ def leaf_gh_sums(idx: torch.Tensor, active: torch.Tensor, g: torch.Tensor,
     on the card index_add_ adds with atomics, and with one partial a node
     the rows of a level with few nodes would all add into the same few
     addresses, one at a time (`kernel_bench.py --kernels leaf` times both
-    forms). The f32 sums agree to summation order, which leaf values and
-    node totals are tolerance-compared on. Integer (quantized) g/h sum
-    exactly into int32; the caller dequantizes."""
+    forms). Integer g/h sum exactly: int8/int16 (quantized) into int32,
+    int64 (the exact f32 path's fixed-point q's) into int64; the caller
+    converts. f32 g/h sum in f32."""
     return _leaf_gh_sums(idx, active, g, h, n_last, LEAF_SPREAD)
 
 
 def _leaf_gh_sums(idx, active, g, h, n_last: int,
                   spread: int) -> torch.Tensor:
     """leaf_gh_sums with `spread` partials a node."""
-    acc = torch.float32 if g.is_floating_point() else torch.int32
+    acc = (torch.float32 if g.is_floating_point()
+           else torch.int64 if g.dtype == torch.int64 else torch.int32)
     gh = torch.stack([torch.where(active, g, 0),
                       torch.where(active, h, 0)], dim=1).to(acc)
     R = g.shape[0]

@@ -35,9 +35,8 @@ search runs on the rank's columns (the colsample and categorical masks,
 global [n_features], are sliced to them) and the winners, with global
 feature ids, are combined over the feature group (allreduce) or over the
 world (reduce-scatter, where every rank owns a distinct column set).
-f32 node totals and leaf sums are feature shard 0's, broadcast over the
-feature group (the card's float atomics round each rank's differently).
-The
+Node totals and leaf sums are exact on every rank (integer sums of the
+same rows), so every rank of a feature group holds the same ones. The
 winning column lives on one feature shard: each rank gathers a row's bin
 where it owns the column and 0 elsewhere, and an int32 all-reduce over
 the feature group hands every rank the bin (ddt_tpu/ops/grow.py:547-565;
@@ -49,9 +48,22 @@ row shards so only the last pads under reduce-scatter); each slab's
 kernel reads its columns in place and its collective is issued
 asynchronously, so slab k's wire overlaps slab k+1's kernel, and all are
 waited before the concatenation. Integer sums are bitwise at any slab
-count; f32 sums may round differently (the wire's reduction order
-depends on where an element falls in its chunks); int32_fixed quantizes
-each slab on its own grid.
+count; an f32 wire's sums may round differently (the wire's reduction
+order depends on where an element falls in its chunks); int32_fixed
+quantizes each slab on its own grid.
+
+Exact f32 sums (grad_dtype "f32", ops/grad "EXACT f32 HISTOGRAMS"): once
+per tree g and h get a power-of-two scale each from their max over every
+row (a MAX all-reduce over the row group), the histogram kernel's exact
+mode sums rint(g * 2^k) in int64, and node totals and leaf sums add the
+same rounded values in int64. On one device the histogram stays int64
+through the sibling subtraction (exact) and the split search (its prefix
+sums too), and every aggregate converts to f32 once; the trees then do
+not depend on the order the card summed the rows in. Under a process
+group each rank's table is exact and converts to f32 before the wire, so
+the payload stays the f32 one the payload model counts, and the
+collective's order (fixed on one topology) decides the last bits; node
+totals and leaf sums cross as f32 the same way.
 
 Routing stays rank-local without a feature axis: the decisions are the
 same on every rank.
@@ -124,9 +136,24 @@ def _no_reduce(x, async_op: bool = False):
     return comms.Pending(x) if async_op else x
 
 
+def assemble_subtracted(parent_hist: torch.Tensor, hist_left: torch.Tensor,
+                        parent_split: torch.Tensor) -> torch.Tensor:
+    """A level's [n_level, F, B, 2] histograms from the previous level's
+    (merged) ones and this level's LEFT children: right = parent - left,
+    exactly zero under a parent that did not split (a frozen parent's
+    phantom right child would otherwise inherit its mass), interleaved
+    back to level order (left 2p, right 2p + 1)."""
+    half = hist_left.shape[0]
+    gate = parent_split.reshape(half, 1, 1, 1)
+    hist_right = torch.where(gate, parent_hist - hist_left, 0)
+    hist = torch.stack([hist_left, hist_right], dim=1)
+    return hist.reshape((2 * half,) + hist_left.shape[1:])
+
+
 def level_histograms(Xb, g, h, node_index, n_level: int, n_bins: int, *,
                      parent_hist=None, parent_split=None,
-                     reduce=None, widths=None) -> torch.Tensor:
+                     reduce=None, widths=None,
+                     scales: torch.Tensor | None = None) -> torch.Tensor:
     """One level's [n_level, F, B, 2] histograms, merged over the ranks by
     `reduce(hist, async_op)` (the histogram collective; None on one
     device): the merged slab under reduce-scatter.
@@ -142,33 +169,116 @@ def level_histograms(Xb, g, h, node_index, n_level: int, n_bins: int, *,
     children of parents that did not split are exactly zero (otherwise a
     frozen parent's phantom right child would inherit its mass and could
     win a split no training row reaches). Dtype-generic: on the quantized
-    path the carry and the left build are int32 and the subtraction is
-    exact."""
+    path the carry and the left build are int32, on the exact path
+    (`scales`: f32 g/h summed in fixed point, ops/histogram.
+    build_histograms_exact) int64 until `reduce` converts it, and the
+    subtraction is exact."""
     if reduce is None:
         reduce = _no_reduce
     widths = widths or [Xb.shape[1]]
 
+    def build(X, ni, n_nodes):
+        if scales is not None:
+            return H.build_histograms_exact(X, g, h, ni, n_nodes, n_bins,
+                                            scales)
+        return H.build_histograms(X, g, h, ni, n_nodes, n_bins)
+
     def build_reduced(ni, n_nodes):
         if len(widths) == 1:
-            return reduce(H.build_histograms(Xb, g, h, ni, n_nodes, n_bins))
+            return reduce(build(Xb, ni, n_nodes))
         pending, lo = [], 0
         for w in widths:
-            hs = H.build_histograms(Xb[:, lo:lo + w], g, h, ni, n_nodes,
-                                    n_bins)
-            pending.append(reduce(hs, async_op=True))
+            pending.append(reduce(build(Xb[:, lo:lo + w], ni, n_nodes),
+                                  async_op=True))
             lo += w
         return torch.cat([p.wait() for p in pending], dim=1)
 
     if parent_hist is None or n_level < 2:
         return build_reduced(node_index, n_level)
-    half = n_level // 2
+    li = left_children(node_index)
+    return assemble_subtracted(parent_hist, build_reduced(li, n_level // 2),
+                               parent_split)
+
+
+def left_children(node_index: torch.Tensor) -> torch.Tensor:
+    """Level-local node index of the rows of LEFT children, keyed by their
+    parent (node // 2); -1 for right children and frozen rows."""
     is_left = (node_index >= 0) & (node_index % 2 == 0)
-    li = torch.where(is_left, node_index // 2, -1).to(torch.int32)
-    hist_left = build_reduced(li, half)
-    gate = parent_split.reshape(half, 1, 1, 1)
-    hist_right = torch.where(gate, parent_hist - hist_left, 0)
-    hist = torch.stack([hist_left, hist_right], dim=1)
-    return hist.reshape((n_level,) + hist_left.shape[1:])
+    return torch.where(is_left, node_index // 2, -1).to(torch.int32)
+
+
+def split_level(hist: torch.Tensor, G: torch.Tensor, Hh: torch.Tensor, *,
+                reg_lambda: float, min_child_weight: float,
+                feature_mask=None, missing_bin: bool = False, cat_mask=None,
+                dequant: torch.Tensor | None = None,
+                inv_scale: torch.Tensor | None = None):
+    """Best splits of one level from its histogram and node totals (G, Hh
+    [n_level]): the one conversion of integer sums to f32 and the split
+    search. Quantized (`dequant`, the f32 [2] scales): hist, G and Hh are
+    the raw integer sums, dequantized once before the gain scan. Exact
+    path (an int64 hist with `inv_scale`, its f32 [2] 2^-k): G and Hh
+    convert once, the split search takes the int64 hist (ops/split).
+    Returns (gains, feats, bins, default_left, G, Hh) with f32 G, Hh."""
+    if dequant is not None:
+        G = G.to(torch.float32) * dequant[0]
+        Hh = Hh.to(torch.float32) * dequant[1]
+        hist = hist.to(torch.float32) * dequant
+    elif not G.is_floating_point():
+        G = G.to(torch.float32) * inv_scale[0]
+        Hh = Hh.to(torch.float32) * inv_scale[1]
+    gains, feats, bins, dls = S.best_splits_impl(
+        hist, reg_lambda, min_child_weight, feature_mask,
+        missing_bin=missing_bin, cat_mask=cat_mask,
+        inv_scale=None if hist.is_floating_point() else inv_scale)
+    return gains, feats, bins, dls, G, Hh
+
+
+def new_tree(max_depth: int, n_rows: int, device) -> "TreeArrays":
+    """Empty node arrays of one depth-`max_depth` heap tree, every row at
+    the root."""
+    N = 2 ** (max_depth + 1) - 1
+    return TreeArrays(
+        torch.full((N,), -1, dtype=torch.int32, device=device),
+        torch.zeros(N, dtype=torch.int32, device=device),
+        torch.zeros(N, dtype=torch.bool, device=device),
+        torch.zeros(N, dtype=torch.float32, device=device),
+        torch.zeros(N, dtype=torch.float32, device=device),
+        torch.zeros(N, dtype=torch.bool, device=device),
+        torch.zeros(n_rows, dtype=torch.int32, device=device))
+
+
+def record_level(tree: "TreeArrays", depth: int, gains, feats, bins, dls,
+                 G, Hh, *, reg_lambda: float,
+                 min_split_gain: float) -> torch.Tensor:
+    """Write level `depth`'s decisions into the tree's node arrays in
+    place: a node splits when its gain passes min_split_gain and it holds
+    hessian mass, else it is a leaf of value -G / (H + lambda). Returns
+    do_split, bool [2^depth]."""
+    n_level = 1 << depth
+    offset = n_level - 1
+    # An empty node at reg_lambda = 0 would store -0/0 = NaN, which a
+    # predict-time row can reach: guarded to 0.
+    value = torch.where(Hh > 0, -G / (Hh + reg_lambda), 0.0)
+    do_split = (gains > min_split_gain) & torch.isfinite(gains) & (Hh > 0)
+    sl = slice(offset, offset + n_level)
+    tree.feature[sl] = torch.where(do_split, feats, -1)
+    tree.threshold_bin[sl] = torch.where(do_split, bins, 0)
+    tree.is_leaf[sl] = ~do_split
+    tree.leaf_value[sl] = torch.where(do_split, 0.0, value)
+    tree.split_gain[sl] = torch.where(do_split, gains, 0.0)
+    tree.default_left[sl] = do_split & dls
+    return do_split
+
+
+def record_leaves(tree: "TreeArrays", max_depth: int, Gl, Hl,
+                  reg_lambda: float) -> None:
+    """The last level's leaf values from its f32 (G, H) sums, in place."""
+    offset = (1 << max_depth) - 1
+    n_last = 1 << max_depth
+    vals = torch.where(Hl > 0, -Gl / (Hl + reg_lambda), 0.0)
+    sl = slice(offset, offset + n_last)
+    tree.is_leaf[sl] = True
+    tree.leaf_value[sl] = vals
 
 
 def go_right(fv: torch.Tensor, thr: torch.Tensor, cat: torch.Tensor | None,
@@ -227,7 +337,8 @@ def grow_tree(Xb: torch.Tensor, g: torch.Tensor, h: torch.Tensor, *,
     """Grow one complete-heap tree from uint8 Xb [R, F] and f32 g, h [R]
     (the same decisions as ddt_tpu/ops/grow.grow_tree).
 
-    grad_dtype "int8"/"int16" quantizes g/h once, keyed by (quant_seed,
+    grad_dtype "f32" sums in 64-bit fixed point (module docstring, "Exact
+    f32 sums"); "int8"/"int16" quantizes g/h once, keyed by (quant_seed,
     quant_tree_id, global row), the tree id an int or a 0-dim int64
     tensor on Xb's device; feature_mask (bool [n_features] on Xb's
     device, False = excluded) restricts every level's split candidates
@@ -245,15 +356,38 @@ def grow_tree(Xb: torch.Tensor, g: torch.Tensor, h: torch.Tensor, *,
     global (module docstring)."""
     R, F = Xb.shape
     dev = Xb.device
-    N = 2 ** (max_depth + 1) - 1
     P = comms.world(group)
     rs = split_comms == "reduce_scatter" and group is not None
     fsh = feature_group is not None
     Fg = F if n_features is None else n_features
     f_lo = comms.rank(feature_group) * F
     widths = slab_widths(F, comms_slabs, P)
+    quant = grad_dtype != "f32"
+    scales = inv = dequant = None
+    if quant:
+        g, h, gscale, hscale = grad_ops.quantize_gradients(
+            g, h, grad_dtype=grad_dtype, tree_id=quant_tree_id,
+            seed=quant_seed, row_start=comms.rank(group) * R, group=group,
+            n_rows_global=R * P)
+        dequant = torch.stack([gscale, hscale])    # [2] dequantize vector
+        gq, hq = g, h
+    else:
+        # The tree's fixed-point grid: 2^k per channel from the global
+        # max over every rank's rows.
+        scales = grad_ops.fixed_scales(
+            comms.pmax(grad_ops.abs_max2(g, h), group), R * P)
+        inv = grad_ops.fixed_inverse(scales)
+        gq = grad_ops.to_fixed(g, scales[0])
+        hq = grad_ops.to_fixed(h, scales[1])
+
+    def to_wire(x):
+        """An exact rank-local int64 aggregate as f32 for a collective."""
+        return x.to(torch.float32) * inv if scales is not None else x
 
     def hist_collective(hs, async_op=False):
+        if group is None:
+            return _no_reduce(hs, async_op)
+        hs = to_wire(hs)
         if rs:
             hs = comms.pad_to_multiple(hs, 1, P)
         return comms.hist_reduce(
@@ -289,60 +423,34 @@ def grow_tree(Xb: torch.Tensor, g: torch.Tensor, h: torch.Tensor, *,
         else feature_group
 
     def row_sums(x, modeled=False):
-        """x summed over the row group. The ranks of a feature group hold
-        the same rows, but on the card their local f32 sums (index_add_
-        atomics) round in different orders: feature shard 0's total is
-        broadcast so every rank keeps the same node totals and leaves."""
-        x = comms.psum(x, group, modeled=modeled)
-        if fsh and x.is_floating_point():
-            x = comms.broadcast_first(x, feature_group)
-        return x
+        """Per-node sums of the row vectors over the row group (as f32
+        on the exact path's wire)."""
+        return comms.psum(to_wire(x) if group is not None else x, group,
+                          modeled=modeled)
 
-    feature = torch.full((N,), -1, dtype=torch.int32, device=dev)
-    threshold_bin = torch.zeros(N, dtype=torch.int32, device=dev)
-    is_leaf = torch.zeros(N, dtype=torch.bool, device=dev)
-    leaf_value = torch.zeros(N, dtype=torch.float32, device=dev)
-    split_gain = torch.zeros(N, dtype=torch.float32, device=dev)
-    default_left = torch.zeros(N, dtype=torch.bool, device=dev)
-
-    node_id = torch.zeros(R, dtype=torch.int32, device=dev)
+    tree = new_tree(max_depth, R, dev)
+    node_id = tree.leaf_of_row
     frozen = torch.zeros(R, dtype=torch.bool, device=dev)
-    prev_hist = prev_split = None
 
-    quant = grad_dtype != "f32"
-    if quant:
-        g, h, gscale, hscale = grad_ops.quantize_gradients(
-            g, h, grad_dtype=grad_dtype, tree_id=quant_tree_id,
-            seed=quant_seed, row_start=comms.rank(group) * R, group=group,
-            n_rows_global=R * P)
-        scale2 = torch.stack([gscale, hscale])    # [2] dequantize vector
-
-    for depth in range(max_depth):
+    def level(depth, parent_hist, parent_split):
         offset = (1 << depth) - 1
         n_level = 1 << depth
         node_index = torch.where(frozen, -1, node_id - offset) \
             .to(torch.int32)
         hist = level_histograms(Xb, g, h, node_index, n_level, n_bins,
-                                parent_hist=prev_hist,
-                                parent_split=prev_split,
-                                reduce=hist_collective, widths=widths)
+                                parent_hist=parent_hist,
+                                parent_split=parent_split,
+                                reduce=hist_collective, widths=widths,
+                                scales=scales)
         if rs or fsh:
             # The ranks hold different columns: node totals from the row
             # vectors, one all-reduce of the [n_level, 2] pair.
             GH = row_sums(grad_ops.leaf_gh_sums(
-                node_index.clamp(min=0), node_index >= 0, g, h, n_level))
-            G, Hh = GH[:, 0], GH[:, 1]
-        else:
-            G, Hh = S.node_totals(hist)
-        hist_q = hist
-        if quant:
-            # The one dequantize per level: integer sums, then * scale.
-            G = G.to(torch.float32) * gscale
-            Hh = Hh.to(torch.float32) * hscale
-            hist = hist.to(torch.float32) * scale2
-        gains, feats, bins, dls = S.best_splits_impl(
-            hist, reg_lambda, min_child_weight, fm_loc,
-            missing_bin=missing_bin, cat_mask=cm_loc)
+                node_index.clamp(min=0), node_index >= 0, gq, hq, n_level))
+            return hist, GH[:, 0], GH[:, 1]
+        return (hist,) + S.node_totals(hist)
+
+    def winners(gains, feats, bins, dls):
         if rs:
             feats = col_ids[feats.to(torch.int64)].to(torch.int32)
         if combine_group is not None:
@@ -350,20 +458,14 @@ def grow_tree(Xb: torch.Tensor, g: torch.Tensor, h: torch.Tensor, *,
                 gains, feats + f_lo, bins, dls, combine_group,
                 n_features=F * comms.world(feature_group), n_bins=n_bins,
                 missing_bin=missing_bin)
-        # An empty node at reg_lambda = 0 would store -0/0 = NaN, which a
-        # predict-time row can reach: guarded to 0.
-        value = torch.where(Hh > 0, -G / (Hh + reg_lambda), 0.0)
-        do_split = (gains > min_split_gain) & torch.isfinite(gains) \
-            & (Hh > 0)
-        sl = slice(offset, offset + n_level)
-        feature[sl] = torch.where(do_split, feats, -1)
-        threshold_bin[sl] = torch.where(do_split, bins, 0)
-        is_leaf[sl] = ~do_split
-        leaf_value[sl] = torch.where(do_split, 0.0, value)
-        split_gain[sl] = torch.where(do_split, gains, 0.0)
-        default_left[sl] = do_split & dls
+        return gains, feats, bins, dls
 
-        # Route rows through the new splits: gather each row's node entry.
+    def route(depth, feats, bins, dls, do_split):
+        """Route rows through the new splits: gather each row's node
+        entry."""
+        nonlocal frozen
+        offset = (1 << depth) - 1
+        n_level = 1 << depth
         idx = (node_id - offset).clamp(0, n_level - 1).to(torch.int64)
         split_here = do_split[idx] & ~frozen
         feat_r = feats[idx].to(torch.int64)
@@ -382,29 +484,75 @@ def grow_tree(Xb: torch.Tensor, g: torch.Tensor, h: torch.Tensor, *,
             else cat_mask[feats.clamp(max=Fg - 1)][idx],
             dls[idx] if missing_bin else None,
             n_bins - 1 if missing_bin else -1).to(torch.int32)
-        node_id = torch.where(split_here, 2 * node_id + 1 + right, node_id)
+        node_id.copy_(torch.where(split_here, 2 * node_id + 1 + right,
+                                  node_id))
         frozen = frozen | ~split_here
 
-        if hist_subtraction:       # the int32 form on the quantized path
-            prev_hist, prev_split = hist_q, do_split
+    def leaf_sums():
+        offset = (1 << max_depth) - 1
+        n_last = 1 << max_depth
+        idx = (node_id - offset).clamp(0, n_last - 1)
+        return row_sums(grad_ops.leaf_gh_sums(idx, ~frozen, gq, hq, n_last),
+                        modeled=True)
+
+    # The histogram carry keeps the integer form off the wire.
+    return grow_levels(
+        tree, max_depth, level, leaf_sums, reg_lambda=reg_lambda,
+        min_child_weight=min_child_weight, min_split_gain=min_split_gain,
+        hist_subtraction=hist_subtraction, feature_mask=fm_loc,
+        missing_bin=missing_bin, cat_mask=cm_loc, dequant=dequant,
+        inv_scale=inv,
+        winners=winners if rs or combine_group is not None else None,
+        route=route)
+
+
+def grow_levels(tree: TreeArrays, max_depth: int, level, leaf_sums, *,
+                reg_lambda: float, min_child_weight: float,
+                min_split_gain: float, hist_subtraction: bool,
+                feature_mask=None, missing_bin: bool = False,
+                cat_mask=None, dequant: torch.Tensor | None = None,
+                inv_scale: torch.Tensor | None = None, winners=None,
+                route=None) -> TreeArrays:
+    """The level loop of both trainers (grow_tree in memory, the streamed
+    trainer over chunks), filling `tree`'s node arrays in place.
+
+    Per depth: `level(depth, parent_hist, parent_split) -> (hist, G, Hh)`
+    builds the level's merged histogram (right children by sibling
+    subtraction when parent_hist is given: the previous level's hist and
+    do_split, passed with `hist_subtraction`) and its node totals, in
+    their integer or f32 form; split_level converts them once (`dequant`
+    quantized, `inv_scale` exact) and finds the best splits;
+    `winners(gains, feats, bins, dls)` maps them to global features
+    (partitioned columns; None keeps them); record_level writes the
+    decisions; `route(depth, feats, bins, dls, do_split)` moves the rows
+    (None where the caller routes from the node arrays). Then
+    `leaf_sums()` gives the last level's [2^max_depth, 2] (G, H),
+    converted to f32 once, and record_leaves."""
+    prev_hist = prev_split = None
+    for depth in range(max_depth):
+        hist, G, Hh = level(depth, prev_hist, prev_split)
+        gains, feats, bins, dls, G, Hh = split_level(
+            hist, G, Hh, reg_lambda=reg_lambda,
+            min_child_weight=min_child_weight, feature_mask=feature_mask,
+            missing_bin=missing_bin, cat_mask=cat_mask, dequant=dequant,
+            inv_scale=inv_scale)
+        if winners is not None:
+            gains, feats, bins, dls = winners(gains, feats, bins, dls)
+        do_split = record_level(tree, depth, gains, feats, bins, dls, G, Hh,
+                                reg_lambda=reg_lambda,
+                                min_split_gain=min_split_gain)
+        if route is not None:
+            route(depth, feats, bins, dls, do_split)
+        if hist_subtraction:
+            prev_hist, prev_split = hist, do_split
 
     # Final level: leaf values from per-terminal-node (G, H) sums.
-    offset = (1 << max_depth) - 1
-    n_last = 1 << max_depth
-    active = ~frozen
-    idx = (node_id - offset).clamp(0, n_last - 1)
-    GH = row_sums(grad_ops.leaf_gh_sums(idx, active, g, h, n_last),
-                  modeled=True)
-    Gl, Hl = GH[:, 0], GH[:, 1]
-    if quant:
-        Gl = Gl.to(torch.float32) * gscale
-        Hl = Hl.to(torch.float32) * hscale
-    vals = torch.where(Hl > 0, -Gl / (Hl + reg_lambda), 0.0)
-    sl = slice(offset, offset + n_last)
-    is_leaf[sl] = True
-    leaf_value[sl] = vals
-    return TreeArrays(feature, threshold_bin, is_leaf, leaf_value,
-                      split_gain, default_left, node_id)
+    GH = leaf_sums()
+    if not GH.is_floating_point():
+        GH = GH.to(torch.float32) * (dequant if dequant is not None
+                                     else inv_scale)
+    record_leaves(tree, max_depth, GH[:, 0], GH[:, 1], reg_lambda)
+    return tree
 
 
 def tree_predict_delta(tree: TreeArrays,

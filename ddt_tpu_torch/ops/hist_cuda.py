@@ -2,20 +2,28 @@
 ddt_tpu/ops/hist_pallas.py::_hist_kernel (K1, 255 bins) and
 ::_hist_kernel_t (K2, <= 128 bins), each in its f32 and its integer mode.
 
-Modes, by the dtype of g and h (both the same): f32 sums into f32
-(`ddt_hist_f32`); int8 or int16 (quantized gradients) sum into the raw
-int32 histogram (`ddt_hist_i8`, `ddt_hist_i16`) with integer atomics,
-which are exact and order-free, so that mode equals the plain version bit
-for bit.
+Modes, by the dtype of g and h (both the same) and `scales`: f32 g/h
+with scales (f32 [2] powers of two on the card, ops/grad.fixed_scales)
+sum each row's rint(g * 2^k) into the int64 histogram (`ddt_hist_fx`,
+the exact mode every f32 training path runs); f32 g/h without scales sum
+into f32 with float atomics (`ddt_hist_f32`, the yardstick it replaced);
+int8 or int16 (quantized gradients) sum into the raw int32 histogram
+(`ddt_hist_i8`, `ddt_hist_i16`). The exact and integer modes use integer
+atomics, exact and order-free, so they equal their plain versions bit for
+bit. Every mode adds into its output: the wrapper zeroes a new one, or
+takes `out`, a table to accumulate into (the streamed level passes).
 
 The byte bound is ~12.5 us a level at 1M x 28 on the H100 (Xb, the node
 index, g and h read once); what sets the kernel's time is the card's rate
 of shared-memory atomics, one per (row, feature) and channel. The design,
 stated in full in the source: a thread reads a row once (node index
 first, so a frozen row or a row of another node range costs 4 bytes) and
-its bytes as 4-byte words; one 64-bit compare-and-swap adds g and h in f32
-mode, two native 32-bit adds in integer mode; each block's table (8 bytes
-a cell in both modes, laid out as the output) is flushed with TMA bulk
+its bytes as 4-byte words; in exact mode each int64 add is a native
+32-bit add on the low word and, on a carry or a negative value, one on the
+high word; one 64-bit compare-and-swap adds g and h in f32 mode, two
+native 32-bit adds in integer mode; each block's table (16 bytes a cell
+in exact mode, 8 in the others, laid out as the output) is flushed with
+TMA bulk
 reductions into L2, not one global atomic per cell; the grid holds as
 many blocks as the card runs at once. Tried on the card and not taken: a
 thread-block cluster holding a level's table in distributed shared memory
@@ -34,8 +42,9 @@ Xb may be a column slab of a wider row-major matrix, read in place: the
 kernel takes the row stride (the slab-pipelined level loop of ops/grow
 hands it such views).
 
-The plain version of the same function is ops/histogram.
-build_histograms_segment; ops/histogram.build_histograms dispatches CUDA
+The plain versions are ops/histogram.build_histograms_fixed_segment
+(exact mode) and build_histograms_segment (the others);
+ops/histogram.build_histograms_exact and build_histograms dispatch CUDA
 tensors here and CPU tensors there. This wrapper never falls back: a CPU
 tensor, a wrong dtype, a plan the card cannot hold or a failed launch
 raises.
@@ -52,19 +61,26 @@ from ddt_tpu_torch import _build
 from ddt_tpu_torch.utils import launches as _launches
 
 #: Kernel launches since the last reset (chip_smoke reads them around
-#: each path), one count per mode: `launches` for f32 g/h, `launches_int`
-#: for int8/int16. Counted only where the kernel is launched, and once
-#: per replay of a captured round (utils/launches).
+#: each path), one count per mode: `launches_exact` for the exact mode,
+#: `launches` for f32 g/h with float atomics, `launches_int` for
+#: int8/int16. Counted only where the kernel is launched, and once per
+#: replay of a captured round (utils/launches).
+launches_exact = 0
 launches = 0
 launches_int = 0
 
-# g/h dtype -> (C entry, mode for ddt_hist_max_blocks, output dtype).
-_MODES = {torch.float32: ("ddt_hist_f32", 0, torch.float32),
-          torch.int8: ("ddt_hist_i8", 1, torch.int32),
-          torch.int16: ("ddt_hist_i16", 2, torch.int32)}
+# g/h dtype -> (C entry, mode for ddt_hist_max_blocks, output dtype,
+# counter); the exact mode is _EXACT.
+_MODES = {torch.float32: ("ddt_hist_f32", 0, torch.float32, "launches"),
+          torch.int8: ("ddt_hist_i8", 1, torch.int32, "launches_int"),
+          torch.int16: ("ddt_hist_i16", 2, torch.int32, "launches_int")}
+_EXACT = ("ddt_hist_fx", 3, torch.int64, "launches_exact")
 
 THREADS = 1024          # kernel block size (kThreads in csrc/hist.cu)
-CELL_BYTES = 8          # one (node, feature, bin): (g, h), f32 or int32
+#: One (node, feature, bin): (g, h) as two f32 or two int32, or (exact
+#: mode) two int64.
+CELL_BYTES = 8
+CELL_BYTES_EXACT = 16
 _MAX_GRID_Y = 65_535
 _argtypes_set = False
 _max_blocks: dict = {}
@@ -85,13 +101,13 @@ class TilePlan:
 
 
 def plan_tiles(n_nodes: int, n_features: int, n_bins: int,
-               smem_limit: int) -> TilePlan:
-    """Slab and node-range widths whose cells (8 B each) fit `smem_limit`
-    bytes a block: whole feature rows per node when one node's F x B table
-    fits, as many nodes per range as then fit; otherwise the widest
-    feature slab one node allows. Widths are balanced so that the last
-    slab or range is not a sliver."""
-    cell = n_bins * CELL_BYTES               # one (node, feature) in bytes
+               smem_limit: int, cell_bytes: int = CELL_BYTES) -> TilePlan:
+    """Slab and node-range widths whose cells (`cell_bytes` each: 8, or 16
+    in exact mode) fit `smem_limit` bytes a block: whole feature rows per
+    node when one node's F x B table fits, as many nodes per range as then
+    fit; otherwise the widest feature slab one node allows. Widths are
+    balanced so that the last slab or range is not a sliver."""
+    cell = n_bins * cell_bytes               # one (node, feature) in bytes
     if cell > smem_limit:
         raise ValueError(
             f"one feature of one node needs {cell} B of shared memory, "
@@ -123,10 +139,10 @@ def _lib():
     lib = _build.library("hist")
     if not _argtypes_set:
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        for entry, _, _ in _MODES.values():
+        for entry, _, _, _ in (*_MODES.values(), _EXACT):
             fn = getattr(lib, entry)
-            fn.argtypes = [vp, vp, vp, vp, vp, i64, i64, i32, i32, i32, i32,
-                           i32, i32, i32, vp]
+            fn.argtypes = [vp, vp, vp, vp, vp, vp, i64, i64, i32, i32, i32,
+                           i32, i32, i32, i32, vp]
             fn.restype = i32
         lib.ddt_hist_max_blocks.argtypes = [i32, i32, ctypes.POINTER(i32)]
         lib.ddt_hist_max_blocks.restype = i32
@@ -154,24 +170,30 @@ def max_active_blocks(device: torch.device, mode: int,
     return _max_blocks[key]
 
 
-def _check_operands(Xb, g, h, node_index, n_nodes, n_bins):
+def _check_operands(Xb, g, h, node_index, n_nodes, n_bins, scales):
     if g.dtype not in _MODES:
         raise TypeError(f"g must be float32, int8 or int16, got {g.dtype}")
-    for name, t, dt in (("Xb", Xb, torch.uint8), ("g", g, g.dtype),
-                        ("h", h, g.dtype),
-                        ("node_index", node_index, torch.int32)):
+    if scales is not None and g.dtype != torch.float32:
+        raise TypeError(f"the exact mode takes float32 g/h, got {g.dtype}")
+    ops = [("Xb", Xb, torch.uint8), ("g", g, g.dtype), ("h", h, g.dtype),
+           ("node_index", node_index, torch.int32)]
+    if scales is not None:
+        ops.append(("scales", scales, torch.float32))
+    for name, t, dt in ops:
         if t.device.type != "cuda":
             raise TypeError(f"{name} must be a CUDA tensor, got {t.device}")
+        if t.device != Xb.device:
+            raise ValueError(f"{name} is on {t.device}, Xb on {Xb.device}")
         if t.dtype != dt:
             raise TypeError(f"{name} must be {dt}, got {t.dtype}")
         if t is not Xb and not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    if scales is not None and scales.shape != (2,):
+        raise ValueError(f"scales must be [2], got {tuple(scales.shape)}")
     if Xb.dim() != 2 or (Xb.shape[1] > 1 and Xb.stride(1) != 1) \
             or (Xb.shape[0] > 1 and Xb.stride(0) < Xb.shape[1]):
         raise ValueError("Xb must be row-major [R, F] with unit column "
                          f"stride, got strides {tuple(Xb.stride())}")
-        if t.device != Xb.device:
-            raise ValueError(f"{name} is on {t.device}, Xb on {Xb.device}")
     R = Xb.shape[0]
     if g.shape != (R,) or h.shape != (R,) or node_index.shape != (R,):
         raise ValueError("g, h and node_index must be [R] with R = Xb rows")
@@ -183,20 +205,34 @@ def _check_operands(Xb, g, h, node_index, n_nodes, n_bins):
 
 def build_histograms_cuda(Xb: torch.Tensor, g: torch.Tensor,
                           h: torch.Tensor, node_index: torch.Tensor,
-                          n_nodes: int, n_bins: int) -> torch.Tensor:
-    """[n_nodes, F, n_bins, 2] on Xb's card: f32 for f32 g/h, int32 for
+                          n_nodes: int, n_bins: int,
+                          scales: torch.Tensor | None = None,
+                          out: torch.Tensor | None = None) -> torch.Tensor:
+    """[n_nodes, F, n_bins, 2] on Xb's card: int64 fixed point for f32 g/h
+    with `scales` (the exact mode), f32 for f32 g/h without, int32 for
     int8/int16 g/h. Xb uint8 [R, F] row-major (contiguous, or a column
     slab of a wider matrix: its row stride is passed on), g and h [R] of
     one of those dtypes (the same for both), node_index int32 [R] (-1 =
-    frozen), contiguous; all CUDA tensors on one device."""
-    _check_operands(Xb, g, h, node_index, n_nodes, n_bins)
-    entry, mode, out_dtype = _MODES[g.dtype]
+    frozen), scales f32 [2], contiguous; all CUDA tensors on one device.
+    With `out` (contiguous, that shape and dtype) the sums are added into
+    it and it is returned."""
+    _check_operands(Xb, g, h, node_index, n_nodes, n_bins, scales)
+    entry, mode, out_dtype, counter = (_EXACT if scales is not None
+                                       else _MODES[g.dtype])
     R, F = Xb.shape
-    out = torch.zeros((n_nodes, F, n_bins, 2), dtype=out_dtype,
-                      device=Xb.device)
+    shape = (n_nodes, F, n_bins, 2)
+    if out is None:
+        out = torch.zeros(shape, dtype=out_dtype, device=Xb.device)
+    elif (tuple(out.shape) != shape or out.dtype != out_dtype
+          or out.device != Xb.device or not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous {out_dtype} {shape} on "
+                         f"{Xb.device}, got {out.dtype} "
+                         f"{tuple(out.shape)} on {out.device}")
     if R == 0 or F == 0 or n_nodes == 0:
         return out
-    plan = plan_tiles(n_nodes, F, n_bins, _build.smem_limit(Xb.device))
+    plan = plan_tiles(n_nodes, F, n_bins, _build.smem_limit(Xb.device),
+                      CELL_BYTES_EXACT if scales is not None
+                      else CELL_BYTES)
     if plan.tiles > _MAX_GRID_Y:
         raise ValueError(f"{plan.tiles} tiles exceed the grid's y limit")
     blocks_x = grid_blocks(
@@ -206,9 +242,9 @@ def build_histograms_cuda(Xb: torch.Tensor, g: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         status = getattr(lib, entry)(
             Xb.data_ptr(), g.data_ptr(), h.data_ptr(), node_index.data_ptr(),
-            out.data_ptr(), R, Xb.stride(0) if R > 1 else F, F, n_bins,
-            n_nodes, plan.fs, plan.nr, blocks_x, plan.smem_bytes, stream)
+            None if scales is None else scales.data_ptr(), out.data_ptr(),
+            R, Xb.stride(0) if R > 1 else F, F, n_bins, n_nodes, plan.fs,
+            plan.nr, blocks_x, plan.smem_bytes, stream)
     _build.check(status, f"hist kernel launch ({entry})")
-    _launches.count(__name__, "launches" if out_dtype == torch.float32
-                    else "launches_int")
+    _launches.count(__name__, counter)
     return out

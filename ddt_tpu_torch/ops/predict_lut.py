@@ -353,13 +353,14 @@ def predict_lut_fits(n_trees_padded: int, tree_chunk: int, max_depth: int,
                      smem_limit: int = predict_lut_cuda.SMEM_LIMIT_H100,
                      leaf_dtype: str = "float16") -> bool:
     """Whether the int8-tier kernel takes this shape: whole tree chunks,
-    at most MAX_CLASSES classes, and one tree's tables beside the block's
-    rows within `smem_limit` bytes of shared memory."""
+    at most MAX_CLASSES classes, and one tree's record beside a block's
+    row within `smem_limit` bytes of shared memory (rows too wide for the
+    rows mapping take the pairs mapping, as the reference's guard admits
+    1024 features at depth 6)."""
     if n_trees_padded % tree_chunk or \
             n_classes > predict_lut_cuda.MAX_CLASSES:
         return False
-    return predict_lut_cuda.smem_bytes(
-        1, max_depth, n_features, leaf_dtype) \
+    return predict_lut_cuda.min_smem(max_depth, n_features, leaf_dtype) \
         <= smem_limit - predict_lut_cuda.STATIC_SMEM
 
 
@@ -373,8 +374,7 @@ def predict_lut4_fits(n_trees_padded: int, tree_chunk: int, max_depth: int,
     if n_trees_padded % tree_chunk or \
             n_classes > predict_lut_cuda.MAX_CLASSES:
         return False
-    return predict_lut_cuda.smem_bytes(
-        1, max_depth, n_features, "int4") \
+    return predict_lut_cuda.min_smem(max_depth, n_features, "int4") \
         <= smem_limit - predict_lut_cuda.STATIC_SMEM
 
 

@@ -92,12 +92,20 @@ def smem_bytes(sub: int, max_depth: int, n_features: int,
                leaf_dtype: str, rows: int = THREADS) -> int:
     """Dynamic shared memory of a rows-mapping block staging `sub` trees
     beside its `rows` rows. With one row a thread (THREADS rows) it is
-    what the fits guards count: the least the rows mapping needs."""
+    the least the rows mapping needs."""
     return sub * record_bytes(max_depth, leaf_dtype) + n_features * rows
 
 
 def _pairs_smem(sub: int, rows: int, tb: int, n_features: int) -> int:
     return sub * (tb + 4 * rows) + rows * n_features
+
+
+def min_smem(max_depth: int, n_features: int, leaf_dtype: str) -> int:
+    """The least dynamic shared memory any launch of this shape needs: one
+    tree record beside a pairs block of one row (what the fits guards
+    count; plan_launch raises only past it)."""
+    return _pairs_smem(1, 1, record_bytes(max_depth, leaf_dtype),
+                       n_features)
 
 
 class Plan(NamedTuple):
@@ -133,21 +141,17 @@ def plan_launch(n_rows: int, n_trees: int, max_depth: int, n_features: int,
 
     Rows too wide for a block of one row a thread (1024 features at
     depth 6: BASELINE config 5) take the pairs mapping at every batch
-    size with f32 leaves (K3, the last rung of the tier ladder, which
-    has no tier below it); the quantized tiers' fits guards step such
-    models down to K3 first. Raises ValueError when one tree and a
-    block's rows do not fit, or a quantized tier's rows are too wide."""
+    size, whatever the leaf kind. Raises ValueError only when one tree
+    record beside a pairs block of one row does not fit."""
     smem_limit -= STATIC_SMEM
     tb = record_bytes(max_depth, leaf_dtype)
     T = max(n_trees, 1)
-    wide = smem_bytes(1, max_depth, n_features, leaf_dtype) > smem_limit
-    if wide and (leaf_dtype != "float32"
-                 or _pairs_smem(1, 1, tb, n_features) > smem_limit):
+    need = min_smem(max_depth, n_features, leaf_dtype)
+    if need > smem_limit:
         raise ValueError(
-            f"one depth-{max_depth} {leaf_dtype} tree record with "
-            f"{n_features} features needs "
-            f"{smem_bytes(1, max_depth, n_features, leaf_dtype)} B of shared "
-            f"memory, more than the card's {smem_limit} B")
+            f"one depth-{max_depth} {leaf_dtype} tree record ({tb} B) "
+            f"beside a block's row of {n_features} features needs {need} B "
+            f"of shared memory, more than the card's {smem_limit} B")
 
     per_block = STATIC_SMEM + SMEM_PER_BLOCK_RESERVED
 

@@ -9,9 +9,9 @@ reference's `axis_name=None`). NCCL carries CUDA tensors and gloo CPU
 tensors; a CUDA tensor handed to a group of another backend raises
 (`check_group`): there is no quiet path through the host.
 
-- `psum` / `pmax` / `all_gather` / `reduce_scatter` /
-  `broadcast_first`: `dist.all_reduce`, `reduce_scatter_tensor`,
-  `all_gather_into_tensor` and `broadcast`, each returning a new tensor. `reduce_scatter` splits a chosen dim (the feature dim of a
+- `psum` / `pmax` / `all_gather` / `reduce_scatter`: `dist.all_reduce`,
+  `reduce_scatter_tensor` and `all_gather_into_tensor`, each returning a
+  new tensor. `reduce_scatter` splits a chosen dim (the feature dim of a
   [n, F, B, 2] histogram), which it first moves outermost, so rank i gets
   contiguous block i of the dim, padded to a multiple of the world size
   by the caller (`pad_to_multiple`).
@@ -144,20 +144,6 @@ def psum(x: torch.Tensor, group, modeled: bool = False) -> torch.Tensor:
 def pmax(x: torch.Tensor, group) -> torch.Tensor:
     """Elementwise maximum of x over the group's ranks."""
     return _all_reduce(x, group, dist.ReduceOp.MAX, False)
-
-
-def broadcast_first(x: torch.Tensor, group) -> torch.Tensor:
-    """x of the group's first rank, on every rank of the group (a new
-    tensor; x itself without a group). Ranks that computed the same
-    value in another f32 summation order (float atomics) agree on it
-    this way."""
-    if group is None:
-        return x
-    check_group(x.device, group)
-    out = x.contiguous().clone()
-    _count(_nbytes(out), False)
-    dist.broadcast(out, src=dist.get_global_rank(group, 0), group=group)
-    return out
 
 
 def all_gather(x: torch.Tensor, group, modeled: bool = False

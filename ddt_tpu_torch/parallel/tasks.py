@@ -1,6 +1,7 @@
 """What a rank runs under parallel/spawn: the functions the distributed
-test suites (tests/test_torch_comms.py, tests/test_torch_distributed.py)
-and chip_smoke.py's `multi` phase send to their ranks.
+test suites (tests/test_torch_comms.py, tests/test_torch_distributed.py,
+tests/test_torch_stream.py, tests/test_torch_chunks.py) and
+chip_smoke.py's `multi` phase send to their ranks.
 
 They live in the package so that a rank imports torch and the port and
 nothing else (the test modules import JAX). Each takes the pool's device
@@ -27,7 +28,8 @@ from ddt_tpu_torch.parallel import comms, mesh
 from ddt_tpu_torch.utils import checkpoint
 
 #: Counters a training task reads before and after its run.
-COUNTERS = ((hist_cuda, "launches"), (hist_cuda, "launches_int"),
+COUNTERS = ((hist_cuda, "launches_exact"), (hist_cuda, "launches"),
+            (hist_cuda, "launches_int"),
             (predict_cuda, "launches"), (comms, "calls"),
             (comms, "modeled_bytes"), (comms, "other_bytes"),
             (cuda_backend, "graph_captures"), (cuda_backend, "graph_replays"))
@@ -371,3 +373,61 @@ def train_mesh(device: str, x_path: str, y_path: str, cfg_kw: dict,
                 "ms_per_level": _mean_ms(
                     lambda: comms.psum(fv, be.feature_group), 20)}
     return out
+
+
+def _chunk_fn(Xb, y, bounds):
+    def f(c):
+        return Xb[bounds[c]:bounds[c + 1]], y[bounds[c]:bounds[c + 1]]
+
+    f.labels = lambda c: y[bounds[c]:bounds[c + 1]]
+    return f
+
+
+def train_streaming(device: str, Xb, y, bounds, cfg_kw: dict,
+                    fit_kw: dict | None = None) -> dict:
+    """streaming.fit_streaming on this rank over binned rows Xb cut at
+    `bounds` (every rank sent the whole chunks; each uploads its block):
+    the ensemble and the counters' moves."""
+    from ddt_tpu_torch.streaming import fit_streaming
+
+    cfg = _config(device, cfg_kw)
+    before = _counters()
+    ens = fit_streaming(_chunk_fn(Xb, y, bounds), len(bounds) - 1, cfg,
+                        **(fit_kw or {}))
+    return {"ensemble": ens, "counters": _since(before)}
+
+
+def train_streaming_dir(device: str, src_dir: str, shards_per_chunk: int,
+                        cfg_kw: dict) -> dict:
+    """streaming.fit_streaming on this rank over a host-sharded shard
+    directory (data/chunks.HostShardedChunks: the rank reads its own
+    sub-shards only); also how many sub-shard feature reads it made."""
+    from ddt_tpu_torch.data.chunks import host_sharded_chunks
+    from ddt_tpu_torch.streaming import fit_streaming
+
+    cfg = _config(device, cfg_kw)
+    src = host_sharded_chunks(src_dir, shards_per_chunk)
+    reads = []
+    real = src.read_part
+
+    def counted(c, slot):
+        reads.append((c, slot))
+        return real(c, slot)
+
+    src.read_part = counted
+    ens = fit_streaming(src, src.n_chunks, cfg)
+    return {"ensemble": ens, "reads": sorted(set(reads)),
+            "owned": src.owned_slots(0)}
+
+
+def upload_row_shards(device: str, parts: list, total_rows: int,
+                      cfg_kw: dict) -> tuple:
+    """(upload_row_shards of this rank's parts, upload_chunk of the whole
+    chunk) on this rank, as host arrays."""
+    cfg = _config(device, cfg_kw)
+    be = get_backend(cfg)
+    owned = [parts[i] for i in range(len(parts))
+             if i * _world() // len(parts) == _rank()]
+    a = be.upload_row_shards(owned, total_rows)
+    b = be.upload_chunk(np.concatenate(parts))
+    return a.cpu().numpy(), b.cpu().numpy()

@@ -8,10 +8,12 @@ fixture decides, never module import). On the card run them with
 (`--noconftest`: the suite's conftest imports JAX, which the card's
 machine does not have; this file imports nothing of JAX or ddt_tpu.)
 
-Tolerances: the histogram kernel sums f32 g/h with float atomics in a
+Tolerances: the histogram kernel's exact mode (what f32 training runs:
+int64 fixed-point sums) and its integer mode (int8/int16 g/h, int32 sums)
+are exact and held bitwise; its f32 mode sums with float atomics in a
 run-to-run order, so each (g, h) cell is held to 1e-5 * (sum of |g| or
-|h| over the cell's own rows) + 1e-6; its integer mode (int8/int16 g/h,
-int32 sums) is exact and held bitwise. The traversal kernel (K3) and the
+|h| over the cell's own rows) + 1e-6. f32 training is held bitwise run to
+run and across a resume. The traversal kernel (K3) and the
 LUT kernels (K4, K5) are bitwise on exact-grid leaf values (every partial
 sum is exact in f32, so the order cannot matter) and within 1e-5 *
 (|p| + 1) on random leaves; the LUT kernels also stay within the tables'
@@ -26,8 +28,8 @@ import torch
 
 from ddt_tpu_torch import _build
 from ddt_tpu_torch.models.tree import empty_ensemble
-from ddt_tpu_torch.ops import (hist_cuda, histogram, predict, predict_cuda,
-                               predict_lut, predict_lut_cuda)
+from ddt_tpu_torch.ops import (grad, hist_cuda, histogram, predict,
+                               predict_cuda, predict_lut, predict_lut_cuda)
 
 pytestmark = pytest.mark.cuda
 
@@ -612,7 +614,7 @@ def test_lut_kernels_bitwise_staging_pass_by_pass(dev, leaf_dtype, B):
 
 
 def test_lut_kernel_refuses_rows_that_do_not_fit_shared_memory(dev):
-    F = 1000                    # 256 KB of staged rows per block
+    F = 240_000                 # one row beside one tree exceeds the card
     ens = _lut_ens(8, 3, F, 31, 1, False, (), "float16")
     tables = ens.compile(tree_chunk=8).quantize()
     assert not predict_lut.predict_lut_fits(
@@ -1076,3 +1078,248 @@ def test_traverse_kernel_at_config5_width(dev):
     for n in (1, 256, 100_000):
         got, want = _score_both(ens, X[:n], dev)
         np.testing.assert_array_equal(got, want)
+
+
+# --------------------------------------------------------------------- #
+# exact f32 histograms (K1's fixed-point mode) and the 1024-feature LUT
+# tiers
+# --------------------------------------------------------------------- #
+
+def _exact_both(Xd, g, h, ni, N, B, dev, out=None):
+    """K1's exact mode and its plain version (on the card) on one input,
+    scales from the data's max as training takes them."""
+    scales = grad.fixed_scales(grad.abs_max2(g, h), Xd.shape[0])
+    got = hist_cuda.build_histograms_cuda(Xd, g, h, ni, N, B, scales=scales,
+                                          out=out)
+    want = histogram.build_histograms_fixed_segment(Xd, g, h, ni, N, B,
+                                                    scales)
+    return got, want
+
+
+@pytest.mark.parametrize("R,F,B,N", [
+    (1_000_000, 28, 255, 1),      # Higgs
+    (1_000_000, 28, 255, 32),
+    (200_000, 54, 255, 64),       # covertype: one node a range
+    (50_001, 28, 64, 32),
+    (5, 3, 16, 4),
+])
+def test_exact_hist_kernel_bitwise_equals_plain(dev, R, F, B, N):
+    Xb, g, h, ni = _hist_case(R, F, B, N, seed=5)
+    g[::7] *= -1e-3                  # small values beside large ones
+    args = [torch.from_numpy(a).to(dev) for a in (Xb, g, h, ni)]
+    before = hist_cuda.launches_exact, hist_cuda.launches
+    got, want = _exact_both(*args, N, B, dev)
+    assert got.dtype == torch.int64 and torch.equal(got, want)
+    assert (hist_cuda.launches_exact, hist_cuda.launches) == (
+        before[0] + 1, before[1])
+    plan = hist_cuda.plan_tiles(N, F, B, _build.smem_limit(dev),
+                                hist_cuda.CELL_BYTES_EXACT)
+    if F == 54:
+        assert (plan.nr, plan.n_ranges) == (1, 64)
+    # Twice more, accumulating: the same table summed three times.
+    got3 = got.clone()
+    _exact_both(*args, N, B, dev, out=got3)
+    _exact_both(*args, N, B, dev, out=got3)
+    assert torch.equal(got3, 3 * want)
+
+
+def test_exact_hist_kernel_on_a_1024_column_slab(dev):
+    """The exact mode at BASELINE config 5's width: a 1024-column slab of a
+    wider matrix (row stride 2048), 19 feature slabs of 16-byte cells a
+    node, bitwise its plain version; and chunked sums equal the whole."""
+    R, F, B, N = 500_000, 1024, 255, 4
+    rng = np.random.default_rng(12)
+    wide = torch.from_numpy(rng.integers(0, B, size=(R, 2 * F),
+                                         dtype=np.uint8)).to(dev)
+    Xs = wide[:, F:]
+    ni = torch.from_numpy(rng.integers(-1, N, R).astype(np.int32)).to(dev)
+    g = torch.from_numpy(rng.standard_normal(R).astype(np.float32)).to(dev)
+    h = torch.from_numpy(rng.random(R).astype(np.float32)).to(dev)
+    plan = hist_cuda.plan_tiles(N, F, B, _build.smem_limit(dev),
+                                hist_cuda.CELL_BYTES_EXACT)
+    assert plan.n_slabs >= 18 and plan.nr == 1
+    got, want = _exact_both(Xs, g, h, ni, N, B, dev)
+    assert torch.equal(got, want)
+    scales = grad.fixed_scales(grad.abs_max2(g, h), R)
+    acc = torch.zeros_like(got)
+    for lo in range(0, R, 131_072):
+        sl = slice(lo, lo + 131_072)
+        hist_cuda.build_histograms_cuda(Xs[sl], g[sl], h[sl], ni[sl], N, B,
+                                        scales=scales, out=acc)
+    assert torch.equal(acc, got)
+
+
+def test_exact_hist_kernel_refuses_bad_operands(dev):
+    Xd = torch.zeros((8, 3), dtype=torch.uint8, device=dev)
+    g = torch.zeros(8, dtype=torch.float32, device=dev)
+    ni = torch.zeros(8, dtype=torch.int32, device=dev)
+    sc = torch.ones(2, dtype=torch.float32, device=dev)
+    with pytest.raises(TypeError, match="float32"):
+        hist_cuda.build_histograms_cuda(Xd, g.to(torch.int8),
+                                        g.to(torch.int8), ni, 2, 16,
+                                        scales=sc)
+    with pytest.raises(ValueError, match="out must be"):
+        hist_cuda.build_histograms_cuda(
+            Xd, g, g, ni, 2, 16, scales=sc,
+            out=torch.zeros((2, 3, 16, 2), dtype=torch.int32, device=dev))
+
+
+def _covertype_shape(R=60_000, seed=6):
+    """Covertype's shape class: 54 columns, 7 classes, 255 bins."""
+    rng = np.random.default_rng(seed)
+    centers = rng.integers(0, 255, size=(7, 54))
+    y = rng.integers(0, 7, R)
+    Xb = np.clip(centers[y] + rng.integers(-90, 91, size=(R, 54)), 0, 254)
+    return Xb.astype(np.uint8), y.astype(np.int32)
+
+
+def test_f32_covertype_shape_fit_twice_is_bitwise(dev):
+    """The same f32 softmax model at covertype's shape, fitted twice on
+    the card: every tree and leaf bitwise equal (the exact mode's sums do
+    not depend on the order the card adds the rows in)."""
+    from ddt_tpu_torch.backends import get_backend
+    from ddt_tpu_torch.config import TrainConfig
+    from ddt_tpu_torch.driver import Driver
+
+    Xb, y = _covertype_shape()
+    cfg = TrainConfig(n_trees=6, max_depth=8, n_bins=255, loss="softmax",
+                      n_classes=7, fused_block_rounds=3)
+    before = hist_cuda.launches_exact, hist_cuda.launches
+    a = Driver(get_backend(cfg), cfg).fit(Xb, y)
+    assert hist_cuda.launches_exact > before[0]
+    assert hist_cuda.launches == before[1]     # no float atomics
+    b = Driver(get_backend(cfg), cfg).fit(Xb, y)
+    for k in _FIELDS:
+        np.testing.assert_array_equal(getattr(a, k), getattr(b, k))
+
+
+def test_f32_resume_is_bitwise_on_card(dev, tmp_path):
+    from ddt_tpu_torch.backends import get_backend
+    from ddt_tpu_torch.config import TrainConfig
+    from ddt_tpu_torch.driver import Driver
+
+    Xb, y = _covertype_shape(R=30_000, seed=7)
+    cfg = TrainConfig(n_trees=6, max_depth=6, n_bins=255, loss="softmax",
+                      n_classes=7)
+    ev = dict(eval_set=(Xb[25_000:], y[25_000:]))
+    whole = Driver(get_backend(cfg), cfg)
+    full = whole.fit(Xb[:25_000], y[:25_000], **ev)
+    ck = str(tmp_path / "ck")
+    Driver(get_backend(cfg), cfg.replace(n_trees=3), checkpoint_dir=ck,
+           checkpoint_every=2).fit(Xb[:25_000], y[:25_000], **ev)
+    again = Driver(get_backend(cfg), cfg, checkpoint_dir=ck,
+                   checkpoint_every=2)
+    resumed = again.fit(Xb[:25_000], y[:25_000], **ev)
+    for k in _FIELDS:
+        np.testing.assert_array_equal(getattr(full, k), getattr(resumed, k))
+    assert [r["valid_logloss"] for r in again.history] == \
+        [r["valid_logloss"] for r in whole.history[3:]]
+
+
+@pytest.mark.parametrize("leaf_dtype", ["float16", "int8", "int4"])
+def test_lut_kernels_at_config5_width(dev, leaf_dtype):
+    """K4 (fp16 and int8 leaves) and K5 at 1024 features x depth 6: the
+    pairs mapping at every batch size, bitwise their plain versions; the
+    backend serves the requested tier."""
+    from ddt_tpu_torch.backends.cuda import CUDADevice
+    from ddt_tpu_torch.config import TrainConfig
+
+    ens = _lut_ens(64, 6, 1024, 255, 1, False, (), leaf_dtype, exact=False,
+                   seed=13)
+    tables = ens.compile(tree_chunk=64).quantize(leaf_dtype=leaf_dtype)
+    X = np.random.default_rng(13).integers(0, 255, size=(100_000, 1024),
+                                           dtype=np.uint8)
+    for n in (1, 256, 100_000):
+        plan = predict_lut_cuda.plan_launch(
+            n, 64, 6, 1024, leaf_dtype, 1, _build.smem_limit(dev),
+            predict_lut_cuda.sm_count(dev))
+        assert plan.pairs
+        got, want = _lut_both(tables, X[:n], dev)
+        np.testing.assert_array_equal(got, want)
+    impl = "lut4" if leaf_dtype == "int4" else "lut"
+    if leaf_dtype != "int8":
+        be = CUDADevice(TrainConfig(n_bins=255, predict_impl=impl))
+        be.predict_raw(ens, X[:256])
+        assert be.resolved_predict_impl(ens.cache_token()) == impl
+
+
+# --------------------------------------------------------------------- #
+# streamed training and scoring on the card (ddt_tpu_torch/streaming.py)
+# --------------------------------------------------------------------- #
+
+def _stream_case(R=64_000, F=40, B=255, seed=14):
+    rng = np.random.default_rng(seed)
+    Xb = rng.integers(0, B, size=(R, F), dtype=np.uint8)
+    logit = (Xb[:, 0].astype(np.float32) - B / 2) / 32 \
+        + (Xb[:, 5] > B // 3) - 0.5
+    y = (rng.random(R) < 1 / (1 + np.exp(-logit))).astype(np.int32)
+    return Xb, y
+
+
+@pytest.mark.parametrize("cache", [True, False])
+@pytest.mark.parametrize("grad_dtype", ["f32", "int8"])
+def test_streamed_trees_equal_in_memory_on_card(dev, grad_dtype, cache):
+    """Streamed over 5 ragged chunks (pinned staging, the exact or integer
+    tables accumulated on the card) against the in-memory Driver on the
+    same rows: every node array bitwise; each chunk transferred
+    rounds x (depth + 1) times with the cache off, once with it on; and
+    predict_streaming bitwise api.predict."""
+    from ddt_tpu_torch import api
+    from ddt_tpu_torch.backends import cuda as cuda_be
+    from ddt_tpu_torch.backends import get_backend
+    from ddt_tpu_torch.config import TrainConfig
+    from ddt_tpu_torch.driver import Driver
+    from ddt_tpu_torch.streaming import fit_streaming, predict_streaming
+
+    Xb, y = _stream_case()
+    bounds = [0, 9_000, 30_000, 41_111, 52_000, 64_000]
+    pinned = torch.from_numpy(Xb).pin_memory()
+
+    def chunk_fn(c):
+        lo, hi = bounds[c], bounds[c + 1]
+        # Chunks 0-1 pinned tensors, the rest pageable host arrays.
+        return (pinned[lo:hi] if c < 2 else Xb[lo:hi]), y[lo:hi]
+
+    cfg = TrainConfig(n_trees=3, max_depth=6, n_bins=255, subsample=0.9,
+                      seed=2, grad_dtype=grad_dtype)
+    full = Driver(get_backend(cfg), cfg).fit(Xb, y)
+    cuda_be.h2d_bytes = 0
+    before = hist_cuda.launches_exact, hist_cuda.launches
+    streamed = fit_streaming(chunk_fn, 5, cfg, device_chunk_cache=cache)
+    torch.cuda.synchronize()
+    assert cuda_be.h2d_bytes == Xb.nbytes * (1 if cache else 3 * 7)
+    if grad_dtype == "f32":
+        assert hist_cuda.launches_exact - before[0] == 5 * 3 * 6
+    assert hist_cuda.launches == before[1]
+    for k in _FIELDS:
+        np.testing.assert_array_equal(getattr(full, k),
+                                      getattr(streamed, k))
+    got = predict_streaming(chunk_fn, 5, streamed)
+    np.testing.assert_array_equal(
+        got, api.predict(streamed, Xb, binned=True, raw=True))
+
+
+def test_nccl_streamed_two_ranks_equal_one_card(dev):
+    """Two NCCL ranks, each chunk row-sharded over them and each level's
+    exact table all-reduced once, grow the one card's in-memory f32
+    trees bitwise (and int8)."""
+    from ddt_tpu_torch.backends import get_backend
+    from ddt_tpu_torch.config import TrainConfig
+    from ddt_tpu_torch.driver import Driver
+    from ddt_tpu_torch.parallel import spawn, tasks
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 cards (NCCL lets no two ranks share one); "
+                    f"this machine has {torch.cuda.device_count()}")
+    Xb, y = _stream_case(seed=15)
+    bounds = np.array([0, 16_000, 40_000, 64_000])
+    for grad_dtype in ("f32", "int8"):
+        kw = dict(n_trees=3, max_depth=6, n_bins=255, grad_dtype=grad_dtype)
+        alone = Driver(get_backend(TrainConfig(**kw)),
+                       TrainConfig(**kw)).fit(Xb, y)
+        outs = spawn.spawn(tasks.train_streaming, 2, "nccl", "cuda", Xb, y,
+                           bounds, kw)
+        for o in outs:
+            for k in _FIELDS:
+                np.testing.assert_array_equal(getattr(o["ensemble"], k),
+                                              getattr(alone, k))

@@ -309,16 +309,23 @@ def test_fits_guards_count_shared_memory():
         for R in (1, 256, 1_000_000):
             assert predict_lut_cuda.plan_launch(
                 R, 100, 6, 28, leaf_dtype, 1, limit, 132).sub == 100
-    # Rows of 1000 features (256 KB staged per block) do not fit.
-    assert not predict_lut.predict_lut_fits(64, 64, 6, 1000, 1)
-    assert not predict_lut.predict_lut4_fits(64, 64, 6, 1000, 1)
+    # Rows of 1000 features (256 KB staged per rows-mapping block) take
+    # the pairs mapping; only a row too wide beside one tree record does
+    # not fit.
+    assert predict_lut.predict_lut_fits(64, 64, 6, 1000, 1)
+    assert predict_lut.predict_lut4_fits(64, 64, 6, 1000, 1)
+    assert predict_lut_cuda.plan_launch(
+        1, 64, 6, 1000, "int4", 1, limit, 132).pairs
+    assert not predict_lut.predict_lut_fits(64, 64, 6, 240_000, 1)
+    assert not predict_lut.predict_lut4_fits(64, 64, 6, 240_000, 1)
     with pytest.raises(ValueError, match="shared memory"):
-        predict_lut_cuda.plan_launch(1, 64, 6, 1000, "int4", 1, limit, 132)
+        predict_lut_cuda.plan_launch(1, 64, 6, 240_000, "int4", 1, limit,
+                                     132)
     # Ragged chunks and more classes than the kernel holds are refused.
     assert not predict_lut.predict_lut_fits(100, 64, 6, 28, 1)
     assert not predict_lut.predict_lut4_fits(64, 64, 6, 28, 33)
     # A card with less shared memory refuses sooner.
-    need = (predict_lut_cuda.smem_bytes(1, 6, 28, "float16")
+    need = (predict_lut_cuda.min_smem(6, 28, "float16")
             + predict_lut_cuda.STATIC_SMEM)
     assert not predict_lut.predict_lut_fits(64, 64, 6, 28, 1,
                                             smem_limit=need - 1)
@@ -695,3 +702,42 @@ def test_validate_mapper_model_refuses_non_identity_categorical():
         tapi.validate_mapper_model(quantile, ens)
     with pytest.raises(ValueError, match="out of range"):
         quantile.non_identity_columns((9,))
+
+
+# --------------------------------------------------------------------- #
+# BASELINE config 5's width (1024 features, depth 6) on the quantized
+# tiers: the pairs mapping takes the rows a block of one row a thread
+# cannot hold, so K4 and K5 serve the shape the reference's guards admit
+# --------------------------------------------------------------------- #
+
+@pytest.mark.parametrize("leaf_dtype", ["float16", "int8", "int4"])
+def test_plan_launch_at_config5_width_gives_a_plan(leaf_dtype):
+    limit = predict_lut_cuda.SMEM_LIMIT_H100
+    for R in (1, 256, 67_584, 1_000_000):
+        p = predict_lut_cuda.plan_launch(R, 64, 6, 1024, leaf_dtype, 1,
+                                         limit, 132)
+        assert p.pairs and p.sub >= 1 and p.smem <= limit
+        assert p.blocks * p.rows >= R > (p.blocks - 1) * p.rows
+
+
+@pytest.mark.parametrize("impl", ["lut", "lut4"])
+@pytest.mark.parametrize("features,depth", [(1024, 6), (28, 6), (1024, 7)])
+def test_resolved_tier_equals_reference_guards(impl, features, depth):
+    """The backend's ladder picks the tier the reference's fits guards
+    pick for the same model shape. (Past these shapes the two guards
+    count different machines: at depth 8 the reference's TPU working set
+    refuses 1024 features, which the card's shared memory still serves.)"""
+    ens = _port(_rand_ens(seed=5, trees=64, depth=depth, features=features,
+                          bins=255))
+    ce = ens.compile(tree_chunk=64)
+    shape = (ce.n_trees_padded, ce.tree_chunk, ce.max_depth, features,
+             ce.n_classes_out)
+    want = ("lut4" if impl == "lut4" and jlut.predict_lut4_fits(*shape)
+            else "lut" if jlut.predict_lut_fits(*shape) else "f32")
+    be = CUDADevice(TrainConfig(device="cpu", n_bins=255,
+                                predict_impl=impl))
+    X = np.random.default_rng(5).integers(0, 255, size=(8, features),
+                                          dtype=np.uint8)
+    be.predict_raw(ens, X)
+    assert be.resolved_predict_impl(ce.token) == want
+    assert want != "f32" or features != 1024 or depth != 6

@@ -428,16 +428,15 @@ def test_k3_plan_stages_1000_trees_pass_by_pass():
 def test_k3_plan_takes_pairs_for_rows_too_wide_for_a_block():
     """1024 features at depth 6 (BASELINE config 5): 256 rows of 1 KB
     beside a tree exceed shared memory, so K3 takes the pairs mapping at
-    every batch size, every row covered within the card; the quantized
-    tiers still refuse (their fits guards step down to K3 first)."""
+    every batch size, every row covered within the card; so do the
+    quantized tiers' leaf kinds (K4, K5), which the reference's guards
+    admit at this shape too."""
     plan = predict_lut_cuda.plan_launch
-    for R in (1, 256, 67_584, 500_000, 1_000_000):
-        p = plan(R, 20, 6, 1024, "float32", 1, **H100)
-        assert p.pairs and p.sub == 20 and p.smem <= H100["smem_limit"]
-        assert p.blocks * p.rows >= R > (p.blocks - 1) * p.rows
-    for leaf_dtype in ("float16", "int8", "int4"):
-        with pytest.raises(ValueError, match="shared memory"):
-            plan(1_000_000, 20, 6, 1024, leaf_dtype, 1, **H100)
+    for leaf_dtype in ("float32", "float16", "int8", "int4"):
+        for R in (1, 256, 67_584, 500_000, 1_000_000):
+            p = plan(R, 20, 6, 1024, leaf_dtype, 1, **H100)
+            assert p.pairs and p.sub == 20 and p.smem <= H100["smem_limit"]
+            assert p.blocks * p.rows >= R > (p.blocks - 1) * p.rows
 
 
 def test_k3_plan_spreads_a_large_batch_over_two_blocks_an_sm():
