@@ -216,38 +216,74 @@ Phases:
              round's staging, H2D and K1 times apart with their overlap
              and the launches a chunk-level; K4 / K5 at 1024 features
              against their bound.
+    The model's lifecycle
+ 26 lifecycle  phase 5's Higgs model through save_model / load_model (the
+             manifest digest verified, scores on the 1M rows bitwise);
+             written as LightGBM text and read back (api.fill_bin_thresholds
+             from the mapper): the model's arrays bitwise (features, bin
+             thresholds, leaves = f32(leaf * lr + base on the first round),
+             the format's own content) and its card scores within 1e-5 *
+             (|p| + 1) of the trained model's (the text folds shrinkage and
+             base into the leaves, which reorders f32 adds); then
+             push_servable at f32, int8 and int4 and load_servable in this
+             process (K3 / K4 / K5 launches counted from zero around each
+             restore-and-score) and in a cold child (python3 -c, the same
+             tree, binning 16,384 float rows on the card itself): every
+             restored score bitwise api.predict at its tier, the child's
+             nvcc builds 0
+ 27 config4  BASELINE config 4: a 1000-tree, depth-6, 255-bin binary model
+             trained on the card (fused loop, f32) on 1M Higgs-shape rows,
+             its LightGBM text round trip as in phase 26, then 10M x 28
+             float rows scored in three arms: total (host floats -> binning
+             on the card -> K3 -> host, api.predict), resident (binned rows
+             on the card -> K3 -> host), compute (K3 alone, no D2H): wall
+             Mrows/s of each, the card's peak memory in the total arm, a
+             profiled run of total and resident (the card's busy share,
+             copies included, and its top device rows; "not measured"
+             when the profile lacks the arm's copies or K3), K3's device
+             ms against its bound (traverse_compares on this data) and
+             bitwise its plain version on the first 1M rows; scores equal
+             the host oracle's on 10,000 rows. Then the row-sharded
+             scorer on one card (its scaling yardstick) and
+             api.predict(n_partitions=k) for k = 2..min(4, cards), bitwise
+             one card's, total and resident Mrows/s per k (with one card:
+             "multi-card scoring not witnessed: 1 card").
   then the {"kernels": [...]} line (K1 and K3 report covertype, the other
-  paths' launches under "paths", "stream" included; K1's entry is its
-  exact mode, with the float-atomic mode's time as cas_ms), nvidia-smi's
-  line, and the ok line.
+  paths' launches under "paths", "stream", "lifecycle" and K3's "config4"
+  included; K1's entry is its exact mode, with the float-atomic mode's
+  time as cas_ms), nvidia-smi's line, and the ok line.
 
     python3 chip_smoke.py --phase multi
     python3 chip_smoke.py --phase mesh2d
     python3 chip_smoke.py --phase stream
+    python3 chip_smoke.py --phase config4
 
-run the device, build and multi (or mesh2d, or stream) phases alone (the
-calls to make on a machine with several cards, or with the host memory
-for the witness) and end with the same ok line. `--phase stream` then
-trains 1 round f32 at depth 6 over a chunk set larger than the card's
-memory, held in pageable host memory, where /proc/meminfo's MemAvailable
-allows, and prints its size, or "not witnessed: host memory".
+run the device, build and multi (or mesh2d, stream, config4) phases alone
+(the calls to make on a machine with several cards, or with the host
+memory for the witness) and end with the same ok line. `--phase stream`
+then trains 1 round f32 at depth 6 over a chunk set larger than the
+card's memory, held in pageable host memory, where /proc/meminfo's
+MemAvailable allows, and prints its size, or "not witnessed: host
+memory".
 """
 
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import tempfile
 import threading
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from ddt_tpu_torch import _build, api
 from ddt_tpu_torch.backends import cuda as cuda_backend
-from ddt_tpu_torch.backends import get_backend
+from ddt_tpu_torch.backends import get_backend, row_sharded_backend
 from ddt_tpu_torch.breakdown import profiled
 from ddt_tpu_torch.config import TrainConfig
 from ddt_tpu_torch.data.categorical import fit_categorical_encoder
@@ -258,11 +294,13 @@ from ddt_tpu_torch.data.datasets import (stress_binned_chunk,
 from ddt_tpu_torch.data.quantizer import (BinMapper, feature_bincounts,
                                           fit_bin_mapper)
 from ddt_tpu_torch.driver import Driver
-from ddt_tpu_torch.models.tree import empty_ensemble
+from ddt_tpu_torch.models.tree import TreeEnsemble, empty_ensemble
 from ddt_tpu_torch.ops import (grad, hist_cuda, histogram, predict,
                                predict_cuda, predict_lut, predict_lut_cuda,
                                quantize, sampling)
-from ddt_tpu_torch.parallel import comms, spawn, tasks
+from ddt_tpu_torch.parallel import comms, mesh, spawn, tasks
+from ddt_tpu_torch.registry import manifest as manifest_mod
+from ddt_tpu_torch.registry.loader import load_servable, push_servable
 from ddt_tpu_torch.serve import ServeEngine
 from ddt_tpu_torch.streaming import fit_streaming, predict_streaming
 from ddt_tpu_torch.utils.metrics import accuracy, auc, logloss
@@ -350,6 +388,20 @@ STREAM_LUT_ROWS = 65_536        # rows a K4 / K5 call at 1024 features
 #: --phase stream's witness: a chunk set past the card's memory, where the
 #: host holds it (plus this much to spare), 1 round f32 at depth 6.
 WITNESS_HOST_SPARE = 8 << 30
+#: The model's lifecycle (phase lifecycle): rows each restored tier scores,
+#: and the bucket ladder's top of the pushed artifacts.
+LIFE_ROWS = 16_384
+LIFE_MAX_BATCH = 256
+#: BASELINE config 4 (phase config4): a 1000-tree ensemble trained here
+#: on 1M Higgs-shape rows, scoring 10M x 28 float rows.
+C4_TRAIN_ROWS = 1_000_000
+C4_TREES = 1000
+C4_ROWS = 10_000_000
+C4_ORACLE_ROWS = 10_000
+C4_PLAIN_ROWS = 250_000       # K3 against its plain version, and timed
+C4_REPS = 3
+C4_PROFILE_PAD_S = 1.0        # idle profile around each profiled arm
+HERE = Path(__file__).resolve().parent
 TIER_IMPL = {None: "auto", "int8": "lut", "int4": "lut4"}
 TIER_RESOLVED = {None: "f32", "int8": "lut", "int4": "lut4"}
 
@@ -1078,24 +1130,31 @@ def phase_traverse_trained(res, X: np.ndarray, card: dict,
 def traverse_compares(ce, Xd: torch.Tensor) -> int:
     """Integer compares this data needs: one per real (not pushed-down)
     split node on each row's path (the bound adds one f32 add per row and
-    real tree). Counted from the plain descent's bottom-level index k: the
-    path node at level d is (2^d - 1) + (k >> (D - d))."""
+    real tree). Each row's path through every tree is walked level by
+    level, as the plain descent routes it; one host read at the end."""
     dev = Xd.device
     D = ce.max_depth
     ef = torch.from_numpy(ce.eff_feat).to(dev)
     et = torch.from_numpy(ce.eff_thr).to(dev)
-    # Rows a step: ~2^28 (row, tree, node) comparison bits.
-    step = max(1024, (1 << 28) // (ce.tree_chunk * ((1 << D) - 1)))
-    compares = 0
-    for t0 in range(0, ef.shape[0], ce.tree_chunk):
-        ts = slice(t0, t0 + ce.tree_chunk)
-        tidx = torch.arange(ef[ts].shape[0], device=dev)[None, :]
-        for r0 in range(0, Xd.shape[0], step):
-            k = predict.descend_plain(ef[ts], et[ts], Xd[r0:r0 + step], D)
-            for d in range(D):
-                node = ((1 << d) - 1) + (k >> (D - d))
-                compares += int((ef[ts][tidx, node] >= 0).sum())
-    return compares
+    T, N = ef.shape
+    ef_flat, et_flat = ef.reshape(-1), et.reshape(-1)
+    tree_base = (torch.arange(T, dtype=torch.int64, device=dev) * N)[None]
+    total = torch.zeros((), dtype=torch.int64, device=dev)
+    step = max(1, (1 << 26) // T)          # (row, tree) pairs a step
+    for r0 in range(0, Xd.shape[0], step):
+        x = Xd[r0:r0 + step]
+        R, F = x.shape
+        row_base = (torch.arange(R, dtype=torch.int64, device=dev)
+                    * F)[:, None]
+        x_flat = x.reshape(-1).to(torch.int32)
+        k = torch.zeros((R, T), dtype=torch.int64, device=dev)
+        for d in range(D):
+            node = tree_base + ((1 << d) - 1) + k
+            f = ef_flat[node]
+            total += (f >= 0).sum()
+            v = torch.where(f >= 0, x_flat[row_base + f.clamp(min=0)], 0)
+            k = 2 * k + (v > et_flat[node]).to(torch.int64)
+    return int(total)
 
 
 def lut_grid_ensemble(T, depth, F, B, C, cat, qmax, seed=0):
@@ -2949,15 +3008,350 @@ def stream_witness(card: dict) -> dict:
     return out
 
 
+# --------------------------------------------------------------------- #
+# the model's lifecycle and BASELINE config 4
+# --------------------------------------------------------------------- #
+
+def reached_nodes(ens) -> tuple[np.ndarray, np.ndarray]:
+    """(split, leaf) bool [T, N]: the nodes a row can reach, split
+    nodes and leaves, as the LightGBM writer walks them."""
+    leafy = ens.is_leaf | (ens.feature < 0)
+    reach = np.zeros_like(leafy)
+    reach[:, 0] = True
+    for n in range(1, leafy.shape[1]):
+        par = (n - 1) // 2
+        reach[:, n] = reach[:, par] & ~leafy[:, par]
+    return reach & ~leafy, reach & leafy
+
+
+def lgbm_roundtrip(ens, mapper, X: np.ndarray) -> dict:
+    """`ens` written as LightGBM text and read back with the bin
+    thresholds filled from `mapper`: its arrays bitwise what the text
+    holds (the same splits, leaves f32(leaf * lr, + base on the first
+    round)), and its card scores on X within 1e-5 * (|p| + 1) of
+    `ens`'s."""
+    t0 = time.perf_counter()
+    txt = ens.to_lightgbm_text()
+    t1 = time.perf_counter()
+    back = TreeEnsemble.from_lightgbm_text(txt)
+    api.fill_bin_thresholds(back, mapper)
+    t2 = time.perf_counter()
+    check(back.feature.shape == ens.feature.shape,
+          f"parsed shape {back.feature.shape} == {ens.feature.shape}")
+    split, leaf = reached_nodes(ens)
+    check(np.array_equal(back.feature, np.where(split, ens.feature, -1))
+          and np.array_equal(back.threshold_bin[split],
+                             ens.threshold_bin[split])
+          and np.array_equal(back.is_leaf, leaf),
+          "LightGBM text: splits and leaves bitwise after the round trip")
+    C = ens.n_classes if ens.loss == "softmax" else 1
+    first = (np.arange(ens.n_trees) < C)[:, None]
+    want = (ens.leaf_value.astype(np.float64) * ens.learning_rate
+            + np.where(first, ens.base_score, 0.0)).astype(np.float32)
+    check(np.array_equal(back.leaf_value[leaf], want[leaf]),
+          "LightGBM text: leaf values bitwise f32(leaf * lr + base)")
+    got = api.predict(back, X, mapper=mapper, raw=True)
+    ref = api.predict(ens, X, mapper=mapper, raw=True)
+    diff = float(np.abs(got - ref).max())
+    check(np.all(np.abs(got - ref) <= 1e-5 * (np.abs(ref) + 1)),
+          f"LightGBM text model scores within 1e-5 (max |diff| {diff})")
+    return {"text_bytes": len(txt), "write_s": t1 - t0,
+            "read_s": t2 - t1, "arrays_bitwise": True, "rows": len(X),
+            "max_abs_score_diff": diff}
+
+
+#: The cold restore (phase lifecycle): a fresh interpreter restores each
+#: named artifact, bins the float rows on the card with the restored
+#: mapper and scores them, counting K3 / K4 / K5 and binning from zero.
+LIFE_CHILD = r"""
+import json, sys
+import numpy as np
+from ddt_tpu_torch import _build
+from ddt_tpu_torch.ops import predict_cuda, predict_lut_cuda, quantize
+from ddt_tpu_torch.registry.loader import load_servable
+root, rows, out = sys.argv[1:4]
+X = np.load(rows)
+tiers, scores = {}, {}
+for name in sys.argv[4:]:
+    predict_cuda.launches = 0
+    predict_lut_cuda.launches_lut = predict_lut_cuda.launches_lut4 = 0
+    quantize.transforms = 0
+    rep = load_servable(root, name)
+    scores[name] = rep.model.score_binned(rep.model.transform(X))
+    tiers[name] = {"mode": rep.mode, "digest": rep.digest,
+                   "predict_impl": rep.model.predict_impl,
+                   "traverse": predict_cuda.launches,
+                   "lut": predict_lut_cuda.launches_lut,
+                   "lut4": predict_lut_cuda.launches_lut4,
+                   "binning": quantize.transforms}
+np.savez(out, **scores)
+print(json.dumps({"builds": _build.builds, "tiers": tiers}))
+"""
+#: serving tier -> the launch counter of its kernel.
+TIER_KERNEL = {None: "traverse", "int8": "lut", "int4": "lut4"}
+
+
+def phase_lifecycle(res, X: np.ndarray) -> dict:
+    t0 = time.perf_counter()
+    out = {"launches": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "higgs.npz")
+        api.save_model(path, res.ensemble, mapper=res.mapper, cfg=res.cfg)
+        bundle = api.load_model(path)
+        with np.load(path) as z:
+            check(manifest_mod.arrays_digest(dict(z))
+                  == bundle.manifest["digest"]
+                  and bundle.manifest["kind"] == "model_bundle",
+                  "save_model manifest digest verified")
+        want = api.predict(res.ensemble, X, mapper=res.mapper, raw=True)
+        check(np.array_equal(api.predict(bundle, X, raw=True), want),
+              "load_model scores bitwise the trained model's")
+        out["lightgbm"] = lgbm_roundtrip(res.ensemble, res.mapper, X)
+        root = os.path.join(tmp, "registry")
+        rows = np.ascontiguousarray(X[:LIFE_ROWS])
+        Xb = res.mapper.transform_device(rows, "cuda")
+        model = api.ModelBundle(res.ensemble, res.mapper)
+        names, wants = [], {}
+        for tier in (None, "int8", "int4"):
+            name = f"higgs-{tier or 'f32'}"
+            pushed = push_servable(root, model, name=name,
+                                   max_batch=LIFE_MAX_BATCH,
+                                   quantize=tier or False)
+            wants[name] = api.predict(
+                res.ensemble, rows, mapper=res.mapper,
+                cfg=TrainConfig(predict_impl=TIER_IMPL[tier]))
+            zero_counters()
+            rep = load_servable(root, name)
+            got = rep.model.score_binned(Xb)
+            c = read_counters()
+            kernel = TIER_KERNEL[tier]
+            check(np.array_equal(got, wants[name]),
+                  f"{name}: restored scores bitwise api.predict")
+            check(c[kernel] > 0 and sum(c[k] for k in TIER_KERNEL.values())
+                  == c[kernel], f"{name}: only {kernel} launched: {c}")
+            check(rep.digest == pushed["digest"]
+                  and rep.model.predict_impl == TIER_RESOLVED[tier],
+                  f"{name}: restored digest and tier")
+            out["launches"][kernel] = c[kernel]
+            out[name] = {"digest": rep.digest, "mode": rep.mode,
+                         "max_abs_err": rep.model.max_abs_err,
+                         "launches": c[kernel]}
+            names.append(name)
+        rows_path = os.path.join(tmp, "rows.npy")
+        scores_path = os.path.join(tmp, "child.npz")
+        np.save(rows_path, rows)
+        t_child = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", LIFE_CHILD, root, rows_path,
+             scores_path, *names], cwd=HERE, capture_output=True,
+            text=True, timeout=600)
+        check(proc.returncode == 0, f"cold restore child: {proc.stderr}")
+        child = json.loads(proc.stdout.strip().splitlines()[-1])
+        check(child["builds"] == 0,
+              f"cold child ran {child['builds']} nvcc builds")
+        with np.load(scores_path) as z:
+            for tier, name in zip((None, "int8", "int4"), names):
+                row = child["tiers"][name]
+                kernel = TIER_KERNEL[tier]
+                check(np.array_equal(z[name], wants[name]),
+                      f"{name}: cold child's scores bitwise api.predict")
+                check(row[kernel] > 0 and row["binning"] == 1
+                      and row["digest"] == out[name]["digest"],
+                      f"{name}: cold child's launches {row}")
+        out["child"] = {"builds": child["builds"], "tiers": child["tiers"],
+                        "wall_s": time.perf_counter() - t_child}
+    out["wall_s"] = time.perf_counter() - t0
+    emit({"phase": "lifecycle", "rows": len(X), "restore_rows": LIFE_ROWS,
+          **out})
+    return out
+
+
+def mrows(n: int, seconds: float) -> float:
+    return n / seconds / 1e6
+
+
+def config4_arms(ens, mapper, Xs: np.ndarray, Xd: torch.Tensor,
+                 want: np.ndarray, card: dict) -> dict:
+    """The three scoring arms of ddt_tpu/bench.py's config 4 on one card
+    (best of C4_REPS walls), each bitwise `want`, and K3's device ms
+    against its bound."""
+    dev = Xd.device
+    be = get_backend(TrainConfig())
+    ce = ens.compile(tree_chunk=64)
+    tables, kernel, plain = device_operands(ce, dev)
+    R, F = Xd.shape
+
+    def total():
+        return api.predict(ens, Xs, mapper=mapper, raw=True)
+
+    def resident():
+        return be.predict_raw(ens, Xd)
+
+    arms = (("total", total), ("resident", resident),
+            ("compute", lambda: kernel(Xd)))
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    walls = {}
+    for name, fn in arms:
+        runs = [synced(fn) for _ in range(C4_REPS)]
+        if name == "total":
+            peak = torch.cuda.max_memory_allocated() - base
+        got = runs[-1][0]
+        got = got.cpu().numpy()[:, 0] if name == "compute" else got
+        check(np.array_equal(got, want), f"{name} arm bitwise")
+        walls[name] = min(t for _, t in runs)
+    busy = {}
+    for (name, fn), expect in zip(arms[:2], (
+            ("Memcpy HtoD", "searchsorted", "lut_rows", "Memcpy DtoH"),
+            ("lut_rows", "Memcpy DtoH"))):
+        # Padded: a profile opened late in a long process was seen to
+        # miss its first ~120 ms of device events; an idle second before
+        # the arm keeps them (device_lead_ms checks the device clock).
+        prof = profiled(fn, pad_s=C4_PROFILE_PAD_S)
+        seen = [any(e in r["name"] for r in prof["top"]) for e in expect]
+        # A profile that lost device events is no measurement: its busy
+        # share is not reported.
+        busy[name] = ({"busy_share": prof["busy_share"],
+                       "device_lead_ms": prof["device_lead_ms"],
+                       "top": prof["top"][:6]} if all(seen) else
+                      {"busy_share": "not measured: the profile lost "
+                       f"device events ({prof['top'][:6]})",
+                       "device_lead_ms": prof["device_lead_ms"]})
+    sub = Xd[:C4_PLAIN_ROWS]
+    plain_out = plain(sub).cpu().numpy()
+    check(np.array_equal(kernel(sub).cpu().numpy(), plain_out),
+          f"K3 == plain, bitwise, at {C4_PLAIN_ROWS} x {ens.n_trees}")
+    # K3's margins of the whole 10M-row launch (`want`, which every arm
+    # equals) against the plain version on rows from the whole batch: a
+    # strided sample (every row offset's range) and the last
+    # C4_PLAIN_ROWS rows (the grid's last blocks).
+    for rows, what in ((slice(None, None, R // C4_PLAIN_ROWS), "strided"),
+                       (slice(R - C4_PLAIN_ROWS, None), "last")):
+        held = plain(Xd[rows].contiguous()).cpu().numpy()[:, 0]
+        check(np.array_equal(want[rows], held),
+              f"K3 at {R} rows == plain on the {what} {len(held)} rows, "
+              "bitwise")
+    compares = traverse_compares(ce, Xd)
+    adds = R * ens.n_trees
+    nbytes = R * F + R * 4 + tables.rec.numel()
+    t_bytes = 1e3 * nbytes / card["bw"]
+    t_ops = 1e3 * (compares / card["int32"] + adds / card["f32_add"])
+    return {
+        "mrows_per_s": {k: mrows(R, v) for k, v in walls.items()},
+        "wall_ms": {k: 1e3 * v for k, v in walls.items()},
+        "profiled": busy, "total_arm_peak_card_bytes": peak,
+        "kernel_ms": time_ms(lambda: kernel(Xd), 10),
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bytes": nbytes, "int32_compares": compares, "f32_adds": adds,
+        "kernel_ms_plain_rows": time_ms(lambda: kernel(sub), 5),
+        "plain_ms_plain_rows": time_ms(lambda: plain(sub), 1),
+        "plain_rows": C4_PLAIN_ROWS, "max_abs_err": 0.0,
+        "plain_held_rows": {"first": C4_PLAIN_ROWS,
+                            "strided": len(range(0, R, R // C4_PLAIN_ROWS)),
+                            "last": C4_PLAIN_ROWS},
+    }
+
+
+def config4_multi(ens, mapper, Xs: np.ndarray, want: np.ndarray) -> dict:
+    """The row-sharded scorer on k = 1..min(4, cards) cards (k = 1 the
+    same code on one shard, the yardstick of its scaling; k > 1 through
+    api.predict(n_partitions=k)): bitwise one card's api.predict, K3 and
+    binning launched once a card; total and resident Mrows/s."""
+    n = torch.cuda.device_count()
+    out = {}
+    R = Xs.shape[0]
+    for k in range(1, min(4, n) + 1):
+        sc = row_sharded_backend(k)
+
+        def total():
+            if k == 1:
+                return sc.predict_raw(ens, Xs, mapper=mapper)
+            return api.predict(ens, Xs, mapper=mapper, raw=True,
+                               n_partitions=k)
+
+        zero_counters()
+        got = total()
+        c = read_counters()
+        check(np.array_equal(got, want),
+              f"{k} card(s), row-sharded: bitwise one card's")
+        check(c["traverse"] == k and c["binning"] == k,
+              f"{k} card(s): K3 and binning once a card: {c}")
+        blocks = []
+        for i in range(k):
+            a, b, _ = mesh.row_block(R, k, i)
+            blocks.append(mapper.transform_device(Xs[a:b], f"cuda:{i}"))
+        walls = {}
+        for name, fn in (("total", total),
+                         ("resident", lambda: sc.predict_raw(ens, blocks))):
+            runs = [synced(fn) for _ in range(C4_REPS)]
+            check(all(np.array_equal(g, want) for g, _ in runs),
+                  f"{k} card(s) {name} bitwise")
+            walls[name] = min(t for _, t in runs)
+        out[k] = {"launches": c["traverse"],
+                  "mrows_per_s": {n_: mrows(R, v) for n_, v in walls.items()},
+                  "wall_ms": {n_: 1e3 * v for n_, v in walls.items()}}
+        del blocks
+    if n < 2:
+        print("multi-card scoring not witnessed: 1 card", flush=True)
+        return {"row_sharded": out, "multi_card": "not witnessed: 1 card"}
+    return {"row_sharded": out, "multi_card": sorted(out)[1:]}
+
+
+def phase_config4(card: dict, flush: torch.Tensor) -> dict:
+    t0 = time.perf_counter()
+    X, y = synthetic_binary(C4_TRAIN_ROWS, n_features=FEATURES, seed=4)
+    cfg = TrainConfig(n_trees=C4_TREES, max_depth=DEPTH, n_bins=255)
+    zero_counters()
+    res, train_s = synced(lambda: api.train(X, y, cfg))
+    trained = read_counters()
+    check(trained["graph_replays"] == C4_TREES,
+          f"{trained['graph_replays']} replays for {C4_TREES} trees")
+    check(DEPTH * C4_TREES <= trained["hist"] <= DEPTH * (C4_TREES + 1),
+          f"{trained['hist']} histogram launches for {C4_TREES} trees")
+    ens, mapper = res.ensemble, res.mapper
+    lgbm = lgbm_roundtrip(ens, mapper, X)
+    del X, y
+    t_data = time.perf_counter()
+    Xs, _ = synthetic_binary(C4_ROWS, n_features=FEATURES, seed=5)
+    data_s = time.perf_counter() - t_data
+    zero_counters()
+    want, first_s = synced(lambda: api.predict(ens, Xs, mapper=mapper,
+                                               raw=True))
+    scored = read_counters()
+    check(scored["traverse"] == 1 and scored["binning"] == 1
+          and scored["lut"] == scored["lut4"] == 0,
+          f"config 4 scoring launched K3 once, binned once: {scored}")
+    check(want.shape == (C4_ROWS,) and np.all(np.isfinite(want)),
+          "config 4 scores finite, one per row")
+    sub = C4_ORACLE_ROWS
+    oracle = ens.predict_raw(mapper.transform(Xs[:sub]), binned=True)
+    check(np.all(np.abs(want[:sub] - oracle) <= 1e-5 * (np.abs(oracle) + 1)),
+          "config 4 scores == host oracle")
+    Xd = mapper.transform_device(Xs, "cuda")
+    arms = config4_arms(ens, mapper, Xs, Xd, want, card)
+    del Xd
+    multi = config4_multi(ens, mapper, Xs, want)
+    row = {"train_rows": C4_TRAIN_ROWS, "trees": ens.n_trees,
+           "depth": DEPTH, "bins": 255, "rows": C4_ROWS,
+           "features": FEATURES, "train_s": train_s,
+           "train_launches": trained, "lightgbm": lgbm,
+           "scoring_rows_s": data_s, "first_total_s": first_s,
+           "launches": scored["traverse"], **arms, **multi,
+           "wall_s": time.perf_counter() - t0}
+    emit({"phase": "config4", **row})
+    return row
+
+
 def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs a CUDA card", file=sys.stderr)
         return 2
     if argv not in ([], ["--phase", "multi"], ["--phase", "mesh2d"],
-                    ["--phase", "stream"]):
+                    ["--phase", "stream"], ["--phase", "config4"]):
         print(f"chip_smoke: unknown arguments {argv}; usage: chip_smoke.py "
-              "[--phase multi|mesh2d|stream]", file=sys.stderr)
+              "[--phase multi|mesh2d|stream|config4]", file=sys.stderr)
         return 2
     t_start = time.perf_counter()
     card = phase_device()
@@ -2968,6 +3362,8 @@ def main(argv: list[str]) -> int:
             phase_multi(card)
         elif argv[1] == "mesh2d":
             phase_mesh2d(card, flush)
+        elif argv[1] == "config4":
+            phase_config4(card, flush)
         else:
             phase_stream(card, flush)
             stream_witness(card)
@@ -3012,6 +3408,8 @@ def main(argv: list[str]) -> int:
     multi = phase_multi(card)
     mesh2d = phase_mesh2d(card, flush)
     stream = phase_stream(card, flush)
+    life = phase_lifecycle(main_run["res"], X)
+    c4 = phase_config4(card, flush)
     launches = main_run["launches"]
     k2 = hist_int["rows"][("int16", 64, 32)]
 
@@ -3029,7 +3427,8 @@ def main(argv: list[str]) -> int:
                     "launches": stream["predict_counters"][name],
                     "ms": wide["kernel_ms"], "plain_ms": wide["plain_ms"],
                     "bound_ms": wide["bound_ms"],
-                    "bound_by": wide["bound_by"], "max_abs_err": 0.0}}}
+                    "bound_by": wide["bound_by"], "max_abs_err": 0.0},
+                    "lifecycle": life["launches"][name]}}
 
     k1, k3 = cov["hist"], cov["traverse"]
     cov_launches = cov["row"]["launches"]
@@ -3086,7 +3485,16 @@ def main(argv: list[str]) -> int:
              "weights": weights["launches"]["traverse"],
              "multi": multi_launches(multi, "traverse"),
              "mesh2d": mesh_launches(mesh2d, "traverse"),
-             "stream_predict": stream["predict_counters"]["traverse"]}},
+             "stream_predict": stream["predict_counters"]["traverse"],
+             "lifecycle": life["launches"]["traverse"],
+             "config4": {
+                 "launches": c4["launches"], "rows": c4["rows"],
+                 "trees": c4["trees"], "max_abs_err": c4["max_abs_err"],
+                 "ms": c4["kernel_ms"], "bound_ms": c4["bound_ms"],
+                 "bound_by": c4["bound_by"],
+                 "ms_at_plain_rows": c4["kernel_ms_plain_rows"],
+                 "plain_ms": c4["plain_ms_plain_rows"],
+                 "plain_rows": c4["plain_rows"]}}},
         lut_entry("lut", 376),
         lut_entry("lut4", 674),
         {"name": "hist_int", "route": "cuda",

@@ -32,11 +32,15 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
+ARCH = "sm_90a"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-shared", "-Xcompiler",
                            "-fPIC"]
 
 _lock = threading.Lock()
+#: nvcc processes started by this process (build_all), never reset: a
+#: process that loads libraries built before it starts reads 0.
+builds = 0
 _libs: dict[str, ctypes.CDLL] = {}
 _smem_optin: dict[int, int] = {}
 
@@ -59,16 +63,23 @@ def sources() -> list[str]:
     return sorted(p.stem for p in CSRC.glob("*.cu"))
 
 
-def lib_path(name: str) -> Path:
+def source_hash(name: str) -> str:
+    """16 hex digits of sha256(source + flags): the build key of
+    csrc/<name>.cu (its library's file name carries it)."""
     src = (CSRC / f"{name}.cu").read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    return digest[:16]
+
+
+def lib_path(name: str) -> Path:
+    return BUILD_DIR / f"lib{name}-{source_hash(name)}.so"
 
 
 def build_all(names: list[str] | None = None) -> dict[str, float]:
     """Build every missing library, all nvcc processes at once. Returns
     {name: seconds} for the libraries built by this call (empty when all
     were current). Raises with nvcc's output if any build fails."""
+    global builds
     names = sources() if names is None else names
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
@@ -81,6 +92,7 @@ def build_all(names: list[str] | None = None) -> dict[str, float]:
         cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT), tmp, out)
+        builds += 1
     took = {}
     errors = []
     for name, (proc, tmp, out) in procs.items():

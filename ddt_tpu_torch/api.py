@@ -1,6 +1,12 @@
-"""Public API of the port: train / predict / ModelBundle (port of
-ddt_tpu/api.py's `train`, `predict`, `ModelBundle` and
-`validate_mapper_model`).
+"""Public API of the port: train / predict / save_model / load_model /
+ModelBundle (port of ddt_tpu/api.py's `train`, `predict`, `save_model`,
+`load_model`, `ModelBundle` and `validate_mapper_model`).
+
+A saved model is one npz in the reference's layout, byte for byte what
+the reference writes for the same model, with its embedded manifest
+(registry/manifest.py): either package loads and verifies the other's.
+`predict(n_partitions=k)` scores one batch over k cards of this process
+(backends.RowShardedScorer).
 
 Float features are binned here unless `binned=True`: the edges are fitted
 on the host (data/quantizer.fit_bin_mapper, with the config's missing
@@ -38,14 +44,16 @@ import hashlib
 import numpy as np
 import torch
 
-from ddt_tpu_torch.backends import get_backend
+from ddt_tpu_torch.backends import get_backend, row_sharded_backend
 from ddt_tpu_torch.backends.base import DeviceBackend
 from ddt_tpu_torch.config import TrainConfig
+from ddt_tpu_torch.data.categorical import CategoricalEncoder
 from ddt_tpu_torch.data.quantizer import (BinMapper, feature_bincounts,
                                           fit_bin_mapper)
 from ddt_tpu_torch.driver import Driver
 from ddt_tpu_torch.models.tree import TreeEnsemble
 from ddt_tpu_torch.parallel import comms, mesh
+from ddt_tpu_torch.utils.atomic import atomic_savez
 
 
 @dataclasses.dataclass
@@ -56,17 +64,82 @@ class TrainResult:
     history: list = dataclasses.field(default_factory=list)
     best_round: int | None = None   # 0-based; set with an eval_set
     best_score: float | None = None
+    # train never fits a categorical encoder (it sees the encoded matrix);
+    # a caller who encoded categorical columns sets it, so save() writes a
+    # complete artifact.
+    encoder: "object | None" = None
+
+    def save(self, path: str) -> None:
+        """save_model of the ensemble, mapper and encoder, the config
+        fingerprinted into the manifest."""
+        save_model(path, self.ensemble, mapper=self.mapper,
+                   encoder=self.encoder, cfg=self.cfg)
 
 
 @dataclasses.dataclass
 class ModelBundle:
-    """A model plus the bin mapper it was trained with (reference
-    api.ModelBundle without its categorical encoder and manifest, which
-    are not ported yet). Scoring new data must reuse this mapper:
-    refitting one on the scoring set silently gives other bins."""
+    """A loaded model artifact: the ensemble and the preprocessing state it
+    was trained with (bin mapper, categorical encoder). Scoring new data
+    must reuse this state: a mapper refitted on the scoring set silently
+    gives other bins."""
 
     ensemble: TreeEnsemble
     mapper: BinMapper | None = None
+    encoder: "object | None" = None   # data.categorical.CategoricalEncoder
+    # The embedded manifest (registry/manifest.py), digest-verified by
+    # load_model; None for files written without one.
+    manifest: dict | None = None
+
+
+def save_model(path, ens: TreeEnsemble, mapper: BinMapper | None = None,
+               encoder=None, *, run_id: str | None = None,
+               cfg: TrainConfig | None = None) -> None:
+    """One .npz with the ensemble and, when given, the BinMapper and the
+    CategoricalEncoder (keys prefixed "mapper_" and "cat_"), in the
+    reference's layout, so either package loads it (TreeEnsemble.load
+    reads the ensemble and ignores the rest). The embedded manifest
+    (kind "model_bundle": content digest, run_id, config fingerprint, git
+    rev) rides under "manifest_json". Written tmp-then-replace with
+    fixed zip times: the same model gives the same bytes, which the
+    registry's content addressing needs."""
+    from ddt_tpu_torch.registry import manifest as manifest_mod
+
+    d = ens.to_dict()
+    if mapper is not None:
+        d.update({f"mapper_{k}": v for k, v in mapper.save().items()})
+    if encoder is not None:
+        d.update({f"cat_{k}": v for k, v in encoder.save().items()})
+    manifest_mod.embed_npz_manifest(
+        d, kind="model_bundle", run_id=run_id,
+        config_fingerprint=(manifest_mod.config_fingerprint_digest(cfg)
+                            if cfg is not None else None))
+    atomic_savez(path, compressed=True, deterministic=True, **d)
+
+
+def load_model(path, *, verify: bool = True) -> ModelBundle:
+    """Load a file written by save_model (or TreeEnsemble.save, of either
+    package: mapper and encoder then come back None). An embedded
+    manifest's digest is verified and a mismatch raises
+    registry.IntegrityError (a ValueError); files without a manifest load
+    with manifest=None. `verify=False` skips the digest pass, for callers
+    that proved the file's bytes already (the registry loader)."""
+    from ddt_tpu_torch.registry import manifest as manifest_mod
+
+    with np.load(path) as z:
+        d = dict(z)
+    manifest = manifest_mod.read_npz_manifest(d, verify=verify,
+                                              source=str(path))
+    mapper = None
+    if "mapper_edges" in d:
+        mapper = BinMapper.load({k[len("mapper_"):]: v for k, v in d.items()
+                                 if k.startswith("mapper_")})
+    encoder = None
+    if "cat_n_cols" in d:
+        encoder = CategoricalEncoder.load(
+            {k[len("cat_"):]: v for k, v in d.items()
+             if k.startswith("cat_")})
+    return ModelBundle(ensemble=TreeEnsemble.from_dict(d), mapper=mapper,
+                       encoder=encoder, manifest=manifest)
 
 
 def fill_raw_thresholds(ens: TreeEnsemble, mapper: BinMapper) -> None:
@@ -82,6 +155,35 @@ def fill_raw_thresholds(ens: TreeEnsemble, mapper: BinMapper) -> None:
     ens.threshold_raw = np.where(split, raw, ens.threshold_raw).astype(
         np.float32)
     ens.has_raw_thresholds = True
+
+
+def fill_bin_thresholds(ens: TreeEnsemble, mapper: BinMapper) -> None:
+    """Bin thresholds of every ordinal split node from its raw threshold,
+    the inverse of fill_raw_thresholds: the index of the first value-bin
+    edge >= the raw threshold (+inf: the last value bin), so "bin <= t"
+    routes every row as "value <= threshold" does. Categorical nodes keep
+    theirs (the category id). A model parsed from LightGBM text carries
+    raw thresholds only; this lets the device score it on bins. Raises
+    when a raw threshold is neither one of the mapper's edges nor +inf:
+    no bin threshold would route such a split exactly."""
+    split = ens.feature >= 0
+    if ens.has_cat_splits:
+        split &= ~np.isin(ens.feature, ens.cat_features)
+    edges = mapper.edges[:, :mapper.n_value_bins - 1]
+    tb = np.array(ens.threshold_bin, np.int32)
+    for f in np.unique(ens.feature[split]):
+        at = split & (ens.feature == f)
+        raw = ens.threshold_raw[at]
+        t = np.searchsorted(edges[f], raw, side="left")
+        exact = np.isposinf(raw) | (
+            edges[f][np.minimum(t, edges.shape[1] - 1)] == raw)
+        if not exact.all():
+            raise ValueError(
+                f"feature {int(f)}: raw threshold "
+                f"{float(raw[~exact][0])!r} is not one of the mapper's "
+                "edges; bins cannot route it exactly")
+        tb[at] = t
+    ens.threshold_bin = tb
 
 
 def _check_ranks_agree(be: DeviceBackend, X, mapper: BinMapper | None
@@ -241,13 +343,23 @@ def predict(
     backend: DeviceBackend | None = None,
     cfg: TrainConfig | None = None,
     device: str = "cuda",
+    n_partitions: int | None = None,
 ) -> np.ndarray:
     """Score a batch on the device: float X is binned there with `mapper`
     first (uint8 bins, host or tensor, with binned=True); a ModelBundle
-    brings its training mapper. Returns probabilities (raw margins with
-    raw=True). The scoring backend is `backend` if given, else the one of
-    `cfg` (whose predict_impl picks the f32, int8 or int4 tier, and whose
-    device wins), else the f32 backend of `device`."""
+    brings its training mapper (its encoder is not applied: X carries
+    categorical columns encoded already, as at training). Returns
+    probabilities (raw margins with raw=True). The scoring backend is
+    `backend` if given, else the one of `cfg` (whose predict_impl picks
+    the f32, int8 or int4 tier, and whose device wins), else the f32
+    backend of `device`.
+
+    `n_partitions` k > 1, with neither `backend` nor `cfg`, scores on k
+    devices of `device` in this process (backends.row_sharded_backend):
+    the rows are split into k blocks, each binned and scored at the f32
+    tier on its own card, trees replicated, no collective; the result is
+    bitwise the one-device result. More partitions than visible cards
+    raise."""
     if isinstance(ens, ModelBundle):
         if mapper is None:
             mapper = ens.mapper
@@ -262,10 +374,15 @@ def predict(
         validate_mapper_model(mapper, ens)
     elif X.dtype not in (np.uint8, torch.uint8):
         raise TypeError(f"binned data must be uint8, got {X.dtype}")
-    if backend is None:
-        backend = get_backend(cfg if cfg is not None
-                              else TrainConfig(device=device))
-    if not binned:
-        X = mapper.transform_device(X, backend.device)
-    out = backend.predict_raw(ens, X)
+    if n_partitions is not None and n_partitions > 1 \
+            and backend is None and cfg is None:
+        out = row_sharded_backend(n_partitions, device).predict_raw(
+            ens, X, mapper=None if binned else mapper)
+    else:
+        if backend is None:
+            backend = get_backend(cfg if cfg is not None
+                                  else TrainConfig(device=device))
+        if not binned:
+            X = mapper.transform_device(X, backend.device)
+        out = backend.predict_raw(ens, X)
     return out if raw else predict_proba_np(out, ens.loss)

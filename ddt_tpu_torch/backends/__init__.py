@@ -1,8 +1,10 @@
 """Backend selection (port of ddt_tpu/backends/__init__.py).
 
 One backend, CUDADevice, on `cfg.device` ("cuda" by default, "cpu" for
-the plain versions). Instances are cached on the config with the fields
-that never change a backend's behaviour normalised, so repeated
+the plain versions), and for scoring a batch over several cards of one
+process the memoised RowShardedScorer (`row_sharded_backend`).
+Instances are cached on the config with the fields that never change a
+backend's behaviour normalised, so repeated
 train/predict calls share one compiled-ensemble cache: n_trees and
 fused_block_rounds (read by the Driver) always, and seed unless it is
 live. The backend reads cfg.seed as the
@@ -23,7 +25,7 @@ from __future__ import annotations
 import threading
 
 from ddt_tpu_torch.backends.base import DeviceBackend, HostTree
-from ddt_tpu_torch.backends.cuda import CUDADevice
+from ddt_tpu_torch.backends.cuda import CUDADevice, RowShardedScorer
 from ddt_tpu_torch.config import TrainConfig
 from ddt_tpu_torch.parallel import mesh
 
@@ -50,4 +52,24 @@ def get_backend(cfg: TrainConfig) -> DeviceBackend:
     return be
 
 
-__all__ = ["CUDADevice", "DeviceBackend", "HostTree", "get_backend"]
+#: Row-sharded scorers, one per (partition count, device type): rebuilding
+#: one per call would drop every shard's cached scoring tables.
+_ROW_SHARDED: dict = {}
+
+
+def row_sharded_backend(n_partitions: int,
+                        device: str = "cuda") -> RowShardedScorer:
+    """The memoised RowShardedScorer over `n_partitions` devices of type
+    `device` (api.predict(n_partitions=)). Raises when more partitions
+    than visible cards are asked of "cuda"."""
+    key = (int(n_partitions), device)
+    with _LOCK:
+        sc = _ROW_SHARDED.get(key)
+        if sc is None:
+            sc = RowShardedScorer(n_partitions, device)
+            _ROW_SHARDED[key] = sc
+    return sc
+
+
+__all__ = ["CUDADevice", "DeviceBackend", "HostTree", "RowShardedScorer",
+           "get_backend", "row_sharded_backend"]

@@ -59,6 +59,7 @@ make_mesh_2d, the bin-range check of `upload` and the warm-up round.
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import threading
 import time
@@ -132,7 +133,8 @@ class CUDADevice(DeviceBackend):
     name = "cuda"
     PREDICT_CACHE_MAX = 4
 
-    def __init__(self, cfg: TrainConfig):
+    def __init__(self, cfg: TrainConfig,
+                 device: torch.device | None = None):
         super().__init__(cfg)
         if cfg.device == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -142,10 +144,17 @@ class CUDADevice(DeviceBackend):
             mesh.check_partitions(cfg)
         # A rank's scoring backend (one partition in a larger group)
         # binds no mesh and runs no collective. Driver.fit refuses to
-        # train with a config whose mesh is not the world.
-        self.device = (mesh.rank_device(cfg.device)
-                       if mesh.is_initialized()
-                       else torch.device(cfg.device))
+        # train with a config whose mesh is not the world. `device` pins
+        # one card of cfg.device's type (RowShardedScorer's shards).
+        if device is not None:
+            self.device = torch.device(device)
+            if self.device.type != cfg.device:
+                raise ValueError(f"device {self.device} is not of the "
+                                 f"config's type {cfg.device!r}")
+        else:
+            self.device = (mesh.rank_device(cfg.device)
+                           if mesh.is_initialized()
+                           else torch.device(cfg.device))
         self.mesh = mesh.group_for(cfg)
         if self.mesh is not None:
             comms.check_group(self.device, self.mesh.world_group)
@@ -797,11 +806,11 @@ class CUDADevice(DeviceBackend):
             class_idx=class_idx, missing_bin_value=cfg.missing_bin_value,
             cat_mask=self.cat_mask(data.shape[1]))
 
-    def score_device(self, ens: TreeEnsemble, Xd: torch.Tensor
-                     ) -> torch.Tensor:
+    def score_device(self, ens: TreeEnsemble, Xd: torch.Tensor,
+                     compiled=None) -> torch.Tensor:
         """Raw margins of uploaded binned rows, left on the device (the
         tier predict_raw serves)."""
-        ce, ops = self._prepared(ens, None)
+        ce, ops = self._prepared(ens, compiled)
         if isinstance(ops, predict_lut.LutOperands):
             return ops.score(Xd)
         return predict_ops.predict_prepared(
@@ -924,6 +933,114 @@ class CUDADevice(DeviceBackend):
                 base=ce.base_score, tree_chunk=ce.tree_chunk,
                 missing_bin_value=ce.missing_bin_value)
         return out.cpu().numpy()
+
+
+class RowShardedScorer:
+    """f32 scoring of one batch over k devices in one process (port of
+    ddt_tpu/api.py's `_row_mesh_backend`, which row-shards a batch over a
+    1-D mesh): the rows are split into `parallel/mesh.row_block` blocks,
+    block i goes to shard i (a CUDADevice on cuda:i, or on the CPU for
+    every block with device="cpu"), trees are replicated (each shard
+    keeps its own copy of the scoring tables, keyed on the model's token)
+    and no collective runs. On the cards each block is uploaded, binned
+    (ops/quantize) and scored by K3 on its card's own stream, and its
+    margins copied on that stream into its rows of one pinned host
+    buffer; every card is launched before any is synchronized. A row's
+    margin depends on its row alone, so the result is bitwise one
+    device's."""
+
+    def __init__(self, n_partitions: int, device: str = "cuda"):
+        if n_partitions < 1:
+            raise ValueError(f"n_partitions must be >= 1, got "
+                             f"{n_partitions}")
+        cfg = TrainConfig(device=device)
+        if device == "cuda":
+            visible = (torch.cuda.device_count()
+                       if torch.cuda.is_available() else 0)
+            if n_partitions > visible:
+                raise ValueError(
+                    f"n_partitions={n_partitions} but only {visible} "
+                    "CUDA cards visible")
+            devices = [torch.device("cuda", i) for i in range(n_partitions)]
+        else:
+            devices = [torch.device(device)] * n_partitions
+        self.n_partitions = n_partitions
+        self.device = devices[0]
+        self.shards = [CUDADevice(cfg, device=d) for d in devices]
+        self.streams = [torch.cuda.Stream(d) if d.type == "cuda" else None
+                        for d in devices]
+
+    def predict_raw(self, ens: TreeEnsemble, X, mapper=None) -> np.ndarray:
+        """Raw margins of X: float rows binned with `mapper` on each
+        shard's device, uint8 bins (host array or tensor) without one, or
+        a list of binned blocks already on the shards' devices (block i a
+        uint8 tensor on shard i's), joined in order."""
+        if isinstance(X, (list, tuple)):
+            if len(X) != self.n_partitions:
+                raise ValueError(f"{len(X)} blocks for "
+                                 f"{self.n_partitions} shards")
+            R = sum(b.shape[0] for b in X)
+
+            def rows(i, be):
+                return X[i]
+        else:
+            R = X.shape[0]
+
+            def rows(i, be):
+                start, stop, _ = mesh.row_block(R, self.n_partitions, i)
+                return (mapper.transform_device(X[start:stop], be.device)
+                        if mapper is not None
+                        else be.device_rows(X[start:stop]))
+        ce = self._compiled(ens)
+        out = _Joined(R)
+        start = 0
+        for i, be in enumerate(self.shards):
+            stream = self.streams[i]
+            if stream is not None:
+                # Rows already on the card may still be in flight on its
+                # current stream.
+                stream.wait_stream(torch.cuda.current_stream(be.device))
+            with _on_stream(stream):
+                Xd = rows(i, be)
+                out.put(start, be.score_device(ens, Xd, compiled=ce))
+            start += Xd.shape[0]
+        return self._join(out)
+
+    def _compiled(self, ens: TreeEnsemble) -> CompiledEnsemble:
+        """The model's CompiledEnsemble from shard 0's cache: one content
+        hash of the ensemble a call, whose token then keys every shard's
+        tables."""
+        return self.shards[0]._prepared(ens, None)[0]
+
+    def _join(self, out: "_Joined") -> np.ndarray:
+        for stream in self.streams:
+            if stream is not None:
+                stream.synchronize()
+        return out.host.numpy()
+
+
+class _Joined:
+    """The margins of every block in one host buffer (pinned when they
+    come from a card), each block copied into its rows on the current
+    stream, unsynchronized: no concatenation after the last block."""
+
+    def __init__(self, n_rows: int):
+        self.n_rows = n_rows
+        self.host: torch.Tensor | None = None
+
+    def put(self, start: int, block: torch.Tensor) -> None:
+        if self.host is None:
+            self.host = torch.empty((self.n_rows, *block.shape[1:]),
+                                    dtype=block.dtype,
+                                    pin_memory=block.is_cuda)
+        self.host[start:start + block.shape[0]].copy_(
+            block, non_blocking=block.is_cuda)
+
+
+def _on_stream(stream):
+    """torch.cuda.stream(stream) on a card; no context on the CPU."""
+    return (torch.cuda.stream(stream) if stream is not None
+            else contextlib.nullcontext())
 
 
 class _ChunkStager:

@@ -88,18 +88,40 @@ def _synced(fn):
     return out, time.perf_counter() - t0
 
 
-def profiled(fn) -> dict:
+def profiled(fn, pad_s: float = 0.0) -> dict:
     """Wall time, device busy time, host launch calls and the top kernels
-    of fn() under torch.profiler (CPU + CUDA activities)."""
+    of fn() under torch.profiler (CPU + CUDA activities).
+
+    `pad_s` keeps the profile open and idle that long before and after
+    fn (outside its wall time), so that device events the tracer misses
+    at the start or end of a window (its first ~120 ms went unrecorded
+    in a profile opened late in a long process) still fall inside the
+    profile. `device_lead_ms` is how long before the first host launch
+    call the first device event starts: a device event cannot start
+    before it is launched, so a lead > 0 is the tracer's device clock
+    reading early by at least that much."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(pad_s)
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        time.sleep(pad_s)
+    starts = {torch.autograd.DeviceType.CPU: [],
+              torch.autograd.DeviceType.CUDA: []}
+    for e in prof.events():
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and not e.name.startswith("Activity Buffer")) or (
+                e.device_type == torch.autograd.DeviceType.CPU
+                and e.name.startswith(HOST_LAUNCH_CALLS)):
+            starts[e.device_type].append(e.time_range.start)
+    launched, ran = starts.values()
+    lead = (1e-3 * (min(launched) - min(ran)) if launched and ran
+            else None)
     events = prof.key_averages()
     # Device-side events only (kernels, memcpy, memset): the op-level
     # rows repeat their kernels' time. CUPTI's own buffer requests are
@@ -116,6 +138,7 @@ def profiled(fn) -> dict:
     return {"wall_s": wall, "device_busy_s": busy, "hist_kernel_ms": hist,
             "busy_share": busy / wall if wall > 0 else None,
             "device_launches": sum(r[2] for r in rows),
+            "device_lead_ms": lead,
             "host_launch_calls": sum(host.values()), "host_calls": host,
             "top": [{"name": k[:80], "device_ms": t * 1e-3, "count": c}
                     for k, t, c in rows[:TOP]]}

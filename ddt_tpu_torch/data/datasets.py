@@ -101,6 +101,21 @@ def synthetic_missing(
     return X, y
 
 
+def synthetic_regression(
+    n_rows: int, n_features: int = 16, seed: int = 0
+) -> tuple[np.ndarray, np.ndarray]:
+    """Regression task: a linear term, a square and an interaction."""
+    rng = _rng(seed, 4)
+    X = rng.standard_normal((n_rows, n_features), dtype=np.float32)
+    y = (
+        2.0 * X[:, 0]
+        + np.square(X[:, 1])
+        + X[:, 2] * (X[:, 3] > 0)
+        + 0.1 * rng.standard_normal(n_rows, dtype=np.float32)
+    ).astype(np.float32)
+    return X, y
+
+
 def stress_binned_chunk(chunk_start: int, chunk_rows: int,
                         n_features: int = 1024, n_bins: int = 255,
                         seed: int = 0) -> tuple[np.ndarray, np.ndarray]:

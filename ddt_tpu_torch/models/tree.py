@@ -168,6 +168,89 @@ class TreeEnsemble:
         return raw
 
     # ------------------------------------------------------------------ #
+    # Inspection and LightGBM interop
+    # ------------------------------------------------------------------ #
+
+    def feature_importances(self, kind: str = "split") -> np.ndarray:
+        """Normalized per-feature importance, float32 [n_features]:
+        kind="split" the share of split nodes using the feature, "gain"
+        its share of the total split gain (LightGBM's importance_type)."""
+        mask = (~self.is_leaf) & (self.feature >= 0)
+        used = self.feature[mask]
+        if kind == "split":
+            w = np.ones(used.shape[0])
+        elif kind == "gain":
+            w = self.split_gain[mask].astype(np.float64)
+        else:
+            raise ValueError(f"unknown importance kind {kind!r}")
+        counts = np.bincount(used, weights=w, minlength=self.n_features)
+        counts = counts[: self.n_features].astype(np.float64)
+        tot = counts.sum()
+        return (counts / tot if tot > 0 else counts).astype(np.float32)
+
+    def dump(self, tree: int) -> dict:
+        """One tree as nested plain-Python dicts. Split nodes:
+        {"split": {"feature", "bin", "threshold" (raw value, or None
+        without raw thresholds), "gain"}, "left", "right"}; leaves:
+        {"leaf": value}."""
+        t = int(tree)
+
+        def node(i: int) -> dict:
+            if self.is_leaf[t, i] or self.feature[t, i] < 0:
+                return {"leaf": float(self.leaf_value[t, i])}
+            return {
+                "split": {
+                    "feature": int(self.feature[t, i]),
+                    "bin": int(self.threshold_bin[t, i]),
+                    "threshold": (
+                        float(self.threshold_raw[t, i])
+                        if self.has_raw_thresholds else None
+                    ),
+                    "gain": float(self.split_gain[t, i]),
+                },
+                "left": node(2 * i + 1),
+                "right": node(2 * i + 2),
+            }
+
+        return node(0)
+
+    def dump_text(self, tree: int) -> str:
+        """Indented text rendering of one tree."""
+        lines: list[str] = []
+
+        def walk(d: dict, depth: int) -> None:
+            pad = "  " * depth
+            if "leaf" in d:
+                lines.append(f"{pad}leaf={d['leaf']:+.6f}")
+                return
+            s = d["split"]
+            thr = (f" (<= {s['threshold']:.6g})"
+                   if s["threshold"] is not None else "")
+            lines.append(
+                f"{pad}f{s['feature']} <= bin {s['bin']}{thr}  "
+                f"gain={s['gain']:.4g}"
+            )
+            walk(d["left"], depth + 1)
+            walk(d["right"], depth + 1)
+
+        walk(self.dump(tree), 0)
+        return "\n".join(lines)
+
+    def to_lightgbm_text(self, feature_names: list[str] | None = None
+                         ) -> str:
+        """LightGBM model.txt rendering (models/lightgbm_io.py)."""
+        from ddt_tpu_torch.models.lightgbm_io import to_lightgbm_text
+
+        return to_lightgbm_text(self, feature_names=feature_names)
+
+    @staticmethod
+    def from_lightgbm_text(text: str) -> "TreeEnsemble":
+        """Parse a LightGBM model.txt (models/lightgbm_io.py)."""
+        from ddt_tpu_torch.models.lightgbm_io import from_lightgbm_text
+
+        return from_lightgbm_text(text)
+
+    # ------------------------------------------------------------------ #
     # Serialization: the reference's npz layout
     # ------------------------------------------------------------------ #
 
@@ -232,9 +315,14 @@ class TreeEnsemble:
         )
 
     def save(self, path: str) -> None:
-        """Atomic, byte-deterministic npz in the reference's layout."""
-        atomic_savez(path, compressed=True, deterministic=True,
-                     **self.to_dict())
+        """Atomic, byte-deterministic npz in the reference's layout, with
+        the embedded `tree_ensemble` manifest (registry/manifest.py):
+        `load` ignores it, api.load_model digest-verifies it."""
+        from ddt_tpu_torch.registry import manifest as manifest_mod
+
+        d = self.to_dict()
+        manifest_mod.embed_npz_manifest(d, kind="tree_ensemble")
+        atomic_savez(path, compressed=True, deterministic=True, **d)
 
     @staticmethod
     def load(path: str) -> "TreeEnsemble":
@@ -256,6 +344,24 @@ class TreeEnsemble:
             leaf_value=self.leaf_value[:n_trees],
             split_gain=self.split_gain[:n_trees],
             default_left=self._dl()[:n_trees],
+        )
+
+    @staticmethod
+    def concat(ensembles: list["TreeEnsemble"]) -> "TreeEnsemble":
+        """Stack ensembles trained one after the other (the first one's
+        scalars are kept)."""
+        head = ensembles[0]
+        return dataclasses.replace(
+            head,
+            feature=np.concatenate([e.feature for e in ensembles]),
+            threshold_bin=np.concatenate([e.threshold_bin
+                                          for e in ensembles]),
+            threshold_raw=np.concatenate([e.threshold_raw
+                                          for e in ensembles]),
+            is_leaf=np.concatenate([e.is_leaf for e in ensembles]),
+            leaf_value=np.concatenate([e.leaf_value for e in ensembles]),
+            split_gain=np.concatenate([e.split_gain for e in ensembles]),
+            default_left=np.concatenate([e._dl() for e in ensembles]),
         )
 
 

@@ -21,10 +21,14 @@ csrc/lut.cu), down the backend's int4 -> int8 -> f32 fits-guard
 ladder; `ServableModel.predict_impl` reports the tier that serves. On the
 card by default (cfg.device="cuda"); device="cpu" runs the plain versions.
 
+A model restored from the registry (registry/loader.load_servable) is a
+ServableModel stamped with its `artifact_digest`, which health() shows;
+the engine publishes it as it is, at construction or by swap.
+
 Left out of the port for now: everything that writes to the telemetry
 plane (RunLog events, telemetry counters, serve_latency emission and the
-trace flush), the drift/shadow observer, the registry's reference-based
-swaps and AOT-restored models, the fleet and HTTP front ends.
+trace flush), the drift/shadow observer, swaps by registry reference,
+the fleet and HTTP front ends.
 
 No `time.sleep` and no file reads here: models are handed in as ready
 ModelBundles.
@@ -98,14 +102,22 @@ class ServableModel:
     Build cost (validation, CompiledEnsemble, quantized tables, device
     upload, one dispatch per bucket) is paid here, off the request path;
     `score_binned()` is pad + dispatch. Instances are immutable once
-    built: the engine swaps whole references."""
+    built: the engine swaps whole references. `raw=True` scores raw
+    margins instead of probabilities; `tables` are carried quantized
+    tables (a registry artifact's), which serve as they are."""
+
+    #: Short registry digest of the artifact this model was restored from
+    #: (registry/loader); None for a model built from a bundle.
+    artifact_digest: "str | None" = None
 
     def __init__(self, bundle, backend, *, quantize=None,
-                 buckets: tuple[int, ...] = (1,), tables=None):
+                 buckets: tuple[int, ...] = (1,), raw: bool = False,
+                 tables=None):
         self.ens = bundle.ensemble
         self.mapper = bundle.mapper
         self.backend = backend
         self.buckets = tuple(sorted(set(int(b) for b in buckets)))
+        self.raw = bool(raw)
         self.quantize_tier = normalize_quantize(quantize)
         self.quantized = self.quantize_tier is not None
         if self.mapper is not None:
@@ -155,10 +167,10 @@ class ServableModel:
         return self.mapper.transform_device(rows, self.backend.device)
 
     def score_binned(self, Xb) -> np.ndarray:
-        """Probabilities (raw values for mse) for a binned block (host
-        uint8 or a uint8 tensor), padded on the device to the nearest
-        bucket (each row's score does not depend on the other rows of its
-        batch)."""
+        """Probabilities (raw values for mse, margins with raw=True) for a
+        binned block (host uint8 or a uint8 tensor), padded on the device
+        to the nearest bucket (each row's score does not depend on the
+        other rows of its batch)."""
         n = Xb.shape[0]
         cap = self.buckets[-1]
         if n > cap:
@@ -172,7 +184,7 @@ class ServableModel:
             Xb = torch.cat([Xb, Xb.new_zeros((b - n, Xb.shape[1]))])
         out = self.backend.predict_raw(self.ens, Xb,
                                        compiled=self.compiled)[:n]
-        return predict_proba_np(out, self.ens.loss)
+        return out if self.raw else predict_proba_np(out, self.ens.loss)
 
     def warmup(self) -> None:
         """Score every bucket shape before the model is published: the
@@ -545,6 +557,7 @@ class ServeEngine:
         return {
             "ok": True,
             "model_token": m.token,
+            "artifact_digest": m.artifact_digest,
             "quantized": m.quantized,
             "quantize_tier": m.quantize_tier,
             "predict_impl": m.predict_impl,

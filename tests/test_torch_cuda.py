@@ -1323,3 +1323,70 @@ def test_nccl_streamed_two_ranks_equal_one_card(dev):
             for k in _FIELDS:
                 np.testing.assert_array_equal(getattr(o["ensemble"], k),
                                               getattr(alone, k))
+
+
+# --------------------------------------------------------------------- #
+# the model's lifecycle: registry restores, multi-card scoring
+# --------------------------------------------------------------------- #
+@pytest.fixture(scope="module")
+def lifecycle_model():
+    from ddt_tpu_torch import api
+    from ddt_tpu_torch.data.datasets import synthetic_binary
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (torch.cuda.is_available() is False)")
+    X, y = synthetic_binary(50_000, n_features=28, seed=21)
+    res = api.train(X, y, n_trees=20, max_depth=6, n_bins=255)
+    return X, res
+
+
+@pytest.mark.parametrize("quantize,impl", [(False, "auto"), ("int8", "lut"),
+                                           ("int4", "lut4")])
+def test_registry_restore_bitwise_api_predict_on_card(
+        dev, lifecycle_model, tmp_path, quantize, impl):
+    from ddt_tpu_torch import _build, api
+    from ddt_tpu_torch.config import TrainConfig
+    from ddt_tpu_torch.registry.loader import load_servable, push_servable
+
+    X, res = lifecycle_model
+    root = str(tmp_path / "reg")
+    push_servable(root, api.ModelBundle(res.ensemble, res.mapper),
+                  name="m", max_batch=64, quantize=quantize)
+    builds = _build.builds
+    rep = load_servable(root, "m")
+    rep.model.warmup()
+    def counters():
+        return (predict_cuda.launches, predict_lut_cuda.launches_lut,
+                predict_lut_cuda.launches_lut4)
+
+    Xb = res.mapper.transform_device(X[:5000], dev)
+    before = counters()
+    got = rep.model.score_binned(Xb)
+    moved = [a - b for a, b in zip(counters(), before)]
+    want = api.predict(res.ensemble, X[:5000], mapper=res.mapper,
+                       cfg=TrainConfig(predict_impl=impl))
+    assert np.array_equal(got, want)
+    assert _build.builds == builds          # nothing rebuilt to restore
+    tier = {"auto": 0, "lut": 1, "lut4": 2}[impl]
+    assert moved[tier] > 0 and sum(moved) == moved[tier], moved
+    assert rep.model.predict_impl == {"auto": "f32"}.get(impl, impl)
+
+
+def test_n_partitions_across_cards_bitwise_one_card(dev, lifecycle_model):
+    from ddt_tpu_torch import api
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip(f"needs 2 cards for multi-card scoring; this machine "
+                    f"has {n}")
+    X, res = lifecycle_model
+    want = api.predict(res.ensemble, X, mapper=res.mapper, raw=True)
+    for k in range(2, min(4, n) + 1):
+        before = predict_cuda.launches
+        got = api.predict(res.ensemble, X, mapper=res.mapper, raw=True,
+                          n_partitions=k)
+        assert np.array_equal(got, want), k
+        assert predict_cuda.launches - before == k
+    with pytest.raises(ValueError, match="CUDA cards visible"):
+        api.predict(res.ensemble, X[:10], mapper=res.mapper,
+                    n_partitions=n + 1)

@@ -453,3 +453,71 @@ def test_k3_plan_spreads_a_large_batch_over_two_blocks_an_sm():
     assert p.pairs and p.blocks == 2 * H100["sm_count"] - 1
     assert p.sub < 100 and 2 * (p.smem + per_block) <= limit + 1024
     assert p.blocks * p.rows >= 49_152
+
+
+# --------------------------------------------------------------------- #
+# api.predict(n_partitions=): rows sharded over k devices in one process
+# --------------------------------------------------------------------- #
+def test_api_predict_n_partitions_flag():
+    """Mirror of tests/test_predict_pallas.py::
+    test_api_predict_n_partitions_flag: n_partitions=4 (four blocks on the
+    CPU, scored by the plain version) is bitwise the one-device result,
+    on binned and float rows, and bitwise the reference's 4-device row
+    mesh on an exact-grid model."""
+    from ddt_tpu import api as japi
+    from ddt_tpu_torch import api
+    from ddt_tpu_torch.backends import row_sharded_backend
+    from ddt_tpu_torch.data.datasets import synthetic_binary
+
+    X, y = synthetic_binary(1500, n_features=6, seed=6)
+    res = api.train(X, y, n_trees=4, max_depth=3, n_bins=31, device="cpu")
+    Xb = res.mapper.transform(X)
+    want = api.predict(res.ensemble, Xb, binned=True, raw=True,
+                       device="cpu")
+    got = api.predict(res.ensemble, Xb, binned=True, n_partitions=4,
+                      raw=True, device="cpu")
+    np.testing.assert_array_equal(want, got)
+    for n in (1, 3, 4, 1001):            # blocks empty, short and uneven
+        np.testing.assert_array_equal(
+            api.predict(res.ensemble, X[:n], mapper=res.mapper,
+                        n_partitions=4, device="cpu"),
+            api.predict(res.ensemble, X[:n], mapper=res.mapper,
+                        device="cpu"))
+    sc = row_sharded_backend(4, "cpu")
+    assert row_sharded_backend(4, "cpu") is sc      # memoised
+    assert len(sc.shards) == 4
+    assert all(len(be._predict_cache) == 1 for be in sc.shards)
+    # Blocks already on the shards' devices (the resident arm).
+    from ddt_tpu_torch.parallel import mesh
+
+    blocks = [torch.from_numpy(Xb[a:b]) for a, b, _ in (
+        mesh.row_block(len(Xb), 4, i) for i in range(4))]
+    np.testing.assert_array_equal(sc.predict_raw(res.ensemble, blocks),
+                                  want)
+    with pytest.raises(ValueError, match="3 blocks for 4 shards"):
+        sc.predict_raw(res.ensemble, blocks[:3])
+    # A cfg or backend wins over the flag, as in the reference.
+    be = CUDADevice(TrainConfig(device="cpu"))
+    np.testing.assert_array_equal(
+        api.predict(res.ensemble, Xb, binned=True, raw=True, backend=be,
+                    n_partitions=4), want)
+    # The reference's row mesh on the same exact-grid model.
+    ens = _exact_ens(T=12, depth=3, F=6)
+    Xg = _X(1500, F=6, seed=8)
+    ref = japi.predict(ens, Xg, binned=True, n_partitions=4, raw=True)
+    port = api.predict(ttree.TreeEnsemble.from_dict(ens.to_dict()), Xg,
+                       binned=True, n_partitions=4, raw=True, device="cpu")
+    np.testing.assert_array_equal(np.asarray(ref), port)
+
+
+def test_api_predict_n_partitions_above_visible_cards_raises():
+    from ddt_tpu_torch import api
+    from ddt_tpu_torch.backends import RowShardedScorer
+
+    ens = ttree.TreeEnsemble.from_dict(_exact_ens().to_dict())
+    visible = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    with pytest.raises(ValueError, match="CUDA cards visible"):
+        api.predict(ens, _X(8), binned=True,
+                    n_partitions=max(2, visible + 1))
+    with pytest.raises(ValueError, match="n_partitions must be"):
+        RowShardedScorer(0, "cpu")
