@@ -248,17 +248,53 @@ Phases:
              api.predict(n_partitions=k) for k = 2..min(4, cards), bitwise
              one card's, total and resident Mrows/s per k (with one card:
              "multi-card scoring not witnessed: 1 card").
+    The serving plane (run after phase serve_kernels, on phase 5's 255-bin
+    model and phase 10's 15-bin model, 100 trees, depth 6; max_batch 256,
+    max_wait_ms 1.0; K3 / K4 / K5 launches counted from zero over it)
+ 28 serve_plane  a: serve_forever on 127.0.0.1 (ephemeral port) over a
+             ServeEngine at f32, then int4; 32 client threads send 1-64
+             rows as JSON floats or as binned=raw bodies (15-bin codes,
+             valid in both bin spaces), a /metrics scrape mid-storm lies
+             counter by counter between snapshots taken around it, and a
+             POST /swap by registry reference to the 15-bin artifact fires
+             mid-storm; then express singles, raw == JSON binned bitwise, a
+             ragged raw body 400s, a client X-DDT-Trace-Id round-trips
+             through the headers and /debug/requests, /stats?emit=1's event
+             validates. b: f32 / int8 / int4 artifacts behind one fleet at
+             max_resident 2 over HTTP, routed by path and header, raw
+             bodies too; a cycle forcing evictions and reloads (their
+             latency), a steady-state window over the resident models with
+             0 nvcc and 0 operand builds, and an eviction that frees at
+             least the evicted model's operand bytes from
+             memory_allocated (the incoming model's bytes measured alone).
+             c: a drift-tracked champion with an int4 shadow challenger
+             and an unshifted control; covariate-shifted binned traffic:
+             only the champion alerts (event and counter), both windows'
+             counts equal numpy's bincount of the rows sent, bitwise, the
+             challenger scores rows on its own stream, and the champion's
+             answers equal those of the same traffic with the shadow off.
+             d: a cold `python -m ddt_tpu_torch.cli serve --registry R
+             --model higgs@1` child answers bitwise with 0 nvcc builds
+             (its /metrics). Every answer equals offline api.predict of
+             the artifact and tier that served it, bitwise. Recorded, not
+             gated: HTTP p50 / p99 / p999 a tier and arm, the trace
+             segments' medians, the reload latency, and the p99 ratios of
+             fleet / single engine, request traces on / off and drift +
+             shadow on / off (min over 3 interleaved saturated windows a
+             side, in process).
   then the {"kernels": [...]} line (K1 and K3 report covertype, the other
-  paths' launches under "paths", "stream", "lifecycle" and K3's "config4"
-  included; K1's entry is its exact mode, with the float-atomic mode's
+  paths' launches under "paths", "stream", "lifecycle", "serve_plane"
+  and K3's "config4" included; K1's entry is its exact mode, with the float-atomic mode's
   time as cas_ms), nvidia-smi's line, and the ok line.
 
     python3 chip_smoke.py --phase multi
     python3 chip_smoke.py --phase mesh2d
     python3 chip_smoke.py --phase stream
     python3 chip_smoke.py --phase config4
+    python3 chip_smoke.py --phase serve_plane
 
-run the device, build and multi (or mesh2d, stream, config4) phases alone
+run the device, build and multi (or mesh2d, stream, config4, or
+serve_plane after training its two models) phases alone
 (the calls to make on a machine with several cards, or with the host
 memory for the witness) and end with the same ok line. `--phase stream`
 then trains 1 round f32 at depth 6 over a chunk set larger than the
@@ -269,13 +305,17 @@ memory".
 
 from __future__ import annotations
 
+import gc
 import json
 import os
+import socket
 import subprocess
 import sys
 import tempfile
 import threading
 import time
+import urllib.error
+import urllib.request
 from pathlib import Path
 
 import numpy as np
@@ -302,7 +342,13 @@ from ddt_tpu_torch.parallel import comms, mesh, spawn, tasks
 from ddt_tpu_torch.registry import manifest as manifest_mod
 from ddt_tpu_torch.registry.loader import load_servable, push_servable
 from ddt_tpu_torch.serve import ServeEngine
+from ddt_tpu_torch.serve.control import (FleetSpec, build_fleet,
+                                         parse_models_arg)
+from ddt_tpu_torch.serve.http import serve_forever
+from ddt_tpu_torch.serve.metrics import parse_exposition
 from ddt_tpu_torch.streaming import fit_streaming, predict_streaming
+from ddt_tpu_torch.telemetry import counters as tele_counters
+from ddt_tpu_torch.telemetry.events import RunLog, validate_event
 from ddt_tpu_torch.utils.metrics import accuracy, auc, logloss
 
 ROWS = 1_000_000
@@ -401,6 +447,19 @@ C4_ORACLE_ROWS = 10_000
 C4_PLAIN_ROWS = 250_000       # K3 against its plain version, and timed
 C4_REPS = 3
 C4_PROFILE_PAD_S = 1.0        # idle profile around each profiled arm
+#: The serving plane (phase serve_plane): the deployment of max_batch 256,
+#: max_wait_ms 1.0 and 32 submitters of 1-64 rows, on phase 5's 255-bin
+#: model and phase 10's 15-bin model.
+PLANE_THREADS = 32
+PLANE_REQUESTS = 24           # a client thread, arms a (each tier) and b
+PLANE_RAW_SHARE = 0.3         # of those requests: binned=raw bodies
+PLANE_EXPRESS = 50            # sequential single rows a tier, arm a
+PLANE_STEADY = 200            # requests of arm b's steady-state window
+PLANE_AB_THREADS = 16         # saturated in-process A/B windows
+PLANE_AB_REQUESTS = 30        # a thread and window
+PLANE_AB_WINDOWS = 3          # a side, interleaved
+PLANE_DRIFT_CTRL = 4096       # unshifted rows to arm c's control
+PLANE_CHILD_REQUESTS = 8      # to arm d's cold cli serve child
 HERE = Path(__file__).resolve().parent
 TIER_IMPL = {None: "auto", "int8": "lut", "int4": "lut4"}
 TIER_RESOLVED = {None: "f32", "int8": "lut", "int4": "lut4"}
@@ -1843,7 +1902,13 @@ def phase_parity_quant(X: np.ndarray, y: np.ndarray) -> dict:
 # resume; learned missing values; categorical splits; instance weights
 # --------------------------------------------------------------------- #
 
+#: telemetry's counters at the last zero_counters (they never reset).
+_TELE0: dict = {}
+
+
 def zero_counters() -> None:
+    _TELE0.clear()
+    _TELE0.update(tele_counters.snapshot())
     hist_cuda.launches_exact = 0
     hist_cuda.launches = 0
     hist_cuda.launches_int = 0
@@ -1853,7 +1918,6 @@ def zero_counters() -> None:
     quantize.transforms = 0
     cuda_backend.graph_replays = 0
     cuda_backend.graph_captures = 0
-    cuda_backend.h2d_bytes = 0
 
 
 def read_counters() -> dict:
@@ -1870,7 +1934,7 @@ def read_counters() -> dict:
             "binning": quantize.transforms,
             "graph_replays": cuda_backend.graph_replays,
             "graph_captures": cuda_backend.graph_captures,
-            "h2d_bytes": cuda_backend.h2d_bytes}
+            "h2d_bytes": tele_counters.delta(_TELE0)["h2d_bytes"]}
 
 
 def hist_tree(Xd: torch.Tensor, levels: list, card: dict,
@@ -3166,6 +3230,716 @@ def phase_lifecycle(res, X: np.ndarray) -> dict:
     return out
 
 
+# --------------------------------------------------------------------- #
+# the serving plane (phase serve_plane)
+# --------------------------------------------------------------------- #
+def http_call(port: int, path: str, data: bytes | None = None,
+              headers: dict | None = None) -> tuple:
+    """(status, response headers, body bytes, client ms) of one request to
+    127.0.0.1:port; HTTP errors are returned, not raised."""
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=data, headers=headers or {},
+        method="GET" if data is None else "POST")
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            code, hdr, body = r.status, r.headers, r.read()
+    except urllib.error.HTTPError as e:
+        code, hdr, body = e.code, e.headers, e.read()
+    return code, hdr, body, (time.perf_counter() - t0) * 1e3
+
+
+def post_rows(port: int, path: str, rows: np.ndarray,
+              headers: dict | None = None) -> tuple:
+    """POST rows: a uint8 block as a binned=raw body, float rows as JSON."""
+    if rows.dtype == np.uint8:
+        sep = "&" if "?" in path else "?"
+        return http_call(port, f"{path}{sep}binned=raw", rows.tobytes(),
+                         {"Content-Type": "application/octet-stream",
+                          **(headers or {})})
+    return http_call(port, path, json.dumps({"rows": rows.tolist()}).encode(),
+                     {"Content-Type": "application/json", **(headers or {})})
+
+
+def start_http(engine) -> tuple:
+    ready = threading.Event()
+    th = threading.Thread(target=serve_forever, args=(engine,),
+                          kwargs=dict(port=0, ready_event=ready),
+                          daemon=True)
+    th.start()
+    check(ready.wait(60), "HTTP front end listening")
+    return th, engine.http_port
+
+
+def stop_http(port: int, th: threading.Thread) -> None:
+    http_call(port, "/shutdown", b"{}")
+    th.join(60)
+    check(not th.is_alive(), "HTTP front end stopped")
+
+
+def nearest_rank(ms: list) -> dict:
+    """p50 / p99 / p999 by nearest rank (the engine's quantile rule)."""
+    v = sorted(ms)
+    if not v:
+        return {"p50_ms": None, "p99_ms": None, "p999_ms": None, "n": 0}
+    q = {k: v[max(0, min(len(v) - 1, int(np.ceil(p * len(v))) - 1))]
+         for k, p in (("p50_ms", 0.5), ("p99_ms", 0.99),
+                      ("p999_ms", 0.999))}
+    return {**q, "n": len(v)}
+
+
+def storm(n_threads: int, per_thread: int, request, seed: int) -> list:
+    """n_threads in-process clients, each sending per_thread requests made
+    by request(rng, thread, i); returns what they returned. A raising
+    request fails the phase."""
+    out, errors = [], []
+    lock = threading.Lock()
+
+    def client(t):
+        rng = np.random.default_rng(seed * 1000 + t)
+        for i in range(per_thread):
+            try:
+                got = request(rng, t, i)
+            except Exception as e:  # collected, checked empty below
+                with lock:
+                    errors.append(repr(e))
+                continue
+            with lock:
+                out.append(got)
+
+    threads = [threading.Thread(target=client, args=(t,))
+               for t in range(n_threads)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    check(not any(t.is_alive() for t in threads), "storm clients done")
+    check(not errors, f"storm errors: {errors[:3]}")
+    return out
+
+
+def plane_refs(models: dict, pool: np.ndarray, bins: dict) -> dict:
+    """Offline api.predict of every artifact at its tier on the pool's
+    float rows and on the binned blocks its bin space admits (`bins`:
+    kind -> (block, its highest bin)): {(name, kind): scores}."""
+    refs = {}
+    for name, (bundle, tier) in models.items():
+        cfg = TrainConfig(predict_impl=TIER_IMPL[tier])
+        refs[name, "float"] = api.predict(bundle, pool, cfg=cfg)
+        for kind, (Xb, top) in bins.items():
+            if top < bundle.mapper.n_bins:
+                refs[name, kind] = api.predict(bundle.ensemble, Xb,
+                                               binned=True, cfg=cfg)
+    return refs
+
+
+#: The HTTP clients of arms a and b, in a process of their own (numpy and
+#: the standard library only), so that the server's interpreter serves
+#: and the clients' JSON work runs elsewhere. argv[1] is a JSON spec:
+#: port, pool / bins (.npy paths), threads, requests a thread, seed,
+#: raw_share, routes (fleet model names, or null), flag (a path: past
+#: half its requests each client keeps sending until it exists, or null)
+#: and out (the results' path).
+PLANE_CLIENT = r"""
+import json, os, sys, threading, time, urllib.error, urllib.request
+import numpy as np
+spec = json.load(open(sys.argv[1]))
+pool, bins = np.load(spec["pool"]), np.load(spec["bins"])
+port, routes, n = spec["port"], spec["routes"], spec["requests"]
+out, errors = [], []
+lock = threading.Lock()
+def call(path, data, headers):
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                 data=data, headers=headers, method="POST")
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            code, body = r.status, r.read()
+    except urllib.error.HTTPError as e:
+        code, body = e.code, e.read()
+    return code, body, (time.perf_counter() - t0) * 1e3
+def client(t):
+    rng = np.random.default_rng(spec["seed"] * 1000 + t)
+    i, deadline = 0, time.monotonic() + 300
+    while i < n:
+        s = int(rng.integers(0, len(pool) - 64))
+        c = int(rng.integers(1, 65))
+        raw = bool(rng.random() < spec["raw_share"])
+        route = routes[(t + i) % len(routes)] if routes else None
+        path, headers = "/predict", {}
+        if route is not None and i % 2:
+            path = f"/models/{route}/predict"
+        elif route is not None:
+            headers["X-DDT-Model"] = route
+        if raw:
+            code, body, ms = call(
+                path + "?binned=raw", bins[s:s + c].tobytes(),
+                {"Content-Type": "application/octet-stream", **headers})
+        else:
+            code, body, ms = call(
+                path, json.dumps({"rows": pool[s:s + c].tolist()}).encode(),
+                {"Content-Type": "application/json", **headers})
+        with lock:
+            if code != 200:
+                errors.append([code, body[:300].decode(errors="replace")])
+            else:
+                r = json.loads(body)
+                out.append(["raw" if raw else "float", s, c,
+                            route or r["model"], ms, r["scores"]])
+        if not (spec["flag"] and i == n // 2 and time.monotonic() < deadline
+                and not os.path.exists(spec["flag"])):
+            i += 1
+threads = [threading.Thread(target=client, args=(t,))
+           for t in range(spec["threads"])]
+t0 = time.perf_counter()
+for t in threads:
+    t.start()
+for t in threads:
+    t.join()
+with open(spec["out"], "w") as f:
+    json.dump({"results": out, "errors": errors,
+               "wall_s": time.perf_counter() - t0}, f)
+"""
+
+
+def http_storm(port: int, tmp: str, name: str, routes=None,
+               flag: str | None = None) -> subprocess.Popen:
+    """Start PLANE_CLIENT against `port` over the pool and the 15-bin
+    codes saved in `tmp`; returns the process (read_storm collects)."""
+    spec = {"port": port, "pool": os.path.join(tmp, "pool.npy"),
+            "bins": os.path.join(tmp, "bins15.npy"),
+            "threads": PLANE_THREADS, "requests": PLANE_REQUESTS,
+            "seed": len(name), "raw_share": PLANE_RAW_SHARE,
+            "routes": routes, "flag": flag,
+            "out": os.path.join(tmp, f"{name}.json")}
+    path = os.path.join(tmp, f"{name}.spec.json")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    return subprocess.Popen([sys.executable, "-c", PLANE_CLIENT, path],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def read_storm(proc: subprocess.Popen, tmp: str, name: str) -> dict:
+    try:
+        _, err = proc.communicate(timeout=900)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate(timeout=60)
+    check(proc.returncode == 0, f"{name} clients: {err[-2000:]}")
+    with open(os.path.join(tmp, f"{name}.json")) as f:
+        got = json.load(f)
+    check(not got["errors"], f"{name}: failed requests {got['errors'][:3]}")
+    return got
+
+
+def plane_single(tier, b255, by_token: dict, refs: dict, pool, bins15,
+                 root: str, tmp: str) -> dict:
+    """Arm a at one tier: the 255-bin model behind serve_forever, a storm
+    of JSON float and binned=raw requests from a client process with a
+    swap by registry reference mid-storm, then express singles, the wire
+    and trace checks and /stats?emit=1."""
+    rl = RunLog()
+    eng = ServeEngine(b255, TrainConfig(), quantize=tier, max_batch=256,
+                      max_wait_ms=1.0, run_log=rl)
+    eng.registry_root = root
+    th, port = start_http(eng)
+    label = f"single_{tier or 'f32'}"
+    flag = os.path.join(tmp, f"{label}.swapped")
+    try:
+        out = {}
+        proc = http_storm(port, tmp, label, flag=flag)
+        deadline = time.monotonic() + 300
+        while (eng.stats.requests < PLANE_THREADS * PLANE_REQUESTS // 2
+               and time.monotonic() < deadline and proc.poll() is None):
+            time.sleep(0.001)
+        # A /metrics scrape mid-storm: every counter series lies between
+        # the snapshots taken just before and just after it.
+        c0 = tele_counters.snapshot()
+        code, _, text, _ = http_call(port, "/metrics")
+        c1 = tele_counters.snapshot()
+        check(code == 200, "mid-storm /metrics")
+        scraped = parse_exposition(text.decode())
+        for k in c0:
+            v = scraped[f"ddt_{k}_total"][()]
+            check(c0[k] <= v <= c1[k], f"/metrics {k}: {c0[k]} <= {v} <= "
+                  f"{c1[k]}")
+        target = "higgs15@1" if tier is None else "higgs15_4@1"
+        code, _, body, swap_ms = http_call(
+            port, "/swap", json.dumps({"model": target}).encode(),
+            {"Content-Type": "application/json"})
+        open(flag, "w").close()
+        check(code == 200, f"serve_plane {tier}: /swap {body[:200]}")
+        swap = json.loads(body)
+        got = read_storm(proc, tmp, label)
+        results = got["results"]
+        served = {}
+        for kind, s, c, token, ms, scores in results:
+            name = by_token[token]
+            served[name] = served.get(name, 0) + 1
+            check(np.array_equal(np.float32(scores),
+                                 refs[(name, tier), kind][s:s + c]),
+                  f"serve_plane {tier}: {kind} rows [{s}:{s + c}] by "
+                  f"{name} differ from offline api.predict")
+        check(len(served) == 2, f"serve_plane {tier}: both models served "
+              f"{served}")
+        segments = {k: float(np.median([t[k] for t in
+                                        eng.stats.traces_snapshot()]))
+                    for k in ("handler_ms", "queue_ms", "gate_ms",
+                              "device_ms", "wake_ms", "total_ms")}
+        storm_ms = {kind: nearest_rank([r[4] for r in results
+                                        if r[0] == kind])
+                    for kind in ("float", "raw")}
+        window = eng.stats.window_summary(reset=False)
+        # Express singles at an idle queue, one at a time.
+        express0 = eng.stats.express
+        rng = np.random.default_rng(7)
+        ex_ms = []
+        for _ in range(PLANE_EXPRESS):
+            s = int(rng.integers(0, len(pool)))
+            code, _, body, ms = post_rows(port, "/predict", pool[s:s + 1])
+            r = json.loads(body)
+            check(code == 200 and np.array_equal(
+                np.float32(r["scores"]),
+                refs[(by_token[r["model"]], tier), "float"][s:s + 1]),
+                f"serve_plane {tier}: express row {s}")
+            ex_ms.append(ms)
+        check(eng.stats.express > express0, "express lane used")
+        # raw and JSON binned bodies agree bitwise; a ragged raw body 400s.
+        code, _, b1, _ = post_rows(port, "/predict", bins15[:64])
+        code2, _, b2, _ = http_call(
+            port, "/predict", json.dumps({"rows": bins15[:64].tolist(),
+                                          "binned": True}).encode(),
+            {"Content-Type": "application/json"})
+        check(code == code2 == 200 and json.loads(b1)["scores"]
+              == json.loads(b2)["scores"], "raw == JSON binned, bitwise")
+        code, _, body, _ = http_call(
+            port, "/predict?binned=raw", bins15[:2].tobytes()[:-1],
+            {"Content-Type": "application/octet-stream"})
+        check(code == 400 and b"whole number" in body, "ragged raw -> 400")
+        # A client trace id round-trips through the headers and the ring.
+        pin = f"serve-plane-{tier or 'f32'}"
+        code, hdr, _, _ = post_rows(port, "/predict", pool[:3],
+                                    {"X-DDT-Trace-Id": pin})
+        segs = dict(kv.split("=") for kv in
+                    (hdr["X-DDT-Timing"] or "").split(","))
+        check(code == 200 and hdr["X-DDT-Trace-Id"] == pin
+              and set(segs) == {"handler", "queue", "gate", "device",
+                                "wake", "total"}, "trace headers")
+        _, _, dbg, _ = http_call(port, "/debug/requests")
+        check(pin in [t["trace_id"] for t in
+                      json.loads(dbg)["models"]["default"]],
+              "trace id in /debug/requests")
+        code, _, body, _ = http_call(port, "/stats?emit=1")
+        emitted = json.loads(body)
+        ev = rl.events("serve_latency")[-1]
+        validate_event(ev)
+        check(code == 200 and ev["requests"] == emitted["requests"] > 0,
+              "/stats?emit=1 event")
+        _, _, body, _ = http_call(port, "/healthz")
+        health = json.loads(body)
+        check(health["predict_impl"] == TIER_RESOLVED[tier],
+              f"serve_plane {tier}: health tier {health['predict_impl']}")
+        out.update(tier=tier or "f32", requests=len(results),
+                   clients_wall_s=got["wall_s"], swap_ms=swap_ms,
+                   swap=swap, served=served, http_ms=storm_ms,
+                   express_http_ms=nearest_rank(ex_ms),
+                   trace_median_ms=segments, storm_window=window)
+    finally:
+        stop_http(port, th)
+    return out
+
+
+def model_bytes(model) -> int:
+    """Bytes of one ServableModel's operand tensors on the card (the LUT
+    tiers' operand tuple, or K3's packed records)."""
+    ops = model.operands().ops
+    parts = ops.ops if isinstance(ops, predict_lut.LutOperands) else ops
+    return sum(t.numel() * t.element_size() for t in parts
+               if isinstance(t, torch.Tensor))
+
+
+def allocated() -> int:
+    torch.cuda.synchronize()
+    gc.collect()
+    return torch.cuda.memory_allocated()
+
+
+def plane_fleet(refs: dict, pool, root: str, tmp: str) -> dict:
+    """Arm b: three artifacts at f32, int8 and int4 behind one fleet with
+    max_resident 2, a storm routed by path and header, a deterministic
+    cycle of evictions and reloads, a steady-state window, and the card
+    memory an eviction frees."""
+    names = ("ff32", "fi8", "fi4")
+    alone = {}
+    for name in names:
+        m0 = allocated()
+        eng = build_fleet(parse_models_arg(f"{name}@1"), registry=root)
+        alone[name] = allocated() - m0
+        eng.close()
+        del eng
+    rl = RunLog()
+    eng = build_fleet(parse_models_arg(",".join(f"{n}@1" for n in names)),
+                      registry=root, max_resident=2, max_wait_ms=1.0,
+                      run_log=rl)
+    th, port = start_http(eng)
+
+    def fleet_storm(label):
+        got = read_storm(http_storm(port, tmp, label, routes=list(names)),
+                         tmp, label)
+        for kind, s, c, name, _, scores in got["results"]:
+            check(np.array_equal(np.float32(scores),
+                                 refs[name, kind][s:s + c]),
+                  f"fleet {name}: {kind} rows [{s}:{s + c}] differ from "
+                  "offline api.predict")
+        return got
+
+    try:
+        got = fleet_storm("fleet")
+        results = got["results"]
+        # The same storm again under torch.profiler: the card's busy share
+        # while the fleet serves (its latencies are the first storm's).
+        holder = {}
+        prof = profiled(lambda: holder.update(got=fleet_storm("fleet_prof")),
+                        pad_s=1.0)
+        prof["requests"] = len(holder["got"]["results"])
+        # A deterministic cycle: with 2 resident, each request for the
+        # third model evicts one and reloads it on the handler thread.
+        cycle = []
+        for name in names * 2:
+            r0 = eng.health()["models"][name]["reloads"]
+            code, _, body, ms = post_rows(port, f"/models/{name}/predict",
+                                          pool[:1])
+            check(code == 200, f"fleet cycle {name}")
+            cycle.append({"model": name, "ms": ms, "reloaded":
+                          eng.health()["models"][name]["reloads"] > r0})
+        _, _, body, _ = http_call(port, "/healthz")
+        health = json.loads(body)
+        check(health["evictions"] >= 1 and health["reloads"] >= 1,
+              f"fleet evictions {health['evictions']} reloads "
+              f"{health['reloads']}")
+        # Steady state over the two resident models: no nvcc build, no
+        # operand build.
+        resident = [n for n, m in health["models"].items() if m["resident"]]
+        check(len(resident) == 2, f"fleet resident {resident}")
+        b0, o0 = _build.builds, cuda_backend.operand_builds
+        rng = np.random.default_rng(3)
+        steady_ms = []
+        for i in range(PLANE_STEADY):
+            s = int(rng.integers(0, len(pool) - 64))
+            code, _, _, ms = post_rows(
+                port, f"/models/{resident[i % 2]}/predict",
+                pool[s:s + int(rng.integers(1, 65))])
+            check(code == 200, "fleet steady state")
+            steady_ms.append(ms)
+        steady = {"nvcc_builds": _build.builds - b0,
+                  "operand_builds": cuda_backend.operand_builds - o0}
+        check(steady == {"nvcc_builds": 0, "operand_builds": 0},
+              f"fleet steady state builds {steady}")
+        # The card memory an eviction frees: touch resident[1] so
+        # resident[0] is the coldest, then load the third model.
+        coldest, warm = resident
+        third = next(n for n in names if n not in resident)
+        post_rows(port, f"/models/{warm}/predict", pool[:1])
+        held = model_bytes(eng._slots[coldest].model)
+        before = allocated()
+        t1 = time.perf_counter()
+        code, _, _, reload_ms = post_rows(port, f"/models/{third}/predict",
+                                          pool[:1])
+        check(code == 200 and not eng.health()["models"][coldest][
+            "resident"], f"fleet: {third} evicted {coldest}")
+        after = allocated()
+        freed = before + alone[third] - after
+        check(freed >= held, f"eviction freed {freed} B of {coldest}'s "
+              f"{held} operand bytes")
+        by_model = {n: nearest_rank([r[4] for r in results if r[3] == n])
+                    for n in names}
+        faults = [e["kind"] for e in rl.events("fault")]
+    finally:
+        stop_http(port, th)
+    return {"clients_wall_s": got["wall_s"], "requests": len(results),
+            "profiled_storm": prof,
+            "http_ms": by_model, "cycle": cycle,
+            "reload_ms": [c["ms"] for c in cycle if c["reloaded"]],
+            "evictions": health["evictions"], "reloads": health["reloads"],
+            "steady": steady, "steady_http_ms": nearest_rank(steady_ms),
+            "evicted_operand_bytes": held, "freed_bytes": freed,
+            "incoming_bytes": alone[third], "evict_reload_ms": reload_ms,
+            "eviction_wall_s": time.perf_counter() - t1,
+            "fault_kinds": sorted(set(faults))}
+
+
+def ab_windows(sides: dict, rows, seed: int) -> dict:
+    """Saturated in-process windows, the sides interleaved (a, b, a, b,
+    ...): PLANE_AB_THREADS threads of PLANE_AB_REQUESTS requests of 1-64
+    rows each; returns each side's per-window p99 (ms) and its responses
+    by (window, thread, request)."""
+    out = {k: {"p99_ms": [], "responses": {}} for k in sides}
+    for w in range(PLANE_AB_WINDOWS):
+        for side, predict in sides.items():
+            def request(rng, t, i, predict=predict):
+                s = int(rng.integers(0, len(rows) - 64))
+                c = int(rng.integers(1, 65))
+                t0 = time.perf_counter()
+                got = predict(rows[s:s + c])
+                return (w, t, i), (time.perf_counter() - t0) * 1e3, got
+
+            res = storm(PLANE_AB_THREADS, PLANE_AB_REQUESTS, request,
+                        seed * 100 + w)
+            out[side]["p99_ms"].append(
+                nearest_rank([ms for _, ms, _ in res])["p99_ms"])
+            out[side]["responses"].update({k: g for k, _, g in res})
+    return out
+
+
+def ab_ratio(ab: dict, a: str, b: str) -> dict:
+    return {"a": a, "b": b, "p99_ms": {k: ab[k]["p99_ms"] for k in (a, b)},
+            "ratio_of_min_p99": min(ab[a]["p99_ms"]) / min(ab[b]["p99_ms"])}
+
+
+def plane_drift(refs: dict, bins255s, bins15, root: str) -> dict:
+    """Arm c: a drift-tracked champion with an int4 shadow challenger and
+    an unshifted control; covariate-shifted binned traffic to the
+    champion in saturated windows interleaved with the same traffic to a
+    fleet with drift and the shadow off."""
+    c0 = tele_counters.snapshot()
+    rl = RunLog()
+    on = build_fleet([FleetSpec(name="champ", ref="higgs@1", drift=True),
+                      FleetSpec(name="chall", ref="higgs4@1",
+                                shadow_of="champ"),
+                      FleetSpec(name="ctrl", ref="higgs15@1", drift=True)],
+                     registry=root, max_wait_ms=1.0, run_log=rl)
+    off = build_fleet([FleetSpec(name="champ", ref="higgs@1", drift=False)],
+                      registry=root, max_wait_ms=1.0)
+    try:
+        ab = ab_windows({
+            "drift_shadow_on": lambda r: on.predict(r, model="champ",
+                                                    timeout=120.0),
+            "drift_shadow_off": lambda r: off.predict(r, model="champ",
+                                                      timeout=120.0)},
+            bins255s, 3)
+        mine = ab["drift_shadow_on"]["responses"]
+        theirs = ab["drift_shadow_off"]["responses"]
+        check(mine.keys() == theirs.keys() and all(
+            np.array_equal(mine[k], theirs[k]) for k in mine),
+            "champion bitwise with the shadow on and off")
+        sent = len(mine)
+        ctrl_rows = []
+        for s in range(0, PLANE_DRIFT_CTRL, 256):
+            ctrl_rows.append(bins15[s:s + 256])
+            got = on.predict(bins15[s:s + 256], model="ctrl", timeout=60.0)
+            check(np.array_equal(got, refs["higgs15", "raw"][s:s + 256]),
+                  "control rows bitwise offline")
+        got = on.predict(bins255s[:64], model="champ", timeout=60.0)
+        check(np.array_equal(got, refs["higgs", "raw255s"][:64]),
+              "champion bitwise offline api.predict")
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline:
+            sh = on.health()["models"]["champ"]["shadow"]
+            rows_in = on._slots["champ"].drift._win_rows
+            if sh["rows"] > 0 and rows_in >= 1:
+                break
+            time.sleep(0.01)
+        h = on.health()["models"]
+        d = tele_counters.delta(c0)
+        drifts = [e for e in rl.events("drift")]
+        for e in drifts:
+            validate_event(e)
+        check(h["champ"]["drift_alerting"] is True
+              and h["champ"]["drift_alerts"] == 1
+              and h["ctrl"]["drift_alerting"] is False
+              and h["ctrl"]["drift_alerts"] == 0
+              and d["drift_alerts"] == 1
+              and [e["model_name"] for e in drifts] == ["champ"],
+              f"only the shifted model alerts: {h['champ']} {h['ctrl']} "
+              f"{d['drift_alerts']} {drifts}")
+        check(sh["rows"] > 0 and sh["errors"] == 0, f"shadow {sh}")
+        check(on._slots["champ"].shadow._stream is not None,
+              "shadow on its own stream")
+        win = {n: on._slots[n].drift._win for n in ("champ", "ctrl")}
+    finally:
+        on.close()
+        off.close()
+    return {"ab": ab_ratio(ab, "drift_shadow_on", "drift_shadow_off"),
+            "champ_requests": sent, "ctrl_rows": PLANE_DRIFT_CTRL,
+            "alerts": d["drift_alerts"], "shadow": sh,
+            "champ_psi_max": h["champ"]["drift_psi_max"],
+            "ctrl_psi_max": h["ctrl"]["drift_psi_max"],
+            "window": win, "ctrl_sent": np.concatenate(ctrl_rows)}
+
+
+def plane_child(refs: dict, pool, bins15, root: str) -> dict:
+    """Arm d: a cold `python -m ddt_tpu_torch.cli serve --registry R
+    --model higgs@1` child on the card: bitwise answers, no nvcc build."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "ddt_tpu_torch.cli", "serve", "--registry",
+         root, "--model", "higgs@1", "--port", str(port)], cwd=HERE,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        info = json.loads(proc.stdout.readline() or "{}")
+        check(info.get("device") == "cuda" and info.get("mode") == "rebuild",
+              f"cli serve child: {info}")
+        deadline = time.monotonic() + 300
+        while True:
+            try:
+                if http_call(port, "/healthz")[0] == 200:
+                    break
+            except OSError:
+                pass
+            check(time.monotonic() < deadline and proc.poll() is None,
+                  "cli serve child came up")
+            time.sleep(0.05)
+        up_s = time.perf_counter() - t0
+        rng = np.random.default_rng(5)
+        ms = []
+        for i in range(PLANE_CHILD_REQUESTS):
+            s = int(rng.integers(0, len(pool) - 64))
+            c = int(rng.integers(1, 65))
+            kind = "raw" if i % 2 else "float"
+            rows = bins15[s:s + c] if i % 2 else pool[s:s + c]
+            code, _, body, m = post_rows(port, "/predict", rows)
+            check(code == 200 and np.array_equal(
+                np.float32(json.loads(body)["scores"]),
+                refs["higgs", kind][s:s + c]),
+                f"cli serve child: {kind} rows [{s}:{s + c}] bitwise")
+            ms.append(m)
+        _, _, text, _ = http_call(port, "/metrics")
+        builds = parse_exposition(text.decode())["ddt_jit_compiles_total"][()]
+        check(builds == 0, f"cli serve child ran {builds} nvcc builds")
+        http_call(port, "/shutdown", b"{}")
+        check(proc.wait(timeout=60) == 0, "cli serve child exited 0")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+        proc.communicate(timeout=60)
+    return {"up_s": up_s, "http_ms": nearest_rank(ms), "nvcc_builds": 0,
+            "requests": PLANE_CHILD_REQUESTS}
+
+
+def phase_serve_plane(res255, res15, X: np.ndarray, card: dict) -> dict:
+    """The serving plane on the card: arms a (single model over HTTP at
+    f32 and int4, swap by registry reference mid-storm), b (fleet of f32,
+    int8 and int4 artifacts, max_resident 2), c (drift and shadow) and d
+    (a cold `cli serve` child), and the three A/B ratios."""
+    t0 = time.perf_counter()
+    b255 = api.ModelBundle(res255.ensemble, res255.mapper)
+    b15 = api.ModelBundle(res15.ensemble, res15.mapper)
+    pool = np.ascontiguousarray(X[:SERVE_POOL], np.float32)
+    bins15 = res15.mapper.transform(pool)
+    shifted = pool + 5.0 * np.abs(pool).max(axis=0)
+    bins255s = res255.mapper.transform(shifted)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "reg")
+        np.save(os.path.join(tmp, "pool.npy"), pool)
+        np.save(os.path.join(tmp, "bins15.npy"), bins15)
+        artifacts = {"higgs": (b255, None), "higgs15": (b15, None),
+                     "higgs4": (b255, "int4"), "higgs15_4": (b15, "int4"),
+                     "ff32": (b255, None), "fi8": (b15, "int8"),
+                     "fi4": (b255, "int4")}
+        for name, (bundle, tier) in artifacts.items():
+            push_servable(root, bundle, name=name, max_batch=256,
+                          quantize=tier or False)
+        refs = plane_refs(artifacts, pool, {
+            "raw": (bins15, int(bins15.max())),
+            "raw255s": (bins255s, int(bins255s.max()))})
+        # Arm a's answers by (token, tier): the engine quantizes the
+        # 255-bin model itself, the swap restores the 15-bin artifact.
+        tok = {b255.ensemble.cache_token(): "255",
+               b15.ensemble.cache_token(): "15"}
+        single_refs = {}
+        for tier, names in ((None, ("higgs", "higgs15")),
+                            ("int4", ("higgs4", "higgs15_4"))):
+            for label, name in zip(("255", "15"), names):
+                for kind in ("float", "raw"):
+                    single_refs[(label, tier), kind] = refs[name, kind]
+        torch.cuda.synchronize()
+        predict_cuda.launches = 0
+        predict_lut_cuda.launches_lut = 0
+        predict_lut_cuda.launches_lut4 = 0
+        single = {(tier or "f32"): plane_single(tier, b255, tok,
+                                                single_refs, pool, bins15,
+                                                root, tmp)
+                  for tier in (None, "int4")}
+        fleet = plane_fleet(refs, pool, root, tmp)
+        drift = plane_drift(refs, bins255s, bins15, root)
+        check(np.array_equal(drift["window"]["ctrl"], feature_bincounts(
+            drift["ctrl_sent"], 15)), "control window == numpy bincount")
+        champ_sent = np.concatenate([
+            bins255s[s:s + c] for s, c in plane_ab_spans(3)] + [
+            bins255s[:64]])
+        check(np.array_equal(drift["window"]["champ"], feature_bincounts(
+            champ_sent, 255)), "champion window == numpy bincount, bitwise")
+        # Fleet against single engine, request traces on against off.
+        one = build_fleet([FleetSpec(name="m", ref="higgs@1")],
+                          registry=root, max_wait_ms=1.0)
+        eng = ServeEngine(b255, TrainConfig(), max_batch=256,
+                          max_wait_ms=1.0)
+        quiet = ServeEngine(b255, TrainConfig(), max_batch=256,
+                            max_wait_ms=1.0, request_traces=False)
+        try:
+            ab_fleet = ab_windows({
+                "fleet": lambda r: one.predict(r, model="m", timeout=120.0),
+                "single": lambda r: eng.predict(r, timeout=120.0)}, pool, 4)
+            ab_traces = ab_windows({
+                "traces_on": lambda r: eng.predict(r, timeout=120.0),
+                "traces_off": lambda r: quiet.predict(r, timeout=120.0)},
+                pool, 5)
+            # One saturated window of the single engine under
+            # torch.profiler: the card's busy share and its kernels.
+            prof_single = profiled(lambda: ab_windows(
+                {"single": lambda r: eng.predict(r, timeout=120.0)},
+                pool, 6), pad_s=1.0)
+        finally:
+            one.close()
+            eng.close()
+            quiet.close()
+        child = plane_child(refs, pool, bins15, root)
+    torch.cuda.synchronize()
+    launches = {"traverse": predict_cuda.launches,
+                "lut": predict_lut_cuda.launches_lut,
+                "lut4": predict_lut_cuda.launches_lut4}
+    for name, n in launches.items():
+        check(n > 0, f"serve_plane: {name} kernel launched")
+    for tier, row in single.items():
+        emit({"phase": "serve_plane", "arm": "a_single_http", "tier": tier,
+              "nvidia_smi": card["smi"], **row})
+    emit({"phase": "serve_plane", "arm": "b_fleet", "nvidia_smi":
+          card["smi"], **fleet})
+    emit({"phase": "serve_plane", "arm": "c_drift_shadow", "nvidia_smi":
+          card["smi"], **{k: v for k, v in drift.items()
+                          if k not in ("window", "ctrl_sent")}})
+    emit({"phase": "serve_plane", "arm": "d_cli_child", "nvidia_smi":
+          card["smi"], **child})
+    emit({"phase": "serve_plane", "profiled_single_in_process":
+          prof_single, "nvidia_smi": card["smi"]})
+    emit({"phase": "serve_plane", "ratios": {
+        "fleet_vs_single": ab_ratio(ab_fleet, "fleet", "single"),
+        "traces_on_vs_off": ab_ratio(ab_traces, "traces_on", "traces_off"),
+        "drift_shadow_on_vs_off": drift["ab"]},
+        "launches": launches, "nvidia_smi": card["smi"],
+        "wall_s": time.perf_counter() - t0})
+    return launches
+
+
+def plane_ab_spans(seed: int) -> list:
+    """The (start, count) of every request one side of ab_windows(...,
+    seed) makes (storm's per-thread generators), in no particular
+    order."""
+    spans = []
+    for w in range(PLANE_AB_WINDOWS):
+        for t in range(PLANE_AB_THREADS):
+            rng = np.random.default_rng((seed * 100 + w) * 1000 + t)
+            for _ in range(PLANE_AB_REQUESTS):
+                s = int(rng.integers(0, SERVE_POOL - 64))
+                spans.append((s, int(rng.integers(1, 65))))
+    return spans
+
+
 def mrows(n: int, seconds: float) -> float:
     return n / seconds / 1e6
 
@@ -3349,9 +4123,11 @@ def main(argv: list[str]) -> int:
               "needs a CUDA card", file=sys.stderr)
         return 2
     if argv not in ([], ["--phase", "multi"], ["--phase", "mesh2d"],
-                    ["--phase", "stream"], ["--phase", "config4"]):
+                    ["--phase", "stream"], ["--phase", "config4"],
+                    ["--phase", "serve_plane"]):
         print(f"chip_smoke: unknown arguments {argv}; usage: chip_smoke.py "
-              "[--phase multi|mesh2d|stream|config4]", file=sys.stderr)
+              "[--phase multi|mesh2d|stream|config4|serve_plane]",
+              file=sys.stderr)
         return 2
     t_start = time.perf_counter()
     card = phase_device()
@@ -3364,6 +4140,12 @@ def main(argv: list[str]) -> int:
             phase_mesh2d(card, flush)
         elif argv[1] == "config4":
             phase_config4(card, flush)
+        elif argv[1] == "serve_plane":
+            X, y = synthetic_binary(ROWS, n_features=FEATURES, seed=0)
+            models = [api.train(X, y, TrainConfig(
+                n_trees=N_TREES, max_depth=DEPTH, n_bins=B))
+                for B in (255, 15)]
+            phase_serve_plane(*models, X, card)
         else:
             phase_stream(card, flush)
             stream_witness(card)
@@ -3392,6 +4174,7 @@ def main(argv: list[str]) -> int:
     res15, _ = phase_lut4_packed(X, y, card, flush)
     served = phase_serve(main_run["res"], res15, X)
     phase_serve_kernels(main_run["res"], X, served, flush)
+    plane = phase_serve_plane(main_run["res"], res15, X, card)
     phase_quantize(flush)
     hist_int = phase_hist_int(binned, levels, card, flush)
     phase_quant_exact(binned, y)
@@ -3428,7 +4211,8 @@ def main(argv: list[str]) -> int:
                     "ms": wide["kernel_ms"], "plain_ms": wide["plain_ms"],
                     "bound_ms": wide["bound_ms"],
                     "bound_by": wide["bound_by"], "max_abs_err": 0.0},
-                    "lifecycle": life["launches"][name]}}
+                    "lifecycle": life["launches"][name],
+                    "serve_plane": plane[name]}}
 
     k1, k3 = cov["hist"], cov["traverse"]
     cov_launches = cov["row"]["launches"]
@@ -3487,6 +4271,7 @@ def main(argv: list[str]) -> int:
              "mesh2d": mesh_launches(mesh2d, "traverse"),
              "stream_predict": stream["predict_counters"]["traverse"],
              "lifecycle": life["launches"]["traverse"],
+             "serve_plane": plane["traverse"],
              "config4": {
                  "launches": c4["launches"], "rows": c4["rows"],
                  "trees": c4["trees"], "max_abs_err": c4["max_abs_err"],

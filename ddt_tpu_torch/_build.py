@@ -41,6 +41,9 @@ _lock = threading.Lock()
 #: nvcc processes started by this process (build_all), never reset: a
 #: process that loads libraries built before it starts reads 0.
 builds = 0
+#: Seconds of the build_all calls that started nvcc, never reset
+#: (telemetry/counters reports both as jit_compiles / _seconds).
+build_seconds = 0.0
 _libs: dict[str, ctypes.CDLL] = {}
 _smem_optin: dict[int, int] = {}
 
@@ -79,7 +82,7 @@ def build_all(names: list[str] | None = None) -> dict[str, float]:
     """Build every missing library, all nvcc processes at once. Returns
     {name: seconds} for the libraries built by this call (empty when all
     were current). Raises with nvcc's output if any build fails."""
-    global builds
+    global builds, build_seconds
     names = sources() if names is None else names
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
@@ -103,6 +106,8 @@ def build_all(names: list[str] | None = None) -> dict[str, float]:
                           f"{log.decode(errors='replace')}")
             continue
         os.replace(tmp, out)
+    if procs:
+        build_seconds += time.perf_counter() - t0
     if errors:
         raise RuntimeError("kernel build failed:\n" + "\n".join(errors))
     return took

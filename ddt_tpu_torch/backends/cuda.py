@@ -16,7 +16,12 @@ launches only the kernel. The entry holds the tier that serves the model:
 with cfg.predict_impl="lut" / "lut4" the quantized tables of
 ops/predict_lut (kernels K4 / K5), walked down int4 -> int8 -> f32 when a
 fits guard refuses the shape; otherwise the traversal kernel's f32
-tables. `resolved_predict_impl(token)` reports the tier.
+tables. `resolved_predict_impl(token)` reports the tier. That cache
+serves api.predict. A served model owns its operands instead
+(`prepare_scoring`, which builds them outside the cache, and
+`predict_raw(operands=)`), as the reference's RestoredModel does: N
+resident models never rebuild each other's tables, and dropping the
+model frees them.
 
 Fused rounds (port of TPUDevice.grow_rounds / grow_rounds_masked /
 grow_rounds_eval): one boosting round (gradients -> bagging mask -> one
@@ -80,6 +85,7 @@ from ddt_tpu_torch.ops import predict_lut, predict_lut_cuda, sampling
 from ddt_tpu_torch.ops import split as split_ops
 from ddt_tpu_torch.ops import stream as stream_ops
 from ddt_tpu_torch.parallel import comms, mesh
+from ddt_tpu_torch.telemetry import counters as tele_counters
 from ddt_tpu_torch.utils import launches, metrics
 
 log = logging.getLogger("ddt_tpu_torch.backends.cuda")
@@ -88,10 +94,10 @@ log = logging.getLogger("ddt_tpu_torch.backends.cuda")
 #: around the main path).
 graph_captures = 0
 graph_replays = 0
-#: Bytes of binned chunk rows the streamed trainer and scorer moved host
-#: to device (upload_chunk / upload_row_shards: a rank's block, padding
-#: included), counted per transfer since the last reset.
-h2d_bytes = 0
+#: Scoring operands built (`_scoring_operands`: the tier's tables
+#: quantized, packed and uploaded), never reset: read its movement. A
+#: model that owns its operands (ServableModel) builds them once.
+operand_builds = 0
 
 
 class LabelHandle(NamedTuple):
@@ -124,6 +130,16 @@ def _pack(tree) -> torch.Tensor:
         tree.feature.float(), tree.threshold_bin.float(),
         tree.is_leaf.float(), tree.leaf_value, tree.split_gain,
         tree.default_left.float()])
+
+
+class ScoringOperands(NamedTuple):
+    """One model's scoring operands, owned by its holder
+    (CUDADevice.prepare_scoring): the compiled model, the tier's operands
+    on the device and the tier ("lut4" | "lut" | "f32")."""
+
+    compiled: CompiledEnsemble
+    ops: Any
+    tier: str
 
 
 class CUDADevice(DeviceBackend):
@@ -640,8 +656,9 @@ class CUDADevice(DeviceBackend):
         on a side stream (`_ChunkStager`): the copy of the next chunk
         runs under the current chunk's kernels, and the returned tensor
         is a staging buffer, valid until the upload after next, unless
-        `keep` (a tensor of its own, for the chunk cache). Counts
-        h2d_bytes. Bin ranges are the caller's to check (check_bins)."""
+        `keep` (a tensor of its own, for the chunk cache). Counts the
+        block's bytes, padding included, in telemetry's h2d_bytes. Bin
+        ranges are the caller's to check (check_bins)."""
         if not isinstance(Xc, torch.Tensor):
             Xc = np.asarray(Xc)
         start, stop, local = self.block_bounds(Xc.shape[0])
@@ -650,7 +667,6 @@ class CUDADevice(DeviceBackend):
     def _upload_block(self, block, local: int, keep: bool) -> torch.Tensor:
         """This rank's rows of a chunk (`local` rows with its padding) on
         the device; see upload_chunk."""
-        global h2d_bytes
         if self.feature_group is not None:
             raise NotImplementedError(
                 "the streamed trainer is row-parallel only: "
@@ -658,7 +674,7 @@ class CUDADevice(DeviceBackend):
         if block.dtype not in (np.uint8, torch.uint8) or block.ndim != 2:
             raise TypeError(f"binned chunks must be uint8 [r, F], got "
                             f"{block.dtype} {tuple(block.shape)}")
-        h2d_bytes += local * block.shape[1]
+        tele_counters.record_h2d(local * block.shape[1])
         if self.device.type != "cuda":
             out = torch.zeros((local, block.shape[1]), dtype=torch.uint8)
             out[:block.shape[0]] = (block if isinstance(block, torch.Tensor)
@@ -807,10 +823,14 @@ class CUDADevice(DeviceBackend):
             cat_mask=self.cat_mask(data.shape[1]))
 
     def score_device(self, ens: TreeEnsemble, Xd: torch.Tensor,
-                     compiled=None) -> torch.Tensor:
+                     compiled=None, operands=None) -> torch.Tensor:
         """Raw margins of uploaded binned rows, left on the device (the
-        tier predict_raw serves)."""
-        ce, ops = self._prepared(ens, compiled)
+        tier predict_raw serves). `operands` (prepare_scoring's) score
+        without the backend's cache."""
+        if operands is None:
+            ce, ops = self._prepared(ens, compiled)
+        else:
+            ce, ops = operands.compiled, operands.ops
         if isinstance(ops, predict_lut.LutOperands):
             return ops.score(Xd)
         return predict_ops.predict_prepared(
@@ -869,7 +889,10 @@ class CUDADevice(DeviceBackend):
     def _scoring_operands(self, ce: CompiledEnsemble, n_features: int):
         """(operands, tier): the reference's ladder (TPUDevice._predict_fn)
         int4 -> int8 -> f32, each step taken only when the fits guard
-        refuses the shape, decided before any launch."""
+        refuses the shape, decided before any launch. Counted in
+        `operand_builds`."""
+        global operand_builds
+        operand_builds += 1
         impl = self.cfg.predict_impl
         lut = None
         if impl == "lut4":
@@ -907,6 +930,7 @@ class CUDADevice(DeviceBackend):
             hit = self._predict_cache.pop(token, None)
             if hit is not None:
                 self._predict_cache[token] = hit    # most recently used
+                tele_counters.record_compiled_ensemble_hit()
                 return hit
         ce = compiled if compiled is not None else ens.compile(
             tree_chunk=64)
@@ -921,18 +945,27 @@ class CUDADevice(DeviceBackend):
                 self._predict_impl_resolved.pop(gone, None)
         return hit
 
-    def predict_raw(self, ens: TreeEnsemble, Xb,
-                    compiled=None) -> np.ndarray:
-        ce, ops = self._prepared(ens, compiled)
+    def prepare_scoring(self, ens: TreeEnsemble,
+                        compiled: CompiledEnsemble | None = None
+                        ) -> "ScoringOperands":
+        """One model's scoring operands on the device at the tier the
+        ladder resolves, built now and kept by the caller, never put in
+        the backend's cache (see the module docstring)."""
+        ce = compiled if compiled is not None else ens.compile(
+            tree_chunk=64)
+        ops, tier = self._scoring_operands(ce, ens.n_features)
+        with self._cache_lock:
+            self._predict_impl_resolved[ce.token] = tier
+        return ScoringOperands(ce, ops, tier)
+
+    def predict_raw(self, ens: TreeEnsemble, Xb, compiled=None,
+                    operands: "ScoringOperands | None" = None
+                    ) -> np.ndarray:
+        """Raw margins of binned rows as a host array: through `operands`
+        (prepare_scoring's) when given, else the backend's cache."""
         Xd = self.device_rows(Xb)
-        if isinstance(ops, predict_lut.LutOperands):
-            out = ops.score(Xd)
-        else:
-            out = predict_ops.predict_prepared(
-                ops, Xd, learning_rate=ce.learning_rate,
-                base=ce.base_score, tree_chunk=ce.tree_chunk,
-                missing_bin_value=ce.missing_bin_value)
-        return out.cpu().numpy()
+        return self.score_device(ens, Xd, compiled,
+                                 operands).cpu().numpy()
 
 
 class RowShardedScorer:

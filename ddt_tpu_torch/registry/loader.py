@@ -22,8 +22,11 @@ restores and scores with `_build.builds` at 0.
 Tier rules (the reference's): quantize=None follows the artifact, True
 takes the artifact's tier, "int8" / "int4" demand that tier; a tier the
 artifact does not carry, or a quantized request on an f32-only artifact,
-refuses. The reference's run-log `artifact` events belong to the
-telemetry layer, which is not ported: there is no `run_log` parameter.
+refuses.
+
+Every restore emits an `artifact` run-log event (action "load", the
+digest, the manifest's kind / run_id / token, the mode) when `run_log=`
+is given, and `push_servable` passes its `run_log` to the store's push.
 
 File reads happen here, on the caller's thread, never in the engine's
 dispatch loop.
@@ -44,6 +47,16 @@ from ddt_tpu_torch.registry.store import DIGEST_LEN, Registry, RegistryError
 log = logging.getLogger("ddt_tpu_torch.registry.loader")
 
 
+def _emit_artifact_event(run_log, action: str, digest: str, man: dict,
+                         mode: str | None = None) -> None:
+    if run_log is None:
+        return
+    run_log.emit("artifact", action=action, digest=digest,
+                 kind=man.get("kind"), run_id=man.get("run_id"),
+                 model_token=(man.get("model_token") or "")[:12] or None,
+                 mode=mode)
+
+
 @dataclasses.dataclass
 class LoadReport:
     """What the restore did."""
@@ -55,20 +68,29 @@ class LoadReport:
 
 
 def load_servable(root, ref: str, *, quantize=None, raw: bool = False,
-                  backend=None, cfg=None,
-                  device: str = "cuda") -> LoadReport:
+                  backend=None, cfg=None, device: str = "cuda",
+                  run_log=None) -> LoadReport:
     """Restore a servable model from registry reference `ref` (digest,
     `name`, `name@version` or `name@tag`; see the module docstring for
     `quantize`). The model scores on `backend` if given, else on the
     backend of `cfg` (its predict_impl set to the restored tier), else on
-    the one of `device`."""
+    the one of `device`. `run_log` (a RunLog, or a path, opened and
+    closed here) receives the `artifact` load event."""
     from ddt_tpu_torch import api
     from ddt_tpu_torch.backends import get_backend
     from ddt_tpu_torch.config import TrainConfig
     from ddt_tpu_torch.export import aot
     from ddt_tpu_torch.serve.engine import (TIER_IMPL, ServableModel,
                                             normalize_quantize)
+    from ddt_tpu_torch.telemetry.events import RunLog
 
+    # A log opened here from a path is closed here; a caller's RunLog
+    # stays the caller's to close.
+    if isinstance(run_log, str):
+        with RunLog(run_log) as own:
+            return load_servable(root, ref, quantize=quantize, raw=raw,
+                                 backend=backend, cfg=cfg, device=device,
+                                 run_log=own)
     reg = root if isinstance(root, Registry) else Registry(root)
     art_dir, man, digest = reg.get(ref)
     if man.get("kind") != "servable":
@@ -121,6 +143,7 @@ def load_servable(root, ref: str, *, quantize=None, raw: bool = False,
         buckets=tuple(sorted(int(b) for b in man["buckets"])), raw=raw,
         tables=_load_tables(art_dir, man) if tier else None)
     model.artifact_digest = digest
+    _emit_artifact_event(run_log, "load", digest, man, mode=mode)
     log.info("restored %s from %s (%s)", man["model_token"][:12], digest,
              mode)
     return LoadReport(digest=digest, mode=mode, model=model, manifest=man)
@@ -145,13 +168,15 @@ def _load_tables(art_dir: str, man: dict):
 def push_servable(root, bundle, *, name: str | None = None,
                   max_batch: int = 256, quantize=False, raw: bool = False,
                   tree_chunk: int = 64, run_id: str | None = None,
-                  tag: str | None = None) -> dict:
+                  tag: str | None = None, run_log=None) -> dict:
     """Export and publish in one call: stage a servable artifact for the
-    engine's power-of-two bucket ladder up to `max_batch`, then push it.
-    `quantize` is the tier (False | True/"int8" | "int4"). Returns the
-    store's {digest, name, version}."""
+    engine's power-of-two bucket ladder up to `max_batch`, then push it
+    (an `artifact` push event to `run_log`, a RunLog or a path). `quantize`
+    is the tier (False | True/"int8" | "int4"). Returns the store's
+    {digest, name, version}."""
     from ddt_tpu_torch.export import aot
     from ddt_tpu_torch.serve.engine import default_buckets
+    from ddt_tpu_torch.telemetry.events import RunLog
 
     if tag is not None and name is None:
         raise RegistryError(
@@ -164,7 +189,8 @@ def push_servable(root, bundle, *, name: str | None = None,
                            quantize=quantize, raw=raw,
                            tree_chunk=tree_chunk, run_id=run_id)
         # stage_servable hashed every file moments ago in this process.
-        return reg.push(stage, name, tag=tag, verify_files=False)
+        return reg.push(stage, name, tag=tag, run_log=RunLog.coerce(run_log),
+                        verify_files=False)
     except BaseException:
         shutil.rmtree(stage, ignore_errors=True)
         raise

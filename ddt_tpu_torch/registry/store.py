@@ -115,10 +115,12 @@ class Registry:
     # ------------------------------------------------------------------ #
 
     def push(self, stage_dir: str, name: str | None = None, *,
-             tag: str | None = None, verify_files: bool = True) -> dict:
+             tag: str | None = None, run_log=None,
+             verify_files: bool = True) -> dict:
         """Publish a finalized staged artifact (export.aot.stage_servable
         wrote it, manifest.json included). Returns {digest, name,
-        version} (version None for anonymous pushes).
+        version} (version None for anonymous pushes). Emits an
+        `artifact` push event when `run_log` (a RunLog) is given.
         `verify_files=False` skips re-hashing every staged file, for
         callers that built the stage in this process (the manifest
         writer hashed them already)."""
@@ -144,6 +146,12 @@ class Registry:
         version = None
         if name is not None:
             version = self._record_version(name, digest, man, tag=tag)
+        if run_log is not None:
+            run_log.emit(
+                "artifact", action="push", digest=digest[:DIGEST_LEN],
+                name=name, version=version, kind=man.get("kind"),
+                run_id=man.get("run_id"), model_token=man.get(
+                    "model_token", "")[:12] or None)
         log.info("registry push %s%s -> %s", name or "(anonymous)",
                  f"@{version}" if version else "", digest[:DIGEST_LEN])
         return {"digest": digest[:DIGEST_LEN], "name": name,

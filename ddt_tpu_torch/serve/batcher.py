@@ -21,10 +21,15 @@ micro-batches:
   one: each remembers its row count, so the dispatcher's scatter is
   positional and a request's rows can neither drop nor duplicate.
 
+Driven mode (serve/fleet.py): with `cv=` the batcher shares the fleet's
+one Condition and, with `own_thread=False`, has no dispatcher thread of
+its own; the fleet's single dispatcher drives it through the *_locked
+surface (called with that Condition held) and `dispatch_under_gate`.
+`request_traces=False` turns the per-request trace marks off (a
+client-supplied trace id is still echoed).
+
 No `time.sleep` and no file I/O in here: a blocked dispatcher stalls
-every in-flight request. Left out of the port for now: the fleet's driven
-mode (a shared Condition, no own thread, the *_locked driver surface),
-which waits for serve/fleet.py.
+every in-flight request.
 """
 
 from __future__ import annotations
@@ -84,8 +89,9 @@ class PendingRequest:
     dispatcher with the token of the model that actually scored this
     request (reading the engine's token around submit/result instead races
     a hot swap). `express` marks a request the express lane dispatched.
-    `trace_id`/`marks` carry the request trace (trace_breakdown); a
-    request made outside a MicroBatcher has none."""
+    `trace_id`/`marks` carry the request trace (trace_breakdown); marks
+    are None with request traces off and on a request made outside a
+    MicroBatcher."""
 
     __slots__ = ("rows", "n", "t_submit", "model_token", "express",
                  "trace_id", "marks", "_event", "_result", "_error")
@@ -122,7 +128,8 @@ class PendingRequest:
 
     def exception(self) -> "BaseException | None":
         """The delivered error without raising it (None while pending or
-        on success)."""
+        on success): the fleet's express path reads it to turn an
+        eviction racing the lane into a reload and a requeue."""
         return self._error
 
 
@@ -134,16 +141,19 @@ class MicroBatcher:
     request exceeds it alone; those dispatch solo) and the queue depth at
     close time. The dispatch callable delivers every request's result or
     error; if it raises, the batcher fails the batch's requests with the
-    exception so no submitter hangs."""
+    exception so no submitter hangs. `cv` / `own_thread=False` is the
+    driven mode (module docstring)."""
 
     def __init__(self, dispatch, max_wait_ms: float = 1.0,
-                 max_batch: int = 256, clock=None):
+                 max_batch: int = 256, clock=None, cv=None,
+                 own_thread: bool = True, request_traces: bool = True):
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
         if max_wait_ms < 0:
             raise ValueError(
                 f"max_wait_ms must be >= 0, got {max_wait_ms}")
         self._dispatch = dispatch
+        self.request_traces = bool(request_traces)
         self.max_wait_s = max_wait_ms / 1e3
         self.max_batch = int(max_batch)
         # Injectable clock for t_submit stamps and deadline arithmetic
@@ -152,12 +162,18 @@ class MicroBatcher:
         self._clock = clock if clock is not None else time.perf_counter
         self._q: collections.deque[PendingRequest] = collections.deque()
         self._cv = threading.Condition()
+        if cv is not None:
+            # Driven mode shares the fleet's Condition (reentrant), so its
+            # one dispatcher parks on every model's queue at once.
+            self._cv = cv
         # Held around every dispatch, batch loop and express lane alike.
         self._gate = threading.Lock()
         self._closed = False
-        self._thread = threading.Thread(
-            target=self._loop, name="ddt-serve-batcher", daemon=True)
-        self._thread.start()
+        self._thread = None
+        if own_thread:
+            self._thread = threading.Thread(
+                target=self._loop, name="ddt-serve-batcher", daemon=True)
+            self._thread.start()
 
     def submit(self, rows, n: int,
                trace_id: "str | None" = None) -> PendingRequest:
@@ -166,15 +182,19 @@ class MicroBatcher:
         req = PendingRequest(rows, n)
         t = self._clock()
         req.t_submit = t
-        req.trace_id = trace_id if trace_id else _gen_trace_id()
-        # The clock rides along so the dispatch body stamps its marks on
-        # the same timebase.
-        req.marks = {"_clock": self._clock, "accept": t}
+        if self.request_traces:
+            req.trace_id = trace_id if trace_id else _gen_trace_id()
+            # The clock rides along so the dispatch body stamps its marks
+            # on the same timebase.
+            req.marks = {"_clock": self._clock, "accept": t}
+        else:
+            req.trace_id = trace_id
         with self._cv:
             if self._closed:
                 raise ShuttingDown("serve batcher is shut down")
             self._q.append(req)
-            req.marks["admit"] = self._clock()
+            if req.marks is not None:
+                req.marks["admit"] = self._clock()
             self._cv.notify_all()
         return req
 
@@ -200,8 +220,12 @@ class MicroBatcher:
             t = self._clock()
             req.t_submit = t
             req.express = True
-            req.trace_id = trace_id if trace_id else _gen_trace_id()
-            req.marks = {"_clock": self._clock, "accept": t, "admit": t}
+            if self.request_traces:
+                req.trace_id = trace_id if trace_id else _gen_trace_id()
+                req.marks = {"_clock": self._clock, "accept": t,
+                             "admit": t}
+            else:
+                req.trace_id = trace_id
             try:
                 self._dispatch([req], 0)
             # Same contract as the dispatcher loop: a scoring failure
@@ -216,14 +240,67 @@ class MicroBatcher:
     def backlog_rows(self) -> int:
         """Live queued-row count (read-only)."""
         with self._cv:
-            return sum(r.n for r in self._q)
+            return self.backlog_rows_locked()
 
     def close(self, timeout: float = 5.0) -> None:
-        """Stop admitting, drain what is queued, join the dispatcher."""
+        """Stop admitting, drain what is queued, join the dispatcher (a
+        driven batcher has no thread: the fleet loop drains it)."""
         with self._cv:
             self._closed = True
             self._cv.notify_all()
-        self._thread.join(timeout)
+        if self._thread is not None:
+            self._thread.join(timeout)
+
+    # ------------------------------------------------------------------ #
+    # the fleet dispatcher's surface (serve/fleet.py), called with the shared
+    # Condition held; none of these takes a lock itself
+    # ------------------------------------------------------------------ #
+
+    def backlog_rows_locked(self) -> int:
+        return sum(r.n for r in self._q)
+
+    def head_deadline_locked(self) -> "float | None":
+        """Admission deadline of the oldest queued request (pinned to it,
+        as in `_loop`), or None on an empty queue."""
+        if not self._q:
+            return None
+        return self._q[0].t_submit + self.max_wait_s
+
+    def ready_locked(self, now: float) -> bool:
+        """True when a batch should close now: the head request's window
+        expired, or the row budget is full."""
+        if not self._q:
+            return False
+        if self._q[0].t_submit + self.max_wait_s <= now:
+            return True
+        return self.backlog_rows_locked() >= self.max_batch
+
+    def admit_locked(self) -> "tuple[list[PendingRequest], int]":
+        """Pop the next micro-batch for the fleet dispatcher (the same FIFO,
+        never-split admission as the owned loop)."""
+        return self._admit_locked()
+
+    def fail_pending_locked(self, err: BaseException) -> int:
+        """Fail every queued request with `err` (the fleet's remove
+        path); returns how many waiters were failed."""
+        n = 0
+        while self._q:
+            self._q.popleft().set_error(err)
+            n += 1
+        return n
+
+    def dispatch_under_gate(self, fn, batch, depth: int) -> None:
+        """Run one admitted batch through `fn(batch, depth)` under the
+        dispatch gate (never overlapping an express dispatch of the same
+        model); a raising `fn` fails the batch's waiters instead of the
+        dispatcher thread."""
+        try:
+            with self._gate:
+                fn(batch, depth)
+        except Exception as e:
+            for req in batch:
+                if not req.done():
+                    req.set_error(e)
 
     def _admit_locked(self) -> "tuple[list[PendingRequest], int]":
         """Pop the next micro-batch (lock held, queue non-empty): FIFO

@@ -21,17 +21,30 @@ csrc/lut.cu), down the backend's int4 -> int8 -> f32 fits-guard
 ladder; `ServableModel.predict_impl` reports the tier that serves. On the
 card by default (cfg.device="cuda"); device="cpu" runs the plain versions.
 
+A ServableModel owns its scoring operands on the device (the compiled
+model, the tier's tables, the tier: `CUDADevice.prepare_scoring`, built
+once at warm-up, outside the backend's per-model cache), as the
+reference's RestoredModel owns its programs: once a model is published
+no dispatch builds operands, however many models share the backend, and
+dropping the last reference to a model frees its tables on the card.
+
 A model restored from the registry (registry/loader.load_servable) is a
 ServableModel stamped with its `artifact_digest`, which health() shows;
 the engine publishes it as it is, at construction or by swap.
 
-Left out of the port for now: everything that writes to the telemetry
-plane (RunLog events, telemetry counters, serve_latency emission and the
-trace flush), the drift/shadow observer, swaps by registry reference,
-the fleet and HTTP front ends.
+Telemetry: the serve counters (telemetry/counters), `serve_latency`
+windows (`emit_latency`), `serve_trace` flushes, the swap's
+`fault kind=hot_swap` event and `metrics_snapshot` for `/metrics`. The
+fleet (serve/fleet.py) shares `dispatch_batch` and `ServeStats`; the
+HTTP front end is serve/http.py.
+
+Left out: the reference's AOT-restored model (RestoredModel scoring
+through deserialized programs). The port restores by rebuild or from the
+carried tables (registry/loader.py), so `ServableModel.aot` is always
+False.
 
 No `time.sleep` and no file reads here: models are handed in as ready
-ModelBundles.
+ModelBundles (the http and control layers load them).
 """
 
 from __future__ import annotations
@@ -51,6 +64,8 @@ from ddt_tpu_torch.backends import get_backend
 from ddt_tpu_torch.config import TrainConfig
 from ddt_tpu_torch.serve.batcher import (MicroBatcher, PendingRequest,
                                          trace_breakdown)
+from ddt_tpu_torch.telemetry import counters as tele_counters
+from ddt_tpu_torch.telemetry.events import RunLog
 
 log = logging.getLogger("ddt_tpu_torch.serve")
 
@@ -100,15 +115,19 @@ class ServableModel:
     """One model version, prepared to score micro-batches.
 
     Build cost (validation, CompiledEnsemble, quantized tables, device
-    upload, one dispatch per bucket) is paid here, off the request path;
-    `score_binned()` is pad + dispatch. Instances are immutable once
-    built: the engine swaps whole references. `raw=True` scores raw
+    upload, one dispatch per bucket) is paid here and in `warmup`, off
+    the request path; `score_binned()` is pad + dispatch through the
+    operands this model owns (`operands()`). Instances are immutable
+    once warm: the engine swaps whole references. `raw=True` scores raw
     margins instead of probabilities; `tables` are carried quantized
     tables (a registry artifact's), which serve as they are."""
 
     #: Short registry digest of the artifact this model was restored from
     #: (registry/loader); None for a model built from a bundle.
     artifact_digest: "str | None" = None
+    #: The reference's flag for a model scoring through deserialized
+    #: programs; the port has none (export/aot.py), so always False.
+    aot: bool = False
 
     def __init__(self, bundle, backend, *, quantize=None,
                  buckets: tuple[int, ...] = (1,), raw: bool = False,
@@ -147,11 +166,29 @@ class ServableModel:
         else:
             self.tables = None
             self.max_abs_err = 0.0
+        self._ops = None
+        self._ops_lock = threading.Lock()
+
+    def operands(self):
+        """This model's scoring operands on the backend's device
+        (ScoringOperands), built on first use (warm-up) and kept."""
+        ops = self._ops
+        if ops is None:
+            with self._ops_lock:
+                if self._ops is None:
+                    self._ops = self.backend.prepare_scoring(
+                        self.ens, self.compiled)
+                ops = self._ops
+        return ops
 
     @property
     def predict_impl(self) -> str:
         """The tier actually serving this model ("lut4" | "lut" | "f32"),
-        as the backend's ladder resolved it at warm-up."""
+        as the backend's ladder resolved it at warm-up and kept with the
+        operands."""
+        ops = self._ops
+        if ops is not None:
+            return ops.tier
         return self.backend.resolved_predict_impl(self.token)
 
     @property
@@ -182,14 +219,15 @@ class ServableModel:
         b = bucket_for(n, self.buckets)
         if n < b:
             Xb = torch.cat([Xb, Xb.new_zeros((b - n, Xb.shape[1]))])
-        out = self.backend.predict_raw(self.ens, Xb,
-                                       compiled=self.compiled)[:n]
+        out = self.backend.predict_raw(self.ens, Xb, compiled=self.compiled,
+                                       operands=self.operands())[:n]
         return out if self.raw else predict_proba_np(out, self.ens.loss)
 
     def warmup(self) -> None:
         """Score every bucket shape before the model is published: the
-        tier resolves, the operands upload and, on the card, the kernel
-        is built, so a swap never makes a live request pay for them."""
+        tier resolves, the operands are built and uploaded and, on the
+        card, the kernel is built, so a swap never makes a live request
+        pay for them."""
         dummy = np.zeros((1, self.n_features), np.uint8)
         for b in self.buckets:
             self.score_binned(np.repeat(dummy, b, axis=0))
@@ -361,11 +399,14 @@ def _bin_batch(model, floats: list) -> list:
     return [Xb[offs[i]:offs[i + 1]] for i in range(len(floats))]
 
 
-def dispatch_batch(model, batch, queue_depth: int, stats) -> list:
+def dispatch_batch(model, batch, queue_depth: int, stats,
+                   observer=None) -> list:
     """Score ONE admitted micro-batch against `model` and deliver every
-    result or error. The caller read the model reference once, so every
-    request in the batch is scored by exactly this version. Returns the
-    per-request latencies (ms) of the delivered requests.
+    result or error; shared by ServeEngine._dispatch and the fleet's
+    per-model dispatch. The caller read the model reference once, so
+    every request in the batch is scored by exactly this version. Returns
+    the per-request latencies (ms) of the delivered requests (the fleet's
+    SLO tracker reads them).
 
     Raw float requests are binned here, under the model that scores them
     (binning at submit could pair model A's bins with model B's trees
@@ -374,11 +415,27 @@ def dispatch_batch(model, batch, queue_depth: int, stats) -> list:
     rounded once, as alone), and the batch is binned once on the device
     (_bin_batch). Width, cast and binning failures are per request: a bad
     submission fails its own waiter, never the valid requests beside it.
-    Trace marks ride the requests' own `marks` on the batcher's clock."""
-    clk = batch[0].marks["_clock"]
-    t = clk()
+
+    `observer(Xb, scores, lats)` (the drift / shadow seam, serve/drift.py)
+    runs after every waiter has its result, so it adds nothing ahead of
+    the responses, and a failure inside it is contained. It sees the
+    batch as scored: the concatenated binned rows (on the device where
+    they were binned or uploaded, else the host block), never the
+    bucket's padding, and this model's scores.
+
+    Trace marks ride the requests' own `marks` on the batcher's clock
+    (None with request traces off); the completed breakdowns land in the
+    stats ring before any waiter wakes."""
+    clk = None
     for r in batch:
-        r.marks["gate"] = t
+        if r.marks is not None:
+            clk = r.marks["_clock"]
+            break
+    if clk is not None:
+        t = clk()
+        for r in batch:
+            if r.marks is not None:
+                r.marks["gate"] = t
     good, blocks = [], []
     floats, float_at = [], []       # f32 rows, and their slots in blocks
     for r in batch:
@@ -414,36 +471,57 @@ def dispatch_batch(model, batch, queue_depth: int, stats) -> list:
         return []
     Xb = blocks[0] if len(blocks) == 1 else torch.cat(
         [model.backend.device_rows(b) for b in blocks])
-    t = clk()
-    for r in good:
-        r.marks["device"] = t
+    if clk is not None:
+        t = clk()
+        for r in good:
+            if r.marks is not None:
+                r.marks["device"] = t
     scores = model.score_binned(Xb)
     done = time.perf_counter()
-    t = clk()
-    for r in good:
-        r.marks["done"] = t
+    if clk is not None:
+        t = clk()
+        for r in good:
+            if r.marks is not None:
+                r.marks["done"] = t
     lats = [(done - r.t_submit) * 1e3 for r in good]
-    t = clk()
-    traces = []
-    for r in good:
-        r.marks["wake"] = t
-        traces.append({"trace_id": r.trace_id, "rows": r.n,
-                       "express": r.express, **trace_breakdown(r)})
+    express = good[0].express
+    traces = None
+    if clk is not None:
+        t = clk()
+        traces = []
+        for r in good:
+            if r.marks is None:
+                continue
+            r.marks["wake"] = t
+            traces.append({"trace_id": r.trace_id, "rows": r.n,
+                           "express": r.express, **trace_breakdown(r)})
     # Stats land before any waiter wakes: a caller that reads the window
     # as soon as result() returns finds its own batch in it.
-    stats.record_batch(len(good), queue_depth, lats,
-                       express=good[0].express, traces=traces)
+    tele_counters.record_serve_requests(len(good))
+    tele_counters.record_serve_batch()
+    if express:
+        tele_counters.record_serve_express()
+    stats.record_batch(len(good), queue_depth, lats, express=express,
+                       traces=traces)
     off = 0
     for req in good:
         # Attribution before the result event fires.
         req.model_token = model.token
         req.set_result(scores[off:off + req.n])
         off += req.n
+    if observer is not None:
+        try:
+            observer(Xb, scores, lats)
+        # Best effort by contract: an observer never takes the dispatcher
+        # down nor touches the delivered results.
+        except Exception:
+            log.exception("dispatch observer failed")
     return lats
 
 
 class ServeEngine:
-    """The scoring process's core, transport-agnostic.
+    """The scoring process's core, transport-agnostic (the HTTP front end,
+    the CLI and the tests drive this same object).
 
     Request path: submit -> admission batch (MicroBatcher) -> one dispatch
     against the model reference read at batch start -> scatter ->
@@ -452,23 +530,39 @@ class ServeEngine:
     reference (in-flight batches keep the version they started with)."""
 
     def __init__(self, bundle, cfg: TrainConfig | None = None, *,
-                 max_wait_ms: float = 1.0, max_batch: int = 256,
-                 quantize=None):
+                 backend=None, max_wait_ms: float = 1.0,
+                 max_batch: int = 256, quantize=None, raw: bool = False,
+                 run_log=None, express_lane: bool = True,
+                 model_name: "str | None" = None,
+                 request_traces: bool = True):
         self.cfg = cfg if cfg is not None else TrainConfig()
+        # Optional identity: when set, serve_latency windows, hot_swap
+        # events and health() carry the model_name dimension.
+        self.model_name = model_name
         self.quantize_tier = normalize_quantize(quantize)
         want_impl = TIER_IMPL.get(self.quantize_tier)
         if want_impl is not None and self.cfg.predict_impl != want_impl:
             # quantize= is the tier opt-in: the backend's dispatch and the
             # engine's error-bound reporting must agree.
             self.cfg = self.cfg.replace(predict_impl=want_impl)
-        self.backend = get_backend(self.cfg)
+        self.backend = backend if backend is not None \
+            else get_backend(self.cfg)
         self.buckets = default_buckets(max_batch)
+        self.quantize = self.quantize_tier is not None
+        self.raw = bool(raw)
+        self.express_lane = bool(express_lane)
         self.stats = ServeStats()
+        self.run_log = RunLog.coerce(run_log)
+        # Registry root for swaps by reference (`cli serve --registry`
+        # sets it; serve/http.py resolves the reference).
+        self.registry_root: "str | None" = None
+        self.request_traces = bool(request_traces)
         self._swap_lock = threading.Lock()
         self._model = self._build(bundle)
         self._batcher = MicroBatcher(self._dispatch,
                                      max_wait_ms=max_wait_ms,
-                                     max_batch=max_batch)
+                                     max_batch=max_batch,
+                                     request_traces=self.request_traces)
 
     # ------------------------------------------------------------------ #
     # model lifecycle
@@ -480,7 +574,7 @@ class ServeEngine:
             return bundle
         m = ServableModel(bundle, self.backend,
                           quantize=self.quantize_tier,
-                          buckets=self.buckets)
+                          buckets=self.buckets, raw=self.raw)
         m.warmup()
         return m
 
@@ -490,19 +584,29 @@ class ServeEngine:
 
     @property
     def n_features(self) -> int:
-        """Feature width of the currently served model."""
+        """Feature width of the currently served model (the raw wire
+        path derives the row count from it)."""
         return self._model.n_features
 
     def swap(self, bundle) -> dict:
         """Zero-downtime hot swap: build and warm the new version off the
-        request path, then publish it with one reference store. Returns
-        {old, new} tokens."""
+        request path, then publish it with one reference store. Counts a
+        hot swap and emits its `fault kind=hot_swap` event. Returns {old,
+        new} tokens."""
         with self._swap_lock:               # serialize concurrent swaps
             new = self._build(bundle)
             old = self._model.token
+            old_digest = self._model.artifact_digest
             # Readers (_dispatch, health, the express lane) take one
             # unlocked read and see the old or the new model, never a mix.
-            self._model = new
+            self._model = new  # ddtlint: atomic-publish
+        tele_counters.record_serve_hot_swap()
+        if self.run_log is not None:
+            extra = ({"model_name": self.model_name}
+                     if self.model_name is not None else {})
+            self.run_log.emit("fault", kind="hot_swap", old=old,
+                              new=new.token, old_artifact=old_digest,
+                              new_artifact=new.artifact_digest, **extra)
         log.info("hot-swapped model %s -> %s", old[:12], new.token[:12])
         return {"old": old, "new": new.token}
 
@@ -517,7 +621,7 @@ class ServeEngine:
             raise ValueError(
                 f"rows have {rows.shape[1]} features; the served model "
                 f"expects {self._model.n_features}")
-        if rows.shape[0] == 1:
+        if self.express_lane and rows.shape[0] == 1:
             # Express lane: at an empty queue with no batch mid-dispatch,
             # a single row scores here on the caller's thread; under load
             # express() returns None and the request coalesces.
@@ -536,14 +640,53 @@ class ServeEngine:
         dispatch_batch(model, batch, queue_depth, self.stats)
 
     # ------------------------------------------------------------------ #
-    # read-only state
+    # telemetry
     # ------------------------------------------------------------------ #
 
+    def emit_latency(self, reset: bool = True) -> dict | None:
+        """Emit the current window as a `serve_latency` run-log event;
+        returns the payload (None when the window is empty: an idle
+        server emits nothing)."""
+        summary = self.stats.window_summary(reset=reset)
+        if summary["requests"] == 0:
+            return None
+        m = self._model
+        summary["model_token"] = m.token
+        if self.model_name is not None:
+            summary["model_name"] = self.model_name
+        summary["predict_impl"] = m.predict_impl
+        if m.artifact_digest is not None:
+            summary["artifact_digest"] = m.artifact_digest
+        if self.run_log is not None:
+            self.run_log.emit("serve_latency", **summary)
+        return summary
+
+    def debug_traces(self) -> dict:
+        """model name -> completed-trace ring (GET /debug/requests); an
+        anonymous engine keys on "default"."""
+        return {self.model_name or "default":
+                self.stats.traces_snapshot()}
+
+    def flush_traces(self, reason: str = "on_demand") -> int:
+        """Flush the trace ring into the run log as one `serve_trace`
+        event; returns the number of traces flushed (0, and nothing
+        emitted, on an empty ring or without a run log)."""
+        traces = self.stats.traces_snapshot()
+        if not traces or self.run_log is None:
+            return 0
+        extra = ({"model_name": self.model_name}
+                 if self.model_name is not None else {})
+        self.run_log.emit("serve_trace", traces=traces, count=len(traces),
+                          model_token=self._model.token, reason=reason,
+                          **extra)
+        return len(traces)
+
     def metrics_snapshot(self) -> dict:
-        """Live, non-resetting state: the latency histogram on the fixed
-        ladder and the live backlog."""
+        """Live, non-resetting state for `/metrics` (serve/metrics.py
+        renders it): the latency histogram on the fixed ladder and the
+        live backlog. Read-only."""
         return {
-            "models": {"default": {
+            "models": {self.model_name or "default": {
                 "hist": self.stats.metrics_state(),
                 "backlog_rows": self._batcher.backlog_rows(),
                 "slo": None,
@@ -556,15 +699,21 @@ class ServeEngine:
         m = self._model
         return {
             "ok": True,
+            "model_name": self.model_name,
             "model_token": m.token,
-            "artifact_digest": m.artifact_digest,
             "quantized": m.quantized,
             "quantize_tier": m.quantize_tier,
             "predict_impl": m.predict_impl,
             "lut_max_abs_err": m.max_abs_err,
             "buckets": list(self.buckets),
+            "express_lane": self.express_lane,
+            "artifact_digest": m.artifact_digest,
+            "aot": m.aot,
             **self.stats.snapshot(),
         }
 
     def close(self) -> None:
         self._batcher.close()
+        self.emit_latency(reset=True)
+        if self.run_log is not None:
+            self.run_log.close()

@@ -38,8 +38,8 @@ then the new round's statistics.
 
 Uploads (CUDADevice.upload_chunk): pinned host staging, double-buffered
 on a side stream and ordered by events, so a chunk's transfer runs under
-the previous chunk's kernels; `backends.cuda.h2d_bytes` counts every
-transfer. The device chunk cache keeps uploaded chunks on the card up to
+the previous chunk's kernels; telemetry's `h2d_bytes` counter counts
+every transfer. The device chunk cache keeps uploaded chunks on the card up to
 a byte budget (`device_chunk_cache`): True takes a share of the card's
 free memory (DEVICE_CHUNK_CACHE_SHARE) and nothing on the CPU, where the
 "device" is host memory (the reference's rule); an int is a budget in

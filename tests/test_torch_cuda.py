@@ -1265,11 +1265,11 @@ def test_streamed_trees_equal_in_memory_on_card(dev, grad_dtype, cache):
     rounds x (depth + 1) times with the cache off, once with it on; and
     predict_streaming bitwise api.predict."""
     from ddt_tpu_torch import api
-    from ddt_tpu_torch.backends import cuda as cuda_be
     from ddt_tpu_torch.backends import get_backend
     from ddt_tpu_torch.config import TrainConfig
     from ddt_tpu_torch.driver import Driver
     from ddt_tpu_torch.streaming import fit_streaming, predict_streaming
+    from ddt_tpu_torch.telemetry import counters as tele_counters
 
     Xb, y = _stream_case()
     bounds = [0, 9_000, 30_000, 41_111, 52_000, 64_000]
@@ -1283,11 +1283,12 @@ def test_streamed_trees_equal_in_memory_on_card(dev, grad_dtype, cache):
     cfg = TrainConfig(n_trees=3, max_depth=6, n_bins=255, subsample=0.9,
                       seed=2, grad_dtype=grad_dtype)
     full = Driver(get_backend(cfg), cfg).fit(Xb, y)
-    cuda_be.h2d_bytes = 0
+    c0 = tele_counters.snapshot()
     before = hist_cuda.launches_exact, hist_cuda.launches
     streamed = fit_streaming(chunk_fn, 5, cfg, device_chunk_cache=cache)
     torch.cuda.synchronize()
-    assert cuda_be.h2d_bytes == Xb.nbytes * (1 if cache else 3 * 7)
+    assert tele_counters.delta(c0)["h2d_bytes"] == \
+        Xb.nbytes * (1 if cache else 3 * 7)
     if grad_dtype == "f32":
         assert hist_cuda.launches_exact - before[0] == 5 * 3 * 6
     assert hist_cuda.launches == before[1]
@@ -1390,3 +1391,214 @@ def test_n_partitions_across_cards_bitwise_one_card(dev, lifecycle_model):
     with pytest.raises(ValueError, match="CUDA cards visible"):
         api.predict(res.ensemble, X[:10], mapper=res.mapper,
                     n_partitions=n + 1)
+
+
+# --------------------------------------------------------------------- #
+# the serving plane on the card: fleet, eviction, shadow, cli serve
+# --------------------------------------------------------------------- #
+@pytest.fixture(scope="module")
+def fleet_models(lifecycle_model, tmp_path_factory):
+    """Three registry artifacts of the lifecycle model's data at f32,
+    int8 and int4 (learning rates 0.1, 0.05, 0.2), and each one's offline
+    api.predict on 2,000 rows at its tier."""
+    from ddt_tpu_torch import api
+    from ddt_tpu_torch.config import TrainConfig
+    from ddt_tpu_torch.data.datasets import synthetic_binary
+    from ddt_tpu_torch.registry.loader import push_servable
+
+    X, res = lifecycle_model
+    _, y = synthetic_binary(50_000, n_features=28, seed=21)
+    root = str(tmp_path_factory.mktemp("card_fleet") / "reg")
+    tiers = {"f32": (False, "auto", 0.1), "i8": ("int8", "lut", 0.05),
+             "i4": ("int4", "lut4", 0.2)}
+    want, bundles = {}, {}
+    for name, (q, impl, lr) in tiers.items():
+        r = res if lr == 0.1 else api.train(X, y, n_trees=20, max_depth=6,
+                                            n_bins=255, learning_rate=lr)
+        b = api.ModelBundle(r.ensemble, r.mapper)
+        push_servable(root, b, name=name, max_batch=256, quantize=q)
+        want[name] = api.predict(b, X[:2000],
+                                 cfg=TrainConfig(predict_impl=impl))
+        bundles[name] = b
+    return dict(X=X[:2000], root=root, want=want, bundles=bundles)
+
+
+def _card_fleet(fleet_models, **kw):
+    from ddt_tpu_torch.serve.control import build_fleet, parse_models_arg
+
+    return build_fleet(parse_models_arg("f32@1,i8@1,i4@1"),
+                       registry=fleet_models["root"], max_wait_ms=1.0, **kw)
+
+
+def test_fleet_storm_bitwise_each_tier_on_card(dev, fleet_models):
+    """Concurrent traffic over three models at f32, int8 and int4 with
+    max_resident 2: no failure, every response bitwise its artifact's
+    offline answer at its tier, each tier's kernel launched."""
+    import threading
+
+    X, want = fleet_models["X"], fleet_models["want"]
+    eng = _card_fleet(fleet_models, max_resident=2)
+    before = (predict_cuda.launches, predict_lut_cuda.launches_lut,
+              predict_lut_cuda.launches_lut4)
+    errs, got = [], []
+    lock = threading.Lock()
+
+    def worker(t):
+        rng = np.random.default_rng(t)
+        for i in range(20):
+            name = ("f32", "i8", "i4")[(t + i) % 3]
+            s, c = int(rng.integers(0, 1900)), int(rng.integers(1, 65))
+            try:
+                out = eng.predict(X[s:s + c], model=name, timeout=120.0)
+            except Exception as e:  # ddtlint: disable=broad-except — collected and asserted empty
+                with lock:
+                    errs.append(repr(e))
+                continue
+            with lock:
+                got.append((name, s, c, out))
+
+    try:
+        threads = [threading.Thread(target=worker, args=(t,))
+                   for t in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+        assert not any(t.is_alive() for t in threads)
+        assert not errs, errs[:3]
+        for name, s, c, out in got:
+            assert np.array_equal(out, want[name][s:s + c]), (name, s, c)
+        h = eng.health()
+        assert h["evictions"] >= 1 and h["reloads"] >= 1
+    finally:
+        eng.close()
+    torch.cuda.synchronize()
+    moved = [a - b for a, b in zip((predict_cuda.launches,
+                                    predict_lut_cuda.launches_lut,
+                                    predict_lut_cuda.launches_lut4), before)]
+    assert all(m > 0 for m in moved), moved
+
+
+def _operand_bytes(model) -> int:
+    ops = model.operands().ops
+    return sum(t.numel() * t.element_size() for t in ops.ops
+               if isinstance(t, torch.Tensor))
+
+
+def test_fleet_eviction_frees_card_memory(dev, fleet_models):
+    """Evicting a model and collecting its last reference gives its
+    operands' bytes back: with the bytes the incoming model adds measured
+    apart (loading it alone), memory_allocated drops by at least the
+    evicted model's operand bytes."""
+    import gc
+
+    from ddt_tpu_torch.serve.control import build_fleet, parse_models_arg
+
+    X = fleet_models["X"]
+
+    def allocated():
+        torch.cuda.synchronize()
+        gc.collect()
+        return torch.cuda.memory_allocated(dev)
+
+    m0 = allocated()
+    alone = build_fleet(parse_models_arg("i4@1"),
+                        registry=fleet_models["root"])
+    alone.predict(X[:8], model="i4", timeout=60.0)
+    added = allocated() - m0
+    alone.close()
+    del alone
+    eng = _card_fleet(fleet_models, max_resident=2)
+    try:
+        eng.predict(X[:8], model="f32", timeout=60.0)
+        eng.predict(X[:8], model="i8", timeout=60.0)
+        held = _operand_bytes(eng._slots["i8"].model)
+        assert held > 0
+        before = allocated()
+        eng.predict(X[:8], model="f32", timeout=60.0)   # i8 coldest
+        eng.predict(X[:8], model="i4", timeout=60.0)    # evicts i8
+        assert eng.health()["models"]["i8"]["resident"] is False
+        after = allocated()
+        assert before + added - after >= held, (before, added, after, held)
+    finally:
+        eng.close()
+
+
+def test_shadow_on_its_own_stream_leaves_champion_bitwise(dev,
+                                                          fleet_models):
+    """A shadow challenger scoring the champion's batches on its own CUDA
+    stream: the champion's responses are bitwise its offline answers and
+    those of a shadow-less fleet; the challenger scored rows."""
+    import time
+
+    from ddt_tpu_torch.serve.control import FleetSpec, build_fleet
+
+    X, want = fleet_models["X"], fleet_models["want"]
+    eng = build_fleet(
+        [FleetSpec(name="champ", ref="f32@1"),
+         FleetSpec(name="chall", ref="i4@1", tier="int4",
+                   shadow_of="champ")],
+        registry=fleet_models["root"], max_wait_ms=1.0)
+    try:
+        for s in range(0, 1920, 64):
+            out = eng.predict(X[s:s + 64], model="champ", timeout=60.0)
+            assert np.array_equal(out, want["f32"][s:s + 64]), s
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline:
+            sh = eng.health()["models"]["champ"]["shadow"]
+            if sh["rows"] + 64 * sh["dropped"] >= 1920:
+                break
+            time.sleep(0.01)
+        assert sh["rows"] > 0 and sh["errors"] == 0, sh
+        assert eng._slots["champ"].shadow._stream is not None
+    finally:
+        eng.close()
+
+
+def test_cli_serve_device_defaults_to_the_card(dev, fleet_models, tmp_path):
+    """`python -m ddt_tpu_torch.cli serve` with no --device serves on the
+    card: the child says so, and its answers are bitwise api.predict."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+    import time
+    import urllib.request
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "ddt_tpu_torch.cli", "serve", "--registry",
+         fleet_models["root"], "--model", "i8@1", "--quantized", "int8",
+         "--port", str(port)], cwd=root, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        info = json.loads(proc.stdout.readline())
+        assert info["device"] == "cuda"
+        X = fleet_models["X"]
+        deadline = time.monotonic() + 120
+        while True:
+            try:
+                req = urllib.request.Request(
+                    f"http://127.0.0.1:{port}/predict",
+                    data=json.dumps({"rows": X[:16].tolist()}).encode(),
+                    headers={"Content-Type": "application/json"},
+                    method="POST")
+                with urllib.request.urlopen(req, timeout=30) as r:
+                    got = np.float32(json.loads(r.read())["scores"])
+                break
+            except OSError:
+                assert time.monotonic() < deadline and proc.poll() is None
+                time.sleep(0.1)
+        assert np.array_equal(got, fleet_models["want"]["i8"][:16])
+        urllib.request.urlopen(urllib.request.Request(
+            f"http://127.0.0.1:{port}/shutdown", data=b"{}",
+            method="POST"), timeout=30).read()
+        assert proc.wait(timeout=60) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+        proc.communicate(timeout=30)

@@ -27,7 +27,6 @@ from ddt_tpu.models.tree import TreeEnsemble as JEnsemble
 from ddt_tpu.streaming import fit_streaming as j_fit_streaming
 from ddt_tpu.streaming import predict_streaming as j_predict_streaming
 from ddt_tpu_torch import api
-from ddt_tpu_torch.backends import cuda as cuda_backend
 from ddt_tpu_torch.backends import get_backend
 from ddt_tpu_torch.config import TrainConfig
 from ddt_tpu_torch.data import datasets
@@ -36,6 +35,7 @@ from ddt_tpu_torch.driver import Driver
 from ddt_tpu_torch.models.tree import TreeEnsemble
 from ddt_tpu_torch.parallel import spawn, tasks
 from ddt_tpu_torch.streaming import fit_streaming, predict_streaming
+from ddt_tpu_torch.telemetry import counters as tele_counters
 from tree_compare import assert_trees_match_mod_ties
 
 FIELDS = ("feature", "threshold_bin", "is_leaf", "leaf_value", "split_gain",
@@ -397,17 +397,18 @@ def test_stream_folded_pass_count(grad_dtype):
     chunk_fn.labels = lambda c: y[c * 512:(c + 1) * 512]
     chunk_fn.n_features = 8
     cfg = _cfg(n_trees=3, max_depth=4, n_bins=31, grad_dtype=grad_dtype)
-    cuda_backend.h2d_bytes = 0
+    c0 = tele_counters.snapshot()
     streamed = fit_streaming(chunk_fn, 4, cfg, device_chunk_cache=False)
     assert calls["n"] == 4 * 3 * (4 + 1)
-    assert cuda_backend.h2d_bytes == 512 * 8 * 4 * 3 * (4 + 1)
+    assert tele_counters.delta(c0)["h2d_bytes"] == \
+        512 * 8 * 4 * 3 * (4 + 1)
     _bitwise(_inmemory(Xb, y, cfg), streamed)
 
     calls["n"] = 0
-    cuda_backend.h2d_bytes = 0
+    c0 = tele_counters.snapshot()
     cached = fit_streaming(chunk_fn, 4, cfg, device_chunk_cache=1 << 30)
     assert calls["n"] == 4
-    assert cuda_backend.h2d_bytes == 512 * 8 * 4
+    assert tele_counters.delta(c0)["h2d_bytes"] == 512 * 8 * 4
     _bitwise(streamed, cached)
 
     # The default (True) caches nothing on the CPU, where the "device" is
