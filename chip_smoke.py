@@ -282,9 +282,36 @@ Phases:
              fleet / single engine, request traces on / off and drift +
              shadow on / off (min over 3 interleaved saturated windows a
              side, in process).
+ 29 ops      training telemetry and the operator's CLI at config 1's
+             full width (1M x 28 rows written to an .npz, 255 bins, depth
+             6, 100 trees): a `python -m ddt_tpu_torch.cli train` child
+             with --run-log, --status-port 0 (its /healthz polled until it
+             closes: progress rises to 100 and the last phase reads
+             done) and a capture window of rounds 2-3; every line of the
+             log validates: 100 round records, phase timings, counters
+             (jit_compiles 1: one captured round, no nvcc build; a device
+             peak), cost_analysis of the hist phase whose calls show 101
+             rounds of 6 K1 launches (the warm-up round and 100 replays);
+             its model bitwise an untelemetered api.train's. A --profile
+             child (the granular loop): its phases sum to within 15% of
+             its rounds' time, the hist phase's roofline GB/s is <= the
+             card's peak, trees bitwise again. `cli report`, `report
+             diff`, `cli trace` exit 0, the trace has 100 round slices,
+             the torch.profiler capture has ddt: ranges and the device
+             work of rounds 2-3 only (two graph launches, and in them 12
+             K1 kernels: CUPTI reports a replayed graph's kernels). `cli predict` at f32, int8 and int4: bitwise
+             api.predict; `cli inspect`. Then the same path in this
+             process with the counters zeroed around it (a telemetered
+             api.train and the three tiers' scoring: the ops path's
+             launches, 100 replays of a capture, new or kept from the
+             untelemetered api.train; its log's hist cost calls count
+             every replay either way), and the fused loop's ms a tree
+             with and without a run log (three fits each, interleaved,
+             each on a backend of its own, so each captures its round
+             once: capture included); each CLI child's seconds.
   then the {"kernels": [...]} line (K1 and K3 report covertype, the other
-  paths' launches under "paths", "stream", "lifecycle", "serve_plane"
-  and K3's "config4" included; K1's entry is its exact mode, with the float-atomic mode's
+  paths' launches under "paths", "stream", "lifecycle", "serve_plane",
+  "ops" and K3's "config4" included; K1's entry is its exact mode, with the float-atomic mode's
   time as cas_ms), nvidia-smi's line, and the ok line.
 
     python3 chip_smoke.py --phase multi
@@ -292,8 +319,9 @@ Phases:
     python3 chip_smoke.py --phase stream
     python3 chip_smoke.py --phase config4
     python3 chip_smoke.py --phase serve_plane
+    python3 chip_smoke.py --phase ops
 
-run the device, build and multi (or mesh2d, stream, config4, or
+run the device, build and multi (or mesh2d, stream, config4, ops, or
 serve_plane after training its two models) phases alone
 (the calls to make on a machine with several cards, or with the host
 memory for the witness) and end with the same ok line. `--phase stream`
@@ -347,6 +375,7 @@ from ddt_tpu_torch.serve.control import (FleetSpec, build_fleet,
 from ddt_tpu_torch.serve.http import serve_forever
 from ddt_tpu_torch.serve.metrics import parse_exposition
 from ddt_tpu_torch.streaming import fit_streaming, predict_streaming
+from ddt_tpu_torch.telemetry import costmodel
 from ddt_tpu_torch.telemetry import counters as tele_counters
 from ddt_tpu_torch.telemetry.events import RunLog, validate_event
 from ddt_tpu_torch.utils.metrics import accuracy, auc, logloss
@@ -475,19 +504,14 @@ def check(cond, what: str) -> None:
 
 
 def card_peaks(name: str) -> tuple[float, float, str]:
-    """(memory bytes/s, f32 FLOP/s outside the tensor cores, source) from
-    NVIDIA's data sheets for the card nvidia-smi names. The FLOP rate
-    counts an FMA as two operations on 128 FP32 lanes per SM: a plain f32
-    add runs at half of it, an INT32 compare (64 lanes per SM) at a
-    quarter."""
-    n = name.upper()
-    if "H200" in n:
-        return 4.8e12, 67e12, "H200 SXM data sheet"
-    if "H100" in n and "PCIE" in n:
-        return 2.0e12, 51e12, "H100 PCIe data sheet"
-    if "H100" in n and "NVL" in n:
-        return 3.9e12, 60e12, "H100 NVL data sheet"
-    return 3.35e12, 67e12, "H100 SXM data sheet"
+    """(memory bytes/s, f32 FLOP/s outside the tensor cores, source) of
+    the card nvidia-smi names: its row of telemetry.costmodel's ceilings,
+    the one the run log's roofline reads. The FLOP rate counts an FMA as
+    two operations on 128 FP32 lanes per SM: a plain f32 add runs at half
+    of it, an INT32 compare (64 lanes per SM) at a quarter."""
+    row = costmodel.peaks_for(name)
+    return (row["gbs"] * 1e9, row["gflops"] * 1e9,
+            row.get("source", "telemetry.costmodel's generic gpu row"))
 
 
 def time_ms(fn, reps: int, flush: torch.Tensor | None = None,
@@ -1374,7 +1398,7 @@ def phase_lut4_packed(X: np.ndarray, y: np.ndarray, card: dict,
     ce = res.ensemble.compile(tree_chunk=64)
     tables = ce.quantize("int4")
     check(tables.pack_int4().thr_packed, "15-bin model: thr_packed")
-    Xd = res.mapper.transform_device(X, torch.device("cuda"))
+    Xd = res.mapper.transform_device(X, get_backend(cfg).device)
     _, k3, _ = device_operands(ce, Xd.device)
     row = lut_measure("lut4 packed", tables, ce, res.ensemble.n_trees, Xd,
                       card, flush, k3(Xd))
@@ -2438,7 +2462,8 @@ def config3_rows(n_rows: int):
 def steady_ms(history) -> float:
     """Mean ms a round of the fused blocks after the first (which holds
     the warm-up round and the capture)."""
-    return float(np.mean([r["ms"] for r in history[MULTI_BLOCK:]]))
+    return float(np.mean([r["ms_per_round"]
+                          for r in history[MULTI_BLOCK:]]))
 
 
 def multi_launches(multi: dict, kernel: str) -> dict:
@@ -2469,7 +2494,7 @@ def phase_multi(card: dict) -> dict:
     alone = {}
     for dt in ("f32", "int8"):
         cfg = TrainConfig(grad_dtype=dt, **base)
-        res, train_s = synced(lambda: api.train(X, y, cfg))
+        res, train_s = synced(lambda: api.train(X, y, cfg, log_every=1))
         alone[dt] = {"res": res, "train_s": train_s,
                      "ms_per_round": steady_ms(res.history),
                      "auc": auc(y, api.predict(res.ensemble, X,
@@ -2606,7 +2631,8 @@ def mesh_one_card(Xb: np.ndarray, Xd: torch.Tensor, y: np.ndarray,
     out = {}
     for dt in ("f32", "int8"):
         cfg = TrainConfig(grad_dtype=dt, **base)
-        res, train_s = synced(lambda: api.train(Xb, y, cfg, binned=True))
+        res, train_s = synced(lambda: api.train(Xb, y, cfg, binned=True,
+                                                log_every=1))
         be = get_backend(cfg)
         data = be.upload(Xd)
         yh = be.upload_labels(y)
@@ -2618,7 +2644,7 @@ def mesh_one_card(Xb: np.ndarray, Xd: torch.Tensor, y: np.ndarray,
         out[dt] = {
             "res": res, "train_s": train_s,
             "ms_per_round": float(np.mean(
-                [r["ms"] for r in res.history[MESH_BLOCK:]])),
+                [r["ms_per_round"] for r in res.history[MESH_BLOCK:]])),
             "profile_ms_per_round": 1e3 * prof["wall_s"] / MESH_PROFILE,
             "k1_ms_per_round": prof["hist_kernel_ms"] / MESH_PROFILE,
             "busy_share": prof["busy_share"],
@@ -2803,7 +2829,7 @@ def mesh_resume(ranks: list, Xb: np.ndarray, y: np.ndarray, ck: str,
     zero_counters()
     res, resume_s = synced(lambda: api.train(
         Xb, y, TrainConfig(grad_dtype="int8", **base), binned=True,
-        checkpoint_dir=ck, checkpoint_every=MESH_CKPT_EVERY))
+        checkpoint_dir=ck, checkpoint_every=MESH_CKPT_EVERY, log_every=1))
     launches = read_counters()
     check(len(res.history) == MESH_ROUNDS - MESH_CKPT_EVERY,
           f"mesh2d checkpoint: resumed {len(res.history)} rounds")
@@ -4117,6 +4143,312 @@ def phase_config4(card: dict, flush: torch.Tensor) -> dict:
     return row
 
 
+# --------------------------------------------------------------------- #
+# operations: training telemetry and the operator's CLI on the card
+# --------------------------------------------------------------------- #
+
+OPS_TIERS = (None, "int8", "int4")
+
+
+def cli_children(runs: dict) -> dict:
+    """Run `python -m ddt_tpu_torch.cli <args>` for each name -> args of
+    `runs`, side by side, from the repo root, each to its end: name ->
+    (stdout lines, its seconds). Fails unless every one exits 0."""
+    procs = {name: (time.perf_counter(), subprocess.Popen(
+        [sys.executable, "-m", "ddt_tpu_torch.cli", *args], cwd=HERE,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        for name, args in runs.items()}
+    out = {}
+    for name, (t0, p) in procs.items():
+        stdout, stderr = p.communicate(timeout=600)
+        out[name] = (stdout.splitlines(), time.perf_counter() - t0)
+        if p.returncode != 0:
+            print(stderr[-4000:], file=sys.stderr)
+        check(p.returncode == 0, f"cli {name} exited {p.returncode}")
+    return out
+
+
+def poll_status(proc: subprocess.Popen) -> list:
+    """The cli train child's /healthz bodies until its status daemon
+    closes: the first stdout line names the port; polled every 5 ms."""
+    boot = json.loads(proc.stdout.readline() or "{}")
+    check("statusd" in boot, f"cli train printed its status port: {boot}")
+    port = boot["statusd"]["port"]
+    seen = []
+    while True:
+        try:
+            code, _, body, _ = http_call(port, "/healthz")
+        except OSError:
+            if seen or proc.poll() is not None:
+                break
+            time.sleep(0.005)
+            continue
+        if code == 200:
+            seen.append(json.loads(body))
+        time.sleep(0.005)
+    return seen
+
+
+def read_log(path: str) -> dict:
+    """The run log's events by type, every line validated."""
+    by = {}
+    with open(path, encoding="utf-8") as f:
+        for line in f:
+            rec = json.loads(line)
+            validate_event(rec)
+            by.setdefault(rec["event"], []).append(rec)
+    return by
+
+
+def same_trees(a: TreeEnsemble, b: TreeEnsemble, what: str) -> None:
+    for k in TREE_FIELDS:
+        check(np.array_equal(getattr(a, k), getattr(b, k)),
+              f"{what}: {k} bitwise")
+
+
+def profiler_trace(trace_dir: str) -> dict:
+    """What the capture window's Chrome trace holds: the ddt: ranges, the
+    device kernels by name, and the graph launches."""
+    with open(os.path.join(trace_dir, "trace.json"), encoding="utf-8") as f:
+        tr = json.load(f)
+    evs = tr["traceEvents"] if isinstance(tr, dict) else tr
+    names = {}
+    kernels = {}
+    graph_launches = 0
+    for e in evs:
+        n = str(e.get("name", ""))
+        if n.startswith("ddt:"):
+            names[n] = names.get(n, 0) + 1
+        if e.get("cat") == "kernel":
+            kernels[n] = kernels.get(n, 0) + 1
+        if "cudaGraphLaunch" in n:
+            graph_launches += 1
+    hist = sum(v for k, v in kernels.items() if "hist_kernel" in k)
+    return {"ddt_ranges": names, "graph_launches": graph_launches,
+            "kernel_events": sum(kernels.values()), "hist_kernels": hist,
+            "kernels": dict(sorted(kernels.items(),
+                                   key=lambda kv: -kv[1])[:12])}
+
+
+def loop_ms_per_tree(Xd, y, cfg, log_path) -> tuple[float, int]:
+    """The fused loop (Driver.fit on binned rows on the card) on a backend
+    of its own, so that it captures its round: (ms a tree, capture
+    included; the rounds it captured). With a run log when log_path is
+    given, whose hist cost events must count the warm-up round and every
+    replay."""
+    be = cuda_backend.CUDADevice(cfg)
+    drv = Driver(be, cfg, run_log=log_path)
+    c0 = cuda_backend.graph_captures
+    _, s = synced(lambda: drv.fit(Xd, y))
+    captures = cuda_backend.graph_captures - c0
+    if log_path is not None:
+        check_hist_costs(read_log(log_path), captures, f"arm {log_path}")
+    return 1e3 * s / cfg.n_trees, captures
+
+
+def check_hist_costs(ev: dict, captures: int, what: str) -> int:
+    """The run log's hist cost events count DEPTH calls for each of its
+    N_TREES rounds, replayed or not, and for the warm-up round of each
+    capture (the capture itself runs nothing): the count."""
+    hist = [e for e in ev.get("cost_analysis", []) if e["op"] == "hist"]
+    check(hist and all(e["phase"] == "hist" for e in hist),
+          f"{what}: cost_analysis events for the hist phase")
+    calls = sum(e["calls"] for e in hist)
+    check(calls == DEPTH * (N_TREES + captures),
+          f"{what}: {calls} K1 calls counted for {N_TREES} rounds and "
+          f"{captures} capture(s)")
+    return calls
+
+
+def phase_ops(X: np.ndarray, y: np.ndarray) -> dict:
+    """Training telemetry and the operator's CLI at config 1's full width
+    (module docstring, phase ops)."""
+    from ddt_tpu_torch.telemetry import report as tele_report
+    from ddt_tpu_torch.telemetry.statusd import TrainStatus
+
+    t_phase = time.perf_counter()
+    cfg = TrainConfig(n_trees=N_TREES, max_depth=DEPTH, n_bins=255)
+    tmp = tempfile.mkdtemp(prefix="ddt_ops_")
+    rows = os.path.join(tmp, "rows.npz")
+    np.savez(rows, X=X, y=y)
+    common = ["--data", rows, "--trees", str(N_TREES), "--depth",
+              str(DEPTH), "--bins", "255"]
+    a, b = os.path.join(tmp, "a.jsonl"), os.path.join(tmp, "b.jsonl")
+    prof_dir = os.path.join(tmp, "xprof")
+    secs = {}
+
+    # The untelemetered in-process model every CLI model must equal.
+    plain = api.train(X, y, cfg)
+
+    # 1. cli train with a run log, the status daemon and a capture
+    # window of rounds 2-3.
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "ddt_tpu_torch.cli", "train", *common,
+         "--run-log", a, "--status-port", "0", "--xprof-dir", prof_dir,
+         "--xprof-rounds", "2:3", "--out", os.path.join(tmp, "a.npz")],
+        cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        seen = poll_status(proc)
+        out, err = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    secs["train_run_log"] = time.perf_counter() - t0
+    if proc.returncode != 0:
+        print(err[-4000:], file=sys.stderr)
+    check(proc.returncode == 0, f"cli train exited {proc.returncode}")
+    train_a = json.loads(out.splitlines()[-1])
+    progress = [h["round"] for h in seen]
+    check(len(set(progress)) >= 2 and progress == sorted(progress)
+          and progress[-1] == N_TREES,
+          f"/healthz progress rose to {N_TREES}: {sorted(set(progress))}")
+    check(seen[-1]["phase"] == "done",
+          f"/healthz last phase {seen[-1]['phase']!r} is done")
+    ev = read_log(a)
+    check(len(ev["round"]) == N_TREES, f"{len(ev['round'])} round records")
+    for k in ("run_manifest", "phase_timings", "counters", "run_end"):
+        check(k in ev, f"a.jsonl has {k}")
+    c = ev["counters"][-1]
+    check(c["jit_compiles"] >= 1, f"jit_compiles {c['jit_compiles']} >= 1")
+    check((c["device_peak_bytes"] or 0) > 0,
+          f"device_peak_bytes {c['device_peak_bytes']} > 0")
+    # A new process captures its round once: a warm-up round, then one
+    # set of calls a replay.
+    hist_calls = check_hist_costs(ev, 1, "cli train --run-log")
+    check(c["jit_compiles"] == 1 and c["jit_compile_seconds"] > 0,
+          f"one round captured, no nvcc build: {c['jit_compiles']}")
+    man = ev["run_manifest"][0]
+    check(man["xprof_rounds"] == [2, 3] and
+          man["xprof_dir"] == os.path.join(prof_dir, f"run_{man['run_id']}"),
+          "the manifest names the capture window's trace")
+    model_a = api.load_model(os.path.join(tmp, "a.npz"))
+    same_trees(model_a.ensemble, plain.ensemble, "cli train --run-log")
+
+    # 2. cli train --profile: the granular loop, phases on the card.
+    runs = cli_children({"train_profile": [
+        "train", *common, "--profile", "--run-log", b, "--out",
+        os.path.join(tmp, "b.npz")]})
+    secs["train_profile"] = runs["train_profile"][1]
+    evb = read_log(b)
+    phases = {p["phase"]: p for p in evb["phase_timings"][-1]["phases"]}
+    check({"grad", "grow", "hist", "gain", "apply_delta",
+           "fetch_tree"} <= set(phases), f"profiled phases {set(phases)}")
+    phase_ms = sum(p["ms_total"] for p in phases.values())
+    round_ms = sum(r["ms_per_round"] for r in evb["round"])
+    check(abs(phase_ms - round_ms) <= 0.15 * round_ms,
+          f"phases sum {phase_ms:.1f} ms within 15% of the rounds' "
+          f"{round_ms:.1f}")
+    summ = tele_report.summarize(tele_report.read_events(b))
+    roof = {r["phase"]: r for r in summ["roofline"]}
+    hist_row = roof["hist"]
+    check(hist_row["hbm_util"] is not None and hist_row["hbm_util"] <= 1.0,
+          f"hist achieved {hist_row['gbs']} GB/s, "
+          f"{hist_row['hbm_util']} of the card's peak (<= 1)")
+    same_trees(api.load_model(os.path.join(tmp, "b.npz")).ensemble,
+               plain.ensemble, "cli train --profile")
+
+    # 3-4. The readers, `cli predict` at the three tiers and `cli
+    # inspect`, side by side (their seconds overlap).
+    model = os.path.join(tmp, "a.npz")
+    tpath = os.path.join(tmp, "trace.json")
+    runs = {"report": ["report", "--log", a],
+            "report_diff": ["report", "diff", a, b],
+            "trace": ["trace", "--log", a, "--out", tpath],
+            "inspect": ["inspect", "--model", model, "--tree", "0"]}
+    for tier in OPS_TIERS:
+        runs[f"predict_{TIER_RESOLVED[tier]}"] = [
+            "predict", "--data", rows, "--model", model, "--out",
+            os.path.join(tmp, f"s_{TIER_RESOLVED[tier]}.npy")] + (
+            [] if tier is None else ["--quantized", tier])
+    done = cli_children(runs)
+    secs.update({k: v[1] for k, v in done.items()})
+    with open(tpath, encoding="utf-8") as f:
+        tr = json.load(f)
+    slices = [e for e in tr["traceEvents"]
+              if str(e.get("name", "")).startswith("round ")]
+    check(len(slices) == N_TREES, f"{len(slices)} round slices in the trace")
+    prof = profiler_trace(man["xprof_dir"])
+    check(prof["ddt_ranges"], "the capture has ddt: ranges")
+    # Rounds 2-3 only: two replays of the captured round, whose kernels
+    # CUPTI reports one by one (K1 once a level).
+    check(prof["graph_launches"] == 2 and prof["hist_kernels"] == 2 * DEPTH,
+          f"the capture holds rounds 2-3's device work: {prof}")
+    for tier in OPS_TIERS:
+        name = TIER_RESOLVED[tier]
+        want = api.predict(model_a, X, cfg=TrainConfig(
+            predict_impl=TIER_IMPL[tier]))
+        check(np.array_equal(np.load(os.path.join(tmp, f"s_{name}.npy")),
+                             want),
+              f"cli predict {name}: scores bitwise api.predict's")
+    check(json.loads(done["inspect"][0][0])["n_trees"] == N_TREES,
+          "cli inspect")
+
+    # 5. The same path in this process, counted: a telemetered train
+    # (run log, status, a capture window) and the three tiers' scoring.
+    c_log = os.path.join(tmp, "c.jsonl")
+    from ddt_tpu_torch.telemetry.profiler import CaptureWindow
+
+    zero_counters()
+    res = api.train(X, y, cfg, run_log=c_log, status=TrainStatus(),
+                    profiler_window=CaptureWindow(
+                        os.path.join(tmp, "xprof_in"), "2:3"))
+    for tier in OPS_TIERS:
+        api.predict(res.ensemble, X, mapper=res.mapper, cfg=TrainConfig(
+            predict_impl=TIER_IMPL[tier]))
+    launches = read_counters()
+    # One capture at most: the backend keeps the round that the
+    # untelemetered api.train above captured while the data's and labels'
+    # addresses are the same. Either way the run log counts every replay.
+    captures = launches["graph_captures"]
+    check(launches["graph_replays"] == N_TREES and captures <= 1,
+          f"ops: {launches['graph_replays']} replays of one capture "
+          f"({captures} new)")
+    check(launches["hist"] == DEPTH * (N_TREES + captures),
+          f"ops: {launches['hist']} K1 launches for {N_TREES} trees")
+    hist_calls_in = check_hist_costs(read_log(c_log), captures,
+                                     "api.train with a run log")
+    for k in ("traverse", "lut", "lut4"):
+        check(launches[k] > 0, f"ops: {k} launched")
+    same_trees(res.ensemble, plain.ensemble, "api.train with telemetry")
+
+    # 6. The run log's cost on the fused loop: ms a tree with and without
+    # one, interleaved, each fit on a backend of its own, so that each
+    # captures its round once.
+    Xd = res.mapper.transform_device(X, get_backend(cfg).device)
+    ms = {"plain": [], "run_log": []}
+    arm_captures = {"plain": [], "run_log": []}
+    for arm in ("plain", "run_log", "run_log", "plain", "plain", "run_log"):
+        gc.collect()                  # the last arm's graph freed untimed
+        torch.cuda.synchronize()
+        t, n = loop_ms_per_tree(
+            Xd, y, cfg, None if arm == "plain" else
+            os.path.join(tmp, f"o{len(ms[arm])}.jsonl"))
+        ms[arm].append(t)
+        arm_captures[arm].append(n)
+    check(all(n == 1 for v in arm_captures.values() for n in v),
+          f"ops: each timed fit captured its round once: {arm_captures}")
+    out = {"phase": "ops", "rows": len(X), "trees": N_TREES,
+           "healthz_rounds": sorted(set(progress)),
+           "hist_calls_child": hist_calls,
+           "hist_calls_in_process": hist_calls_in,
+           "graph_captures_in_process": captures,
+           "jit_compiles_child": c["jit_compiles"],
+           "device_peak_bytes_child": c["device_peak_bytes"],
+           "profiled_phases_ms": {k: p["ms_total"]
+                                  for k, p in phases.items()},
+           "profiled_rounds_ms": round_ms, "profiled_phases_sum_ms": phase_ms,
+           "roofline": summ["roofline"], "profiler_trace": prof,
+           "loop_ms_per_tree": ms, "loop_graph_captures": arm_captures,
+           "cli_seconds": secs,
+           "launches": launches, "wall_s": time.perf_counter() - t_phase}
+    emit(out)
+    import shutil
+
+    shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -4124,9 +4456,9 @@ def main(argv: list[str]) -> int:
         return 2
     if argv not in ([], ["--phase", "multi"], ["--phase", "mesh2d"],
                     ["--phase", "stream"], ["--phase", "config4"],
-                    ["--phase", "serve_plane"]):
+                    ["--phase", "serve_plane"], ["--phase", "ops"]):
         print(f"chip_smoke: unknown arguments {argv}; usage: chip_smoke.py "
-              "[--phase multi|mesh2d|stream|config4|serve_plane]",
+              "[--phase multi|mesh2d|stream|config4|serve_plane|ops]",
               file=sys.stderr)
         return 2
     t_start = time.perf_counter()
@@ -4146,6 +4478,9 @@ def main(argv: list[str]) -> int:
                 n_trees=N_TREES, max_depth=DEPTH, n_bins=B))
                 for B in (255, 15)]
             phase_serve_plane(*models, X, card)
+        elif argv[1] == "ops":
+            X, y = synthetic_binary(ROWS, n_features=FEATURES, seed=0)
+            phase_ops(X, y)
         else:
             phase_stream(card, flush)
             stream_witness(card)
@@ -4193,6 +4528,7 @@ def main(argv: list[str]) -> int:
     stream = phase_stream(card, flush)
     life = phase_lifecycle(main_run["res"], X)
     c4 = phase_config4(card, flush)
+    ops = phase_ops(X, y)
     launches = main_run["launches"]
     k2 = hist_int["rows"][("int16", 64, 32)]
 
@@ -4212,7 +4548,8 @@ def main(argv: list[str]) -> int:
                     "bound_ms": wide["bound_ms"],
                     "bound_by": wide["bound_by"], "max_abs_err": 0.0},
                     "lifecycle": life["launches"][name],
-                    "serve_plane": plane[name]}}
+                    "serve_plane": plane[name],
+                    "ops": ops["launches"][name]}}
 
     k1, k3 = cov["hist"], cov["traverse"]
     cov_launches = cov["row"]["launches"]
@@ -4250,7 +4587,8 @@ def main(argv: list[str]) -> int:
                      "library_ms", "bound_ms", "bound_by")},
              "stream": {name: row["counters"]["hist"]
                         for name, row in runs.items()
-                        if name.startswith(("f32", "in_memory_f32"))}}},
+                        if name.startswith(("f32", "in_memory_f32"))},
+             "ops": ops["launches"]["hist"]}},
         {"name": "traverse", "route": "cuda",
          "source": "ddt_tpu_torch/csrc/lut.cu",
          "replaces": "ddt_tpu/ops/predict_pallas.py:105",
@@ -4272,6 +4610,7 @@ def main(argv: list[str]) -> int:
              "stream_predict": stream["predict_counters"]["traverse"],
              "lifecycle": life["launches"]["traverse"],
              "serve_plane": plane["traverse"],
+             "ops": ops["launches"]["traverse"],
              "config4": {
                  "launches": c4["launches"], "rows": c4["rows"],
                  "trees": c4["trees"], "max_abs_err": c4["max_abs_err"],

@@ -61,6 +61,8 @@ class TrainResult:
     ensemble: TreeEnsemble
     mapper: BinMapper | None      # None when the caller passed binned data
     cfg: TrainConfig
+    # {round, train_loss, ms_per_round[, valid_<metric>]}: the log_every
+    # cadence, the last round and every round with an eval score.
     history: list = dataclasses.field(default_factory=list)
     best_round: int | None = None   # 0-based; set with an eval_set
     best_score: float | None = None
@@ -68,12 +70,15 @@ class TrainResult:
     # a caller who encoded categorical columns sets it, so save() writes a
     # complete artifact.
     encoder: "object | None" = None
+    # The telemetry run id (a run with a run log, capture window or
+    # status), stamped into saved models' manifests.
+    run_id: str | None = None
 
     def save(self, path: str) -> None:
-        """save_model of the ensemble, mapper and encoder, the config
-        fingerprinted into the manifest."""
+        """save_model of the ensemble, mapper and encoder, the run id and
+        the config fingerprint in the manifest."""
         save_model(path, self.ensemble, mapper=self.mapper,
-                   encoder=self.encoder, cfg=self.cfg)
+                   encoder=self.encoder, run_id=self.run_id, cfg=self.cfg)
 
 
 @dataclasses.dataclass
@@ -232,16 +237,30 @@ def train(
     backend: DeviceBackend | None = None,
     checkpoint_dir: str | None = None,
     checkpoint_every: int = 25,
+    log_every: int = 10,
     eval_set: tuple | None = None,
     eval_metric: str | None = None,
     early_stopping_rounds: int | None = None,
     sample_weight: np.ndarray | None = None,
+    profile: bool = False,
+    run_log=None,
+    profiler_window=None,
+    status=None,
     **cfg_overrides,
 ) -> TrainResult:
     """Train a GBDT. `X` is float features (binned here, on the device)
     unless `binned=True` (uint8 bin indices, host or tensor); the eval
     set's rows follow the same flag. `cfg_overrides` are TrainConfig
-    fields, e.g. train(X, y, n_trees=50, device="cpu")."""
+    fields, e.g. train(X, y, n_trees=50, device="cpu").
+
+    Observability (the Driver's docstring): `log_every` is the history's
+    and the log line's round cadence; `run_log` (a JSONL path or a
+    telemetry.RunLog) writes the schema-v5 run log that `cli report`
+    renders; `profile=True` times the phases on the granular loop;
+    `profiler_window` (telemetry.profiler.CaptureWindow) captures a
+    torch.profiler trace of a round range; `status`
+    (telemetry.statusd.TrainStatus) is the live status `cli train
+    --status-port` serves. None of them: no telemetry work at all."""
     if cfg is None:
         cfg = TrainConfig(**cfg_overrides)
     elif cfg_overrides:
@@ -288,8 +307,11 @@ def train(
         else:
             Xv = mapper.transform_device(Xv, be.device)
         eval_set = (Xv, np.asarray(yv))
-    driver = Driver(be, cfg, checkpoint_dir=checkpoint_dir,
-                    checkpoint_every=checkpoint_every)
+    driver = Driver(be, cfg, log_every=log_every,
+                    checkpoint_dir=checkpoint_dir,
+                    checkpoint_every=checkpoint_every, profile=profile,
+                    run_log=run_log, profiler_window=profiler_window,
+                    status=status)
     ens = driver.fit(Xb, np.asarray(y), eval_set=eval_set,
                      eval_metric=eval_metric,
                      early_stopping_rounds=early_stopping_rounds,
@@ -299,7 +321,7 @@ def train(
     return TrainResult(ensemble=ens, mapper=mapper, cfg=cfg,
                        history=driver.history,
                        best_round=driver.best_round,
-                       best_score=driver.best_score)
+                       best_score=driver.best_score, run_id=driver.run_id)
 
 
 def predict_proba_np(raw: np.ndarray, loss: str) -> np.ndarray:

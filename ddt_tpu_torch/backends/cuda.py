@@ -1240,6 +1240,7 @@ class _RoundGraph:
         self.recording = rec
         self.capture_s = time.perf_counter() - t0
         graph_captures += 1
+        tele_counters.graph_captured(self.capture_s)
         log.info("captured a boosting round (%d rows x %d features, %d "
                  "trees%s) in %.1f ms", R, F, C,
                  "" if ev is None else ", eval", 1e3 * self.capture_s)

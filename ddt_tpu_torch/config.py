@@ -261,3 +261,37 @@ class TrainConfig:
 
     def replace(self, **kw) -> "TrainConfig":
         return dataclasses.replace(self, **kw)
+
+    @classmethod
+    def from_file(cls, path: str, **overrides) -> "TrainConfig":
+        """A config from a .yaml/.yml/.json file of TrainConfig fields
+        (load_config_file), `overrides` on top."""
+        return cls(**{**load_config_file(path), **overrides})
+
+
+def load_config_file(path: str) -> dict:
+    """TrainConfig fields from a .yaml/.yml/.json file, key-validated
+    (the reference's load_config_file; `cli train --config` lays them
+    over the flags). A field the port has not ported is an unknown key."""
+    import json
+
+    with open(path) as f:
+        if path.endswith((".yaml", ".yml")):
+            import yaml
+
+            d = yaml.safe_load(f)
+        else:
+            d = json.load(f)
+    if not isinstance(d, dict):
+        raise ValueError(f"{path} must contain a mapping, got {type(d)}")
+    fields = {f.name for f in dataclasses.fields(TrainConfig)}
+    unknown = sorted(set(d) - fields)
+    if unknown:
+        raise ValueError(
+            f"{path} has unknown TrainConfig keys {unknown}; "
+            f"valid: {sorted(fields)}")
+    if "cat_features" in d:
+        d["cat_features"] = tuple(d["cat_features"])
+    if d.get("mesh_shape") is not None:
+        d["mesh_shape"] = tuple(d["mesh_shape"])
+    return d

@@ -44,6 +44,23 @@ import torch
 
 from ddt_tpu_torch.ops import grad as grad_ops
 from ddt_tpu_torch.ops import hist_cuda
+from ddt_tpu_torch.telemetry.annotations import op_scope
+from ddt_tpu_torch.telemetry.costmodel import costed
+
+
+def hist_cost(Xb, g, h, node_index, n_nodes, n_bins, scales=None,
+              out=None) -> tuple[int, int]:
+    """(operations, bytes) of one histogram call (telemetry/costmodel):
+    the node index of every row, Xb and g, h of every row read once (a
+    frozen row's are not read by the kernel, so bytes are an upper
+    bound), the table written once (read and written when added into
+    `out`), 16 bytes a cell in the exact mode and 8 otherwise; two adds
+    per (row, feature)."""
+    R, F = Xb.shape
+    cell = 16 if scales is not None else 8
+    table = n_nodes * F * n_bins * cell * (1 if out is None else 2)
+    nbytes = R * 4 + R * F + 2 * R * g.element_size() + table
+    return 2 * R * F, nbytes
 
 
 def build_histograms_segment(Xb: torch.Tensor, g: torch.Tensor,
@@ -67,6 +84,8 @@ def build_histograms_segment(Xb: torch.Tensor, g: torch.Tensor,
         .contiguous()
 
 
+@costed("hist", phase="hist", cost=hist_cost)
+@op_scope("hist")
 def build_histograms(Xb: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
                      node_index: torch.Tensor, n_nodes: int,
                      n_bins: int, out: torch.Tensor | None = None
@@ -110,6 +129,8 @@ def build_histograms_fixed_segment(Xb: torch.Tensor, g: torch.Tensor,
     return out.add_(res)
 
 
+@costed("hist", phase="hist", cost=hist_cost)
+@op_scope("hist")
 def build_histograms_exact(Xb: torch.Tensor, g: torch.Tensor,
                            h: torch.Tensor, node_index: torch.Tensor,
                            n_nodes: int, n_bins: int, scales: torch.Tensor,

@@ -31,6 +31,8 @@ from typing import NamedTuple
 
 import torch
 
+from ddt_tpu_torch.telemetry.annotations import op_scope
+from ddt_tpu_torch.telemetry.costmodel import costed
 from ddt_tpu_torch.ops import predict_cuda
 
 #: Rows per plain-version step: the comparison bits of one step are
@@ -135,6 +137,26 @@ def prepare(eff_feat, eff_thr, bot_val, cls_oh, *, max_depth: int,
     raise TypeError(f"no traversal implementation for {eff_feat.device}")
 
 
+def traverse_cost(ops, X, **kw) -> tuple[int, int]:
+    """(operations, bytes) of one traversal call (telemetry/costmodel):
+    the rows read and the margins written once, every table byte read
+    once; a compare a level and one add per (row, tree) (every level of
+    every tree counted: an upper bound on the compares a row's path
+    takes)."""
+    R, F = X.shape
+    if isinstance(ops, predict_cuda.Tables):
+        T, D, C = ops.n_trees_padded, ops.max_depth, ops.n_classes
+        tables = ops.rec.numel()
+    else:
+        T, D = ops.eff_feat.shape[0], ops.max_depth
+        C = ops.cls_oh.shape[1]
+        tables = sum(t.numel() * t.element_size() for t in ops
+                     if isinstance(t, torch.Tensor))
+    return R * T * (D + 1), R * F * X.element_size() + R * C * 4 + tables
+
+
+@costed("predict", phase="predict", cost=traverse_cost)
+@op_scope("predict")
 def predict_prepared(ops, X, *, learning_rate: float, base: float,
                      tree_chunk: int = 64,
                      missing_bin_value: int = -1) -> torch.Tensor:

@@ -47,6 +47,8 @@ import torch
 
 from ddt_tpu_torch.ops import predict as predict_ops
 from ddt_tpu_torch.ops import predict_lut_cuda
+from ddt_tpu_torch.telemetry.annotations import op_scope
+from ddt_tpu_torch.telemetry.costmodel import costed
 
 #: int8 bin recentring offset: uint8 bins [0, 255] -> [-128, 127].
 _I8_OFFSET = 128
@@ -495,6 +497,27 @@ def _score(kernel, plain, ops, Xc, *, cls, max_feature,
     return out[:, 0] if C == 1 else out
 
 
+def lut_cost(ops: tuple, Xc, *, max_depth: int, n_classes: int,
+             n_trees_padded: int, use_scale: bool = False,
+             **kw) -> tuple[int, int]:
+    """(operations, bytes) of one int8- or int4-tier call
+    (telemetry/costmodel): the rows read and the margins written once,
+    every operand byte read once; a compare a level and one add per (row,
+    tree), and one multiply more where leaves are scaled (every level
+    counted: an upper bound)."""
+    R, F = Xc.shape
+    tables = sum(t.numel() * t.element_size() for t in ops)
+    per = max_depth + 1 + (1 if use_scale else 0)
+    return R * n_trees_padded * per, R * F + R * n_classes * 4 + tables
+
+
+def lut4_cost(ops: tuple, Xc, **kw) -> tuple[int, int]:
+    """lut_cost for the int4 tier (per-tree scales: one multiply)."""
+    return lut_cost(ops, Xc, use_scale=True, **kw)
+
+
+@costed("predict_lut", phase="predict", cost=lut_cost)
+@op_scope("predict")
 def predict_effective_lut_ops(ops: tuple, Xc, *, max_depth: int,
                               learning_rate: float, base: float,
                               n_classes: int, tree_chunk: int,
@@ -519,6 +542,8 @@ def predict_effective_lut_ops(ops: tuple, Xc, *, max_depth: int,
                   use_scale=use_scale)
 
 
+@costed("predict_lut4", phase="predict", cost=lut4_cost)
+@op_scope("predict")
 def predict_effective_lut4_ops(ops: tuple, Xc, *, max_depth: int,
                                learning_rate: float, base: float,
                                n_classes: int, tree_chunk: int,

@@ -20,6 +20,9 @@ from __future__ import annotations
 
 import torch
 
+from ddt_tpu_torch.telemetry.annotations import op_scope
+from ddt_tpu_torch.telemetry.costmodel import costed
+
 
 def node_totals(hist: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """(G, H) per node: sums over bins of feature 0 (any feature sums the
@@ -38,6 +41,22 @@ def _argmax_bf16(gain: torch.Tensor, valid: torch.Tensor):
     return flat.gather(1, best[:, None])[:, 0], best
 
 
+def gain_cost(hist, reg_lambda, min_child_weight, feature_mask=None,
+              missing_bin=False, cat_mask=None, inv_scale=None
+              ) -> tuple[int, int]:
+    """(operations, bytes) of one split search (telemetry/costmodel): the
+    histogram read once and four [n] results written; ten operations a
+    (node, feature, bin) cell (the prefix sums, the three score terms and
+    the mask), twice with the missing bin's two default directions. A
+    coarse count: the search is plain PyTorch, not a kernel."""
+    n, F, B = hist.shape[:3]
+    cells = n * F * B
+    return (10 * cells * (2 if missing_bin else 1),
+            hist.numel() * hist.element_size() + n * 13)
+
+
+@costed("gain", phase="gain", cost=gain_cost)
+@op_scope("gain")
 def best_splits_impl(
     hist: torch.Tensor,             # f32 (or int64 fixed point) [n, F, B, 2]
     reg_lambda: float,

@@ -1,6 +1,7 @@
 """What a rank runs under parallel/spawn: the functions the distributed
 test suites (tests/test_torch_comms.py, tests/test_torch_distributed.py,
-tests/test_torch_stream.py, tests/test_torch_chunks.py) and
+tests/test_torch_stream.py, tests/test_torch_chunks.py,
+tests/test_torch_cli.py) and
 chip_smoke.py's `multi` phase send to their ranks.
 
 They live in the package so that a rank imports torch and the port and
@@ -92,13 +93,39 @@ def train(device: str, X, y, cfg_kw: dict, fit_kw: dict | None = None,
     cfg = _config(device, cfg_kw)
     be = Granular(cfg) if loop == "granular" else get_backend(cfg)
     before = _counters()
-    res = api.train(X, y, cfg, backend=be, **(fit_kw or {}))
+    res = api.train(X, y, cfg, backend=be, log_every=1, **(fit_kw or {}))
     return {"ensemble": res.ensemble, "history": res.history,
             "best_round": res.best_round, "counters": _since(before),
             "bytes_model": be.collective_bytes_per_tree(
                 res.ensemble.n_features),
             "split_comms": be.split_comms, "rank": be.rank,
             "global_rank": _rank(), "comms_slabs": be.comms_slabs}
+
+
+def train_logged(device: str, X, y, cfg_kw: dict, paths: list) -> None:
+    """api.train of binned X on this rank with the run log
+    paths[global rank] (a rank that is not its host's first writes
+    none)."""
+    api.train(X, y, _config(device, cfg_kw), binned=True,
+              run_log=paths[_rank()])
+
+
+def cli(device: str, argv: list) -> dict | None:
+    """`python -m ddt_tpu_torch.cli <argv>` on this rank (its device
+    appended as --device): the last JSON line it printed."""
+    import contextlib
+    import io
+    import json
+
+    from ddt_tpu_torch.cli import main
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = main([*argv, "--device", device])
+    if rc != 0:
+        raise RuntimeError(f"cli {argv} exited {rc}")
+    lines = out.getvalue().strip().splitlines()
+    return json.loads(lines[-1]) if lines else None
 
 
 def train_saves(device: str, X, y, cfg_kw: dict, fit_kw: dict) -> dict:
@@ -249,7 +276,7 @@ def train_timed(device: str, x_path: str, y_path: str, cfg_kw: dict,
     be = get_backend(cfg)
     before = _counters()
     t0 = time.perf_counter()
-    res = api.train(X, y, cfg, backend=be)
+    res = api.train(X, y, cfg, backend=be, log_every=1)
     _sync()
     train_s = time.perf_counter() - t0
     trained = _counters()
@@ -272,7 +299,7 @@ def train_timed(device: str, x_path: str, y_path: str, cfg_kw: dict,
     prof["ms_per_round"] = 1e3 * prof["wall_s"] / profile_rounds
     prof["collectives_per_round"] = (comms.calls - calls) / profile_rounds
     blk = cfg.fused_block_rounds
-    steady = [r["ms"] for r in res.history[blk:]]
+    steady = [r["ms_per_round"] for r in res.history[blk:]]
     return {"ensemble": res.ensemble, "raw": raw.astype(np.float32),
             "rank": be.rank, "device": str(be.device),
             "card": (torch.cuda.get_device_name(be.device)
@@ -324,7 +351,8 @@ def train_mesh(device: str, x_path: str, y_path: str, cfg_kw: dict,
     be = get_backend(cfg)
     before = _counters()
     t0 = time.perf_counter()
-    res = api.train(X, y, cfg, backend=be, binned=True, **(fit_kw or {}))
+    res = api.train(X, y, cfg, backend=be, binned=True, log_every=1,
+                    **(fit_kw or {}))
     _sync()
     train_s = time.perf_counter() - t0
     trained = _counters()
@@ -344,7 +372,8 @@ def train_mesh(device: str, x_path: str, y_path: str, cfg_kw: dict,
                                        m.feature)[2],
            "train_s": train_s, "history_len": len(res.history),
            "fused_ms_per_round": float(np.mean(
-               [r["ms"] for r in res.history[cfg.fused_block_rounds:]]))
+               [r["ms_per_round"]
+                for r in res.history[cfg.fused_block_rounds:]]))
            if len(res.history) > cfg.fused_block_rounds else None,
            "counters": counters,
            "train_counters": {k: trained[k] - before[k] for k in trained},

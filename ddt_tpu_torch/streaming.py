@@ -51,15 +51,29 @@ over the group, each rank uploading its block (data/chunks.
 HostShardedChunks sources read only the rank's own sub-shards); feature
 partitions do not stream.
 
+Telemetry, as the Driver's: `run_log` (a path the trainer owns, or a
+RunLog) gets a `streaming_device` manifest with `n_chunks`, a round
+event every round ({round, train_loss: None, ms_per_round[,
+valid_<metric>]}: a train loss would cost one more pass), heartbeats at
+the checkpoint cadence, the resume fault and the early stop, then the
+cost events, the phase timings, the counters and run_end. Its phases are
+`grad` (the round-start pass), `hist` (the level passes), `leaf`, `gain`
+(the rest of the level loop: split search and routing),
+`fetch_tree`, `predict` and `eval` (the held-out chunks), timed by
+utils/profiling.PhaseTimer, which a run log or `profile=True` turns on.
+`profiler_window` and `status` are driven at every round boundary.
+
 Left out here, as in the port's Driver: the host loop of a CPU backend
 and its `cache_preds` (the CPU backend is a later slice), the fault-plan
-and retry seams around chunk reads, telemetry (run log, profiler window,
-status daemon) and the straggler watchdog.
+and retry seams around chunk reads and the straggler watchdog.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import logging
+import time
 from typing import Callable
 
 import numpy as np
@@ -76,7 +90,13 @@ from ddt_tpu_torch.ops import grow as grow_ops
 from ddt_tpu_torch.ops import sampling
 from ddt_tpu_torch.ops import split as split_ops
 from ddt_tpu_torch.parallel import comms, mesh
+from ddt_tpu_torch.telemetry import annotations, costmodel
+from ddt_tpu_torch.telemetry import counters as tele_counters
+from ddt_tpu_torch.telemetry.events import (
+    RoundRecorder, RunLog, comms_manifest_fields, derive_run_id,
+    emit_early_stop, emit_train_heartbeat, finish_run_log)
 from ddt_tpu_torch.utils import checkpoint
+from ddt_tpu_torch.utils.profiling import PhaseTimer
 from ddt_tpu_torch.utils.metrics import (GREATER_IS_BETTER, default_metric,
                                          evaluate)
 
@@ -266,6 +286,10 @@ def fit_streaming(
     early_stopping_rounds: int | None = None,
     history: list | None = None,
     device_chunk_cache: "bool | int" = True,
+    run_log: "RunLog | str | None" = None,
+    profile: bool = False,
+    profiler_window=None,
+    status=None,
 ) -> TreeEnsemble:
     """Train a GBDT over `n_chunks` streamed chunks (module docstring) on
     cfg.device ("cuda" unless the config says "cpu").
@@ -283,9 +307,119 @@ def fit_streaming(
     bagging keeps a row by the counter hash of (seed, round, global row),
     computed per chunk from its global row offset, and colsample draws
     the Driver's per-(round, class) masks, so sampled runs grow the
-    in-memory trees too."""
-    if backend is None:
-        backend = get_backend(cfg)
+    in-memory trees too. Telemetry (`run_log`, `profile`,
+    `profiler_window`, `status`): the module docstring; a path-built run
+    log is closed, the cost capture removed and a window stopped on every
+    exit."""
+    own_run_log = isinstance(run_log, str)
+    run_log = RunLog.coerce(run_log)
+    cost = None
+    try:
+        if backend is None:
+            backend = get_backend(cfg)
+        m = backend.mesh
+        if run_log is not None and m is not None \
+                and (m.row != 0 or m.feature != 0):
+            run_log = None          # each host's first rank writes
+        if run_log is not None:
+            cost = costmodel.activate()
+        return _fit_streaming(
+            chunk_fn, n_chunks, cfg, backend, checkpoint_dir,
+            checkpoint_every, valid_chunk_fn, n_valid_chunks, eval_metric,
+            early_stopping_rounds, history, device_chunk_cache,
+            _Telemetry(run_log, profile, profiler_window, status, cost))
+    finally:
+        costmodel.deactivate(cost)
+        if profiler_window is not None:
+            profiler_window.close()
+        if own_run_log and run_log is not None:
+            run_log.close()
+
+
+class _Telemetry:
+    """One streamed run's telemetry state: the run log, the phase timer
+    (a run log or profile), the window, the status, the cost collector,
+    and the counters' start."""
+
+    def __init__(self, run_log, profile, window, status, cost):
+        self.run_log = run_log
+        self.profile = profile
+        self.window = window
+        self.status = status
+        self.cost = cost
+        self.timer = None
+        self.counters_start = None
+        self.t0 = time.perf_counter()
+
+    def start(self, backend) -> None:
+        """Before pass 0: the timer, and the counters' start so the label
+        uploads count."""
+        if self.profile or self.run_log is not None:
+            self.timer = PhaseTimer(backend.device)
+        if self.run_log is not None:
+            self.counters_start = tele_counters.snapshot()
+            tele_counters.reset_device_peak()
+
+    def manifest(self, backend, cfg, rows: int, F: int,
+                 n_chunks: int) -> None:
+        run_id = None
+        if self.run_log is not None or self.window is not None \
+                or self.status is not None:
+            run_id = derive_run_id(
+                trainer="streaming_device", rows=rows, features=int(F),
+                n_chunks=n_chunks, **dataclasses.asdict(cfg))
+        if self.window is not None:
+            self.window.bind(run_id)
+        if self.status is not None:
+            self.status.begin_run(run_id=run_id, total_rounds=cfg.n_trees,
+                                  rows=rows)
+        if self.run_log is None:
+            return
+        m = backend.mesh
+        self.run_log.run_id = run_id
+        self.run_log.emit(
+            "run_manifest", trainer="streaming_device",
+            backend=backend.name, loss=cfg.loss, n_trees=cfg.n_trees,
+            max_depth=cfg.max_depth, n_bins=cfg.n_bins, rows=rows,
+            features=int(F), n_classes=cfg.n_outputs, seed=cfg.seed,
+            n_chunks=n_chunks, distributed=m is not None, run_id=run_id,
+            host=0 if m is None else int(m.host),
+            **comms_manifest_fields(backend),
+            **(self.window.manifest_fields()
+               if self.window is not None else {}))
+
+    def round_end(self, rnd: int, ms: float, ev) -> None:
+        tele_counters.record_train_round()
+        if self.run_log is None and self.status is None:
+            return
+        score = None
+        if ev is not None and ev.history \
+                and ev.history[-1].get("round") == rnd + 1:
+            score = ev.history[-1].get(f"valid_{ev.metric}")
+        rec = RoundRecorder.make_record(
+            rnd, ms, None, None if ev is None else ev.metric, score)
+        if self.run_log is not None:
+            self.run_log.emit("round", **rec)
+        if self.status is not None:
+            self.status.round_end(rnd, ms, rec)
+
+    def finish(self, ens: TreeEnsemble, C: int) -> TreeEnsemble:
+        if self.profile and self.timer is not None:
+            self.timer.log_report(log)
+        if self.status is not None:
+            self.status.set_phase("done")
+        finish_run_log(self.run_log, self.timer, self.counters_start,
+                       ens.n_trees // C,
+                       round(time.perf_counter() - self.t0, 4),
+                       costs=self.cost)
+        return ens
+
+
+def _fit_streaming(chunk_fn, n_chunks, cfg, backend, checkpoint_dir,
+                   checkpoint_every, valid_chunk_fn, n_valid_chunks,
+                   eval_metric, early_stopping_rounds, history,
+                   device_chunk_cache, tel: _Telemetry) -> TreeEnsemble:
+    """fit_streaming's body."""
     if cfg.feature_partitions > 1:
         raise NotImplementedError(
             "the streamed trainer is row-parallel only: "
@@ -295,8 +429,8 @@ def fit_streaming(
         raise ValueError("early_stopping_rounds requires valid_chunk_fn")
 
     # (The reference wraps chunk_fn and valid_chunk_fn in its stream-read
-    # retry seam and opens its run log here: the robustness and telemetry
-    # layers, not ported yet.)
+    # retry seam here: the robustness layer, not ported yet.)
+    tel.start(backend)
     # Pass 0: labels (uploaded now: they stay resident), chunk sizes, the
     # base score; no binned chunk is read.
     y_sum, y_cnt = 0.0, 0
@@ -332,7 +466,9 @@ def fit_streaming(
         cfg.n_classes, missing_bin=cfg.missing_policy == "learn",
         n_bins=cfg.n_bins, cat_features=cfg.cat_features)
 
-    drv = Driver(backend, cfg, checkpoint_dir, checkpoint_every)
+    tel.manifest(backend, cfg, int(y_cnt), F, n_chunks)
+    drv = Driver(backend, cfg, checkpoint_dir=checkpoint_dir,
+                 checkpoint_every=checkpoint_every)
     start_round = 0
     if checkpoint_dir is not None:
         start_round = checkpoint.try_resume(checkpoint_dir, ens, cfg)
@@ -341,8 +477,11 @@ def fit_streaming(
         if start_round > 0:
             log.info("streaming: resumed from checkpoint at round %d",
                      start_round)
+            if tel.run_log is not None:
+                tel.run_log.emit("fault", kind="checkpoint_resume",
+                                 round=start_round)
         if start_round >= cfg.n_trees:
-            return ens
+            return tel.finish(ens, C)
     ev = None
     if valid_chunk_fn is not None:
         ev = _StreamEval(valid_chunk_fn, n_valid_chunks, eval_metric,
@@ -350,9 +489,9 @@ def fit_streaming(
     # A backend without the stream_* surface would take the reference's
     # host loop here (with its cache_preds); the port's one backend has
     # the surface, and the CPU backend that lacks it is not ported yet.
-    return _fit_streaming_device(
+    return tel.finish(_fit_streaming_device(
         chunk_fn, n_chunks, cfg, backend, drv, ens, bs, y_dev, chunk_lens,
-        chunk_starts, start_round, ev, device_chunk_cache)
+        chunk_starts, start_round, ev, device_chunk_cache, tel), C)
 
 
 def _merge_stats(acc, st, exact: bool):
@@ -369,8 +508,10 @@ def _merge_stats(acc, st, exact: bool):
 
 def _fit_streaming_device(chunk_fn, n_chunks, cfg, backend, drv, ens, bs,
                           y_dev, chunk_lens, chunk_starts, start_round, ev,
-                          device_chunk_cache) -> TreeEnsemble:
+                          device_chunk_cache, tel) -> TreeEnsemble:
     """The device loop (fit_streaming's module docstring)."""
+    ph = annotations.phase_ctx(tel.timer)
+    window = tel.window
     dev = backend.device
     group = backend.group
     C, D, B = cfg.n_outputs, cfg.max_depth, cfg.n_bins
@@ -430,25 +571,31 @@ def _fit_streaming_device(chunk_fn, n_chunks, cfg, backend, drv, ens, bs,
     slots = [None] * n_chunks        # [C, R] int32 leaf slots per chunk
     prev_values = None               # the last round's leaf values
     t_out = start_round * C
+    rows_local = sum(backend.block_bounds(n)[2] for n in chunk_lens)
     for rnd in range(start_round, cfg.n_trees):
+        if window is not None:
+            window.round_start(rnd)
+        t_round = time.perf_counter()
         # Round start: the previous round's trees into pred, and the new
         # round's statistics; no chunk read.
-        stats = None
-        for c in range(n_chunks):
-            stats = _merge_stats(stats, backend.stream_round_start(
-                pred_dev[c], y_dev[c], slots[c], prev_values, rnd,
-                row_start[c]), exact)
-        if exact:
-            stats = comms.pmax(stats, group)
-            scales = [grad_ops.fixed_scales(stats[c], n_global)
-                      for c in range(C)]
-            convert = [grad_ops.fixed_inverse(s) for s in scales]
-        else:
-            mx = comms.pmax(stats[:, 0::2].contiguous(), group)
-            sm = comms.psum(stats[:, 1::2].contiguous(), group)
-            convert = [grad_ops.quant_scale(mx[c], sm[c], cfg.grad_dtype)
-                       for c in range(C)]
-            scales = convert
+        with ph("grad"):
+            stats = None
+            for c in range(n_chunks):
+                stats = _merge_stats(stats, backend.stream_round_start(
+                    pred_dev[c], y_dev[c], slots[c], prev_values, rnd,
+                    row_start[c]), exact)
+            if exact:
+                stats = comms.pmax(stats, group)
+                scales = [grad_ops.fixed_scales(stats[c], n_global)
+                          for c in range(C)]
+                convert = [grad_ops.fixed_inverse(s) for s in scales]
+            else:
+                mx = comms.pmax(stats[:, 0::2].contiguous(), group)
+                sm = comms.psum(stats[:, 1::2].contiguous(), group)
+                convert = [grad_ops.quant_scale(mx[c], sm[c],
+                                                cfg.grad_dtype)
+                           for c in range(C)]
+                scales = convert
         round_trees = []
         for cls in range(C):
             fmask = None
@@ -465,14 +612,15 @@ def _fit_streaming_device(chunk_fn, n_chunks, cfg, backend, drv, ens, bs,
                 table, reduced over the row group."""
                 sub = parent_hist is not None
                 n_build = (1 << depth) // 2 if sub else 1 << depth
-                acc = torch.zeros((n_build, F, B, 2), dtype=acc_dtype,
-                                  device=dev)
-                for c, data in passes():
-                    backend.stream_level_hist(
-                        data, pred_dev[c], y_dev[c], parts, depth, acc, cls,
-                        rnd, row_start[c], build_left=sub,
-                        scales=scales[cls])
-                acc = comms.psum(acc, group, modeled=True)
+                with ph("hist"):
+                    acc = torch.zeros((n_build, F, B, 2), dtype=acc_dtype,
+                                      device=dev)
+                    for c, data in passes():
+                        backend.stream_level_hist(
+                            data, pred_dev[c], y_dev[c], parts, depth, acc,
+                            cls, rnd, row_start[c], build_left=sub,
+                            scales=scales[cls])
+                    acc = comms.psum(acc, group, modeled=True)
                 hist = grow_ops.assemble_subtracted(
                     parent_hist, acc, parent_split) if sub else acc
                 return (hist,) + split_ops.node_totals(hist)
@@ -480,27 +628,35 @@ def _fit_streaming_device(chunk_fn, n_chunks, cfg, backend, drv, ens, bs,
             def leaf_sums():
                 """The leaf pass: the last level's (G, H), and each row's
                 leaf slot kept for the next round's pred update."""
-                GH = torch.zeros((1 << D, 2), dtype=acc_dtype, device=dev)
-                for c, data in passes():
-                    slot = backend.stream_leaf_gh(
-                        data, pred_dev[c], y_dev[c], parts, GH, cls, rnd,
-                        row_start[c], scales=scales[cls])
-                    if slots[c] is None:
-                        slots[c] = torch.empty((C, slot.shape[0]),
-                                               dtype=torch.int32, device=dev)
-                    slots[c][cls] = slot
-                return comms.psum(GH, group, modeled=True)
+                with ph("leaf"):
+                    GH = torch.zeros((1 << D, 2), dtype=acc_dtype,
+                                     device=dev)
+                    for c, data in passes():
+                        slot = backend.stream_leaf_gh(
+                            data, pred_dev[c], y_dev[c], parts, GH, cls, rnd,
+                            row_start[c], scales=scales[cls])
+                        if slots[c] is None:
+                            slots[c] = torch.empty((C, slot.shape[0]),
+                                                   dtype=torch.int32,
+                                                   device=dev)
+                        slots[c][cls] = slot
+                    return comms.psum(GH, group, modeled=True)
 
-            grow_ops.grow_levels(
-                tree, D, level, leaf_sums, reg_lambda=cfg.reg_lambda,
-                min_child_weight=cfg.min_child_weight,
-                min_split_gain=cfg.min_split_gain,
-                hist_subtraction=subtract, feature_mask=fmask,
-                missing_bin=cfg.missing_policy == "learn", cat_mask=cat_dev,
-                dequant=None if exact else convert[cls],
-                inv_scale=convert[cls] if exact else None)
+            # The level loop: its hist and leaf passes are phases of their
+            # own, nested; "gain" keeps the rest (split search, routing).
+            with ph("gain"):
+                grow_ops.grow_levels(
+                    tree, D, level, leaf_sums, reg_lambda=cfg.reg_lambda,
+                    min_child_weight=cfg.min_child_weight,
+                    min_split_gain=cfg.min_split_gain,
+                    hist_subtraction=subtract, feature_mask=fmask,
+                    missing_bin=cfg.missing_policy == "learn",
+                    cat_mask=cat_dev,
+                    dequant=None if exact else convert[cls],
+                    inv_scale=convert[cls] if exact else None)
             round_trees.append(tree)
-            host = backend.fetch_grown_tree(tree)
+            with ph("fetch_tree"):
+                host = backend.fetch_grown_tree(tree)
             for k in PACKED_FIELDS:
                 getattr(ens, k)[t_out] = host[k]
             t_out += 1
@@ -508,27 +664,49 @@ def _fit_streaming_device(chunk_fn, n_chunks, cfg, backend, drv, ens, bs,
 
         stop = False
         if ev is not None:
-            scores = []
-            for c in range(ev.n):
-                data = val_chunks.get(c)
-                for cls, t in enumerate(round_trees):
-                    backend.stream_update_pred(
-                        data, val_pred[c],
-                        (t.feature, t.threshold_bin, t.is_leaf,
-                         t.leaf_value, t.default_left), cls)
-                scores.append(val_pred[c][:ev.lens[c]].cpu().numpy())
-            stop = ev.record(rnd, np.concatenate(scores))
+            with ph("predict"):
+                scores = []
+                for c in range(ev.n):
+                    data = val_chunks.get(c)
+                    for cls, t in enumerate(round_trees):
+                        backend.stream_update_pred(
+                            data, val_pred[c],
+                            (t.feature, t.threshold_bin, t.is_leaf,
+                             t.leaf_value, t.default_left), cls)
+                    scores.append(val_pred[c][:ev.lens[c]].cpu().numpy())
+            with ph("eval"):
+                stop = ev.record(rnd, np.concatenate(scores))
+        ms = 1e3 * (time.perf_counter() - t_round)
+        tele_counters.record_grad_stream(
+            C * tele_counters.grad_stream_bytes(rows_local, D,
+                                                cfg.grad_dtype))
+        if not exact:
+            tele_counters.record_grad_quant_round()
+        tel.round_end(rnd, ms, ev)
+        if window is not None:
+            window.round_end(rnd)
         if stop:
             log.info("streaming: early stop at round %d (best %s=%.6f at "
                      "round %d)", rnd + 1, ev.metric, ev.best_score,
                      ev.best_round + 1)
+            emit_early_stop(tel.run_log, rnd + 1, ev.metric,
+                            ev.best_round + 1, ev.best_score)
             ens = ens.truncate((ev.best_round + 1) * C)
             drv.save_checkpoint(ens, ev.best_round + 1)
             return ens
-        # (The reference emits its round event and heartbeat and feeds its
-        # straggler watchdog here: not ported yet.)
+        # (The reference feeds its straggler watchdog here: not ported
+        # yet.)
         log.info("streaming: round %d/%d done", rnd + 1, cfg.n_trees)
         drv.save_checkpoint(ens, rnd + 1, drv.checkpoint_every)
+        every = drv.checkpoint_every
+        if (rnd + 1) % every == 0:
+            has_dir = drv.checkpoint_dir is not None
+            if tel.status is not None and has_dir:
+                tel.status.checkpoint_saved(rnd + 1)
+            emit_train_heartbeat(
+                tel.run_log, rnd=rnd, total_rounds=cfg.n_trees,
+                checkpoint_round=rnd + 1 if has_dir else None,
+                ms_per_round=ms)
     drv.save_checkpoint(ens, cfg.n_trees)
     return ens
 

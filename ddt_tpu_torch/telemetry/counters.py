@@ -1,31 +1,41 @@
 """Process-wide counters behind `/metrics` and the run log (port of
 ddt_tpu/telemetry/counters.py: the same `_c` key set, the same `record_*`
-functions, `snapshot` and `delta`).
+functions, `snapshot`, `delta`, `device_peak_bytes`,
+`host_peak_rss_bytes`, `hist_allreduce_bytes(_by_level)` and
+`grad_stream_bytes`).
 
 Every counter is a monotonic process-wide number: consumers take a
-`snapshot()` and later read `delta(start)`, so a scrape of either
-package reads the same `ddt_<name>_total` series (serve/metrics.py).
+`snapshot()` and later read `delta(start)`, so a scrape or a run log of
+either package reads the same `ddt_<name>` keys (serve/metrics.py,
+`report diff`).
 
 What the port counts under the reference's names:
 
-- `jit_compiles` / `jit_compile_seconds` count nvcc builds: the
-  libraries `_build.build_all` compiled in this process and the seconds
-  those calls took (`_build.builds`, `_build.build_seconds`, read at
-  snapshot time; there is no JAX compile listener here). A serving
-  process whose kernels are built reads 0 here.
+- `jit_compiles` / `jit_compile_seconds` count what the port compiles:
+  the nvcc builds `_build.build_all` ran in this process and the CUDA
+  graphs the fused loop captured (one per new round graph,
+  `graph_captured`), with the host seconds of both (a capture's
+  seconds include the warm-up round before it). There is no JAX compile
+  listener here. A process whose kernels are built and whose round is
+  captured reads 0 here.
 - `h2d_bytes`: the binned chunk rows the streamed trainer and scorer move
-  host to device (backends/cuda `upload_chunk` / `upload_row_shards`);
-  this module is their one home.
+  host to device (backends/cuda `upload_chunk` / `upload_row_shards`).
+- `d2h_bytes`: the fused loop's block fetches of trees and losses.
+- `collective_bytes_est`: the histogram collectives' modeled payload a
+  round on a mesh (CUDADevice.collective_bytes_per_tree).
+- `grad_stream_bytes_est`, `grad_quant_rounds`, `train_rounds`,
+  `train_heartbeats`: recorded by the Driver and the streamed trainer
+  every round (heartbeats at the checkpoint cadence, with a run log).
 - `compiled_ensemble_cache_hits`: hits of CUDADevice's scoring-operand
   cache (api.predict's per-model LRU).
 - the serving counters (`serve_*`, `fleet_*`, `slo_breaches`,
   `drift_alerts`) from serve/engine.py, serve/fleet.py and serve/drift.py.
+- `fault_retries` and `hist_oom_degrades` read 0: their seams come with
+  the robustness slice.
 
-The training-plane counters (`d2h_bytes`, `collective_bytes_est`,
-`fault_retries`, `hist_oom_degrades`, `grad_stream_bytes_est`,
-`grad_quant_rounds`, `train_rounds`, `train_heartbeats`) keep their
-names and their record functions, but no training path of the port
-records them yet (they come with the training telemetry): they read 0.
+`device_peak_bytes()` is torch.cuda.max_memory_allocated of the current
+card since `reset_device_peak` (the trainers reset it at run start), None
+on a process that has not used a card.
 
 Plain ints under the GIL: a lost update between two threads is possible
 and harmless, since these feed reports, not invariants.
@@ -135,12 +145,25 @@ def record_train_heartbeat() -> None:
     _c["train_heartbeats"] += 1
 
 
+# CUDA-graph captures and their host seconds (graph_captured);
+# snapshot folds them into jit_compiles / jit_compile_seconds beside the
+# nvcc builds, which _build counts itself.
+_captures = 0
+_capture_seconds = 0.0
+
+
+def graph_captured(seconds: float) -> None:
+    global _captures, _capture_seconds
+    _captures += 1
+    _capture_seconds += float(seconds)
+
+
 def snapshot() -> dict:
-    """Point-in-time copy of the monotonic counters (the nvcc builds read
-    from _build)."""
+    """Point-in-time copy of the monotonic counters (jit_compiles: nvcc
+    builds plus graph captures)."""
     out = dict(_c)
-    out["jit_compiles"] = _build.builds
-    out["jit_compile_seconds"] = _build.build_seconds
+    out["jit_compiles"] = _build.builds + _captures
+    out["jit_compile_seconds"] = _build.build_seconds + _capture_seconds
     return out
 
 
@@ -152,3 +175,83 @@ def delta(start: dict, end: dict | None = None) -> dict:
     out = {k: end[k] - start.get(k, 0) for k in _c}
     out["jit_compile_seconds"] = round(out["jit_compile_seconds"], 4)
     return out
+
+
+def reset_device_peak() -> None:
+    """Start a new high-water mark on the current card (a trainer's run
+    start); nothing without a card or before the process has used one."""
+    import torch
+
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        torch.cuda.reset_peak_memory_stats()
+
+
+def device_peak_bytes() -> int | None:
+    """Device memory high-water mark of the current card (torch's
+    caching allocator, bytes allocated to tensors), or None on a process
+    that has no card or has not used it."""
+    import torch
+
+    if not (torch.cuda.is_available() and torch.cuda.is_initialized()):
+        return None
+    return int(torch.cuda.max_memory_allocated())
+
+
+def host_peak_rss_bytes() -> int | None:
+    """Peak host resident-set size of this process (ru_maxrss), or None
+    where the resource module is unavailable. Linux reports KiB, macOS
+    bytes; normalised to bytes."""
+    try:
+        import resource
+        import sys
+    except ImportError:
+        return None
+    ru = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+    return int(ru) if sys.platform == "darwin" else int(ru) * 1024
+
+
+def hist_allreduce_bytes_by_level(
+        max_depth: int, n_features: int, n_bins: int,
+        *, partitions: int = 1, mode: str = "allreduce",
+        subtraction: bool = False, comms_dtype: str = "f32",
+        feature_partitions: int = 1,
+        grad_dtype: str = "f32") -> "list[int]":
+    """Per-level modeled collective payload (levels 0..max_depth-1); the
+    wire this models is parallel/comms.hist_reduce, whose own
+    `hist_allreduce_bytes_by_level` it equals."""
+    from ddt_tpu_torch.parallel.comms import hist_allreduce_bytes_by_level \
+        as by_level
+
+    return by_level(max_depth, n_features, n_bins, partitions=partitions,
+                    mode=mode, subtraction=subtraction,
+                    comms_dtype=comms_dtype,
+                    feature_partitions=feature_partitions,
+                    grad_dtype=grad_dtype)
+
+
+def hist_allreduce_bytes(max_depth: int, n_features: int, n_bins: int,
+                         *, partitions: int = 1, mode: str = "allreduce",
+                         subtraction: bool = False,
+                         comms_dtype: str = "f32",
+                         feature_partitions: int = 1,
+                         grad_dtype: str = "f32") -> int:
+    """Modeled per-rank collective payload of one tree's histogram
+    phases: the levels plus the final level's [2^d, 2] leaf aggregates
+    (parallel/comms.hist_allreduce_bytes)."""
+    from ddt_tpu_torch.parallel.comms import hist_allreduce_bytes as whole
+
+    return whole(max_depth, n_features, n_bins, partitions=partitions,
+                 mode=mode, subtraction=subtraction,
+                 comms_dtype=comms_dtype,
+                 feature_partitions=feature_partitions,
+                 grad_dtype=grad_dtype)
+
+
+def grad_stream_bytes(rows: int, max_depth: int,
+                      grad_dtype: str = "f32") -> int:
+    """Modeled g/h bytes a tree reads: every histogram pass (max_depth
+    levels and the leaf pass) reads both gradient rows at their stored
+    itemsize (ops/grad.GRAD_ITEMSIZE)."""
+    from ddt_tpu_torch.ops.grad import GRAD_ITEMSIZE
+
+    return (max_depth + 1) * rows * 2 * GRAD_ITEMSIZE[grad_dtype]

@@ -1,7 +1,9 @@
 """Run-log events: schema-versioned JSONL records and a ring buffer
-(port of the part of ddt_tpu/telemetry/events.py that serving and the
-registry write: the schema tables, `validate_event`, `RunLog` and
-`derive_run_id`).
+(port of ddt_tpu/telemetry/events.py: the schema tables,
+`validate_event`, `RunLog`, `derive_run_id`, and the trainers' emit
+homes `RoundRecorder`, `emit_early_stop`, `emit_train_heartbeat`,
+`finish_run_log`, `comms_manifest_fields`, with the pure reduction
+`partition_skew_summary` that report reads).
 
 Every record is one JSON object per line with the envelope (`event`,
 `schema`, `t`, `seq`) plus its event type's required fields
@@ -16,8 +18,9 @@ mid-write loses at most its last partial line. One RunLog may be shared
 by the registry loader, the engine and the fleet on several threads;
 `emit` holds a lock, so `seq` stays strictly increasing in the file.
 
-The training-side recorders (partition phases, rounds, heartbeats, the
-run epilogue) come with the port's training telemetry.
+The partition recorder (per-rank phase lanes of a mesh run, the
+straggler watchdog's feed) is not ported: it comes with straggler
+repartition.
 """
 
 from __future__ import annotations
@@ -226,3 +229,172 @@ def derive_run_id(**fields) -> str:
     derives the same id, the key a cross-host merge joins logs on."""
     blob = json.dumps(fields, sort_keys=True, default=str)
     return hashlib.sha1(blob.encode()).hexdigest()[:12]
+
+
+def emit_early_stop(run_log: "RunLog | None", stop_round: int, metric,
+                    best_round: int, best_score) -> None:
+    """The early_stop event, one emit site for the Driver's two loops and
+    the streamed loop (rounds are 1-based here)."""
+    if run_log is None:
+        return
+    run_log.emit("early_stop", round=stop_round, metric=metric,
+                 best_round=best_round, best_score=best_score)
+
+
+def finish_run_log(run_log: "RunLog | None", timer, counters_start,
+                   completed_rounds: int, wallclock_s: float,
+                   costs=None) -> None:
+    """Run-log epilogue: [cost_analysis... +] phase_timings + counters +
+    run_end, shared by the Driver and fit_streaming. `timer` is a
+    utils.profiling.PhaseTimer or None (reading its totals is the one
+    device sync of a timed run on the card); `counters_start` a
+    counters.snapshot() or None; `costs` the run's costmodel.Collector
+    or None. Closing a path-owned log is the trainers' job, which also
+    covers the exception paths."""
+    if run_log is None:
+        return
+    from ddt_tpu_torch.telemetry import costmodel
+    from ddt_tpu_torch.telemetry import counters as tele_counters
+
+    if costs is not None:
+        costmodel.flush_into(run_log, costs)
+    if timer is not None and timer.totals:
+        run_log.emit("phase_timings", phases=timer.as_json())
+    d = tele_counters.delta(counters_start or {})
+    d["device_peak_bytes"] = tele_counters.device_peak_bytes()
+    d["host_peak_rss_bytes"] = tele_counters.host_peak_rss_bytes()
+    run_log.emit("counters", **d)
+    run_log.emit("run_end", completed_rounds=completed_rounds,
+                 wallclock_s=wallclock_s)
+
+
+def emit_train_heartbeat(run_log, *, rnd, total_rounds,
+                         checkpoint_round=None, ms_per_round=None,
+                         rows_per_s=None) -> None:
+    """One heartbeat at a checkpoint-cadence boundary, the one emit home
+    of every trainer path. `rnd` is 0-based (the loop variable); the
+    event's `round` is the 1-based completed count, as in `round`
+    records. No-op without a run log."""
+    if run_log is None:
+        return
+    from ddt_tpu_torch.telemetry import counters as tele_counters
+
+    tele_counters.record_train_heartbeat()
+    extras = {}
+    if checkpoint_round is not None:
+        extras["checkpoint_round"] = checkpoint_round
+    if ms_per_round is not None:
+        extras["ms_per_round"] = round(float(ms_per_round), 3)
+    if rows_per_s is not None:
+        extras["rows_per_s"] = round(float(rows_per_s), 1)
+    run_log.emit("train_heartbeat", round=rnd + 1,
+                 total_rounds=total_rounds, **extras)
+
+
+def comms_manifest_fields(backend) -> dict:
+    """run_manifest extras of the resolved split-finding comms: always
+    `grad_dtype` when the quantized path is armed; on a mesh also the
+    comms mode, wire dtype, slabs and the live (row shards, feature
+    shards) layout (`mesh_layout`: hosts x rows folded into the first)."""
+    out = {}
+    cfg = getattr(backend, "cfg", None)
+    if cfg is not None and getattr(cfg, "grad_dtype", "f32") != "f32":
+        out["grad_dtype"] = cfg.grad_dtype
+    m = getattr(backend, "mesh", None)
+    if m is None:
+        return out
+    return {
+        **out,
+        "split_comms": backend.split_comms,
+        "hist_comms_dtype": backend.cfg.hist_comms_dtype,
+        "hist_comms_slabs": int(backend.comms_slabs),
+        "mesh_layout": [int(m.row_shards), int(m.n_feature_shards)],
+    }
+
+
+def partition_skew_summary(totals: dict) -> list[dict]:
+    """Straggler reduction: {lane: {phase: ms}} accumulated per-lane phase
+    wall times -> [{phase, ms_max, ms_median, skew, max_device}], phases
+    by ms_max descending. A lane key is a device id or a (host, device)
+    tuple (the record then also carries max_host). `skew` is max/median
+    (1.0 = balanced). Report recomputes it across hosts from
+    `partition_phases` events."""
+    phases: dict[str, dict] = {}
+    for lane, per_phase in totals.items():
+        for name, ms in per_phase.items():
+            phases.setdefault(name, {})[lane] = ms
+    out = []
+    for name, by_lane in phases.items():
+        vals = sorted(by_lane.values())
+        n = len(vals)
+        median = (vals[n // 2] if n % 2 else
+                  (vals[n // 2 - 1] + vals[n // 2]) / 2.0)
+        # The smallest lane wins exact ties.
+        max_lane = max(sorted(by_lane), key=lambda k: by_lane[k])
+        ms_max = by_lane[max_lane]
+        rec = {
+            "phase": name,
+            "ms_max": round(ms_max, 3),
+            "ms_median": round(median, 3),
+            "skew": round(ms_max / median, 3) if median > 0 else None,
+        }
+        if isinstance(max_lane, tuple):
+            rec["max_host"] = int(max_lane[0])
+            rec["max_device"] = int(max_lane[1])
+        else:
+            rec["max_device"] = int(max_lane)
+        out.append(rec)
+    out.sort(key=lambda r: -r["ms_max"])
+    return out
+
+
+class RoundRecorder:
+    """Per-round history record + run-log event + progress log line, the
+    one home of the round-record shape for the Driver's two loops.
+
+    The train loss is read at the `log_every` cadence and on the last
+    round only (the loss thunk may cost a device sync; off-cadence records
+    carry train_loss=None), the eval metric every round, so the history
+    depends neither on the logging level nor on the loop. A record joins
+    `history` on a cadence round or a round with an eval score; with a run
+    log every round is emitted. ms_per_round is the caller's number: the
+    round's wall time on the granular loop, the block's mean on the fused
+    loop."""
+
+    def __init__(self, history: list, run_log: RunLog | None,
+                 log_every: int, n_rounds: int, metric_name: str | None,
+                 logger):
+        self.history = history
+        self.run_log = run_log
+        self.log_every = log_every
+        self.n_rounds = n_rounds
+        self.metric_name = metric_name
+        self.log = logger
+
+    @staticmethod
+    def make_record(r: int, ms: float, train_loss,
+                    metric_name=None, val_score=None) -> dict:
+        """The round record ({round, train_loss, ms_per_round
+        [, valid_<metric>]})."""
+        rec = {"round": r + 1, "train_loss": train_loss,
+               "ms_per_round": ms}
+        if val_score is not None:
+            rec[f"valid_{metric_name}"] = val_score
+        return rec
+
+    def record(self, r: int, ms: float, val_score, loss_fn) -> None:
+        on_cadence = (r + 1) % self.log_every == 0 or r == self.n_rounds - 1
+        if not on_cadence and val_score is None and self.run_log is None:
+            return
+        loss = loss_fn() if on_cadence else None
+        rec = self.make_record(r, ms, loss, self.metric_name, val_score)
+        if on_cadence or val_score is not None:
+            self.history.append(rec)
+        if self.run_log is not None:
+            self.run_log.emit("round", **rec)
+        if on_cadence:
+            self.log.info(
+                "round %4d/%d  loss=%.6f  %.1f ms/round%s",
+                r + 1, self.n_rounds, loss, ms,
+                f"  valid_{self.metric_name}={val_score:.6f}"
+                if val_score is not None else "")

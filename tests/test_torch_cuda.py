@@ -1602,3 +1602,120 @@ def test_cli_serve_device_defaults_to_the_card(dev, fleet_models, tmp_path):
         if proc.poll() is None:
             proc.kill()
         proc.communicate(timeout=30)
+
+
+def test_fused_run_with_a_run_log_is_still_graph_replays(dev, tmp_path):
+    """A run log keeps the fused loop: the rounds are replays of one
+    captured round, the trees those of a run without telemetry bitwise,
+    and the log's hist cost events count the warm-up round's launches and
+    one set a replay (not one set for the capture)."""
+    from ddt_tpu_torch import api
+    from ddt_tpu_torch.backends import cuda as cuda_be
+    from ddt_tpu_torch.config import TrainConfig
+    from ddt_tpu_torch.telemetry.events import RunLog
+
+    rng = np.random.default_rng(3)
+    Xb = rng.integers(0, 63, size=(20_000, 12), dtype=np.uint8)
+    y = (Xb[:, 0] > 31).astype(np.float32)
+    cfg = TrainConfig(n_trees=9, max_depth=4, n_bins=63)
+    plain = api.train(Xb, y, cfg, binned=True)
+    r0, c0 = cuda_be.graph_replays, cuda_be.graph_captures
+    launches0 = hist_cuda.launches_exact
+    rl = RunLog(str(tmp_path / "run.jsonl"))
+    res = api.train(Xb, y, cfg, binned=True, run_log=rl)
+    rl.close()
+    # A fit at the same addresses replays the graph the untelemetered
+    # fit captured as it is; a new one captures once, after one warm-up
+    # round. The run log counts every replay either way.
+    assert cuda_be.graph_replays - r0 == 9
+    warm = cuda_be.graph_captures - c0
+    assert warm in (0, 1)
+    for k in ("feature", "threshold_bin", "is_leaf", "leaf_value",
+              "split_gain", "default_left"):
+        np.testing.assert_array_equal(getattr(res.ensemble, k),
+                                      getattr(plain.ensemble, k))
+    hist = [e for e in rl.events("cost_analysis") if e["op"] == "hist"]
+    assert sum(e["calls"] for e in hist) == 4 * (9 + warm) \
+        == hist_cuda.launches_exact - launches0
+    assert all(e["platform"] == torch.cuda.get_device_name(dev)
+               for e in hist)
+    c = rl.events("counters")[-1]
+    assert c["jit_compiles"] == warm and c["device_peak_bytes"] > 0
+    phases = {p["phase"] for p in rl.events("phase_timings")[-1]["phases"]}
+    assert phases == {"grow_block", "fetch_tree"}
+
+
+def test_costed_counts_replays_not_the_capture(dev):
+    """A costed dispatcher met once at capture counts once a replay."""
+    from ddt_tpu_torch.telemetry import costmodel
+    from ddt_tpu_torch.utils import launches
+
+    X = torch.randint(0, 16, (4096, 8), dtype=torch.uint8, device=dev)
+    g = torch.randn(4096, device=dev)
+    h = torch.rand(4096, device=dev)
+    ni = torch.zeros(4096, dtype=torch.int32, device=dev)
+    col = costmodel.activate()
+    try:
+        histogram.build_histograms(X, g, h, ni, 1, 16)        # warm-up
+        torch.cuda.synchronize(dev)
+        graph = torch.cuda.CUDAGraph()
+        with launches.recording() as rec, torch.cuda.graph(graph):
+            histogram.build_histograms(X, g, h, ni, 1, 16)
+        (calls,) = [r["calls"] for r in col.records.values()]
+        assert calls == 1                  # the capture ran nothing
+        for _ in range(5):
+            graph.replay()
+            rec.replayed()
+        (calls,) = [r["calls"] for r in col.records.values()]
+        assert calls == 6
+    finally:
+        costmodel.deactivate(col)
+
+
+def test_replay_counts_into_the_collector_active_at_replay(dev):
+    """A round captured with no collector active, replayed under one,
+    counts its costed calls once a replay in that collector."""
+    from ddt_tpu_torch.telemetry import costmodel
+    from ddt_tpu_torch.utils import launches
+
+    X = torch.randint(0, 16, (4096, 8), dtype=torch.uint8, device=dev)
+    g = torch.randn(4096, device=dev)
+    h = torch.rand(4096, device=dev)
+    ni = torch.zeros(4096, dtype=torch.int32, device=dev)
+    assert costmodel._active is None
+    histogram.build_histograms(X, g, h, ni, 1, 16)            # warm-up
+    torch.cuda.synchronize(dev)
+    graph = torch.cuda.CUDAGraph()
+    with launches.recording() as rec, torch.cuda.graph(graph):
+        histogram.build_histograms(X, g, h, ni, 1, 16)
+    col = costmodel.activate()
+    try:
+        for _ in range(4):
+            graph.replay()
+            rec.replayed()
+        (ev,) = col.events()
+    finally:
+        costmodel.deactivate(col)
+    assert ev["op"] == "hist" and ev["calls"] == 4
+    assert ev["platform"] == torch.cuda.get_device_name(dev)
+
+
+def test_phase_timer_on_the_card_reads_events_once(dev, monkeypatch):
+    """Phases on the card are CUDA-event pairs read at the end: no
+    synchronize while phases open and close."""
+    from ddt_tpu_torch.utils.profiling import PhaseTimer
+
+    t = PhaseTimer(dev)
+    x = torch.randn(1 << 20, device=dev)
+    calls = []
+    real = torch.cuda.synchronize
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda *a: calls.append(a) or real(*a))
+    for _ in range(10):
+        with t.phase("outer"):
+            with t.phase("inner"):
+                x = x * 1.0001
+    assert calls == []
+    got = {r["phase"]: r for r in t.as_json()}
+    assert got["inner"]["calls"] == 10 and got["outer"]["calls"] == 10
+    assert got["inner"]["ms_total"] > 0

@@ -65,7 +65,7 @@ def _run(pools, P, X, y, kw, fit_kw=None, loop="fused"):
     outs = pools(P).run(tasks.train, X, y, kw, fit_kw, loop)
 
     def hist(o):
-        return [{k: v for k, v in r.items() if k != "ms"}
+        return [{k: v for k, v in r.items() if k != "ms_per_round"}
                 for r in o["history"]]
 
     for o in outs[1:]:
@@ -298,7 +298,7 @@ def test_checkpoint_of_a_mesh_resumes_on_one_process(pools, binary, tmp_path,
     ck = dict(checkpoint_dir=str(tmp_path), checkpoint_every=3)
     _run(pools, 4, X, y, dict(_mesh_kw(3), **layout), ck)
     cfg = TrainConfig(device="cpu", **_mesh_kw(6))
-    resumed = api.train(X, y, cfg, **ck)
+    resumed = api.train(X, y, cfg, log_every=1, **ck)
     assert len(resumed.history) == 3
     _bitwise(resumed.ensemble, api.train(X, y, cfg).ensemble)
 
