@@ -309,9 +309,32 @@ Phases:
              with and without a run log (three fits each, interleaved,
              each on a backend of its own, so each captures its round
              once: capture included); each CLI child's seconds.
+ 30 robust    config 1 at full width (1M x 28, 255 bins, depth 6, 8 trees),
+             f32 and int8, under a fault plan: two transient tree fetches
+             and a torn checkpoint write (retried) and an allocation
+             failure at the third tree's second level (K1's ladder steps
+             down one rung, launches over a quarter of the nodes) on the
+             granular loop; then the streamed trainer over 4 chunks with
+             three failed chunk reads (retried); every ensemble bitwise
+             the undisturbed granular one (itself the fused one's);
+             retries, degrades, fault events and the rung taken. A `cli
+             train` child crashed by ckpt.save.between at round 6 (the
+             torn pair's cursor at 4), a second child resuming it, its
+             model bitwise api.train's. The fused ms a tree with no plan
+             and with a plan armed at every seam that never matches, 3
+             fits a side interleaved, each capturing its round.
+ 31 baseline the CPU reference: backends/cpu.CPUDevice's native C++
+             histogram on one main-path Higgs tree's level shapes
+             (main_path_levels), at all host threads and at one, against
+             K1 on the same inputs on the card: f32 (native f32 sums
+             within 1e-5 * sum|g| + 1e-6 of K1's exact table) and int8
+             q's (bitwise, every cell below 2^24); Mrows/s a build on
+             each side and their ratio, lscpu's model name and the thread
+             count; a 5-tree backend="cpu" fit against the card's trees
+             (equal but for bf16 ties).
   then the {"kernels": [...]} line (K1 and K3 report covertype, the other
   paths' launches under "paths", "stream", "lifecycle", "serve_plane",
-  "ops" and K3's "config4" included; K1's entry is its exact mode, with the float-atomic mode's
+  "ops", "robust" and K3's "config4" included; K1's entry is its exact mode, with the float-atomic mode's
   time as cas_ms), nvidia-smi's line, and the ok line.
 
     python3 chip_smoke.py --phase multi
@@ -320,15 +343,27 @@ Phases:
     python3 chip_smoke.py --phase config4
     python3 chip_smoke.py --phase serve_plane
     python3 chip_smoke.py --phase ops
+    python3 chip_smoke.py --phase robust
+    python3 chip_smoke.py --phase baseline
+    python3 chip_smoke.py --phase straggler
 
-run the device, build and multi (or mesh2d, stream, config4, ops, or
-serve_plane after training its two models) phases alone
+run the device, build and multi (or mesh2d, stream, config4, ops,
+robust, baseline, or serve_plane after training its two models) phases
+alone
 (the calls to make on a machine with several cards, or with the host
 memory for the witness) and end with the same ok line. `--phase stream`
 then trains 1 round f32 at depth 6 over a chunk set larger than the
 card's memory, held in pageable host memory, where /proc/meminfo's
 MemAvailable allows, and prints its size, or "not witnessed: host
-memory".
+memory". `--phase straggler` (>= 2 cards; not in the default run) runs
+config 3's layout at 1M rows a rank on min(4, cards) NCCL ranks, 6
+trees: f32 allreduce, f32 reduce_scatter, int8 and (with 4 cards) a (2,
+2) mesh, each with the flag off (the fused loop), on (the granular loop,
+undisturbed) and on under an injected straggler on rank 1 (the watchdog
+rotates the row shards at checkpoint_every=2, three times): every
+rank's trees bitwise the undisturbed run's with the flag on; ms a round
+off, on and rotating, each rotation's ms, the modeled histogram bytes a
+round off and on (the f32 path's int64 wire), K1's launches.
 """
 
 from __future__ import annotations
@@ -4449,6 +4484,381 @@ def phase_ops(X: np.ndarray, y: np.ndarray) -> dict:
     return out
 
 
+# --------------------------------------------------------------------- #
+# robustness, the CPU baseline, the straggler rotation (PR 15)
+# --------------------------------------------------------------------- #
+
+ROBUST_TREES = 8
+ROBUST_EVERY = 4
+ROBUST_CHUNKS = 4
+ROBUST_OVERHEAD_FITS = 3      # a side, interleaved
+#: A plan whose every fault fires once: two transient tree fetches, a torn
+#: ensemble write, and an allocation failure at the third tree's second
+#: level (a rung step on the granular loop).
+ROBUST_PLAN = {"faults": [
+    {"site": "fetch_tree", "times": 2},
+    {"site": "ckpt.save.write", "round": ROBUST_EVERY},
+    {"site": "hist.build", "after_calls": 2 * DEPTH + 1}]}
+#: Armed at every seam, matching nothing (no seam passes these contexts).
+ROBUST_NEVER = {"faults": [
+    {"site": "hist.build", "chunk": -1},
+    {"site": "fetch_tree", "round": -1},
+    {"site": "ckpt.save.write", "round": -1},
+    {"site": "stream.chunk_read", "chunk": -1}]}
+BASELINE_REPS = 3
+BASELINE_FIT_TREES = 5
+STRAGGLER_ROWS = 1_000_000    # config 3: rows a rank, as phase multi
+STRAGGLER_TREES = 12
+STRAGGLER_BLOCK = 6           # flag off: fused blocks; the second is steady
+STRAGGLER_EVERY = 2
+#: An injected straggler on rank 1 for every round: 600 s added to its
+#: lane (the watchdog trips; nothing sleeps).
+STRAGGLER_PLAN = {"faults": [{"site": "straggler", "device": 1,
+                              "delay_ms": 600000.0,
+                              "rounds": [1, STRAGGLER_TREES],
+                              "times": 1000}]}
+STRAGGLER_CASES = (
+    ("f32_allreduce", dict(split_comms="allreduce")),
+    ("f32_reduce_scatter", dict(split_comms="reduce_scatter")),
+    ("int8_allreduce", dict(grad_dtype="int8", split_comms="allreduce")),
+    ("2x2_f32", dict(mesh_shape=(2, 2))))
+
+
+def host_chunks(Xb: np.ndarray, y: np.ndarray, n: int):
+    bounds = np.linspace(0, len(y), n + 1).astype(np.int64)
+
+    def f(c):
+        return Xb[bounds[c]:bounds[c + 1]], y[bounds[c]:bounds[c + 1]]
+
+    return f
+
+
+def phase_robust(X: np.ndarray, y: np.ndarray, Xb: np.ndarray) -> dict:
+    """Config 1 at full width under the fault plan (module docstring,
+    phase robust)."""
+    from ddt_tpu_torch.robustness import faultplan
+
+    t_phase = time.perf_counter()
+    out = {"phase": "robust", "rows": len(y), "trees": ROBUST_TREES,
+           "plan": ROBUST_PLAN, "cases": {}}
+    tmp = tempfile.mkdtemp(prefix="ddt_robust_")
+    Xd = torch.from_numpy(Xb).to("cuda")
+    zero_counters()
+    for dt in ("f32", "int8"):
+        cfg = TrainConfig(n_trees=ROBUST_TREES, max_depth=DEPTH, n_bins=255,
+                          grad_dtype=dt)
+        ref = api.train(Xd, y, cfg, binned=True,
+                        backend=tasks.Granular(cfg)).ensemble
+        fused = api.train(Xd, y, cfg, binned=True).ensemble
+        same_trees(fused, ref, f"robust {dt}: fused vs granular")
+        histogram.reset_hist_rung()
+        log = RunLog()
+        prev = faultplan.activate(faultplan.load_plan(ROBUST_PLAN))
+        try:
+            chaos = api.train(Xd, y, cfg, binned=True,
+                              backend=tasks.Granular(cfg), run_log=log,
+                              checkpoint_dir=os.path.join(tmp, dt),
+                              checkpoint_every=ROBUST_EVERY).ensemble
+            rung = histogram.hist_rung()
+        finally:
+            faultplan.deactivate(prev)
+            histogram.reset_hist_rung()
+        same_trees(chaos, ref, f"robust {dt}: the planned faults")
+        kinds = [e["kind"] for e in log.events("fault")]
+        c = log.events("counters")[0]
+        check(rung == 1, f"robust {dt}: one rung down, got {rung}")
+        check(c["hist_oom_degrades"] == 1 and c["fault_retries"] == 3,
+              f"robust {dt}: 1 degrade, 3 retries: {c}")
+        check(kinds.count("injected") == 4
+              and kinds.count("hist_oom_degrade") == 1,
+              f"robust {dt}: fault events {kinds}")
+        src = host_chunks(Xb, y, ROBUST_CHUNKS)
+        clean = fit_streaming(src, ROBUST_CHUNKS, cfg,
+                              device_chunk_cache=False)
+        same_trees(clean, ref, f"robust {dt}: streamed vs in memory")
+        slog = RunLog()
+        prev = faultplan.activate(faultplan.load_plan({"faults": [
+            {"site": "stream.chunk_read", "chunk": 1, "times": 2},
+            {"site": "stream.chunk_read", "chunk": 3}]}))
+        try:
+            streamed = fit_streaming(src, ROBUST_CHUNKS, cfg, run_log=slog,
+                                     device_chunk_cache=False)
+        finally:
+            faultplan.deactivate(prev)
+        same_trees(streamed, clean, f"robust {dt}: stream.chunk_read")
+        sc = slog.events("counters")[0]
+        check(sc["fault_retries"] == 3,
+              f"robust {dt}: 3 chunk-read retries, {sc['fault_retries']}")
+        out["cases"][dt] = {
+            "rung_taken": histogram.rung_name(rung),
+            "fault_retries": c["fault_retries"],
+            "hist_oom_degrades": c["hist_oom_degrades"],
+            "fault_events": {k: kinds.count(k) for k in sorted(set(kinds))},
+            "stream_fault_retries": sc["fault_retries"],
+            "bitwise": ["granular", "fused", "planned faults", "streamed",
+                        "stream.chunk_read"]}
+    out["launches"] = read_counters()
+    # The crash between the checkpoint pair's replaces, in a cli child,
+    # then a second child resuming its directory (f32).
+    rows = os.path.join(tmp, "rows.npz")
+    np.savez(rows, X=X, y=y)
+    plan = os.path.join(tmp, "between.json")
+    with open(plan, "w") as f:
+        json.dump({"faults": [{"site": "ckpt.save.between",
+                               "round": 2 * ROBUST_EVERY - 2}]}, f)
+    ck, model = os.path.join(tmp, "ck"), os.path.join(tmp, "resumed.npz")
+    args = ["train", "--data", rows, "--trees", str(ROBUST_TREES),
+            "--depth", str(DEPTH), "--bins", "255", "--checkpoint-dir", ck,
+            "--checkpoint-every", "2", "--out", model]
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-m", "ddt_tpu_torch.cli", *args,
+                        "--fault-plan", plan], cwd=HERE, capture_output=True,
+                       text=True, timeout=600)
+    crash_s = time.perf_counter() - t0
+    check(p.returncode != 0 and "InjectedCrash" in p.stderr,
+          f"robust: the child crashed between the pair (rc {p.returncode})")
+    with open(os.path.join(ck, "cursor.json")) as f:
+        torn = json.load(f)["completed_rounds"]
+    check(torn == 2 * ROBUST_EVERY - 4,
+          f"robust: the torn pair's cursor at {torn}")
+    (_, resume_s), = cli_children({"resume": args}).values()
+    plain = api.train(X, y, TrainConfig(n_trees=ROBUST_TREES,
+                                        max_depth=DEPTH, n_bins=255))
+    same_trees(TreeEnsemble.load(model), plain.ensemble,
+               "robust: crashed-then-resumed cli child")
+    out["cli"] = {"crash_s": crash_s, "resume_s": resume_s,
+                  "cursor_after_crash": torn, "bitwise": True}
+    # The armed plan's cost on the fused loop: fits on backends of their
+    # own (each captures), no plan and a never-matching plan interleaved.
+    cfg = TrainConfig(n_trees=N_TREES, max_depth=DEPTH, n_bins=255)
+    arms = {"no_plan": [], "armed_never_matching": []}
+    for _ in range(ROBUST_OVERHEAD_FITS):
+        for arm in arms:
+            prev = faultplan.activate(
+                faultplan.load_plan(ROBUST_NEVER)
+                if arm != "no_plan" else None)
+            try:
+                ms, caps = loop_ms_per_tree(Xd, y, cfg, None)
+            finally:
+                faultplan.deactivate(prev)
+            check(caps == 1, f"robust {arm}: one capture a fit")
+            arms[arm].append(ms)
+    out["fused_ms_per_tree"] = arms
+    out["wall_s"] = time.perf_counter() - t_phase
+    emit(out)
+    return out
+
+
+def cpu_model() -> str:
+    """The host CPU's model name as lscpu prints it, or /proc/cpuinfo's
+    where lscpu names none (a sandboxed host may hide it from lscpu)."""
+    name = "unknown"
+    try:
+        p = subprocess.run(["lscpu"], capture_output=True, text=True,
+                           timeout=30)
+        for line in p.stdout.splitlines():
+            if line.startswith("Model name:"):
+                name = line.split(":", 1)[1].strip()
+    except OSError:
+        pass
+    if name.lower() in ("", "unknown"):
+        try:
+            with open("/proc/cpuinfo", encoding="utf-8") as f:
+                for line in f:
+                    if line.startswith("model name"):
+                        return (f"{line.split(':', 1)[1].strip()} "
+                                "(/proc/cpuinfo; lscpu: unknown)")
+        except OSError:
+            pass
+    return name
+
+
+def phase_baseline(X: np.ndarray, y: np.ndarray, Xb: np.ndarray,
+                   levels: list, card: dict) -> dict:
+    """The CPU reference baseline (module docstring, phase baseline)."""
+    from ddt_tpu_torch import native
+    from ddt_tpu_torch.backends.cpu import CPUDevice
+
+    t_phase = time.perf_counter()
+    be = CPUDevice(TrainConfig(backend="cpu", n_bins=255), use_native=True)
+    check(be.hist_impl == "native", "baseline: the native histogram ran")
+    dev = torch.device("cuda")
+    R = Xb.shape[0]
+    Xd = torch.from_numpy(Xb).to(dev)
+    p0 = float(y.mean())
+    g = (p0 - y.astype(np.float32)).astype(np.float32)
+    h = np.full(R, p0 * (1 - p0), np.float32)
+    gd, hd = torch.from_numpy(g).to(dev), torch.from_numpy(h).to(dev)
+    scales = exact_scales(gd, hd)
+    q = grad.quantize_gradients(gd, hd, grad_dtype="int8", tree_id=0,
+                                seed=0)
+    qg, qh = q[0], q[1]
+    qgf, qhf = qg.float().cpu().numpy(), qh.float().cpu().numpy()
+    his = [(ni.cpu().numpy(), n) for ni, n in levels]
+    threads_all = native.omp_max_threads()
+
+    def native_tree(gg, hh, threads):
+        with native.omp_threads(threads):
+            t0 = time.perf_counter()
+            outs = [be.build_histograms(Xb, gg, hh, ni, n)
+                    for ni, n in his]
+            return outs, time.perf_counter() - t0
+
+    rows = {}
+    max_err = 0.0
+    for mode in ("f32", "int8"):
+        gg, hh = (g, h) if mode == "f32" else (qgf, qhf)
+        res = {}
+        for threads in (threads_all, 1):
+            times = []
+            for _ in range(BASELINE_REPS):
+                outs, s = native_tree(gg, hh, threads)
+                times.append(s)
+            res[threads] = (outs, float(np.median(times)))
+        for outs in (res[threads_all][0], res[1][0]):
+            for (ni, n), host in zip(levels, outs):
+                if mode == "f32":
+                    want = grad.from_fixed(histogram.build_histograms_exact(
+                        Xd, gd, hd, ni, n, 255, scales), scales)
+                    tol = 1e-5 * histogram.build_histograms_segment(
+                        Xd, gd.abs(), hd.abs(), ni, n, 255) + 1e-6
+                    err = (torch.from_numpy(host).to(dev) - want).abs()
+                    check(bool((err <= tol).all()),
+                          f"baseline f32 N={n}: max err {float(err.max())}")
+                    max_err = max(max_err, float(err.max()))
+                else:
+                    want = hist_cuda.build_histograms_cuda(Xd, qg, qh, ni,
+                                                           n, 255)
+                    check(int(want.abs().max()) < 1 << 24,
+                          "baseline int8: every cell below 2^24 (exact f32)")
+                    check(torch.equal(torch.from_numpy(host).to(dev)
+                                      .to(torch.int32), want),
+                          f"baseline int8 N={n}: native != K1, bitwise")
+        if mode == "f32":
+            k1 = sum(time_ms(lambda ni=ni, n=n: histogram.
+                             build_histograms_exact(Xd, gd, hd, ni, n, 255,
+                                                    scales), 10)
+                     for ni, n in levels)
+        else:
+            k1 = sum(time_ms(lambda ni=ni, n=n: hist_cuda.
+                             build_histograms_cuda(Xd, qg, qh, ni, n, 255),
+                             10) for ni, n in levels)
+        builds = len(levels)
+        k1_mrows = R * builds / (k1 / 1e3) / 1e6
+        cpu_all = R * builds / res[threads_all][1] / 1e6
+        cpu_one = R * builds / res[1][1] / 1e6
+        rows[mode] = {
+            "levels": [n for _, n in levels],
+            "native_s_per_tree": {str(threads_all): res[threads_all][1],
+                                  "1": res[1][1]},
+            "native_mrows_per_s": {str(threads_all): cpu_all, "1": cpu_one},
+            "k1_ms_per_tree": k1, "k1_mrows_per_s": k1_mrows,
+            "ratio_k1_over_native_all_threads": k1_mrows / cpu_all,
+            "ratio_k1_over_native_one_thread": k1_mrows / cpu_one}
+    # A short fit through the oracle backend, held to the card's trees.
+    cfg = TrainConfig(n_trees=BASELINE_FIT_TREES, max_depth=DEPTH,
+                      n_bins=255)
+    t0 = time.perf_counter()
+    cpu_fit = api.train(Xb, y, cfg.replace(backend="cpu"),
+                        binned=True).ensemble
+    cpu_fit_s = time.perf_counter() - t0
+    card_fit = api.train(Xd, y, cfg, binned=True).ensemble
+    tie = trees_match_mod_ties(card_fit, cpu_fit, cfg.min_split_gain)
+    out = {"phase": "baseline", "card": card["smi"],
+           "host_cpu": cpu_model(), "host_threads": threads_all,
+           "os_cpu_count": os.cpu_count(), "rows": R,
+           "features": Xb.shape[1], "bins": 255, "hist_impl": be.hist_impl,
+           "modes": rows, "max_abs_err_f32": max_err,
+           "cpu_fit": {"trees": BASELINE_FIT_TREES, "seconds": cpu_fit_s,
+                       "tie_root_causes_vs_card": tie}}
+    out["wall_s"] = time.perf_counter() - t_phase
+    emit(out)
+    return out
+
+
+def phase_straggler(card: dict) -> dict:
+    """The straggler watchdog's rotation on four NCCL ranks (module
+    docstring, phase straggler)."""
+    n_cards = torch.cuda.device_count()
+    check(n_cards >= 2, f"--phase straggler needs >= 2 cards, {n_cards}")
+    P = min(4, n_cards)
+    t_phase = time.perf_counter()
+    X, y, cat = config3_rows(P * STRAGGLER_ROWS)
+    base = dict(n_trees=STRAGGLER_TREES, max_depth=DEPTH, n_bins=255,
+                cat_features=cat, fused_block_rounds=STRAGGLER_BLOCK)
+    out = {"phase": "straggler", "card": card["smi"], "cards": n_cards,
+           "ranks": P, "rows_per_rank": STRAGGLER_ROWS, "cases": {}}
+    with tempfile.TemporaryDirectory() as d:
+        xp, yp = f"{d}/x.npy", f"{d}/y.npy"
+        np.save(xp, X)
+        np.save(yp, y)
+        del X
+        with spawn.Pool(P, backend="nccl", device="cuda",
+                        timeout_s=900.0) as pool:
+            for name, kw in STRAGGLER_CASES:
+                if "mesh_shape" in kw and P < 4:
+                    continue
+                kw = dict(base, **kw)
+                off = pool.run(tasks.straggler_timed, xp, yp, kw, None, None)
+                on_kw = dict(kw, straggler_repartition=True)
+                on = pool.run(tasks.straggler_timed, xp, yp, on_kw, None,
+                              None)
+                hit = pool.run(tasks.straggler_timed, xp, yp, on_kw,
+                               STRAGGLER_PLAN,
+                               dict(checkpoint_every=STRAGGLER_EVERY,
+                                    checkpoint_dir=f"{d}/ck_{name}"))
+                what = f"straggler {name}"
+                for r in hit + on:
+                    same_trees(r["ensemble"], on[0]["ensemble"],
+                               f"{what}: rank {r['rank']} vs undisturbed")
+                kinds = hit[0]["faults"]
+                n_rot = STRAGGLER_TREES // STRAGGLER_EVERY
+                check(kinds.count("repartition") == n_rot
+                      and "straggler_detected" in kinds,
+                      f"{what}: {n_rot} rotations, {kinds}")
+                for r in off + on:
+                    c = r["counters"]
+                    # The fused loop's warm-up round runs the collectives
+                    # too; the granular loop runs a round a tree.
+                    rounds = (c["cuda.graph_replays"]
+                              + c["cuda.graph_captures"]) or STRAGGLER_TREES
+                    check(r["modeled_bytes"] == rounds * r["bytes_model"],
+                          f"{what}: modeled bytes {r['modeled_bytes']} vs "
+                          f"{rounds} rounds x {r['bytes_model']}")
+                k1 = "hist_cuda.launches_" + (
+                    "int" if kw.get("grad_dtype") == "int8" else "exact")
+
+                def med(runs, first=0):
+                    """Per rank, the median ms of the rounds from
+                    `first` on."""
+                    return [float(np.median(r["ms"][first:])) for r in runs]
+
+                out["cases"][name] = {
+                    # Flag off: the fused loop's second block (the first
+                    # holds the warm-up round and the capture).
+                    "ms_per_round_flag_off_steady": med(off,
+                                                        STRAGGLER_BLOCK),
+                    "ms_per_round_flag_off_first_block": med(off)[:1],
+                    # Flag on: the granular loop, undisturbed and with the
+                    # rotations (the rounds after the first).
+                    "ms_per_round_flag_on": med(on, 1),
+                    "ms_per_round_rotating": med(hit, 1),
+                    "rotation_ms_rank0": hit[0]["rotation_ms"],
+                    "rotation_ms_max_over_ranks": [
+                        max(v) for v in zip(*[r["rotation_ms"]
+                                              for r in hit])],
+                    "shards_after": [r["shard"] for r in hit],
+                    "bytes_per_round_flag_off": off[0]["bytes_model"],
+                    "bytes_per_round_flag_on": on[0]["bytes_model"],
+                    "k1_launches": [r["counters"][k1] for r in hit],
+                    "bitwise_undisturbed": True}
+                emit({"phase": "straggler", "case": name,
+                      **out["cases"][name]})
+    out["wall_s"] = time.perf_counter() - t_phase
+    emit(out)
+    return out
+
+
 def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -4456,10 +4866,12 @@ def main(argv: list[str]) -> int:
         return 2
     if argv not in ([], ["--phase", "multi"], ["--phase", "mesh2d"],
                     ["--phase", "stream"], ["--phase", "config4"],
-                    ["--phase", "serve_plane"], ["--phase", "ops"]):
+                    ["--phase", "serve_plane"], ["--phase", "ops"],
+                    ["--phase", "robust"], ["--phase", "baseline"],
+                    ["--phase", "straggler"]):
         print(f"chip_smoke: unknown arguments {argv}; usage: chip_smoke.py "
-              "[--phase multi|mesh2d|stream|config4|serve_plane|ops]",
-              file=sys.stderr)
+              "[--phase multi|mesh2d|stream|config4|serve_plane|ops|"
+              "robust|baseline|straggler]", file=sys.stderr)
         return 2
     t_start = time.perf_counter()
     card = phase_device()
@@ -4481,6 +4893,18 @@ def main(argv: list[str]) -> int:
         elif argv[1] == "ops":
             X, y = synthetic_binary(ROWS, n_features=FEATURES, seed=0)
             phase_ops(X, y)
+        elif argv[1] in ("robust", "baseline"):
+            X, y = synthetic_binary(ROWS, n_features=FEATURES, seed=0)
+            Xb = fit_bin_mapper(X, n_bins=255).transform_device(X) \
+                .cpu().numpy()
+            if argv[1] == "robust":
+                phase_robust(X, y, Xb)
+            else:
+                levels = main_path_levels(torch.from_numpy(Xb).to("cuda"),
+                                          y)
+                phase_baseline(X, y, Xb, levels, card)
+        elif argv[1] == "straggler":
+            phase_straggler(card)
         else:
             phase_stream(card, flush)
             stream_witness(card)
@@ -4529,6 +4953,8 @@ def main(argv: list[str]) -> int:
     life = phase_lifecycle(main_run["res"], X)
     c4 = phase_config4(card, flush)
     ops = phase_ops(X, y)
+    robust = phase_robust(X, y, Xb)
+    base = phase_baseline(X, y, Xb, levels, card)
     launches = main_run["launches"]
     k2 = hist_int["rows"][("int16", 64, 32)]
 
@@ -4588,7 +5014,10 @@ def main(argv: list[str]) -> int:
              "stream": {name: row["counters"]["hist"]
                         for name, row in runs.items()
                         if name.startswith(("f32", "in_memory_f32"))},
-             "ops": ops["launches"]["hist"]}},
+             "ops": ops["launches"]["hist"],
+             "robust": robust["launches"]["hist"],
+             "baseline": {"native_vs_k1_mrows_per_s":
+                          base["modes"]["f32"]}}},
         {"name": "traverse", "route": "cuda",
          "source": "ddt_tpu_torch/csrc/lut.cu",
          "replaces": "ddt_tpu/ops/predict_pallas.py:105",
@@ -4631,7 +5060,8 @@ def main(argv: list[str]) -> int:
                    "mesh2d": mesh_launches(mesh2d, "hist_int"),
                    "stream": {name: row["counters"]["hist_int"]
                               for name, row in runs.items()
-                              if "int8" in name}},
+                              if "int8" in name},
+                   "robust": robust["launches"]["hist_int"]},
          "max_abs_err": hist_int["max_abs_err"],
          "ms": hist_int["int8"]["kernel_ms"],
          "plain_ms": hist_int["int8"]["plain_ms"],

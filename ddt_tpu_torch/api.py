@@ -234,7 +234,7 @@ def train(
     *,
     binned: bool = False,
     mapper: BinMapper | None = None,
-    backend: DeviceBackend | None = None,
+    backend: "DeviceBackend | str | None" = None,
     checkpoint_dir: str | None = None,
     checkpoint_every: int = 25,
     log_every: int = 10,
@@ -251,7 +251,9 @@ def train(
     """Train a GBDT. `X` is float features (binned here, on the device)
     unless `binned=True` (uint8 bin indices, host or tensor); the eval
     set's rows follow the same flag. `cfg_overrides` are TrainConfig
-    fields, e.g. train(X, y, n_trees=50, device="cpu").
+    fields, e.g. train(X, y, n_trees=50, device="cpu"). `backend` is a
+    DeviceBackend to train on, or a string, which is the config's
+    `backend` field (the reference's spelling: backend="cpu").
 
     Observability (the Driver's docstring): `log_every` is the history's
     and the log line's round cadence; `run_log` (a JSONL path or a
@@ -261,6 +263,9 @@ def train(
     torch.profiler trace of a round range; `status`
     (telemetry.statusd.TrainStatus) is the live status `cli train
     --status-port` serves. None of them: no telemetry work at all."""
+    if isinstance(backend, str):
+        # The reference's spelling: backend="cpu" is the config field.
+        cfg_overrides["backend"], backend = backend, None
     if cfg is None:
         cfg = TrainConfig(**cfg_overrides)
     elif cfg_overrides:

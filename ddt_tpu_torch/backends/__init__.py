@@ -1,7 +1,9 @@
 """Backend selection (port of ddt_tpu/backends/__init__.py).
 
-One backend, CUDADevice, on `cfg.device` ("cuda" by default, "cpu" for
-the plain versions), and for scoring a batch over several cards of one
+Two backends, by cfg.backend: "cuda" (the default) is CUDADevice on
+`cfg.device` ("cuda" by default, "cpu" for the plain versions); "cpu" is
+the NumPy / native C++ oracle, backends/cpu.CPUDevice (the CPU baseline).
+For scoring a batch over several cards of one
 process the memoised RowShardedScorer (`row_sharded_backend`).
 Instances are cached on the config with the fields that never change a
 backend's behaviour normalised, so repeated
@@ -25,6 +27,7 @@ from __future__ import annotations
 import threading
 
 from ddt_tpu_torch.backends.base import DeviceBackend, HostTree
+from ddt_tpu_torch.backends.cpu import CPUDevice
 from ddt_tpu_torch.backends.cuda import CUDADevice, RowShardedScorer
 from ddt_tpu_torch.config import TrainConfig
 from ddt_tpu_torch.parallel import mesh
@@ -35,9 +38,9 @@ _LOCK = threading.Lock()        # serving threads call get_backend too
 
 
 def get_backend(cfg: TrainConfig) -> DeviceBackend:
-    """The backend for cfg.device (cached, least recently used evicted;
-    a fresh one where it binds a mesh)."""
-    if mesh.binds(cfg):
+    """The backend of cfg.backend on cfg.device (cached, least recently
+    used evicted; a fresh one where it binds a mesh)."""
+    if cfg.backend == "cuda" and mesh.binds(cfg):
         return CUDADevice(cfg)
     seed_live = cfg.subsample < 1.0 or cfg.grad_dtype != "f32"
     key = cfg.replace(n_trees=1, fused_block_rounds=1,
@@ -45,7 +48,7 @@ def get_backend(cfg: TrainConfig) -> DeviceBackend:
     with _LOCK:
         be = _CACHE.pop(key, None)
         if be is None:
-            be = CUDADevice(cfg)
+            be = CPUDevice(cfg) if cfg.backend == "cpu" else CUDADevice(cfg)
         _CACHE[key] = be                      # most recently used
         while len(_CACHE) > _CACHE_MAX:
             _CACHE.pop(next(iter(_CACHE)))
@@ -71,5 +74,5 @@ def row_sharded_backend(n_partitions: int,
     return sc
 
 
-__all__ = ["CUDADevice", "DeviceBackend", "HostTree", "RowShardedScorer",
+__all__ = ["CPUDevice", "CUDADevice", "DeviceBackend", "HostTree", "RowShardedScorer",
            "get_backend", "row_sharded_backend"]

@@ -62,6 +62,9 @@ class DeviceBackend(abc.ABC):
     feature_group: Any = None
     world: int = 1
     rank: int = 0
+    #: The partition recorder's span factory while a fit records per-rank
+    #: lanes (the Driver sets it on a mesh), else None.
+    partition_span: Any = None
 
     def __init__(self, cfg: TrainConfig):
         self.cfg = cfg

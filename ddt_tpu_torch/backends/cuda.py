@@ -85,8 +85,9 @@ from ddt_tpu_torch.ops import predict_lut, predict_lut_cuda, sampling
 from ddt_tpu_torch.ops import split as split_ops
 from ddt_tpu_torch.ops import stream as stream_ops
 from ddt_tpu_torch.parallel import comms, mesh
+from ddt_tpu_torch.robustness import emit_fault, faultplan
 from ddt_tpu_torch.telemetry import counters as tele_counters
-from ddt_tpu_torch.utils import launches, metrics
+from ddt_tpu_torch.utils import launches, metrics, retry
 
 log = logging.getLogger("ddt_tpu_torch.backends.cuda")
 
@@ -203,6 +204,9 @@ class CUDADevice(DeviceBackend):
         self.last_capture_s: float | None = None
         # Pinned staging of streamed chunks (the card only; `stager`).
         self._stager: _ChunkStager | None = None
+        #: The partition recorder's `span` factory while a granular fit
+        #: records lanes (the Driver sets and clears it), else None.
+        self.partition_span = None
 
     def _put(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -243,7 +247,17 @@ class CUDADevice(DeviceBackend):
             feature_partitions=self.mesh.n_feature_shards,
             mode=self.split_comms, comms_dtype=self.cfg.hist_comms_dtype,
             subtraction=self.hist_subtraction,
-            grad_dtype=self.cfg.grad_dtype)
+            grad_dtype=self.cfg.grad_dtype,
+            value_bytes=8 if self.int64_wire else None)
+
+    @property
+    def int64_wire(self) -> bool:
+        """Whether the exact path's aggregates cross the row group as
+        int64 (cfg.straggler_repartition on an f32 wire: a reduction that
+        does not depend on which rank holds which shard)."""
+        cfg = self.cfg
+        return (cfg.straggler_repartition and cfg.grad_dtype == "f32"
+                and cfg.hist_comms_dtype == "f32")
 
     def n_features(self, data: torch.Tensor) -> int:
         """Global width of uploaded training rows: the matrix's before the
@@ -348,7 +362,9 @@ class CUDADevice(DeviceBackend):
         (ops/histogram.build_histograms_exact), converted once; the raw
         int32 histogram for int8/int16 (quantized) g/h. On a mesh, of the
         row group's rows (an all-reduce on cfg.hist_comms_dtype's wire)
-        over data's columns (this rank's slab under feature shards)."""
+        over data's columns (this rank's slab under feature shards).
+        Built through ops/histogram.build_level: the `hist.build` seam
+        and the OOM ladder."""
         g, h = self._tensor(g), self._tensor(h)
         ni = self._tensor(node_index).to(torch.int32).contiguous()
         if g.is_floating_point():
@@ -356,10 +372,10 @@ class CUDADevice(DeviceBackend):
             scales = grad_ops.fixed_scales(
                 comms.pmax(grad_ops.abs_max2(g, h), self.group),
                 g.shape[0] * self.world)
-            hist = grad_ops.from_fixed(hist_ops.build_histograms_exact(
+            hist = grad_ops.from_fixed(hist_ops.build_level(
                 data, g, h, ni, n_nodes, self.cfg.n_bins, scales), scales)
         else:
-            hist = hist_ops.build_histograms(
+            hist = hist_ops.build_level(
                 data, g.contiguous(), h.contiguous(), ni, n_nodes,
                 self.cfg.n_bins)
         return comms.hist_reduce(hist, self.group, mode="allreduce",
@@ -409,12 +425,13 @@ class CUDADevice(DeviceBackend):
         is the colsample mask;
         `tree_id` (the absolute tree index) keys the quantized-gradient
         rounding with cfg.seed when cfg.grad_dtype != "f32"."""
-        tree = self._grow(data, g, h, feature_mask, tree_id)
+        tree = self._grow(data, g, h, feature_mask, tree_id,
+                          self.partition_span)
         return _pack(tree), grow_ops.tree_predict_delta(
             tree, self.cfg.learning_rate)
 
-    def _grow(self, data, g, h, feature_mask,
-              tree_id) -> grow_ops.TreeArrays:
+    def _grow(self, data, g, h, feature_mask, tree_id,
+              span=None) -> grow_ops.TreeArrays:
         cfg = self.cfg
         if feature_mask is not None:
             feature_mask = self._tensor(feature_mask).to(torch.bool)
@@ -435,9 +452,87 @@ class CUDADevice(DeviceBackend):
             feature_group=self.feature_group,
             world_group=None if self.mesh is None
             else self.mesh.world_group,
-            n_features=F, comms_slabs=self.comms_slabs)
+            n_features=F, comms_slabs=self.comms_slabs,
+            row_shard=self.rank if self.mesh is not None else None,
+            shard_ordered=cfg.straggler_repartition, hist_span=span)
+
+    # ------------------------------------------------------------------ #
+    # straggler rotation (the watchdog's action)
+    # ------------------------------------------------------------------ #
+
+    def rotate_row_partitions(self) -> bool:
+        """Rotate the row shards one step around the row group (the
+        straggler watchdog's action, the reference's
+        TPUDevice.rotate_row_partitions): after the call, the rank at row
+        position p holds shard p - 1 (mod the row shards), and `rank` (the
+        shard this rank holds, which keys its bagging and rounding draws
+        and its block of a newly uploaded matrix or chunk) says so. The
+        caller moves every resident row block with reshard_rows /
+        reshard_data at once: the shards' contents never change, so the
+        model does not either. Returns False, and does nothing, without a
+        mesh, with one row shard, or where the row axis spans hosts
+        (host_partitions > 1), as the reference declines a mesh of many
+        processes. Every rank of the mesh must call it in the same round
+        (the Driver decides from lanes every rank holds)."""
+        m = self.mesh
+        if m is None or self.world < 2 or m.n_hosts > 1:
+            return False
+        self.rank = (self.rank - 1) % self.world
+        log.info("rotated row partitions: rank at row %d holds shard %d",
+                 m.row, self.rank)
+        return True
+
+    def reshard_rows(self, t: torch.Tensor | None, dim: int = 0):
+        """After rotate_row_partitions: a resident row block (rows on
+        `dim`, this rank's old shard) becomes the new shard's, by one
+        ring shift over the row group (each rank sends its block to the
+        next row position and receives the previous one's:
+        dist.batch_isend_irecv). Blocks are equal-sized (mesh.row_block
+        pads each to ceil(n / shards)), so the received block is copied
+        into `t` in place and a captured graph or cached operand that
+        holds `t` stays valid. Returns `t`."""
+        if t is None or self.mesh is None or self.world < 2:
+            return t
+        import torch.distributed as dist
+
+        group = self.group
+        me, P = comms.rank(group), self.world
+        send = t.movedim(dim, 0).contiguous()
+        recv = torch.empty_like(send)
+        peer = (dist.get_global_rank(group, (me + 1) % P) if group
+                is not None else (me + 1) % P)
+        src = (dist.get_global_rank(group, (me - 1) % P) if group
+               is not None else (me - 1) % P)
+        ops = [dist.P2POp(dist.isend, send, peer, group),
+               dist.P2POp(dist.irecv, recv, src, group)]
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+        t.copy_(recv.movedim(0, dim))
+        return t
+
+    def reshard_data(self, data: torch.Tensor | None):
+        """reshard_rows for the binned matrix (its column slab stays
+        where it is: the shift runs along the row axis of each feature
+        column)."""
+        return self.reshard_rows(data)
+
+    def reshard_labels(self, y: "LabelHandle | None"):
+        """reshard_rows for a LabelHandle (labels and weights)."""
+        if y is None:
+            return None
+        self.reshard_rows(y.y)
+        self.reshard_rows(y.valid)
+        return y
 
     def fetch_tree(self, handle) -> HostTree:
+        """One packed tree to the host, through the `fetch_tree` retry
+        seam (a transient fault of the copy is retried; the handle is
+        unchanged, so a second read gives the same tree)."""
+        return retry.retry_call(self._fetch_tree, handle, seam="fetch_tree")
+
+    @staticmethod
+    def _fetch_tree(handle) -> HostTree:
+        faultplan.inject("fetch_tree")
         return unpack_tree(handle.cpu().numpy())
 
     def fetch_grown_tree(self, tree: grow_ops.TreeArrays) -> HostTree:

@@ -14,11 +14,17 @@
     python -m ddt_tpu_torch.cli serve --model model.npz [--quantized int4]
 
 The subcommands take the reference's flags and make its refusals, with
-these differences. `--device {cuda,cpu}` (default cuda) stands where the
-reference has `--backend`: the port's TrainConfig has no backend field;
-`--device cuda` refuses to start without a visible card, `--device cpu`
-runs the kernels' plain versions. Flags of fields the port has not ported
-are absent: `--hist-impl`, `--fault-plan`, `--straggler-repartition` and
+these differences. `--device {cuda,cpu}` (default cuda) says where the
+"cuda" backend runs: `--device cuda` refuses to start without a visible
+card, `--device cpu` runs the kernels' plain versions. `train
+--backend {cuda,cpu}` (default cuda; the reference's "tpu" is "cuda"
+here) picks the backend, "cpu" being the NumPy / native C++ oracle
+(backends/cpu.CPUDevice), which needs no card. `train --fault-plan
+PLAN.json` arms a fault plan for the run (before any torch.distributed
+bootstrap, so its `multihost.init` seam can fire; disarmed on return),
+`--straggler-repartition` acts on the straggler watchdog (a mesh run
+with `--run-log`), and `--straggler-skew-threshold` is its trip point.
+Flags of fields the port has not ported are absent: `--hist-impl` and
 the `--multihost-*` coordinator flags. A run over several ranks
 (`--partitions`, `--feature-partitions`, `--host-partitions`,
 `--mesh-shape`) is started by torchrun (the rendezvous comes from its
@@ -528,6 +534,23 @@ def build_parser() -> argparse.ArgumentParser:
     tp.add_argument("--checkpoint-dir", default=None)
     tp.add_argument("--checkpoint-every", type=_positive_int, default=25,
                     help="write a checkpoint every K boosting rounds (>= 1)")
+    tp.add_argument("--backend", choices=("cuda", "cpu"), default="cuda",
+                    help="cuda: CUDADevice on --device; cpu: the NumPy / "
+                         "native C++ oracle (the CPU baseline; no card)")
+    tp.add_argument("--fault-plan", default=None,
+                    help="JSON fault-injection plan: fires named faults at "
+                         "the real seams (torn checkpoint write, stream-read "
+                         "IOError, bootstrap timeout, histogram OOM, tree "
+                         "fetch, straggler delay) deterministically; no "
+                         "plan: each seam is one global read")
+    tp.add_argument("--straggler-repartition", action="store_true",
+                    help="act on the straggler watchdog: rotate the row "
+                         "shards at the next checkpoint boundary when one "
+                         "rank persistently straggles (a mesh run with "
+                         "--run-log; the model is unchanged)")
+    tp.add_argument("--straggler-skew-threshold", type=float, default=2.0,
+                    help="watchdog trip point: a rank's round time over "
+                         "the median of the others (> 1.0)")
     tp.add_argument("--valid-frac", type=float, default=0.0,
                     help="hold out this fraction as a validation set")
     tp.add_argument("--metric", default=None,
@@ -720,7 +743,8 @@ def _train(args) -> int:
                           ("loss", "loss"), ("device", "device")):
             if key in file_cfg:
                 setattr(args, attr, file_cfg[key])
-    _need_device("train", args.device)
+    if args.backend == "cuda":
+        _need_device("train", args.device)
     if args.stream_dir:
         X = y = encoder = None
         n_classes = 2
@@ -751,11 +775,33 @@ def _train(args) -> int:
             hist_comms_slabs=args.hist_comms_slabs,
             grad_dtype=args.grad_dtype, missing_policy=args.missing,
             cat_features=cat_features,
-            fused_block_rounds=args.fused_block_rounds)
+            fused_block_rounds=args.fused_block_rounds,
+            backend=args.backend, fault_plan=args.fault_plan,
+            straggler_repartition=args.straggler_repartition,
+            straggler_skew_threshold=args.straggler_skew_threshold)
         if file_cfg is not None:
             cfg = cfg.replace(**file_cfg)
     except ValueError as e:
         raise SystemExit(f"train: {e}") from e
+    from ddt_tpu_torch.robustness import faultplan
+
+    plan = None
+    if cfg.fault_plan:
+        # Armed before the rendezvous, so its multihost.init seam can
+        # fire; the trainers find it active and leave it alone.
+        try:
+            plan = faultplan.load_plan(cfg.fault_plan)
+        except (OSError, ValueError) as e:
+            raise SystemExit(f"--fault-plan: {e}") from e
+    prev = faultplan.activate(plan) if plan is not None else None
+    try:
+        return _train_run(args, X, y, cfg, encoder)
+    finally:
+        if plan is not None:
+            faultplan.deactivate(prev)
+
+
+def _train_run(args, X, y, cfg, encoder) -> int:
     _init_ranks(cfg)
     # The status daemon is imported only with --status-port: without it
     # the trainers' hooks are `is not None` tests.

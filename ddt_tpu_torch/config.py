@@ -3,9 +3,9 @@
 Port of ddt_tpu/config.py: a frozen TrainConfig with only the fields the
 port's path reads, validated as the reference validates them
 (ddt_tpu/config.py:214-270, 298-330). Fields of the reference that are
-not ported yet (straggler repartition, streaming, hist_impl,
-fault plans, ...) are absent, not silently ignored: passing one raises
-TypeError.
+not ported (hist_impl and matmul_input_dtype, which choose among the
+TPU's histogram implementations) are absent, not silently ignored:
+passing one raises TypeError.
 """
 
 from __future__ import annotations
@@ -14,6 +14,9 @@ import dataclasses
 
 LOSSES = ("logloss", "mse", "softmax")
 DEVICES = ("cuda", "cpu")
+#: cfg.backend values: "cuda" is CUDADevice on cfg.device, "cpu" the
+#: NumPy / native C++ oracle (backends/cpu.CPUDevice), the CPU baseline.
+BACKENDS = ("cuda", "cpu")
 #: cfg.grad_dtype values ("f32" = quantization off; ops/grad.py).
 GRAD_DTYPES = ("f32", "int16", "int8")
 #: cfg.split_comms values (parallel/comms.resolve_split_comms resolves
@@ -133,6 +136,29 @@ class TrainConfig:
     # Where training and scoring run. "cuda" raises when no card is
     # visible: the entry points never continue on the CPU by themselves.
     device: str = "cuda"        # cuda | cpu
+    # Which DeviceBackend trains: "cuda" (CUDADevice on `device`, which
+    # is "cuda" or "cpu") or "cpu" (the oracle, backends/cpu.CPUDevice:
+    # reference/numpy_trainer with the native C++ kernels when they
+    # build; f32 gradients only). The reference's "tpu" is "cuda" here.
+    backend: str = "cuda"       # cuda | cpu
+
+    # --- robustness (robustness/) ---
+    # Path to a JSON fault-injection plan (robustness/faultplan.py); None
+    # (the default) leaves every injection seam a module-global read.
+    # Outside the checkpoint fingerprint: a run that crashed under a plan
+    # resumes without one.
+    fault_plan: str | None = None
+    # Act on the straggler watchdog: when the partition recorder's lanes
+    # show one rank past the skew threshold for consecutive rounds,
+    # rotate the row shards around the row group at the next checkpoint
+    # boundary (CUDADevice.rotate_row_partitions; the model is unchanged).
+    # Forces the granular loop, and makes the histogram reduction
+    # independent of which rank holds which shard (the exact f32 path's
+    # aggregates cross the wire as int64).
+    straggler_repartition: bool = False
+    # Watchdog trip point: a rank whose round total exceeds the MEDIAN OF
+    # THE OTHER lanes by this factor is a straggler candidate.
+    straggler_skew_threshold: float = 2.0
 
     def __post_init__(self) -> None:
         if self.loss not in LOSSES:
@@ -142,6 +168,9 @@ class TrainConfig:
         if self.device not in DEVICES:
             raise ValueError(
                 f"device must be one of {DEVICES}, got {self.device!r}")
+        if self.backend not in BACKENDS:
+            raise ValueError(
+                f"backend must be one of {BACKENDS}, got {self.backend!r}")
         if not (1 <= self.n_bins <= 256):
             raise ValueError("n_bins must be in [1, 256] (uint8 binned data)")
         if self.max_depth < 1:
@@ -220,6 +249,11 @@ class TrainConfig:
         if self.missing_policy == "learn" and self.n_bins < 3:
             raise ValueError(
                 "missing_policy='learn' reserves the top bin; n_bins >= 3")
+        if self.straggler_skew_threshold <= 1.0:
+            raise ValueError(
+                "straggler_skew_threshold must be > 1.0 (1.0 is a "
+                f"perfectly balanced mesh), got "
+                f"{self.straggler_skew_threshold}")
         # A list (even an empty one) must become a tuple, or the backend
         # cache key is unhashable.
         object.__setattr__(
@@ -246,6 +280,11 @@ class TrainConfig:
         """Ranks of the mesh: host_partitions x n_partitions x
         feature_partitions."""
         return self.row_shards * self.feature_partitions
+
+    @property
+    def n_nodes_total(self) -> int:
+        """Heap-layout node count of a complete tree of max_depth levels."""
+        return 2 ** (self.max_depth + 1) - 1
 
     @property
     def n_outputs(self) -> int:

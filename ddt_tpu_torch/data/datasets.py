@@ -366,8 +366,20 @@ def load_file(
             *_load_libsvm(path, n_features=n_features, max_rows=max_rows),
             normalize_labels,
         )
-    # CSV: `skip` header rows were detected above; np.loadtxt's subset.
+    # CSV: `skip` header rows were detected above. The native C++ parser
+    # (native/csv_loader.cpp, OpenMP-parallel over rows) parses the same
+    # np.loadtxt subset (bitwise, tests/test_torch_native.py); np.loadtxt
+    # is the path where the library does not build.
     M = None
+    from ddt_tpu_torch import native
+
+    if native.available():
+        # File I/O errors (missing file, permissions, bad gzip) surface
+        # here, not after a loadtxt re-read.
+        opener = gzip.open if path.endswith(".gz") else open
+        with opener(path, "rb") as f:
+            M = native.csv_parse_native(f.read(), skip_rows=skip,
+                                        max_rows=max_rows)
     if M is None:
         with _open_maybe_gzip(path) as f:
             M = np.loadtxt(f, delimiter=",", skiprows=skip,

@@ -1,12 +1,12 @@
 """Driver: the host boosting loop over a DeviceBackend.
 
 Port of ddt_tpu/driver.py's two loops with the reference's semantics
-(driver.py:268-760 and `_fit_fused`, :815-960) and its telemetry, without
-its fault plans and straggler watchdog. `fit` takes the fused block loop
-(`_fit_fused`) whenever the backend has `grow_rounds` and the run is not
-profiled, as the reference does, and the granular loop (`_fit_granular`)
-otherwise; the tests also call the granular loop directly, as the fused
-loop's yardstick.
+(driver.py:268-760 and `_fit_fused`, :815-960), its telemetry, its fault
+plans and its straggler watchdog. `fit` takes the fused block loop
+(`_fit_fused`) whenever the backend has `grow_rounds` and the run is
+neither profiled nor under cfg.straggler_repartition, as the reference
+does, and the granular loop (`_fit_granular`) otherwise; the tests also
+call the granular loop directly, as the fused loop's yardstick.
 
 A round grows one tree per output column (C = n_classes for softmax, else
 1) from the round's gradients: tree t = rnd * C + c scores class c.
@@ -85,6 +85,23 @@ raise if any differs. The layout is not part of the checkpoint's
 fingerprint: a run resumes on another mesh or on one device. pred is
 rebuilt from the rank's row block at full width (a RowBlock holds it
 before the column cut), so it is the uninterrupted run's bit for bit.
+
+Robustness (robustness/, the reference's driver.py:228-264, 495-512,
+760-812). A fit runs inside robustness.fit_scope: the fault sink points
+at the run log and cfg.fault_plan is armed for the fit. On a mesh with a
+run log (every rank passes one; the host's first rank writes it) the
+partition recorder (telemetry/events.PartitionRecorder) keeps per-rank
+lanes: the granular loop times each histogram build before its
+collective, the fused loop each block; the lanes are gathered every
+round, so every rank holds them, and the straggler watchdog
+(robustness/watchdog) reads them: a `straggler_detected` fault event on
+a trip. With cfg.straggler_repartition the fit takes the granular loop
+and, at a checkpoint-cadence boundary after the watchdog latched, every
+rank rotates the row shards one step around its row group
+(CUDADevice.rotate_row_partitions) and moves its resident blocks (rows,
+labels, pred) with it, then emits a `repartition` fault event. The
+decision comes from the gathered lanes, so every rank takes it in the
+same round. The eval set is whole on every rank and does not move.
 """
 
 from __future__ import annotations
@@ -98,6 +115,7 @@ import time
 import numpy as np
 import torch
 
+from ddt_tpu_torch import robustness
 from ddt_tpu_torch.backends.base import (PACKED_FIELDS, DeviceBackend,
                                          unpack_tree)
 from ddt_tpu_torch.config import TrainConfig
@@ -105,11 +123,13 @@ from ddt_tpu_torch.models.tree import TreeEnsemble, empty_ensemble
 from ddt_tpu_torch.ops import sampling
 from ddt_tpu_torch.ops.grad import base_score_np
 from ddt_tpu_torch.parallel import comms, mesh
+from ddt_tpu_torch.robustness.watchdog import (StragglerWatchdog,
+                                               feed_watchdog)
 from ddt_tpu_torch.telemetry import annotations, costmodel
 from ddt_tpu_torch.telemetry import counters as tele_counters
 from ddt_tpu_torch.telemetry.events import (
-    RoundRecorder, RunLog, comms_manifest_fields, derive_run_id,
-    emit_early_stop, emit_train_heartbeat, finish_run_log)
+    PartitionRecorder, RoundRecorder, RunLog, comms_manifest_fields,
+    derive_run_id, emit_early_stop, emit_train_heartbeat, finish_run_log)
 from ddt_tpu_torch.utils import checkpoint
 from ddt_tpu_torch.utils.metrics import GREATER_IS_BETTER, default_metric
 from ddt_tpu_torch.utils.profiling import PhaseTimer
@@ -193,6 +213,11 @@ class Driver:
         #: window or status asked for one; api.train stamps it into the
         #: saved model's manifest.
         self.run_id: str | None = None
+        # Whether this rank was given a run log (before a non-writing
+        # rank drops it): every rank's partition recorder keys on it.
+        self._lanes = run_log is not None
+        self._part_rec: PartitionRecorder | None = None
+        self._watchdog: StragglerWatchdog | None = None
 
     def fit(self, Xb, y: np.ndarray, eval_set=None,
             eval_metric: str | None = None,
@@ -206,10 +231,14 @@ class Driver:
         g, h and loss, and the base score. A Driver-owned run log is
         closed, the cost capture removed and a capture window stopped on
         every exit, a raise included."""
+        if self.run_log is not None and not self._writes_log():
+            self.run_log = None
         try:
-            return self._fit(Xb, y, eval_set, eval_metric,
-                             early_stopping_rounds, sample_weight)
+            with robustness.fit_scope(self.cfg, self.run_log):
+                return self._fit(Xb, y, eval_set, eval_metric,
+                                 early_stopping_rounds, sample_weight)
         finally:
+            self.backend.partition_span = None
             costmodel.deactivate(self._cost)
             if self._window is not None:
                 self._window.close()
@@ -227,8 +256,6 @@ class Driver:
         and the manifest. Returns the counters' start snapshot (None
         without a run log). No device sync."""
         cfg = self.cfg
-        if self.run_log is not None and not self._writes_log():
-            self.run_log = None
         if self.run_log is not None or self._window is not None \
                 or self._status is not None:
             self.run_id = derive_run_id(
@@ -242,6 +269,14 @@ class Driver:
         if self.profile or self.run_log is not None:
             self.timer = PhaseTimer(self.backend.device)
         self._recorder.run_log = self.run_log
+        be = self.backend
+        self._part_rec = PartitionRecorder(
+            self.run_log, be, active=self._lanes,
+            bytes_per_round=0 if be.mesh is None else
+            cfg.n_outputs * be.collective_bytes_per_tree(int(F)))
+        if self._part_rec.active:
+            self._watchdog = StragglerWatchdog(
+                threshold=cfg.straggler_skew_threshold)
         if self.run_log is None:
             return None
         self.run_log.run_id = self.run_id
@@ -292,7 +327,8 @@ class Driver:
 
         start = 0
         if self.checkpoint_dir is not None:
-            start = checkpoint.try_resume(self.checkpoint_dir, ens, cfg)
+            start = checkpoint.try_resume(self.checkpoint_dir, ens, cfg,
+                                          run_log=self.run_log)
             if self.backend.mesh is not None:
                 self.check_resume_agrees(ens, start)
             if start > 0:
@@ -311,7 +347,7 @@ class Driver:
         elif early_stopping_rounds is not None:
             raise ValueError("early_stopping_rounds requires an eval_set")
         if getattr(self.backend, "grow_rounds", None) is not None \
-                and not self.profile:
+                and not self.profile and not cfg.straggler_repartition:
             ens = self._fit_fused(data, y_dev, pred, ens, start, ev)
         else:
             with annotations.sub_phases(self.timer) if self.profile \
@@ -329,7 +365,8 @@ class Driver:
         if self._status is not None:
             self._status.set_phase("done")
         finish_run_log(self.run_log, self.timer, counters_start, completed,
-                       round(time.perf_counter() - t0, 4), costs=self._cost)
+                       round(time.perf_counter() - t0, 4), costs=self._cost,
+                       partitions=self._part_rec)
 
     @staticmethod
     def _check_rows(Xb):
@@ -501,6 +538,9 @@ class Driver:
         C = cfg.n_outputs
         ph = annotations.phase_ctx(self.timer)
         window = self._window
+        rec = self._part_rec
+        if rec is not None and rec.active:
+            self.backend.partition_span = rec.span
         stop = None
         if ev is not None:
             val_data, val_pred, val_y, stop = ev
@@ -542,6 +582,7 @@ class Driver:
             self._count_rounds(R, F, 1)
             self._round_end(rnd, ms, score,
                             lambda: self.backend.loss_value(pred, y_dev))
+            self._observe_straggler(rnd, rec)
             if window is not None:
                 window.round_end(rnd)
             if stop is not None and stop.update(rnd, score):
@@ -553,7 +594,47 @@ class Driver:
                 rnd + 1, 1, ms,
                 rnd + 1 if self.checkpoint_dir is not None else None,
                 rows_per_s=R / (ms / 1e3) if ms > 0 else None)
+            if self.checkpoint_every >= 1 \
+                    and (rnd + 1) % self.checkpoint_every == 0 \
+                    and self._wants_repartition():
+                self._repartition(rnd, data, y_dev, pred)
         return self._finish(ens, stop, cfg.n_trees)
+
+    def _observe_straggler(self, rnd: int, rec, n_rounds: int = 1) -> None:
+        """One round's (or block's) lanes -> the watchdog
+        (robustness.watchdog.feed_watchdog: a warning and a
+        `straggler_detected` fault event on a trip). No-op without an
+        active recorder."""
+        if rec is None or not rec.active:
+            return
+        feed_watchdog(self._watchdog, self.run_log, rnd,
+                      rec.flush_round(rnd, n_rounds), log)
+
+    def _wants_repartition(self) -> bool:
+        return (self._watchdog is not None
+                and self._watchdog.pending_repartition
+                and self.cfg.straggler_repartition
+                and getattr(self.backend, "rotate_row_partitions", None)
+                is not None)
+
+    def _repartition(self, rnd: int, data, y_dev, pred) -> None:
+        """The watchdog's action at a checkpoint-cadence boundary: rotate
+        the row shards around the row group and move this rank's resident
+        blocks (rows, labels and weights, pred) in place, then a
+        `repartition` fault event. A backend that cannot rotate (one
+        device, a row axis across hosts) acknowledges, so the watchdog
+        does not ask again at every boundary."""
+        be = self.backend
+        if be.rotate_row_partitions():
+            be.reshard_data(data)
+            be.reshard_labels(y_dev)
+            be.reshard_rows(pred)
+            log.warning("repartitioned at round %d: rotated the row shards "
+                        "off the straggling rank", rnd + 1)
+            if self.run_log is not None:
+                self.run_log.emit("fault", kind="repartition",
+                                  round=rnd + 1, rotation=1)
+        self._watchdog.repartition_done()
 
     def _fit_fused(self, data, y_dev, pred, ens: TreeEnsemble,
                    start: int = 0, ev=None) -> TreeEnsemble:
@@ -591,7 +672,9 @@ class Driver:
                                              cfg.colsample_bytree)
                      for c in range(C)] for k in range(K)])
             scores = None
-            with ph("grow_block"):
+            rec = self._part_rec
+            with ph("grow_block"), (contextlib.nullcontext() if rec is None
+                                    else rec.span("grow_block")):
                 if stop is not None:
                     trees_h, pred, losses_h, val_pred, scores_h = \
                         self.backend.grow_rounds_eval(
@@ -619,6 +702,10 @@ class Driver:
                 window.round_end(rnd + K - 1)
             tele_counters.record_d2h(trees.nbytes + losses.nbytes)
             self._count_rounds(R, F, K)
+            # A block's lane: completion skew (the block's collectives
+            # even the ranks out; the repartition action needs the
+            # granular loop, which cfg.straggler_repartition forces).
+            self._observe_straggler(rnd, rec, K)
             trees = trees.reshape(K, C, len(PACKED_FIELDS), -1)
             for k in range(K):
                 r = rnd + k

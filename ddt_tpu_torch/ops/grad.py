@@ -313,16 +313,21 @@ def quant_scale_np(max_abs: float, sum_abs: float,
     return scale if scale > 0 else np.float32(1.0)
 
 
-def grad_abs_stats(g: torch.Tensor, h: torch.Tensor, group=None):
+def grad_abs_stats(g: torch.Tensor, h: torch.Tensor, group=None,
+                   shard: int | None = None):
     """(max|g|, sum|g|, max|h|, sum|h|) as 0-dim f32 tensors, over every
     rank's rows with a process group (one MAX and one SUM all-reduce).
     The max is exact in any order; the f32 sum's order differs between
     devices and partition counts by ULPs, which the cap term's
-    power-of-two snap absorbs except at an exact frexp boundary."""
+    power-of-two snap absorbs except at an exact frexp boundary. With
+    `shard` (the row shard this rank holds) the sums add in shard order
+    (comms.psum_ordered), whichever rank holds which shard."""
     ag = g.to(torch.float32).abs()
     ah = h.to(torch.float32).abs()
     maxes = comms.pmax(torch.stack([ag.max(), ah.max()]), group)
-    sums = comms.psum(torch.stack([ag.sum(), ah.sum()]), group)
+    part = torch.stack([ag.sum(), ah.sum()])
+    sums = (comms.psum(part, group) if shard is None
+            else comms.psum_ordered(part, group, shard))
     return maxes[0], sums[0], maxes[1], sums[1]
 
 
@@ -351,9 +356,11 @@ def quantize_with_scales(g: torch.Tensor, h: torch.Tensor,
 def quantize_gradients(g: torch.Tensor, h: torch.Tensor, *,
                        grad_dtype: str, tree_id, seed: int,
                        row_start: int = 0, group=None,
-                       n_rows_global: int | None = None):
+                       n_rows_global: int | None = None,
+                       shard: int | None = None):
     """One tree's quantization step on g's device: scales from the |g|,
-    |h| stats (over every rank's rows with a process group), then seeded
+    |h| stats (over every rank's rows with a process group; summed in
+    shard order with `shard`, grad_abs_stats), then seeded
     stochastic rounding keyed by the global row id (this rank's rows
     start at `row_start`; `tree_id` an int or a 0-dim int64 tensor, as in
     quantize_with_scales). Returns (qg, qh, gscale, hscale); dequantize
@@ -368,7 +375,7 @@ def quantize_gradients(g: torch.Tensor, h: torch.Tensor, *,
             f"int32 overflow proof's row ceiling ({GRAD_ROW_LIMIT}): "
             "sum|q| <= 2^30 + n_rows must stay under INT32_MAX (see "
             "ops/grad.py); use grad_dtype='f32'")
-    mg, sg, mh, sh = grad_abs_stats(g, h, group)
+    mg, sg, mh, sh = grad_abs_stats(g, h, group, shard)
     # quant_scale is elementwise: both channels in one pass.
     gscale, hscale = quant_scale(torch.stack([mg, mh]),
                                  torch.stack([sg, sh]), grad_dtype)

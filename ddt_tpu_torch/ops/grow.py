@@ -153,7 +153,8 @@ def assemble_subtracted(parent_hist: torch.Tensor, hist_left: torch.Tensor,
 def level_histograms(Xb, g, h, node_index, n_level: int, n_bins: int, *,
                      parent_hist=None, parent_split=None,
                      reduce=None, widths=None,
-                     scales: torch.Tensor | None = None) -> torch.Tensor:
+                     scales: torch.Tensor | None = None,
+                     span=None) -> torch.Tensor:
     """One level's [n_level, F, B, 2] histograms, merged over the ranks by
     `reduce(hist, async_op)` (the histogram collective; None on one
     device): the merged slab under reduce-scatter.
@@ -172,16 +173,22 @@ def level_histograms(Xb, g, h, node_index, n_level: int, n_bins: int, *,
     path the carry and the left build are int32, on the exact path
     (`scales`: f32 g/h summed in fixed point, ops/histogram.
     build_histograms_exact) int64 until `reduce` converts it, and the
-    subtraction is exact."""
+    subtraction is exact.
+
+    Every build goes through ops/histogram.build_level (the `hist.build`
+    seam and the OOM ladder). `span` (the partition recorder's
+    `span("hist")`, or None) times each build on this rank before its
+    collective is issued, so another rank's lateness does not show in
+    this rank's lane."""
     if reduce is None:
         reduce = _no_reduce
     widths = widths or [Xb.shape[1]]
 
     def build(X, ni, n_nodes):
-        if scales is not None:
-            return H.build_histograms_exact(X, g, h, ni, n_nodes, n_bins,
-                                            scales)
-        return H.build_histograms(X, g, h, ni, n_nodes, n_bins)
+        if span is None:
+            return H.build_level(X, g, h, ni, n_nodes, n_bins, scales)
+        with span():
+            return H.build_level(X, g, h, ni, n_nodes, n_bins, scales)
 
     def build_reduced(ni, n_nodes):
         if len(widths) == 1:
@@ -333,7 +340,8 @@ def grow_tree(Xb: torch.Tensor, g: torch.Tensor, h: torch.Tensor, *,
               split_comms: str = "allreduce",
               hist_comms_dtype: str = "f32", feature_group=None,
               world_group=None, n_features: int | None = None,
-              comms_slabs: int = 1) -> TreeArrays:
+              comms_slabs: int = 1, row_shard: int | None = None,
+              shard_ordered: bool = False, hist_span=None) -> TreeArrays:
     """Grow one complete-heap tree from uint8 Xb [R, F] and f32 g, h [R]
     (the same decisions as ddt_tpu/ops/grow.grow_tree).
 
@@ -353,10 +361,23 @@ def grow_tree(Xb: torch.Tensor, g: torch.Tensor, h: torch.Tensor, *,
     the n_features global ones (f the rank in the feature group; columns
     past n_features are padding), and `world_group` is every rank (the
     winner combine under reduce-scatter). Returned feature ids are
-    global (module docstring)."""
+    global (module docstring).
+
+    `row_shard` is the row shard Xb holds (default: the rank's place in
+    the row group; after a straggler rotation, the shard the rank holds
+    now): the rounding draws' global rows start at row_shard * R.
+    `shard_ordered` (cfg.straggler_repartition) makes the reductions over
+    the row group independent of which rank holds which shard: on an f32
+    wire the exact path's aggregates cross it as int64 (exact, so the
+    trees are one device's), and the quantized path's |g| / |h| sums add
+    in shard order (comms.psum_ordered); int32_fixed is order-free as it
+    is, a bf16 wire's f32 sums are not. `hist_span` times each histogram
+    build (level_histograms' `span`)."""
     R, F = Xb.shape
     dev = Xb.device
     P = comms.world(group)
+    if row_shard is None:
+        row_shard = comms.rank(group)
     rs = split_comms == "reduce_scatter" and group is not None
     fsh = feature_group is not None
     Fg = F if n_features is None else n_features
@@ -367,8 +388,9 @@ def grow_tree(Xb: torch.Tensor, g: torch.Tensor, h: torch.Tensor, *,
     if quant:
         g, h, gscale, hscale = grad_ops.quantize_gradients(
             g, h, grad_dtype=grad_dtype, tree_id=quant_tree_id,
-            seed=quant_seed, row_start=comms.rank(group) * R, group=group,
-            n_rows_global=R * P)
+            seed=quant_seed, row_start=row_shard * R, group=group,
+            n_rows_global=R * P,
+            shard=row_shard if shard_ordered else None)
         dequant = torch.stack([gscale, hscale])    # [2] dequantize vector
         gq, hq = g, h
     else:
@@ -380,9 +402,14 @@ def grow_tree(Xb: torch.Tensor, g: torch.Tensor, h: torch.Tensor, *,
         gq = grad_ops.to_fixed(g, scales[0])
         hq = grad_ops.to_fixed(h, scales[1])
 
+    int_wire = shard_ordered and hist_comms_dtype == "f32"
+
     def to_wire(x):
-        """An exact rank-local int64 aggregate as f32 for a collective."""
-        return x.to(torch.float32) * inv if scales is not None else x
+        """An exact rank-local int64 aggregate as f32 for a collective
+        (as int64 itself on the int64 wire)."""
+        if scales is None or int_wire:
+            return x
+        return x.to(torch.float32) * inv
 
     def hist_collective(hs, async_op=False):
         if group is None:
@@ -441,7 +468,7 @@ def grow_tree(Xb: torch.Tensor, g: torch.Tensor, h: torch.Tensor, *,
                                 parent_hist=parent_hist,
                                 parent_split=parent_split,
                                 reduce=hist_collective, widths=widths,
-                                scales=scales)
+                                scales=scales, span=hist_span)
         if rs or fsh:
             # The ranks hold different columns: node totals from the row
             # vectors, one all-reduce of the [n_level, 2] pair.

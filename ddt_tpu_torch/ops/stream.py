@@ -121,10 +121,7 @@ def stream_level_hist(Xb: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
     if build_left:
         ni = grow_ops.left_children(ni)
         n_nodes //= 2
-    if scales is not None:
-        return H.build_histograms_exact(Xb, g, h, ni, n_nodes, n_bins,
-                                        scales, out=out)
-    return H.build_histograms(Xb, g, h, ni, n_nodes, n_bins, out=out)
+    return H.build_level(Xb, g, h, ni, n_nodes, n_bins, scales, out=out)
 
 
 def stream_leaf_gh(Xb: torch.Tensor, gq: torch.Tensor, hq: torch.Tensor,

@@ -189,6 +189,26 @@ def reduce_scatter(x: torch.Tensor, group, dim: int,
     return _reduce_scatter_pending(x, group, dim, modeled).wait()
 
 
+def psum_ordered(x: torch.Tensor, group, shard: int) -> torch.Tensor:
+    """Sum x over the group in row-shard order: every rank's x is
+    gathered with the shard it holds, and the parts add shard 0 first,
+    so the f32 result does not depend on which rank holds which shard
+    (the straggler rotation moves shards between ranks). One all_gather
+    of P x (numel + 1) f32 values."""
+    if group is None:
+        return x
+    flat = x.reshape(-1).to(torch.float32)
+    tagged = torch.cat([flat, torch.full((1,), float(shard),
+                                         dtype=torch.float32,
+                                         device=x.device)])
+    every = all_gather(tagged, group).reshape(world(group), -1)
+    order = torch.argsort(every[:, -1])
+    acc = every[order[0], :-1]
+    for i in range(1, every.shape[0]):
+        acc = acc + every[order[i], :-1]
+    return acc.reshape(x.shape).to(x.dtype)
+
+
 def pad_to_multiple(x: torch.Tensor, dim: int, multiple: int
                     ) -> torch.Tensor:
     """x zero-padded on `dim` up to a multiple of `multiple` (x itself
@@ -353,7 +373,9 @@ def hist_allreduce_bytes_by_level(max_depth: int, n_features: int,
                                   subtraction: bool = False,
                                   comms_dtype: str = "f32",
                                   feature_partitions: int = 1,
-                                  grad_dtype: str = "f32") -> list[int]:
+                                  grad_dtype: str = "f32",
+                                  value_bytes: int | None = None
+                                  ) -> list[int]:
     """Per-level payload of the histogram collective for one tree, per
     rank (levels 0..max_depth-1; the reference's telemetry/counters.
     hist_allreduce_bytes_by_level): the level's histogram (left children
@@ -362,12 +384,16 @@ def hist_allreduce_bytes_by_level(max_depth: int, n_features: int,
     (int32 partials on the quantized path), plus the winner combine's
     gathered [4, n_level] int32 records: from every rank (P x Pf) under
     reduce-scatter, from the Pf feature shards under allreduce on a
-    feature axis. `partitions` counts the row shards (hosts x rows)."""
+    feature axis. `partitions` counts the row shards (hosts x rows).
+    `value_bytes` overrides the wire's bytes a value (8: the exact path's
+    int64 wire under cfg.straggler_repartition)."""
     if grad_dtype != "f32" and comms_dtype != "f32":
         raise ValueError(
             f"grad_dtype={grad_dtype!r} with comms_dtype={comms_dtype!r}: "
             "integer histogram partials refuse compression")
     val_bytes = 4 if grad_dtype != "f32" else COMMS_DTYPE_BYTES[comms_dtype]
+    if value_bytes is not None:
+        val_bytes = value_bytes
     per_entry = val_bytes * 2                            # (g, h) pairs
     P = max(1, partitions)
     Pf = max(1, feature_partitions)
@@ -393,7 +419,7 @@ def hist_allreduce_bytes(max_depth: int, n_features: int, n_bins: int,
                          **kw) -> int:
     """One tree's modeled payload per rank: the levels'
     (hist_allreduce_bytes_by_level) plus the final leaf sums' [2^depth,
-    2] all-reduce at 4 bytes a value."""
+    2] all-reduce at 4 bytes a value (`value_bytes` when given)."""
     return (sum(hist_allreduce_bytes_by_level(max_depth, n_features,
                                               n_bins, **kw))
-            + (1 << max_depth) * 4 * 2)
+            + (1 << max_depth) * (kw.get("value_bytes") or 4) * 2)

@@ -57,7 +57,12 @@ def initialize_multihost(init_method: str, world_size: int, rank: int, *,
     "gloo" (default: nccl when a card is visible). On NCCL the process is
     bound to its card first (rank_device). A repeat call with the same
     arguments does nothing; with other arguments it raises: a live group
-    cannot be re-wired."""
+    cannot be re-wired.
+
+    Transient bootstrap faults (a rendezvous that is still coming up)
+    are retried with backoff before the hard failure (utils/retry, seam
+    "multihost.init"; the fault plan injects its timeout at the same
+    seam)."""
     global _init_args
     if backend is None:
         backend = "nccl" if torch.cuda.is_available() else "gloo"
@@ -72,9 +77,21 @@ def initialize_multihost(init_method: str, world_size: int, rank: int, *,
     kw = {}
     if backend == "nccl":
         kw["device_id"] = rank_device("cuda", world_size)
-    dist.init_process_group(
-        backend, init_method=init_method, world_size=world_size, rank=rank,
-        timeout=datetime.timedelta(seconds=timeout_s), **kw)
+    from ddt_tpu_torch.robustness import faultplan
+    from ddt_tpu_torch.utils import retry
+
+    def attempt() -> None:
+        faultplan.inject("multihost.init")
+        dist.init_process_group(
+            backend, init_method=init_method, world_size=world_size,
+            rank=rank, timeout=datetime.timedelta(seconds=timeout_s), **kw)
+
+    # Bootstrap waits are long: few, slow attempts with a bring-up-sized
+    # deadline (the default I/O policy's is 30 s).
+    retry.retry_call(attempt, seam="multihost.init",
+                     policy=retry.RetryPolicy(attempts=3, base_s=2.0,
+                                              multiplier=2.0, jitter=0.5,
+                                              deadline_s=120.0))
     _init_args = args
 
 

@@ -102,12 +102,13 @@ def train(device: str, X, y, cfg_kw: dict, fit_kw: dict | None = None,
             "global_rank": _rank(), "comms_slabs": be.comms_slabs}
 
 
-def train_logged(device: str, X, y, cfg_kw: dict, paths: list) -> None:
+def train_logged(device: str, X, y, cfg_kw: dict, paths: list,
+                 fit_kw: dict | None = None) -> None:
     """api.train of binned X on this rank with the run log
     paths[global rank] (a rank that is not its host's first writes
-    none)."""
+    none) and api.train's keywords `fit_kw` (profile, ...)."""
     api.train(X, y, _config(device, cfg_kw), binned=True,
-              run_log=paths[_rank()])
+              run_log=paths[_rank()], **(fit_kw or {}))
 
 
 def cli(device: str, argv: list) -> dict | None:
@@ -460,3 +461,135 @@ def upload_row_shards(device: str, parts: list, total_rows: int,
     a = be.upload_row_shards(owned, total_rows)
     b = be.upload_chunk(np.concatenate(parts))
     return a.cpu().numpy(), b.cpu().numpy()
+
+
+def train_straggler(device: str, X, y, cfg_kw: dict, plan: dict | None,
+                    fit_kw: dict | None = None) -> dict:
+    """api.train of binned X on this rank under the fault plan `plan` (a
+    dict, armed on every rank; None: no plan) with an in-memory run log
+    on every rank (the partition recorder needs one on each). Returns the
+    ensemble, the writing rank's fault kinds and partition_phases
+    events, the shard this rank holds at the end and the round times."""
+    from ddt_tpu_torch.robustness import faultplan
+    from ddt_tpu_torch.telemetry.events import RunLog
+
+    cfg = _config(device, cfg_kw)
+    log = RunLog()
+    prev = faultplan.activate(None if plan is None
+                              else faultplan.load_plan(plan))
+    be = get_backend(cfg)
+    try:
+        res = api.train(X, y, cfg, backend=be, binned=True, run_log=log,
+                        log_every=1, **(fit_kw or {}))
+    finally:
+        faultplan.deactivate(prev)
+    return {"ensemble": res.ensemble, "rank": _rank(), "shard": be.rank,
+            "faults": [e["kind"] for e in log.events("fault")],
+            "phases": log.events("partition_phases"),
+            "skew": log.events("partition_skew"),
+            "ms": [r["ms_per_round"] for r in res.history]}
+
+
+def train_streaming_straggler(device: str, src_dir: str,
+                              shards_per_chunk: int, cfg_kw: dict,
+                              plan: dict | None,
+                              fit_kw: dict | None = None) -> dict:
+    """fit_streaming on this rank over a host-sharded shard directory
+    under the fault plan `plan` (armed on every rank), with an in-memory
+    run log on every rank: the ensemble, the writing rank's fault kinds,
+    the sub-shards this rank read and the shard it holds at the end."""
+    from ddt_tpu_torch.data.chunks import host_sharded_chunks
+    from ddt_tpu_torch.robustness import faultplan
+    from ddt_tpu_torch.streaming import fit_streaming
+    from ddt_tpu_torch.telemetry.events import RunLog
+
+    cfg = _config(device, cfg_kw)
+    src = host_sharded_chunks(src_dir, shards_per_chunk)
+    reads = []
+    real = src.read_part
+
+    def counted(c, slot):
+        reads.append((c, slot))
+        return real(c, slot)
+
+    src.read_part = counted
+    log = RunLog()
+    be = get_backend(cfg)
+    prev = faultplan.activate(None if plan is None
+                              else faultplan.load_plan(plan))
+    try:
+        ens = fit_streaming(src, src.n_chunks, cfg, backend=be, run_log=log,
+                            **(fit_kw or {}))
+    finally:
+        faultplan.deactivate(prev)
+    return {"ensemble": ens, "reads": sorted(set(reads)), "shard": be.rank,
+            "faults": [e["kind"] for e in log.events("fault")]}
+
+
+def train_without_lanes(device: str, X, y, cfg_kw: dict) -> int:
+    """api.train of binned X on this rank with no run log, the partition
+    recorder's span and flush made to raise if touched: the disabled path
+    pays no event, sync or gather. Returns the trees grown."""
+    from ddt_tpu_torch.telemetry import events
+
+    def boom(*a, **k):
+        raise AssertionError("partition recorder touched without a run log")
+
+    saved = events.PartitionRecorder.flush_round, events._Span.__enter__
+    events.PartitionRecorder.flush_round = boom
+    events._Span.__enter__ = boom
+    try:
+        res = api.train(X, y, _config(device, cfg_kw), binned=True)
+    finally:
+        events.PartitionRecorder.flush_round, events._Span.__enter__ = saved
+    return res.ensemble.n_trees
+
+
+
+def straggler_timed(device: str, x_path: str, y_path: str, cfg_kw: dict,
+                    plan: dict | None, fit_kw: dict | None = None) -> dict:
+    """chip_smoke's `straggler` phase on one rank: api.train of the rows in
+    x_path / y_path (.npy, memory-mapped) with an in-memory run log on
+    every rank, under the fault plan `plan` (None: none). Returns the
+    ensemble, the writing rank's fault kinds, the shard held at the end,
+    the ms of each round, the ms of each rotation (its ring shifts
+    included, synchronized), the modeled histogram-collective bytes and
+    the counters' moves."""
+    from ddt_tpu_torch import driver as driver_mod
+    from ddt_tpu_torch.robustness import faultplan
+    from ddt_tpu_torch.telemetry.events import RunLog
+
+    X = np.load(x_path, mmap_mode="r")
+    y = np.load(y_path)
+    cfg = _config(device, cfg_kw)
+    be = get_backend(cfg)
+    log = RunLog()
+    rotations = []
+    real = driver_mod.Driver._repartition
+
+    def timed(self, *a):
+        _sync()
+        t0 = time.perf_counter()
+        real(self, *a)
+        _sync()
+        rotations.append(1e3 * (time.perf_counter() - t0))
+
+    driver_mod.Driver._repartition = timed
+    prev = faultplan.activate(None if plan is None
+                              else faultplan.load_plan(plan))
+    before = _counters()
+    try:
+        res = api.train(X, y, cfg, backend=be, run_log=log, log_every=1,
+                        **(fit_kw or {}))
+    finally:
+        faultplan.deactivate(prev)
+        driver_mod.Driver._repartition = real
+    moved = _since(before)
+    return {"ensemble": res.ensemble, "rank": _rank(), "shard": be.rank,
+            "faults": [e["kind"] for e in log.events("fault")],
+            "ms": [r["ms_per_round"] for r in res.history],
+            "rotation_ms": rotations,
+            "modeled_bytes": moved["comms.modeled_bytes"],
+            "bytes_model": be.collective_bytes_per_tree(
+                res.ensemble.n_features),
+            "counters": moved}

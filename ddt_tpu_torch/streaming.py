@@ -63,9 +63,23 @@ cost events, the phase timings, the counters and run_end. Its phases are
 utils/profiling.PhaseTimer, which a run log or `profile=True` turns on.
 `profiler_window` and `status` are driven at every round boundary.
 
-Left out here, as in the port's Driver: the host loop of a CPU backend
-and its `cache_preds` (the CPU backend is a later slice), the fault-plan
-and retry seams around chunk reads and the straggler watchdog.
+Robustness, as the reference's: cfg.fault_plan is activated for the
+fit and the fault sink points at its run log (robustness.fit_scope);
+every chunk source is wrapped in the stream-read retry seam
+(utils/retry.retrying_chunk_fn: training, validation and label-only
+reads, and a host-sharded source's part reads, each with the
+`stream.chunk_read` injection site inside the retried call; chunk
+sources are pure, so a retried read changes nothing). On a mesh with a
+run log the partition recorder times each rank's `hist` passes and the
+straggler watchdog reads its lanes; with cfg.straggler_repartition the
+ranks rotate their row shards at a checkpoint boundary
+(CUDADevice.rotate_row_partitions: the resident blocks shift, the chunk
+cache is dropped and the host-sharded slot map rotates with them).
+
+Left out here: the reference's host loop of a backend without the
+stream_* surface and its `cache_preds`. The port's CPU oracle
+(backends/cpu.CPUDevice) has no streamed trainer: fit_streaming refuses
+it.
 """
 
 from __future__ import annotations
@@ -79,6 +93,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ddt_tpu_torch import robustness
 from ddt_tpu_torch.api import predict_proba_np
 from ddt_tpu_torch.backends import get_backend
 from ddt_tpu_torch.backends.base import PACKED_FIELDS
@@ -92,10 +107,12 @@ from ddt_tpu_torch.ops import split as split_ops
 from ddt_tpu_torch.parallel import comms, mesh
 from ddt_tpu_torch.telemetry import annotations, costmodel
 from ddt_tpu_torch.telemetry import counters as tele_counters
+from ddt_tpu_torch.robustness.watchdog import (StragglerWatchdog,
+                                               feed_watchdog)
 from ddt_tpu_torch.telemetry.events import (
-    RoundRecorder, RunLog, comms_manifest_fields, derive_run_id,
-    emit_early_stop, emit_train_heartbeat, finish_run_log)
-from ddt_tpu_torch.utils import checkpoint
+    PartitionRecorder, RoundRecorder, RunLog, comms_manifest_fields,
+    derive_run_id, emit_early_stop, emit_train_heartbeat, finish_run_log)
+from ddt_tpu_torch.utils import checkpoint, retry
 from ddt_tpu_torch.utils.profiling import PhaseTimer
 from ddt_tpu_torch.utils.metrics import (GREATER_IS_BETTER, default_metric,
                                          evaluate)
@@ -247,6 +264,16 @@ class _DeviceChunkCache:
         local = self._backend.block_bounds(rows)[2]
         return local * self._n_features
 
+    def drop(self) -> None:
+        """After a straggler rotation: the cached blocks belong to the
+        shard this rank held; they are dropped and their bytes returned
+        to the budget, so the next pass uploads the shard held now. (A
+        ring shift of them would need every rank to cache the same
+        chunks, and the budget comes from each card's free memory.)"""
+        for data in self._cached.values():
+            self._budget[0] += data.numel()
+        self._cached.clear()
+
     def get(self, c: int) -> torch.Tensor:
         hit = self._cached.get(c)
         if hit is not None:
@@ -313,21 +340,33 @@ def fit_streaming(
     exit."""
     own_run_log = isinstance(run_log, str)
     run_log = RunLog.coerce(run_log)
+    lanes = run_log is not None
     cost = None
     try:
         if backend is None:
             backend = get_backend(cfg)
+        if getattr(backend, "stream_level_hist", None) is None:
+            raise NotImplementedError(
+                f"the {backend.name!r} backend has no streamed trainer; "
+                "stream with backend='cuda' (device='cpu' runs it on the "
+                "CPU)")
         m = backend.mesh
         if run_log is not None and m is not None \
                 and (m.row != 0 or m.feature != 0):
             run_log = None          # each host's first rank writes
         if run_log is not None:
             cost = costmodel.activate()
-        return _fit_streaming(
-            chunk_fn, n_chunks, cfg, backend, checkpoint_dir,
-            checkpoint_every, valid_chunk_fn, n_valid_chunks, eval_metric,
-            early_stopping_rounds, history, device_chunk_cache,
-            _Telemetry(run_log, profile, profiler_window, status, cost))
+        with robustness.fit_scope(cfg, run_log):
+            chunk_fn = retry.retrying_chunk_fn(chunk_fn)
+            if valid_chunk_fn is not None:
+                valid_chunk_fn = retry.retrying_chunk_fn(valid_chunk_fn)
+            return _fit_streaming(
+                chunk_fn, n_chunks, cfg, backend, checkpoint_dir,
+                checkpoint_every, valid_chunk_fn, n_valid_chunks,
+                eval_metric, early_stopping_rounds, history,
+                device_chunk_cache,
+                _Telemetry(run_log, profile, profiler_window, status,
+                           cost, lanes))
     finally:
         costmodel.deactivate(cost)
         if profiler_window is not None:
@@ -341,8 +380,14 @@ class _Telemetry:
     (a run log or profile), the window, the status, the cost collector,
     and the counters' start."""
 
-    def __init__(self, run_log, profile, window, status, cost):
+    def __init__(self, run_log, profile, window, status, cost,
+                 lanes: bool = False):
         self.run_log = run_log
+        # Whether this rank was given a run log (every rank's partition
+        # recorder keys on it), and the recorder and watchdog (start).
+        self.lanes = lanes
+        self.recorder = None
+        self.watchdog = None
         self.profile = profile
         self.window = window
         self.status = status
@@ -356,6 +401,11 @@ class _Telemetry:
         uploads count."""
         if self.profile or self.run_log is not None:
             self.timer = PhaseTimer(backend.device)
+        self.recorder = PartitionRecorder(self.run_log, backend,
+                                          active=self.lanes)
+        if self.recorder.active:
+            self.watchdog = StragglerWatchdog(
+                threshold=backend.cfg.straggler_skew_threshold)
         if self.run_log is not None:
             self.counters_start = tele_counters.snapshot()
             tele_counters.reset_device_peak()
@@ -411,7 +461,7 @@ class _Telemetry:
         finish_run_log(self.run_log, self.timer, self.counters_start,
                        ens.n_trees // C,
                        round(time.perf_counter() - self.t0, 4),
-                       costs=self.cost)
+                       costs=self.cost, partitions=self.recorder)
         return ens
 
 
@@ -428,8 +478,6 @@ def _fit_streaming(chunk_fn, n_chunks, cfg, backend, checkpoint_dir,
     if early_stopping_rounds is not None and valid_chunk_fn is None:
         raise ValueError("early_stopping_rounds requires valid_chunk_fn")
 
-    # (The reference wraps chunk_fn and valid_chunk_fn in its stream-read
-    # retry seam here: the robustness layer, not ported yet.)
     tel.start(backend)
     # Pass 0: labels (uploaded now: they stay resident), chunk sizes, the
     # base score; no binned chunk is read.
@@ -471,7 +519,8 @@ def _fit_streaming(chunk_fn, n_chunks, cfg, backend, checkpoint_dir,
                  checkpoint_every=checkpoint_every)
     start_round = 0
     if checkpoint_dir is not None:
-        start_round = checkpoint.try_resume(checkpoint_dir, ens, cfg)
+        start_round = checkpoint.try_resume(checkpoint_dir, ens, cfg,
+                                            run_log=tel.run_log)
         if backend.mesh is not None:
             drv.check_resume_agrees(ens, start_round)
         if start_round > 0:
@@ -486,9 +535,8 @@ def _fit_streaming(chunk_fn, n_chunks, cfg, backend, checkpoint_dir,
     if valid_chunk_fn is not None:
         ev = _StreamEval(valid_chunk_fn, n_valid_chunks, eval_metric,
                          cfg.loss, early_stopping_rounds, history)
-    # A backend without the stream_* surface would take the reference's
-    # host loop here (with its cache_preds); the port's one backend has
-    # the surface, and the CPU backend that lacks it is not ported yet.
+    # A backend without the stream_* surface (the CPU oracle) was
+    # refused in fit_streaming: the reference's host loop is not ported.
     return tel.finish(_fit_streaming_device(
         chunk_fn, n_chunks, cfg, backend, drv, ens, bs, y_dev, chunk_lens,
         chunk_starts, start_round, ev, device_chunk_cache, tel), C)
@@ -521,7 +569,7 @@ def _fit_streaming_device(chunk_fn, n_chunks, cfg, backend, drv, ens, bs,
     budget = _cache_budget(device_chunk_cache, backend)
     chunks = _DeviceChunkCache(backend, chunk_fn, budget, chunk_lens, F)
     pred_dev = [backend.init_pred(h, bs) for h in y_dev]
-    val_chunks = val_pred = None
+    val_chunks = val_pred = val_y = None
     if ev is not None:
         val_chunks = _DeviceChunkCache(backend, ev.fn, budget, ev.lens, F)
         val_y = [backend.upload_labels(ev.labels(c)) for c in range(ev.n)]
@@ -568,6 +616,8 @@ def _fit_streaming_device(chunk_fn, n_chunks, cfg, backend, drv, ens, bs,
 
     subtract = backend.hist_subtraction
     cat_dev = backend.cat_mask(F)
+    rec, watchdog = tel.recorder, tel.watchdog
+    ordered = cfg.straggler_repartition
     slots = [None] * n_chunks        # [C, R] int32 leaf slots per chunk
     prev_values = None               # the last round's leaf values
     t_out = start_round * C
@@ -591,7 +641,9 @@ def _fit_streaming_device(chunk_fn, n_chunks, cfg, backend, drv, ens, bs,
                 convert = [grad_ops.fixed_inverse(s) for s in scales]
             else:
                 mx = comms.pmax(stats[:, 0::2].contiguous(), group)
-                sm = comms.psum(stats[:, 1::2].contiguous(), group)
+                sm = (comms.psum_ordered(stats[:, 1::2].contiguous(), group,
+                                         backend.rank) if ordered
+                      else comms.psum(stats[:, 1::2].contiguous(), group))
                 convert = [grad_ops.quant_scale(mx[c], sm[c],
                                                 cfg.grad_dtype)
                            for c in range(C)]
@@ -616,10 +668,11 @@ def _fit_streaming_device(chunk_fn, n_chunks, cfg, backend, drv, ens, bs,
                     acc = torch.zeros((n_build, F, B, 2), dtype=acc_dtype,
                                       device=dev)
                     for c, data in passes():
-                        backend.stream_level_hist(
-                            data, pred_dev[c], y_dev[c], parts, depth, acc,
-                            cls, rnd, row_start[c], build_left=sub,
-                            scales=scales[cls])
+                        with rec.span("hist"):
+                            backend.stream_level_hist(
+                                data, pred_dev[c], y_dev[c], parts, depth,
+                                acc, cls, rnd, row_start[c], build_left=sub,
+                                scales=scales[cls])
                     acc = comms.psum(acc, group, modeled=True)
                 hist = grow_ops.assemble_subtracted(
                     parent_hist, acc, parent_split) if sub else acc
@@ -694,8 +747,9 @@ def _fit_streaming_device(chunk_fn, n_chunks, cfg, backend, drv, ens, bs,
             ens = ens.truncate((ev.best_round + 1) * C)
             drv.save_checkpoint(ens, ev.best_round + 1)
             return ens
-        # (The reference feeds its straggler watchdog here: not ported
-        # yet.)
+        if rec.active:
+            feed_watchdog(watchdog, tel.run_log, rnd, rec.flush_round(rnd),
+                          log)
         log.info("streaming: round %d/%d done", rnd + 1, cfg.n_trees)
         drv.save_checkpoint(ens, rnd + 1, drv.checkpoint_every)
         every = drv.checkpoint_every
@@ -707,8 +761,51 @@ def _fit_streaming_device(chunk_fn, n_chunks, cfg, backend, drv, ens, bs,
                 tel.run_log, rnd=rnd, total_rounds=cfg.n_trees,
                 checkpoint_round=rnd + 1 if has_dir else None,
                 ms_per_round=ms)
+            if watchdog is not None and cfg.straggler_repartition \
+                    and watchdog.pending_repartition:
+                if backend.rotate_row_partitions():
+                    _rotate_resident(backend, chunk_fn, chunks, y_dev,
+                                     pred_dev, slots, val_chunks, val_y,
+                                     val_pred, row_start, chunk_starts,
+                                     chunk_lens)
+                    log.warning("streaming: repartitioned at round %d: "
+                                "rotated the row shards off the "
+                                "straggling rank", rnd + 1)
+                    if tel.run_log is not None:
+                        tel.run_log.emit("fault", kind="repartition",
+                                         round=rnd + 1, rotation=1)
+                watchdog.repartition_done()
     drv.save_checkpoint(ens, cfg.n_trees)
     return ens
+
+
+def _rotate_resident(backend, chunk_fn, chunks, y_dev, pred_dev, slots,
+                     val_chunks, val_y, val_pred, row_start, chunk_starts,
+                     chunk_lens) -> None:
+    """After backend.rotate_row_partitions: every resident block of every
+    chunk (labels and weights, predictions, leaf slots, and the
+    validation chunks' state) moves to the shard this rank holds now, by
+    the backend's ring shift, in place; the chunk caches are dropped; a
+    host-sharded source's slot -> process map rotates, so the next upload
+    of a chunk reads the new shard's sub-shards; and each chunk's global
+    row start follows the shard."""
+    for c in range(len(pred_dev)):
+        backend.reshard_labels(y_dev[c])
+        backend.reshard_rows(pred_dev[c])
+        if slots[c] is not None:
+            backend.reshard_rows(slots[c], dim=1)
+    for cache in (chunks, val_chunks):
+        if cache is not None:
+            cache.drop()
+    if val_pred is not None:
+        for c in range(len(val_pred)):
+            backend.reshard_labels(val_y[c])
+            backend.reshard_rows(val_pred[c])
+    if getattr(chunk_fn, "host_sharded", False):
+        chunk_fn.rotate_assignment()
+    for c in range(len(row_start)):
+        row_start[c] = backend.chunk_row_start(int(chunk_starts[c]),
+                                               chunk_lens[c])
 
 
 def predict_streaming(chunk_fn: ChunkFn, n_chunks: int, ens: TreeEnsemble,

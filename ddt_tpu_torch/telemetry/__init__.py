@@ -4,7 +4,9 @@ the logs of either package.
 
 - events      the run log (`RunLog`, `validate_event`, `derive_run_id`)
               and the trainers' emit homes (`RoundRecorder`,
-              `finish_run_log`, heartbeats, early stops).
+              `finish_run_log`, heartbeats, early stops), and the
+              partition recorder (`PartitionRecorder`: per-rank phase
+              lanes of a mesh run, the straggler watchdog's feed).
 - counters    process-wide monotonic counters (`snapshot` / `delta`);
               `jit_compiles` counts nvcc builds and CUDA-graph captures.
 - annotations `ddt:<phase>` profiler and NVTX ranges; the ops' scopes.
@@ -21,13 +23,10 @@ the logs of either package.
 Without a run log, profile, capture window or status, the trainers pay
 no sync, no file write and no import of the daemon: the hooks are
 `is not None` tests and two module-global reads a costed call.
-
-Not ported yet: the partition recorder (`PartitionRecorder`, per-rank
-phase lanes of a mesh run), which comes with straggler repartition.
 """
 
 from ddt_tpu_torch.telemetry.events import (  # noqa: F401
-    EVENT_FIELDS, SCHEMA_VERSION, RoundRecorder, RunLog, derive_run_id,
-    partition_skew_summary, validate_event)
+    EVENT_FIELDS, SCHEMA_VERSION, PartitionRecorder, RoundRecorder, RunLog,
+    derive_run_id, partition_skew_summary, validate_event)
 from ddt_tpu_torch.telemetry import counters  # noqa: F401
 from ddt_tpu_torch.telemetry.annotations import phase_span  # noqa: F401

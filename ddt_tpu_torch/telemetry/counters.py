@@ -30,8 +30,9 @@ What the port counts under the reference's names:
   cache (api.predict's per-model LRU).
 - the serving counters (`serve_*`, `fleet_*`, `slo_breaches`,
   `drift_alerts`) from serve/engine.py, serve/fleet.py and serve/drift.py.
-- `fault_retries` and `hist_oom_degrades` read 0: their seams come with
-  the robustness slice.
+- `fault_retries`: every failed attempt a retry seam retries
+  (utils/retry); `hist_oom_degrades`: every step down the histogram
+  ladder (ops/histogram.build_level).
 
 `device_peak_bytes()` is torch.cuda.max_memory_allocated of the current
 card since `reset_device_peak` (the trainers reset it at run start), None

@@ -2,8 +2,9 @@
 (port of ddt_tpu/telemetry/events.py: the schema tables,
 `validate_event`, `RunLog`, `derive_run_id`, and the trainers' emit
 homes `RoundRecorder`, `emit_early_stop`, `emit_train_heartbeat`,
-`finish_run_log`, `comms_manifest_fields`, with the pure reduction
-`partition_skew_summary` that report reads).
+`finish_run_log`, `comms_manifest_fields`, the partition recorder
+`PartitionRecorder`, with the pure reduction `partition_skew_summary`
+that report reads).
 
 Every record is one JSON object per line with the envelope (`event`,
 `schema`, `t`, `seq`) plus its event type's required fields
@@ -19,8 +20,9 @@ by the registry loader, the engine and the fleet on several threads;
 `emit` holds a lock, so `seq` stays strictly increasing in the file.
 
 The partition recorder (per-rank phase lanes of a mesh run, the
-straggler watchdog's feed) is not ported: it comes with straggler
-repartition.
+straggler watchdog's feed) times each rank's own work with CUDA events
+(wall time on the CPU) and gathers every rank's lanes once a round, so
+every rank holds the same lanes (PartitionRecorder).
 """
 
 from __future__ import annotations
@@ -243,19 +245,22 @@ def emit_early_stop(run_log: "RunLog | None", stop_round: int, metric,
 
 def finish_run_log(run_log: "RunLog | None", timer, counters_start,
                    completed_rounds: int, wallclock_s: float,
-                   costs=None) -> None:
+                   costs=None, partitions=None) -> None:
     """Run-log epilogue: [cost_analysis... +] phase_timings + counters +
     run_end, shared by the Driver and fit_streaming. `timer` is a
     utils.profiling.PhaseTimer or None (reading its totals is the one
     device sync of a timed run on the card); `counters_start` a
     counters.snapshot() or None; `costs` the run's costmodel.Collector
-    or None. Closing a path-owned log is the trainers' job, which also
+    or None; `partitions` the run's PartitionRecorder or None (its
+    partition_skew event comes first). Closing a path-owned log is the trainers' job, which also
     covers the exception paths."""
     if run_log is None:
         return
     from ddt_tpu_torch.telemetry import costmodel
     from ddt_tpu_torch.telemetry import counters as tele_counters
 
+    if partitions is not None:
+        partitions.emit_skew()
     if costs is not None:
         costmodel.flush_into(run_log, costs)
     if timer is not None and timer.totals:
@@ -346,6 +351,148 @@ def partition_skew_summary(totals: dict) -> list[dict]:
         out.append(rec)
     out.sort(key=lambda r: -r["ms_max"])
     return out
+
+
+class _Span:
+    """One timed span of a PartitionRecorder phase."""
+
+    __slots__ = ("rec", "phase", "t0", "ev0")
+
+    def __init__(self, rec, phase):
+        self.rec = rec
+        self.phase = phase
+
+    def __enter__(self):
+        if self.rec._cuda:
+            self.ev0 = _cuda_event()
+            self.ev0.record()
+        else:
+            self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        rec = self.rec
+        if rec._cuda:
+            ev1 = _cuda_event()
+            ev1.record()
+            rec._pairs.append((self.phase, self.ev0, ev1))
+        else:
+            ms = 1e3 * (time.perf_counter() - self.t0)
+            rec._round[self.phase] = rec._round.get(self.phase, 0.0) + ms
+
+
+def _cuda_event():
+    """A timing CUDA event (torch imported here: the run log's readers
+    import this module without it)."""
+    import torch
+
+    return torch.cuda.Event(enable_timing=True)
+
+
+class PartitionRecorder:
+    """Per-rank phase lanes of a mesh run (the partition recorder; port
+    of ddt_tpu/telemetry/events.py:518-600).
+
+    The reference probes, in one process, when each device's shard of a
+    phase's output completed. Here each rank is a process: it times its
+    own phases (`span(phase)`: CUDA events on the current stream on the
+    card, read once a round; wall time on the CPU, where the ops run as
+    they are called), and at `flush_round` the ranks all-gather their
+    phase totals over the world, so every rank holds the same lanes (a
+    lane per global rank) and the straggler watchdog takes the same
+    decision on every rank in the same round. The trainers time the
+    histogram builds before their collective is issued (ops/grow.
+    level_histograms' `span`), so a rank waiting in NCCL for a late rank
+    does not show that wait in its own lane.
+
+    Active only on a mesh run with a run log (every rank of the mesh
+    passes one: `active` must agree on every rank, or the gather would
+    wait forever); otherwise `span` is a shared null context and
+    `flush_round` returns None, with no event, sync or collective. Only
+    the rank that writes the run log emits: one `partition_phases` event
+    a flushed round (a block on the fused loop, with `rounds`), and at
+    the end one `partition_skew` (partition_skew_summary). An active
+    fault plan's `straggler` site adds its delay to a lane at the flush,
+    deterministically and without sleeping (`straggler_injected`), the
+    same on every rank."""
+
+    #: The phases a lane carries, in a fixed order (the gathered vector).
+    PHASES = ("hist", "grow_block", "straggler_injected")
+
+    def __init__(self, run_log: "RunLog | None", backend, active: bool,
+                 bytes_per_round: int = 0):
+        m = getattr(backend, "mesh", None)
+        self.active = bool(active) and m is not None
+        self.run_log = run_log
+        self.bytes_per_round = int(bytes_per_round)
+        self._world = None if m is None else m.world_group
+        dev = getattr(backend, "device", None)
+        self._dev = dev
+        self._cuda = dev is not None and getattr(dev, "type", None) == "cuda"
+        self._round: dict[str, float] = {}
+        self._pairs: list = []
+        self._totals: dict[int, dict[str, float]] = {}
+        import contextlib
+
+        self._null = contextlib.nullcontext()
+
+    def span(self, phase: str = "hist"):
+        """A context timing one piece of `phase` on this rank."""
+        if not self.active:
+            return self._null
+        return _Span(self, phase)
+
+    def flush_round(self, rnd: int, n_rounds: int = 1) -> "dict | None":
+        """Gather the round's lanes (rnd 0-based; the event carries the
+        1-based round), emit partition_phases on the writing rank and
+        return {rank: {phase: ms}} (the watchdog's feed), or None when
+        inactive."""
+        if not self.active:
+            return None
+        import torch
+
+        from ddt_tpu_torch.parallel import comms
+        from ddt_tpu_torch.robustness import faultplan
+
+        mine = dict(self._round)
+        for phase, e0, e1 in self._pairs:
+            e1.synchronize()
+            mine[phase] = mine.get(phase, 0.0) + float(e0.elapsed_time(e1))
+        self._round, self._pairs = {}, []
+        vec = torch.tensor([mine.get(p, -1.0) for p in self.PHASES],
+                           dtype=torch.float64, device=self._dev)
+        every = comms.all_gather(vec, self._world).cpu().tolist()
+        lanes: dict[int, dict[str, float]] = {}
+        for r, row in enumerate(every):
+            lanes[r] = {p: v for p, v in zip(self.PHASES, row) if v >= 0}
+        for r in sorted(lanes):
+            extra = faultplan.perturb_ms("straggler", device=r,
+                                         round=rnd + 1)
+            if extra:
+                lanes[r]["straggler_injected"] = (
+                    lanes[r].get("straggler_injected", 0.0) + extra)
+        parts = []
+        for r in sorted(lanes):
+            tot = self._totals.setdefault(r, {})
+            for k, v in lanes[r].items():
+                tot[k] = tot.get(k, 0.0) + v
+            parts.append({
+                "device": r,
+                "phases": {k: round(v, 3) for k, v in lanes[r].items()},
+                "hist_allreduce_bytes": self.bytes_per_round * n_rounds})
+        if self.run_log is not None:
+            self.run_log.emit("partition_phases", round=rnd + 1,
+                              rounds=n_rounds, partitions=parts)
+        return lanes
+
+    def emit_skew(self) -> None:
+        """The run's partition_skew event (finish_run_log calls it before
+        the phase timings, counters and run_end)."""
+        if not self.active or not self._totals or self.run_log is None:
+            return
+        self.run_log.emit(
+            "partition_skew", phases=partition_skew_summary(self._totals),
+            n_partitions=len(self._totals))
 
 
 class RoundRecorder:

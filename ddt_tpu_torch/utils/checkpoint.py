@@ -1,8 +1,10 @@
 """Checkpoint and resume of a training run.
 
-Port of ddt_tpu/utils/checkpoint.py without its fault-plan injection
-sites and retry seams (those come with the port's robustness layer).
-After every `checkpoint_every` rounds the Driver writes the partial
+Port of ddt_tpu/utils/checkpoint.py, with its fault-plan injection sites
+(`ckpt.save.write` before the ensemble write, `ckpt.save.between`
+between the pair's two replaces, `ckpt.load` before the cursor read) and its
+retry seams (`ckpt.save` around the ensemble and cursor writes,
+`ckpt.load` around the cursor and npz reads; utils/retry). After every `checkpoint_every` rounds the Driver writes the partial
 ensemble and a cursor (completed rounds, config fingerprint, the
 ensemble file's sha256); resume loads the node arrays into the fresh
 ensemble and the Driver rebuilds the boosting state by rescoring them in
@@ -18,6 +20,9 @@ resumed run grows the trees an uninterrupted one grows.
   training starts afresh (a warning, never a crash).
 - A valid checkpoint written by an incompatible config raises: resuming
   another run would corrupt this one silently.
+- Fault events (`checkpoint_corrupt` per bad candidate,
+  `checkpoint_fallback` on recovery, `checkpoint_unrecoverable`) go to
+  the caller's run log, or to the process fault sink.
 
 The ensemble file is the TreeEnsemble npz both packages read, so a
 checkpoint's model loads in either. The cursor's fingerprint is this
@@ -37,6 +42,8 @@ import zipfile
 
 from ddt_tpu_torch.config import TrainConfig
 from ddt_tpu_torch.models.tree import TreeEnsemble
+from ddt_tpu_torch.robustness import emit_fault, faultplan
+from ddt_tpu_torch.utils import retry
 from ddt_tpu_torch.utils.atomic import atomic_savez
 
 log = logging.getLogger("ddt_tpu_torch.checkpoint")
@@ -50,12 +57,14 @@ KEEP_LAST = 3
 CURSOR_SCHEMA = 2
 #: Fields that may differ across a resume: the round target (resuming to
 #: train further is the point) and where and how the rounds run, the
-#: partition layout included (the reference's list,
+#: partition layout and the backend included (the reference's list,
 #: ddt_tpu/utils/checkpoint.py:75-86): a run checkpointed on one mesh
-#: resumes on another, or on one device.
+#: resumes on another, or on one device. The robustness knobs are system
+#: knobs too: a run that crashed under a fault plan resumes without one.
 _SYSTEM_FIELDS = ("n_trees", "device", "fused_block_rounds",
                   "predict_impl", "n_partitions", "feature_partitions",
-                  "host_partitions", "mesh_shape")
+                  "host_partitions", "mesh_shape", "backend", "fault_plan",
+                  "straggler_repartition", "straggler_skew_threshold")
 
 
 def cfg_fingerprint(cfg: TrainConfig) -> dict:
@@ -124,15 +133,28 @@ def save_checkpoint(ckpt_dir: str, ens: TreeEnsemble, cfg: TrainConfig,
     then retain the pair in the history."""
     os.makedirs(ckpt_dir, exist_ok=True)
     final = os.path.join(ckpt_dir, CKPT_FILE)
-    atomic_savez(final, compressed=True, **ens.to_dict())
+
+    def write_ensemble() -> str:
+        faultplan.inject("ckpt.save.write", round=completed_rounds)
+        atomic_savez(final, compressed=True, **ens.to_dict())
+        return _sha256_file(final)
+
+    digest = retry.retry_call(write_ensemble, seam="ckpt.save")
+    # A crash here leaves ensemble.npz one save ahead of cursor.json: the
+    # digest below is how resume detects it.
+    faultplan.inject("ckpt.save.between", round=completed_rounds)
     cur = {"completed_rounds": int(completed_rounds),
            "config": cfg_fingerprint(cfg),
-           "ensemble_digest": _sha256_file(final),
+           "ensemble_digest": digest,
            "ckpt_schema": CURSOR_SCHEMA}
-    tmp = os.path.join(ckpt_dir, CURSOR_FILE + ".tmp")
-    with open(tmp, "w") as f:
-        json.dump(cur, f)
-    os.replace(tmp, os.path.join(ckpt_dir, CURSOR_FILE))
+
+    def write_cursor() -> None:
+        tmp = os.path.join(ckpt_dir, CURSOR_FILE + ".tmp")
+        with open(tmp, "w") as f:
+            json.dump(cur, f)
+        os.replace(tmp, os.path.join(ckpt_dir, CURSOR_FILE))
+
+    retry.retry_call(write_cursor, seam="ckpt.save")
     _retain_history(ckpt_dir, completed_rounds, keep_last)
 
 
@@ -161,9 +183,13 @@ def _read_pair(d: str) -> "dict | str | None":
         return f"{CKPT_FILE} present but {CURSOR_FILE} missing"
     if not have_ckpt:
         return f"{CURSOR_FILE} present but {CKPT_FILE} missing"
-    try:
+    def read_cursor():
+        faultplan.inject("ckpt.load")
         with open(cursor_path) as f:
-            cur = json.load(f)
+            return json.load(f)
+
+    try:
+        cur = retry.retry_call(read_cursor, seam="ckpt.load")
     except (json.JSONDecodeError, UnicodeDecodeError, OSError) as e:
         return f"{CURSOR_FILE} unreadable: {type(e).__name__}: {e}"
     if not isinstance(cur, dict) or "completed_rounds" not in cur \
@@ -179,7 +205,8 @@ def _read_pair(d: str) -> "dict | str | None":
             return (f"{CKPT_FILE} does not match the cursor's digest "
                     "(torn checkpoint write)")
     try:
-        saved = TreeEnsemble.load(ckpt_path)
+        saved = retry.retry_call(TreeEnsemble.load, ckpt_path,
+                                 seam="ckpt.load")
     except (OSError, ValueError, KeyError, EOFError,
             zipfile.BadZipFile) as e:
         return f"{CKPT_FILE} unreadable: {type(e).__name__}: {e}"
@@ -187,11 +214,19 @@ def _read_pair(d: str) -> "dict | str | None":
             "saved": saved}
 
 
-def try_resume(ckpt_dir: str, ens: TreeEnsemble, cfg: TrainConfig) -> int:
+def try_resume(ckpt_dir: str, ens: TreeEnsemble, cfg: TrainConfig,
+               run_log=None) -> int:
     """Load the newest valid checkpoint's trees into `ens` (in place) and
     return its completed rounds (0: nothing to resume). Torn or corrupt
-    pairs fall back to older history with a warning; a valid pair of an
+    pairs fall back to older history with a warning and fault events
+    (into `run_log`, else the process fault sink); a valid pair of an
     incompatible config, or with more rounds than cfg.n_trees, raises."""
+    def fault(kind: str, **fields) -> None:
+        if run_log is not None:
+            run_log.emit("fault", kind=kind, **fields)
+        else:
+            emit_fault(kind, **fields)
+
     candidates = [("latest", ckpt_dir)] + [
         (f"{HISTORY_PREFIX}{r:06d}", p) for r, p in _history_dirs(ckpt_dir)]
     saw_corrupt = False
@@ -202,6 +237,7 @@ def try_resume(ckpt_dir: str, ens: TreeEnsemble, cfg: TrainConfig) -> int:
         if isinstance(res, str):
             log.warning("checkpoint %s (%s): %s; trying older history",
                         label, d, res)
+            fault("checkpoint_corrupt", candidate=label, reason=res)
             saw_corrupt = True
             continue
         cur, saved, rounds = res["cur"], res["saved"], res["rounds"]
@@ -217,6 +253,7 @@ def try_resume(ckpt_dir: str, ens: TreeEnsemble, cfg: TrainConfig) -> int:
         if saw_corrupt:
             log.warning("checkpoint fallback: resuming from %s at round %d",
                         label, rounds)
+            fault("checkpoint_fallback", candidate=label, round=rounds)
         k = rounds * cfg.n_outputs
         for name in ("feature", "threshold_bin", "threshold_raw", "is_leaf",
                      "leaf_value", "split_gain", "default_left"):
@@ -225,4 +262,5 @@ def try_resume(ckpt_dir: str, ens: TreeEnsemble, cfg: TrainConfig) -> int:
     if saw_corrupt:
         log.warning("no valid checkpoint survives in %s; starting fresh",
                     ckpt_dir)
+        fault("checkpoint_unrecoverable")
     return 0

@@ -147,9 +147,7 @@ def test_cli_criteo_categoricals(tmp_path, capsys):
     assert len(TreeEnsemble.load(str(tmp_path / "o.npz")).cat_features)
 
 
-@pytest.mark.parametrize("flag", ["--backend=cpu", "--hist-impl=segment",
-                                  "--fault-plan=p.json",
-                                  "--straggler-repartition",
+@pytest.mark.parametrize("flag", ["--hist-impl=segment",
                                   "--multihost-coordinator=h:1"])
 def test_cli_unported_flags_are_absent(tmp_path, flag):
     """The reference's flags for fields the port lacks are refused, not
@@ -158,6 +156,42 @@ def test_cli_unported_flags_are_absent(tmp_path, flag):
         main(["train", "--device=cpu", "--rows=100", "--trees=1",
               "--depth=2", "--bins=15", flag,
               f"--out={tmp_path / 'x.npz'}"])
+
+
+@pytest.mark.parametrize("flags,field,want", [
+    (["--backend=cpu"], "backend", "cpu"),
+    (["--fault-plan={plan}"], "fault_plan", "plan"),
+    (["--straggler-repartition"], "straggler_repartition", True),
+    (["--straggler-skew-threshold=3.5"], "straggler_skew_threshold", 3.5),
+])
+def test_cli_robustness_flags(tmp_path, capsys, monkeypatch, flags, field,
+                              want):
+    """The flags ported with the robustness slice reach the run's
+    TrainConfig (a fault plan is armed for the run and disarmed after)."""
+    import json as _json
+
+    from ddt_tpu_torch import api as tapi
+    from ddt_tpu_torch.robustness import faultplan
+
+    plan = tmp_path / "p.json"
+    plan.write_text(_json.dumps({"faults": [{"site": "fetch_tree"}]}))
+    seen = {}
+    real = tapi.train
+
+    def spy(X, y, cfg=None, **kw):
+        seen["cfg"] = cfg
+        seen["plan"] = faultplan.active_plan()
+        return real(X, y, cfg, **kw)
+
+    monkeypatch.setattr(tapi, "train", spy)
+    _run(capsys, ["train", "--device=cpu", "--rows=100", "--trees=1",
+                  "--depth=2", "--bins=15",
+                  *[f.format(plan=plan) for f in flags],
+                  f"--out={tmp_path / 'x.npz'}"])
+    got = getattr(seen["cfg"], field)
+    assert got == (str(plan) if want == "plan" else want)
+    assert (seen["plan"] is not None) == (field == "fault_plan")
+    assert faultplan.active_plan() is None
 
 
 def test_cli_unknown_device_fails_loudly(tmp_path):

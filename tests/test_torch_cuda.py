@@ -1719,3 +1719,97 @@ def test_phase_timer_on_the_card_reads_events_once(dev, monkeypatch):
     got = {r["phase"]: r for r in t.as_json()}
     assert got["inner"]["calls"] == 10 and got["outer"]["calls"] == 10
     assert got["inner"]["ms_total"] > 0
+
+
+# ---------------------------------------------------------------------- #
+# robustness on the card: the histogram OOM ladder, the allocation
+# failure's classification, injected faults absorbed bitwise
+# ---------------------------------------------------------------------- #
+@pytest.mark.parametrize("mode", ["exact", "int8"])
+def test_hist_oom_ladder_rungs_bitwise_on_card(dev, mode):
+    """Every rung (K1 over node ranges of 1/4, 1/16, 1/64 of the level,
+    each writing its slab of one table) is bitwise the top rung's table
+    on the card: exact int64 and int32 sums are order-free."""
+    Xb, g, h, ni = _hist_case(200_000, 28, 255, 16, seed=11)
+    X = torch.from_numpy(Xb).to(dev)
+    n = torch.from_numpy(ni).to(dev)
+    if mode == "exact":
+        gt = torch.from_numpy(g).to(dev)
+        ht = torch.from_numpy(h).to(dev)
+        scales = grad.fixed_scales(grad.abs_max2(gt, ht), Xb.shape[0])
+    else:
+        gt = torch.from_numpy((g * 40).clip(-127, 127).astype(np.int8)
+                              ).to(dev)
+        ht = torch.from_numpy((h * 127).astype(np.int8)).to(dev)
+        scales = None
+    top = histogram._build_rung(0, X, gt, ht, n, 16, 255, scales, None)
+    for rung in (1, 2, 3):
+        before = (hist_cuda.launches_exact + hist_cuda.launches_int)
+        out = histogram._build_rung(rung, X, gt, ht, n, 16, 255, scales,
+                                    None)
+        launched = (hist_cuda.launches_exact + hist_cuda.launches_int
+                    - before)
+        assert launched == min(16, 4 ** rung), rung
+        assert torch.equal(out, top), rung
+
+
+def test_real_out_of_memory_is_resource_exhausted(dev):
+    """The caching allocator's own failure (torch.cuda.OutOfMemoryError)
+    is what the ladder steps down on, and it is not transient."""
+    from ddt_tpu_torch.robustness import faultplan
+    from ddt_tpu_torch.utils import retry
+
+    free, total = torch.cuda.mem_get_info(dev)
+    with pytest.raises(torch.cuda.OutOfMemoryError) as info:
+        torch.empty(int(total) * 4, dtype=torch.uint8, device=dev)
+    assert faultplan.is_resource_exhausted(info.value)
+    assert not retry.is_transient(info.value)
+
+
+@pytest.mark.parametrize("grad_dtype", ["f32", "int8"])
+def test_injected_faults_bitwise_on_card(dev, tmp_path, grad_dtype):
+    """fetch_tree, ckpt.save.write and a hist.build rung step, each
+    injected into a granular fit on the card: the ensemble is the
+    undisturbed run's bit for bit; the streamed fit under
+    stream.chunk_read likewise."""
+    from ddt_tpu_torch import api
+    from ddt_tpu_torch.config import TrainConfig
+    from ddt_tpu_torch.ops import histogram as hops
+    from ddt_tpu_torch.robustness import faultplan
+    from ddt_tpu_torch.streaming import fit_streaming
+
+    rng = np.random.default_rng(3)
+    Xb = rng.integers(0, 63, size=(20_000, 12), dtype=np.uint8)
+    y = (Xb[:, 0] + rng.integers(0, 20, 20_000) > 40).astype(np.float32)
+    cfg = TrainConfig(n_trees=6, max_depth=5, n_bins=63, seed=1,
+                      grad_dtype=grad_dtype)
+    ref = api.train(Xb, y, cfg, binned=True, profile=True).ensemble
+    plan = {"faults": [{"site": "fetch_tree", "times": 2},
+                       {"site": "ckpt.save.write", "round": 2},
+                       {"site": "hist.build", "after_calls": 7}]}
+    hops.reset_hist_rung()
+    prev = faultplan.activate(faultplan.load_plan(plan))
+    try:
+        got = api.train(Xb, y, cfg, binned=True, profile=True,
+                        checkpoint_dir=str(tmp_path / "ck"),
+                        checkpoint_every=2).ensemble
+        assert hops.hist_rung() == 1
+    finally:
+        faultplan.deactivate(prev)
+        hops.reset_hist_rung()
+    for k in ("feature", "threshold_bin", "leaf_value", "split_gain"):
+        np.testing.assert_array_equal(getattr(ref, k), getattr(got, k))
+
+    def chunks(c):
+        return Xb[c * 5000:(c + 1) * 5000], y[c * 5000:(c + 1) * 5000]
+
+    clean = fit_streaming(chunks, 4, cfg, device_chunk_cache=False)
+    prev = faultplan.activate(faultplan.load_plan(
+        {"faults": [{"site": "stream.chunk_read", "chunk": 2,
+                     "times": 2}]}))
+    try:
+        chaos = fit_streaming(chunks, 4, cfg, device_chunk_cache=False)
+    finally:
+        faultplan.deactivate(prev)
+    for k in ("feature", "threshold_bin", "leaf_value", "split_gain"):
+        np.testing.assert_array_equal(getattr(clean, k), getattr(chaos, k))

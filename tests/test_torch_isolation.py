@@ -80,3 +80,35 @@ def test_chip_smoke_imports_no_jax_or_reference():
     names += [n.module or "" for n in ast.walk(tree)
               if isinstance(n, ast.ImportFrom)]
     assert not [m for m in names if _forbidden(m)]
+
+
+def _docstrings(tree) -> set:
+    out = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)) and node.body:
+            first = node.body[0]
+            if isinstance(first, ast.Expr) and isinstance(
+                    getattr(first, "value", None), ast.Constant):
+                out.add(id(first.value))
+    return out
+
+
+def test_native_library_is_built_from_the_ports_own_sources():
+    """The port's native kernels are its own copies: no string the code
+    uses names the reference's native directory or library, and the
+    loader's sources and build directory lie inside the package."""
+    for path in sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]:
+        tree = ast.parse(path.read_text(), filename=str(path))
+        docs = _docstrings(tree)
+        bad = [n.value for n in ast.walk(tree)
+               if isinstance(n, ast.Constant) and isinstance(n.value, str)
+               and id(n) not in docs
+               and ("ddt_tpu/native" in n.value or "libddthist" in n.value)]
+        assert bad == [], f"{path} names the reference's native files"
+    from ddt_tpu_torch import native
+
+    assert native.SRC_DIR == PKG / "native"
+    assert native.BUILD_DIR == PKG / "_build"
+    for name in native.SOURCES:
+        assert (PKG / "native" / name).is_file()

@@ -124,14 +124,33 @@ def test_config_validation(bad):
         TrainConfig(**bad)
 
 
-@pytest.mark.parametrize("unported", ["straggler_repartition",
-                                      "straggler_skew_threshold",
-                                      "matmul_input_dtype",
-                                      "fault_plan", "backend",
-                                      "hist_impl"])
+@pytest.mark.parametrize("unported", ["matmul_input_dtype", "hist_impl"])
 def test_unported_fields_are_absent(unported):
     with pytest.raises(TypeError):
         TrainConfig(**{unported: 1})
+
+
+@pytest.mark.parametrize("field,default,bad", [
+    ("backend", "cuda", "tpu"),
+    ("fault_plan", None, None),
+    ("straggler_repartition", False, None),
+    ("straggler_skew_threshold", 2.0, 1.0),
+])
+def test_ported_robustness_fields(field, default, bad):
+    """Each field ported with the robustness slice exists with the
+    reference's default ("tpu" reads as the port's "cuda") and its
+    validation."""
+    from ddt_tpu.config import TrainConfig as RefConfig
+
+    assert getattr(TrainConfig(), field) == default
+    ref_default = getattr(RefConfig(), field)
+    assert ref_default == ("tpu" if field == "backend" else default)
+    if bad is not None:
+        with pytest.raises(ValueError, match=field):
+            TrainConfig(**{field: bad})
+        if field != "backend":
+            with pytest.raises(ValueError, match=field):
+                RefConfig(**{field: bad})
 
 
 def test_cuda_device_without_card_raises(data):
