@@ -312,12 +312,27 @@ Phases:
  30 robust    config 1 at full width (1M x 28, 255 bins, depth 6, 8 trees),
              f32 and int8, under a fault plan: two transient tree fetches
              and a torn checkpoint write (retried) and an allocation
-             failure at the third tree's second level (K1's ladder steps
-             down one rung, launches over a quarter of the nodes) on the
-             granular loop; then the streamed trainer over 4 chunks with
-             three failed chunk reads (retried); every ensemble bitwise
-             the undisturbed granular one (itself the fused one's);
-             retries, degrades, fault events and the rung taken. A `cli
+             failure at the third tree's second level (the backend's OOM
+             ladder steps down one rung: the carried parent table given
+             up) on the granular loop; then the streamed trainer over 4
+             chunks with three failed chunk reads (retried); every
+             ensemble bitwise the undisturbed granular one (itself the
+             fused one's); retries, degrades, fault events and the rung
+             taken, read off the backend. The ladder's peaks: at config 1
+             and at a wide level of 65,536 rows x 1024 features, f32 and
+             int8, the last histogram level (32 nodes) of one depth-6
+             tree grown at each rung, its peak of card memory
+             (max_memory_allocated after reset_peak_memory_stats, above
+             what was allocated before the level, the carried parent
+             table counted), strictly falling rung by rung, every rung's
+             tree bitwise rung 0's. The real allocation failure: the
+             wide rows at depth 7, the process capped by
+             set_per_process_memory_fraction between rung 0's and rung
+             1's level peak, an f32 and an int8 granular fit with no
+             fault plan take torch.cuda.OutOfMemoryError at rung 0, step
+             their backend down and end bitwise the undisturbed fit's
+             trees; the cap lifted, a backend of another config starts
+             and stays at rung 0. A `cli
              train` child crashed by ckpt.save.between at round 6 (the
              torn pair's cursor at 4), a second child resuming it, its
              model bitwise api.train's. The fused ms a tree with no plan
@@ -331,7 +346,12 @@ Phases:
              q's (bitwise, every cell below 2^24); Mrows/s a build on
              each side and their ratio, lscpu's model name and the thread
              count; a 5-tree backend="cpu" fit against the card's trees
-             (equal but for bf16 ties).
+             (equal but for bf16 ties); the streamed host loop
+             (fit_streaming with backend="cpu") over 4 chunks of the same
+             rows, 5 trees, cache_preds on and off (bitwise each other),
+             against the in-memory backend="cpu" fit and the card's
+             streamed fit against it (equal but for bf16 ties), with its
+             seconds.
   then the {"kernels": [...]} line (K1 and K3 report covertype, the other
   paths' launches under "paths", "stream", "lifecycle", "serve_plane",
   "ops", "robust" and K3's "config4" included; K1's entry is its exact mode, with the float-atomic mode's
@@ -346,6 +366,7 @@ Phases:
     python3 chip_smoke.py --phase robust
     python3 chip_smoke.py --phase baseline
     python3 chip_smoke.py --phase straggler
+    python3 chip_smoke.py --phase multihost
 
 run the device, build and multi (or mesh2d, stream, config4, ops,
 robust, baseline, or serve_plane after training its two models) phases
@@ -363,7 +384,16 @@ undisturbed) and on under an injected straggler on rank 1 (the watchdog
 rotates the row shards at checkpoint_every=2, three times): every
 rank's trees bitwise the undisturbed run's with the flag on; ms a round
 off, on and rotating, each rotation's ms, the modeled histogram bytes a
-round off and on (the f32 path's int64 wire), K1's launches.
+round off and on (the f32 path's int64 wire), K1's launches. `--phase
+multihost` (>= 2 cards; not in the default run) runs two `python -m
+ddt_tpu_torch.cli train` children with --multihost-coordinator
+localhost:PORT --multihost-processes 2 --multihost-id i, each bound to
+its own card over NCCL, at config 3's layout (criteo, one-vs-rest
+categorical columns, 255 bins, depth 6) with 1M rows a rank for 4 trees,
+int8 and f32: both children's models bitwise equal; int8 bitwise equal
+to one process training all the rows on one card, f32 equal to it but
+for proven bf16 ties (trees_match_mod_ties: its wire sums f32; the first
+divergence reported).
 """
 
 from __future__ import annotations
@@ -398,6 +428,7 @@ from ddt_tpu_torch.data.quantizer import (BinMapper, feature_bincounts,
                                           fit_bin_mapper)
 from ddt_tpu_torch.driver import Driver
 from ddt_tpu_torch.models.tree import TreeEnsemble, empty_ensemble
+from ddt_tpu_torch.ops import grow as grow_ops
 from ddt_tpu_torch.ops import (grad, hist_cuda, histogram, predict,
                                predict_cuda, predict_lut, predict_lut_cuda,
                                quantize, sampling)
@@ -4505,8 +4536,19 @@ ROBUST_NEVER = {"faults": [
     {"site": "fetch_tree", "round": -1},
     {"site": "ckpt.save.write", "round": -1},
     {"site": "stream.chunk_read", "chunk": -1}]}
+#: The OOM ladder's peaks: a wide level of 65,536 rows x 1024 features at
+#: 32 nodes (the last histogram level of a depth-6 tree), beside config 1.
+LADDER_ROWS = 65_536
+LADDER_FEATURES = 1024
+#: The real-OOM witness: that width at depth 7 (a 64-node last level, so
+#: the carried table, what rung 1 gives up, is 64 MiB or more), 2 trees.
+OOM_DEPTH = 7
+OOM_TREES = 2
 BASELINE_REPS = 3
 BASELINE_FIT_TREES = 5
+#: The streamed backend="cpu" fit: config 1's shape, 5 trees, 4 chunks.
+BASELINE_STREAM_TREES = 5
+BASELINE_STREAM_CHUNKS = 4
 STRAGGLER_ROWS = 1_000_000    # config 3: rows a rank, as phase multi
 STRAGGLER_TREES = 12
 STRAGGLER_BLOCK = 6           # flag off: fused blocks; the second is steady
@@ -4533,6 +4575,127 @@ def host_chunks(Xb: np.ndarray, y: np.ndarray, n: int):
     return f
 
 
+def level_peaks(Xd: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
+                depth: int, grad_dtype: str) -> dict:
+    """One depth-`depth` tree grown by ops/grow.grow_tree at each rung of a
+    ladder with the carry (sibling subtraction on): per rung the peak of
+    card memory over its last histogram level's step (build, subtraction,
+    split search) above what was allocated before it, the parent table
+    it carries counted as the level's (`peak`), what grow_tree held
+    before that step over what was allocated before the tree (`held`),
+    and the tree's arrays (every rung's bitwise rung 0's)."""
+    cfg = TrainConfig(max_depth=depth, n_bins=255)
+    out, trees = {}, {}
+    for rung in histogram.HistLadder(carry=True).rungs:
+        ladder = histogram.HistLadder(carry=True)
+        ladder.rung = rung
+        got = {}
+
+        def probe(d, carried, run, got=got):
+            if d != depth - 1:
+                return run()
+            torch.cuda.synchronize()
+            carry = (0 if carried is None
+                     else carried.numel() * carried.element_size())
+            base = torch.cuda.memory_allocated() - carry
+            got["held"] = base - got["pre"]
+            torch.cuda.reset_peak_memory_stats()
+            res = run()
+            torch.cuda.synchronize()
+            got["peak"] = torch.cuda.max_memory_allocated() - base
+            got["carried"] = carry
+            return res
+
+        gc.collect()
+        torch.cuda.synchronize()
+        got["pre"] = torch.cuda.memory_allocated()
+        tree = grow_ops.grow_tree(
+            Xd, g, h, max_depth=depth, n_bins=255, reg_lambda=cfg.reg_lambda,
+            min_child_weight=cfg.min_child_weight,
+            min_split_gain=cfg.min_split_gain, hist_subtraction=True,
+            grad_dtype=grad_dtype, ladder=ladder, level_probe=probe)
+        check(ladder.rung == rung, f"ladder peaks: rung {rung} held")
+        trees[rung] = [t.cpu() for t in tree[:6]]
+        out[rung] = {"name": histogram.rung_name(rung), "peak": got["peak"],
+                     "held": got["held"], "carried": got["carried"]}
+        del tree
+    for rung in out:
+        check(all(torch.equal(a, b) for a, b in zip(trees[0], trees[rung])),
+              f"ladder peaks: rung {rung}'s tree bitwise rung 0's")
+    return out
+
+
+def round0_grads(y: np.ndarray, dev) -> tuple:
+    """Round 0's logloss g, h at the base score (p = mean(y)) on `dev`."""
+    p0 = float(y.mean())
+    g = torch.from_numpy((p0 - y.astype(np.float32)).astype(np.float32))
+    h = torch.full((len(y),), p0 * (1 - p0), dtype=torch.float32)
+    return g.to(dev), h.to(dev)
+
+
+def wide_rows(seed: int = 0) -> tuple:
+    """LADDER_ROWS x LADDER_FEATURES binned rows on the card and labels
+    that depend on a few columns."""
+    rng = np.random.default_rng(seed)
+    Xb = rng.integers(0, 255, size=(LADDER_ROWS, LADDER_FEATURES),
+                      dtype=np.uint8)
+    y = ((Xb[:, 0].astype(np.int32) + Xb[:, 7] - Xb[:, 99]
+          + rng.integers(0, 96, LADDER_ROWS)) > 300).astype(np.float32)
+    return torch.from_numpy(Xb).to("cuda"), y
+
+
+def real_oom_fit(grad_dtype: str, n_trees: int = OOM_TREES) -> dict:
+    """The real allocation failure: the card capped by
+    set_per_process_memory_fraction between rung 0's and rung 1's level
+    peak (measured first, level_peaks, on the fit's round-0 gradients;
+    the cap three quarters of the way up from rung 1's, room for the
+    allocator's segments), a granular fit of wide_rows at depth
+    OOM_DEPTH on a fresh backend with no fault plan takes
+    torch.cuda.OutOfMemoryError at rung 0, steps that backend down and
+    finishes; its trees against the undisturbed fit's. The cap is
+    lifted on every exit."""
+    Xd, y = wide_rows()
+    cfg = TrainConfig(n_trees=n_trees, max_depth=OOM_DEPTH, n_bins=255,
+                      grad_dtype=grad_dtype)
+    ref = api.train(Xd, y, cfg, binned=True,
+                    backend=tasks.Granular(cfg)).ensemble
+    g, h = round0_grads(y, Xd.device)
+    peaks = level_peaks(Xd, g, h, OOM_DEPTH, grad_dtype)
+    del g, h
+    p0, p1 = peaks[0]["peak"], peaks[1]["peak"]
+    be = tasks.Granular(cfg)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    total = torch.cuda.get_device_properties(0).total_memory
+    cap = (torch.cuda.memory_reserved() + peaks[0]["held"] + p1
+           + 3 * (p0 - p1) // 4)
+    emit({"phase": "robust_oom_cap", "grad_dtype": grad_dtype,
+          "peaks": peaks, "cap_bytes": cap, "total_bytes": total,
+          "reserved_before": torch.cuda.memory_reserved()})
+    log = RunLog()
+    d0 = tele_counters.snapshot()["hist_oom_degrades"]
+    torch.cuda.set_per_process_memory_fraction(cap / total)
+    try:
+        got = api.train(Xd, y, cfg, binned=True, backend=be,
+                        run_log=log).ensemble
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0)
+    degrades = tele_counters.snapshot()["hist_oom_degrades"] - d0
+    ev = [e for e in log.events("fault") if e["kind"] == "hist_oom_degrade"]
+    same = all(np.array_equal(getattr(ref, k), getattr(got, k))
+               for k in TREE_FIELDS)
+    return {"grad_dtype": grad_dtype, "rows": LADDER_ROWS,
+            "features": LADDER_FEATURES, "depth": OOM_DEPTH,
+            "trees": n_trees, "peaks": peaks, "cap_bytes": cap,
+            "cap_fraction": cap / total, "rung": be.hist_ladder.rung,
+            "rung_name": histogram.rung_name(be.hist_ladder.rung),
+            "degrades": degrades,
+            "steps": [(e["from_impl"], e["to_impl"]) for e in ev],
+            "real_oom": bool(ev) and ev[0]["from_impl"] == "k1",
+            "bitwise": same}
+
+
 def phase_robust(X: np.ndarray, y: np.ndarray, Xb: np.ndarray) -> dict:
     """Config 1 at full width under the fault plan (module docstring,
     phase robust)."""
@@ -4551,18 +4714,17 @@ def phase_robust(X: np.ndarray, y: np.ndarray, Xb: np.ndarray) -> dict:
                         backend=tasks.Granular(cfg)).ensemble
         fused = api.train(Xd, y, cfg, binned=True).ensemble
         same_trees(fused, ref, f"robust {dt}: fused vs granular")
-        histogram.reset_hist_rung()
         log = RunLog()
+        be = tasks.Granular(cfg)
         prev = faultplan.activate(faultplan.load_plan(ROBUST_PLAN))
         try:
-            chaos = api.train(Xd, y, cfg, binned=True,
-                              backend=tasks.Granular(cfg), run_log=log,
+            chaos = api.train(Xd, y, cfg, binned=True, backend=be,
+                              run_log=log,
                               checkpoint_dir=os.path.join(tmp, dt),
                               checkpoint_every=ROBUST_EVERY).ensemble
-            rung = histogram.hist_rung()
         finally:
             faultplan.deactivate(prev)
-            histogram.reset_hist_rung()
+        rung = be.hist_ladder.rung
         same_trees(chaos, ref, f"robust {dt}: the planned faults")
         kinds = [e["kind"] for e in log.events("fault")]
         c = log.events("counters")[0]
@@ -4598,6 +4760,45 @@ def phase_robust(X: np.ndarray, y: np.ndarray, Xb: np.ndarray) -> dict:
             "bitwise": ["granular", "fused", "planned faults", "streamed",
                         "stream.chunk_read"]}
     out["launches"] = read_counters()
+    # The ladder's peaks: config 1 at full width and the wide level, each
+    # rung strictly below the one above it; then the real allocation
+    # failure under a memory cap, f32 and int8, and a backend of another
+    # config starting at rung 0 in this process.
+    gd, hd = round0_grads(y, Xd.device)
+    out["ladder_peaks"] = {}
+    for dt in ("f32", "int8"):
+        for shape in ("config1_1m_x_28", "wide_65536_x_1024"):
+            if shape.startswith("config1"):
+                Xs, gs, hs = Xd, gd, hd
+            else:
+                Xs, yw = wide_rows()
+                gs, hs = round0_grads(yw, Xs.device)
+            pk = level_peaks(Xs, gs, hs, DEPTH, dt)
+            vals = [pk[r]["peak"] for r in sorted(pk)]
+            emit({"phase": "robust_ladder_peak", "shape": shape,
+                  "grad_dtype": dt, "peaks": vals})
+            check(all(b < a for a, b in zip(vals, vals[1:])),
+                  f"robust ladder {shape} {dt}: peaks fall strictly {vals}")
+            out["ladder_peaks"][f"{shape}_{dt}"] = {
+                pk[r]["name"]: pk[r] for r in sorted(pk)}
+            del Xs, gs, hs
+    emit({"phase": "robust_ladder_peaks", "peaks": out["ladder_peaks"]})
+    out["real_oom"] = {}
+    for dt in ("f32", "int8"):
+        r = real_oom_fit(dt)
+        check(r["real_oom"] and r["degrades"] >= 1 and r["rung"] > 0,
+              f"robust real OOM {dt}: a real failure at rung 0 stepped "
+              f"down: {r['steps']}")
+        check(r["bitwise"], f"robust real OOM {dt}: trees bitwise")
+        out["real_oom"][dt] = r
+    other_cfg = TrainConfig(n_trees=2, max_depth=DEPTH - 1, n_bins=255)
+    other = tasks.Granular(other_cfg)
+    check(other.hist_ladder.rung == 0, "robust: a new backend at rung 0")
+    api.train(Xd, y, other_cfg, binned=True, backend=other)
+    check(other.hist_ladder.rung == 0,
+          "robust: another config's backend stays at rung 0")
+    out["other_backend_rung"] = other.hist_ladder.rung
+    emit({"phase": "robust_real_oom", "real_oom": out["real_oom"]})
     # The crash between the checkpoint pair's replaces, in a cli child,
     # then a second child resuming its directory (f32).
     rows = os.path.join(tmp, "rows.npz")
@@ -4764,13 +4965,118 @@ def phase_baseline(X: np.ndarray, y: np.ndarray, Xb: np.ndarray,
     cpu_fit_s = time.perf_counter() - t0
     card_fit = api.train(Xd, y, cfg, binned=True).ensemble
     tie = trees_match_mod_ties(card_fit, cpu_fit, cfg.min_split_gain)
+    # The streamed host loop over the oracle: 4 chunks, cache_preds on
+    # and off, against the in-memory oracle fit above, and the card's
+    # streamed fit against it.
+    src = host_chunks(Xb, y, BASELINE_STREAM_CHUNKS)
+    scfg = cfg.replace(n_trees=BASELINE_STREAM_TREES, backend="cpu")
+    streamed = {}
+    for cache in (True, False):
+        t0 = time.perf_counter()
+        ens = fit_streaming(src, BASELINE_STREAM_CHUNKS, scfg,
+                            cache_preds=cache)
+        s = time.perf_counter() - t0
+        tie = trees_match_mod_ties(cpu_fit, ens, cfg.min_split_gain)
+        streamed[f"cache_preds_{str(cache).lower()}"] = {
+            "seconds": s, "tie_root_causes_vs_in_memory": tie,
+            "bitwise_in_memory": all(
+                np.array_equal(getattr(cpu_fit, k), getattr(ens, k))
+                for k in TREE_FIELDS)}
+        streamed[f"ens_{cache}"] = ens
+    same = all(np.array_equal(getattr(streamed["ens_True"], k),
+                              getattr(streamed["ens_False"], k))
+               for k in TREE_FIELDS)
+    check(same, "baseline: streamed cpu cache_preds on == off, bitwise")
+    card_streamed = fit_streaming(src, BASELINE_STREAM_CHUNKS,
+                                  cfg.replace(n_trees=BASELINE_STREAM_TREES),
+                                  device_chunk_cache=False)
+    streamed["card_streamed_tie_root_causes_vs_cpu_streamed"] = \
+        trees_match_mod_ties(card_streamed, streamed.pop("ens_True"),
+                             cfg.min_split_gain)
+    del streamed["ens_False"]
     out = {"phase": "baseline", "card": card["smi"],
            "host_cpu": cpu_model(), "host_threads": threads_all,
            "os_cpu_count": os.cpu_count(), "rows": R,
            "features": Xb.shape[1], "bins": 255, "hist_impl": be.hist_impl,
            "modes": rows, "max_abs_err_f32": max_err,
            "cpu_fit": {"trees": BASELINE_FIT_TREES, "seconds": cpu_fit_s,
-                       "tie_root_causes_vs_card": tie}}
+                       "tie_root_causes_vs_card": tie},
+           "cpu_streamed_fit": {"trees": BASELINE_STREAM_TREES,
+                                "chunks": BASELINE_STREAM_CHUNKS,
+                                **streamed}}
+    out["wall_s"] = time.perf_counter() - t_phase
+    emit(out)
+    return out
+
+
+MULTIHOST_ROWS = 1_000_000     # config 3: rows a rank, as phase multi
+MULTIHOST_TREES = 4
+
+
+def free_port() -> int:
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        return sk.getsockname()[1]
+
+
+def phase_multihost(card: dict) -> dict:
+    """`cli train --multihost-*` over two NCCL processes, one card each
+    (module docstring, phase multihost)."""
+    n_cards = torch.cuda.device_count()
+    check(n_cards >= 2, f"--phase multihost needs >= 2 cards, {n_cards}")
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="ddt_multihost_")
+    out = {"phase": "multihost", "card": card["smi"], "cards": n_cards,
+           "processes": 2, "rows_per_rank": MULTIHOST_ROWS,
+           "trees": MULTIHOST_TREES, "cases": {}}
+    base = ["train", "--dataset", "criteo", "--cat-splits", "onehot",
+            "--rows", str(2 * MULTIHOST_ROWS), "--trees",
+            str(MULTIHOST_TREES), "--depth", str(DEPTH), "--bins", "255"]
+    for dt in ("int8", "f32"):
+        port = free_port()
+        outs = [os.path.join(tmp, f"{dt}_{i}.npz") for i in range(2)]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "ddt_tpu_torch.cli", *base,
+             "--grad-dtype", dt, "--partitions", "2",
+             "--multihost-coordinator", f"localhost:{port}",
+             "--multihost-processes", "2", "--multihost-id", str(i),
+             "--out", outs[i]], cwd=HERE, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for i in range(2)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=600)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t0
+        check(all(p.returncode == 0 for p in procs),
+              f"multihost {dt}: children failed:\n"
+              + "\n----\n".join(x[-3000:] for x in logs))
+        a, b = (TreeEnsemble.load(o) for o in outs)
+        same_trees(a, b, f"multihost {dt}: process 0 vs process 1")
+        one = os.path.join(tmp, f"{dt}_one.npz")
+        (_, one_s), = cli_children({f"one_{dt}": [
+            *base, "--grad-dtype", dt, "--out", one]}).values()
+        single = TreeEnsemble.load(one)
+        row = {"wall_s": wall, "one_process_s": one_s,
+               "bitwise_across_processes": True,
+               "records": [json.loads(ln) for x in logs
+                           for ln in x.splitlines()
+                           if ln.startswith('{"cmd"')]}
+        if dt == "int8":
+            same_trees(a, single, "multihost int8: vs one process")
+            row["bitwise_vs_one_process"] = True
+        else:
+            # The wire sums f32: equal but for proven bf16 ties.
+            row["first_divergence_vs_one_process"] = first_divergence(
+                a, single)
+            row["tie_root_causes_vs_one_process"] = trees_match_mod_ties(
+                single, a, TrainConfig().min_split_gain)
+        out["cases"][dt] = row
     out["wall_s"] = time.perf_counter() - t_phase
     emit(out)
     return out
@@ -4868,10 +5174,10 @@ def main(argv: list[str]) -> int:
                     ["--phase", "stream"], ["--phase", "config4"],
                     ["--phase", "serve_plane"], ["--phase", "ops"],
                     ["--phase", "robust"], ["--phase", "baseline"],
-                    ["--phase", "straggler"]):
+                    ["--phase", "straggler"], ["--phase", "multihost"]):
         print(f"chip_smoke: unknown arguments {argv}; usage: chip_smoke.py "
               "[--phase multi|mesh2d|stream|config4|serve_plane|ops|"
-              "robust|baseline|straggler]", file=sys.stderr)
+              "robust|baseline|straggler|multihost]", file=sys.stderr)
         return 2
     t_start = time.perf_counter()
     card = phase_device()
@@ -4905,6 +5211,8 @@ def main(argv: list[str]) -> int:
                 phase_baseline(X, y, Xb, levels, card)
         elif argv[1] == "straggler":
             phase_straggler(card)
+        elif argv[1] == "multihost":
+            phase_multihost(card)
         else:
             phase_stream(card, flush)
             stream_witness(card)

@@ -85,7 +85,7 @@ from ddt_tpu_torch.ops import predict_lut, predict_lut_cuda, sampling
 from ddt_tpu_torch.ops import split as split_ops
 from ddt_tpu_torch.ops import stream as stream_ops
 from ddt_tpu_torch.parallel import comms, mesh
-from ddt_tpu_torch.robustness import emit_fault, faultplan
+from ddt_tpu_torch.robustness import faultplan
 from ddt_tpu_torch.telemetry import counters as tele_counters
 from ddt_tpu_torch.utils import launches, metrics, retry
 
@@ -189,6 +189,10 @@ class CUDADevice(DeviceBackend):
         self.hist_subtraction = grow_ops.resolve_hist_subtraction(
             cfg.hist_subtraction, self.device.type,
             integer_hists=cfg.grad_dtype != "f32")
+        #: This backend's histogram OOM ladder (ops/histogram): a step
+        #: down stays with the backend, and no other backend sees it.
+        self.hist_ladder = hist_ops.HistLadder(
+            carry=self.hist_subtraction and self.mesh is None)
         # token -> (CompiledEnsemble, prepared operands), LRU order; and
         # token -> the tier those operands serve. Both under _cache_lock.
         self._predict_cache: dict[str, tuple] = {}
@@ -363,8 +367,9 @@ class CUDADevice(DeviceBackend):
         int32 histogram for int8/int16 (quantized) g/h. On a mesh, of the
         row group's rows (an all-reduce on cfg.hist_comms_dtype's wire)
         over data's columns (this rank's slab under feature shards).
-        Built through ops/histogram.build_level: the `hist.build` seam
-        and the OOM ladder."""
+        Built through the `hist.build` seam (ops/histogram.build_table)
+        and this backend's ladder's retry_build: no rung lowers a whole
+        table, so only an injected fault is retried."""
         g, h = self._tensor(g), self._tensor(h)
         ni = self._tensor(node_index).to(torch.int32).contiguous()
         if g.is_floating_point():
@@ -372,12 +377,15 @@ class CUDADevice(DeviceBackend):
             scales = grad_ops.fixed_scales(
                 comms.pmax(grad_ops.abs_max2(g, h), self.group),
                 g.shape[0] * self.world)
-            hist = grad_ops.from_fixed(hist_ops.build_level(
-                data, g, h, ni, n_nodes, self.cfg.n_bins, scales), scales)
+            hist = grad_ops.from_fixed(self.hist_ladder.retry_build(
+                lambda: hist_ops.build_table(data, g, h, ni, n_nodes,
+                                             self.cfg.n_bins, scales)),
+                scales)
         else:
-            hist = hist_ops.build_level(
-                data, g.contiguous(), h.contiguous(), ni, n_nodes,
-                self.cfg.n_bins)
+            g, h = g.contiguous(), h.contiguous()
+            hist = self.hist_ladder.retry_build(
+                lambda: hist_ops.build_table(data, g, h, ni, n_nodes,
+                                             self.cfg.n_bins))
         return comms.hist_reduce(hist, self.group, mode="allreduce",
                                  comms_dtype=self.cfg.hist_comms_dtype)
 
@@ -454,7 +462,8 @@ class CUDADevice(DeviceBackend):
             else self.mesh.world_group,
             n_features=F, comms_slabs=self.comms_slabs,
             row_shard=self.rank if self.mesh is not None else None,
-            shard_ordered=cfg.straggler_repartition, hist_span=span)
+            shard_ordered=cfg.straggler_repartition, hist_span=span,
+            ladder=self.hist_ladder)
 
     # ------------------------------------------------------------------ #
     # straggler rotation (the watchdog's action)
@@ -862,7 +871,7 @@ class CUDADevice(DeviceBackend):
             data, g, h, tree, depth, out, n_bins=cfg.n_bins,
             scales=scales if cfg.grad_dtype == "f32" else None,
             build_left=build_left, missing_bin_value=cfg.missing_bin_value,
-            cat_mask=self.cat_mask(data.shape[1]))
+            cat_mask=self.cat_mask(data.shape[1]), ladder=self.hist_ladder)
 
     def stream_leaf_gh(self, data, pred, y: LabelHandle, tree,
                        out: torch.Tensor, class_idx: int = 0, rnd: int = 0,
@@ -1326,11 +1335,28 @@ class _RoundGraph:
         # count.
         backend._round(data, self.pred, y, self.rnd, self.fmask, self.ev)
         torch.cuda.synchronize(dev)
-        self.graph = torch.cuda.CUDAGraph()
-        with launches.recording() as rec, torch.cuda.graph(
-                self.graph, capture_error_mode="thread_local"):
-            self.tree, self.loss, self.score = backend._round(
-                data, self.pred, y, self.rnd, self.fmask, self.ev)
+        ladder = backend.hist_ladder
+        while True:
+            # An allocation failure inside the capture steps the backend's
+            # OOM ladder and re-raises (ops/histogram.HistLadder.run): the
+            # graph, which holds the failed attempt's work, is dropped with
+            # its recording and memory pool, and the round captured again
+            # at the new rung.
+            rung = ladder.rung
+            self.graph = torch.cuda.CUDAGraph()
+            try:
+                with launches.recording() as rec, torch.cuda.graph(
+                        self.graph, capture_error_mode="thread_local"):
+                    self.tree, self.loss, self.score = backend._round(
+                        data, self.pred, y, self.rnd, self.fmask, self.ev)
+                break
+            except Exception:
+                if ladder.rung == rung:
+                    raise
+                del self.graph
+                log.warning("round capture abandoned after an allocation "
+                            "failure; capturing again at %s",
+                            hist_ops.rung_name(ladder.rung))
         torch.cuda.synchronize(dev)
         self.recording = rec
         self.capture_s = time.perf_counter() - t0

@@ -24,14 +24,19 @@ PLAN.json` arms a fault plan for the run (before any torch.distributed
 bootstrap, so its `multihost.init` seam can fire; disarmed on return),
 `--straggler-repartition` acts on the straggler watchdog (a mesh run
 with `--run-log`), and `--straggler-skew-threshold` is its trip point.
-Flags of fields the port has not ported are absent: `--hist-impl` and
-the `--multihost-*` coordinator flags. A run over several ranks
-(`--partitions`, `--feature-partitions`, `--host-partitions`,
-`--mesh-shape`) is started by torchrun (the rendezvous comes from its
-environment) or inside a parallel/spawn rank; global rank 0 writes
-`--out`. `predict` needs the model's bin mapper (every model `train`
-saves carries one): the port scores binned rows only. `bench` is not
-ported yet.
+The flag of a field the port has not ported is absent: `--hist-impl`. A
+run over several ranks (`--partitions`, `--feature-partitions`,
+`--host-partitions`, `--mesh-shape`) is started by torchrun (the
+rendezvous comes from its environment), inside a parallel/spawn rank
+(global rank 0 writes `--out`), or by running the same command in every
+process with `--multihost-coordinator host:port --multihost-processes N
+--multihost-id i` (parallel/mesh.initialize_multihost over
+tcp://host:port after the `--fault-plan` plan is armed, so its
+`multihost.init` seam can fire; gloo on the CPU, NCCL with a card, one
+card a process; every process writes its `--out`, the ensembles being
+replicas, as in the reference). `predict` needs the model's bin mapper
+(every model `train` saves carries one): the port scores binned rows
+only. `bench` is not ported yet.
 
 Datasets are the BASELINE configurations' seeded synthetic generators
 (data/datasets.py); `--data` loads a file (data/datasets.load_file: .npz
@@ -154,6 +159,46 @@ def _init_ranks(cfg) -> None:
                                   int(os.environ["RANK"]))
 
 
+def _multihost_args(args) -> tuple | None:
+    """(coordinator, processes, id) of `train --multihost-*`, checked, or
+    None without them. As in the reference, a coordinator needs the
+    process count (the port has no cluster auto-discovery) and an id in
+    range."""
+    coord = getattr(args, "multihost_coordinator", None)
+    n = getattr(args, "multihost_processes", None)
+    pid = getattr(args, "multihost_id", None)
+    if coord is None and n is None and pid is None:
+        return None
+    if coord is None or n is None or pid is None:
+        raise SystemExit("train: --multihost-coordinator, "
+                         "--multihost-processes and --multihost-id go "
+                         "together")
+    if ":" not in coord:
+        raise SystemExit(f"train: --multihost-coordinator must be "
+                         f"host:port, got {coord!r}")
+    if n < 1 or not 0 <= pid < n:
+        raise SystemExit(f"train: --multihost-id {pid} is not in "
+                         f"[0, {n})")
+    return coord, n, pid
+
+
+def _init_multihost(args) -> None:
+    """`train --multihost-*`: join the process group over
+    tcp://host:port (the caller armed the fault plan first)."""
+    mh = _multihost_args(args)
+    if mh is None:
+        return
+    from ddt_tpu_torch.parallel import mesh
+
+    mesh.initialize_multihost(f"tcp://{mh[0]}", mh[1], mh[2])
+
+
+def _writes_out(args) -> bool:
+    """Global rank 0 writes --out; under --multihost-* every process does
+    (its own path; the ensembles are replicas)."""
+    return _world_rank() == 0 or _multihost_args(args) is not None
+
+
 def _world_rank() -> int:
     from ddt_tpu_torch.parallel import mesh
 
@@ -199,7 +244,7 @@ def _train_streaming(args, X, y, cfg, encoder, status=None) -> int:
     dt = time.perf_counter() - t0
     if mapper is not None:
         api.fill_raw_thresholds(ens, mapper)
-    if _world_rank() == 0:
+    if _writes_out(args):
         api.save_model(args.out, ens, mapper=mapper, encoder=encoder,
                        run_id=run_log.run_id if run_log else None, cfg=cfg)
     out = {
@@ -543,6 +588,17 @@ def build_parser() -> argparse.ArgumentParser:
                          "IOError, bootstrap timeout, histogram OOM, tree "
                          "fetch, straggler delay) deterministically; no "
                          "plan: each seam is one global read")
+    tp.add_argument("--multihost-coordinator", default=None,
+                    metavar="HOST:PORT",
+                    help="the rendezvous of a run over several processes: "
+                         "run the SAME command in each, with "
+                         "--multihost-processes and its --multihost-id; "
+                         "every process writes --out (the ensembles are "
+                         "replicas)")
+    tp.add_argument("--multihost-processes", type=int, default=None,
+                    help="total process count for --multihost-coordinator")
+    tp.add_argument("--multihost-id", type=int, default=None,
+                    help="this process's id in [0, multihost-processes)")
     tp.add_argument("--straggler-repartition", action="store_true",
                     help="act on the straggler watchdog: rotate the row "
                          "shards at the next checkpoint boundary when one "
@@ -795,6 +851,7 @@ def _train(args) -> int:
             raise SystemExit(f"--fault-plan: {e}") from e
     prev = faultplan.activate(plan) if plan is not None else None
     try:
+        _init_multihost(args)
         return _train_run(args, X, y, cfg, encoder)
     finally:
         if plan is not None:
@@ -852,7 +909,7 @@ def _train_in_memory(args, X, y, cfg, encoder, status) -> int:
                              "(one process a card)") from e
         raise
     dt = time.perf_counter() - t0
-    if _world_rank() == 0:
+    if _writes_out(args):
         api.save_model(args.out, res.ensemble, mapper=res.mapper,
                        encoder=encoder, run_id=res.run_id, cfg=cfg)
     out = {

@@ -10,7 +10,11 @@
 // the slab-pipelined level loop's and a feature shard's view), g and h
 // [R], node_index int32 [R] with -1 = frozen row; output [N, F, n_bins, 2]
 // in ddt_tpu's layout, n_bins <= 256, which the kernel ADDS into (the
-// wrapper zeroes it, or hands a table to accumulate in). Bins >= n_bins
+// wrapper zeroes it, or hands a table to accumulate in). A launch covers
+// the level's nodes [node_lo, node_lo + N): a row of another node adds
+// nothing, and node node_lo + i lands in output node i (the OOM ladder's
+// node slabs, ops/histogram.py, write into a table of N nodes, with no
+// remapped copy of the node index). Bins >= n_bins
 // are skipped (the caller validates binned data once at upload). Modes:
 // - exact (what f32 training runs): g, h float and two power-of-two
 //   scales 2^k on the device; each row is rounded once, q = rint(g * 2^k)
@@ -122,6 +126,7 @@ struct Args {
   long long n_rows;
   long long ld;   // row stride of xb in bytes (>= n_feat)
   int n_feat, n_bins, n_nodes;
+  int node_lo;    // first node of the launch's range
   int fs;         // features per slab
   int nr;         // nodes per block (one node range)
   int n_slabs;
@@ -278,9 +283,11 @@ __global__ void __launch_bounds__(kThreads) hist_kernel(const Args a) {
   };
 
   // Rows of this block's chunk: a frozen row, or one of another range's
-  // nodes, costs its 4-byte read.
+  // nodes (or outside the launch's [node_lo, node_lo + n_nodes)), costs
+  // its 4-byte read.
+  const int base = a.node_lo + n0;
   for (long long r = r_begin + threadIdx.x; r < r_end; r += kThreads) {
-    const int ln = __ldg(a.ni + r) - n0;  // frozen rows (-1) fall below 0
+    const int ln = __ldg(a.ni + r) - base;  // frozen rows (-1) fall below 0
     if ((unsigned)ln < (unsigned)nw) add_row(r, ln);
   }
   // The bulk reduction reads the table through the async proxy.
@@ -327,15 +334,15 @@ int max_blocks(int smem_bytes, int* out) {
 template <typename G, bool kFx = false>
 int launch(const void* xb, const void* g, const void* h, const void* ni,
            const void* scale, void* out, long long n_rows, long long ld,
-           int n_feat, int n_bins, int n_nodes, int fs, int nr, int blocks_x,
-           int smem_bytes, void* stream) {
+           int n_feat, int n_bins, int n_nodes, int node_lo, int fs, int nr,
+           int blocks_x, int smem_bytes, void* stream) {
   cudaError_t e = cudaFuncSetAttribute(
       hist_kernel<G, kFx>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem_bytes);
   if (e != cudaSuccess) return (int)e;
   const Args a{(const uint8_t*)xb, g, h, (const int*)ni,
                (const float*)scale, out, n_rows, ld, n_feat, n_bins,
-               n_nodes, fs, nr, (n_feat + fs - 1) / fs};
+               n_nodes, node_lo, fs, nr, (n_feat + fs - 1) / fs};
   const int n_ranges = (n_nodes + nr - 1) / nr;
   const dim3 grid((unsigned)blocks_x, (unsigned)(a.n_slabs * n_ranges), 1);
   hist_kernel<G, kFx>
@@ -348,50 +355,52 @@ int launch(const void* xb, const void* g, const void* h, const void* ni,
 extern "C" {
 
 // Each launches on `stream` and returns cudaGetLastError() (0 = launched).
-// Row r of xb starts at xb + r * ld.
+// Row r of xb starts at xb + r * ld. The launch covers the level's nodes
+// [node_lo, node_lo + n_nodes) into an out of n_nodes nodes.
 // Grid: blocks_x blocks along the rows, n_slabs * ceil(n_nodes / nr) tiles
 // along y. `scale` is read in exact mode only. Every entry adds into out.
 // f32 g/h and scales (2^k_g, 2^k_h) -> int64 fixed-point histogram.
 int ddt_hist_fx(const void* xb, const void* g, const void* h,
                 const void* ni, const void* scale, void* out,
                 long long n_rows, long long ld, int n_feat, int n_bins,
-                int n_nodes, int fs, int nr, int blocks_x, int smem_bytes,
-                void* stream) {
+                int n_nodes, int node_lo, int fs, int nr, int blocks_x,
+                int smem_bytes, void* stream) {
   return launch<float, true>(xb, g, h, ni, scale, out, n_rows, ld, n_feat,
-                             n_bins, n_nodes, fs, nr, blocks_x, smem_bytes,
-                             stream);
+                             n_bins, n_nodes, node_lo, fs, nr, blocks_x,
+                             smem_bytes, stream);
 }
 
 // f32 g/h -> f32 histogram (float atomics).
 int ddt_hist_f32(const void* xb, const void* g, const void* h,
                  const void* ni, const void* scale, void* out,
                  long long n_rows, long long ld, int n_feat, int n_bins,
-                 int n_nodes, int fs, int nr, int blocks_x, int smem_bytes,
-                 void* stream) {
+                 int n_nodes, int node_lo, int fs, int nr, int blocks_x,
+                 int smem_bytes, void* stream) {
   return launch<float>(xb, g, h, ni, scale, out, n_rows, ld, n_feat, n_bins,
-                       n_nodes, fs, nr, blocks_x, smem_bytes, stream);
+                       n_nodes, node_lo, fs, nr, blocks_x, smem_bytes,
+                       stream);
 }
 
 // int8 g/h -> raw int32 histogram.
 int ddt_hist_i8(const void* xb, const void* g, const void* h,
                 const void* ni, const void* scale, void* out,
                 long long n_rows, long long ld, int n_feat, int n_bins,
-                int n_nodes, int fs, int nr, int blocks_x, int smem_bytes,
-                void* stream) {
+                int n_nodes, int node_lo, int fs, int nr, int blocks_x,
+                int smem_bytes, void* stream) {
   return launch<int8_t>(xb, g, h, ni, scale, out, n_rows, ld, n_feat,
-                        n_bins, n_nodes, fs, nr, blocks_x, smem_bytes,
-                        stream);
+                        n_bins, n_nodes, node_lo, fs, nr, blocks_x,
+                        smem_bytes, stream);
 }
 
 // int16 g/h -> raw int32 histogram.
 int ddt_hist_i16(const void* xb, const void* g, const void* h,
                  const void* ni, const void* scale, void* out,
                  long long n_rows, long long ld, int n_feat, int n_bins,
-                 int n_nodes, int fs, int nr, int blocks_x, int smem_bytes,
-                 void* stream) {
+                 int n_nodes, int node_lo, int fs, int nr, int blocks_x,
+                 int smem_bytes, void* stream) {
   return launch<int16_t>(xb, g, h, ni, scale, out, n_rows, ld, n_feat,
-                         n_bins, n_nodes, fs, nr, blocks_x, smem_bytes,
-                         stream);
+                         n_bins, n_nodes, node_lo, fs, nr, blocks_x,
+                         smem_bytes, stream);
 }
 
 // Blocks with `smem_bytes` of dynamic shared memory each that the current

@@ -18,7 +18,9 @@ timed without the spin (`tree_levels_call`: there the card waits for the
 host's wrapper too, as in the boosting loop); and every row frozen at 1,
 4 and 16 nodes (what a launch costs besides the adds). Each in f32, int8
 and int16 g/h (logloss gradients at the base score, and their quantized
-twins), checked against the plain version (chip_smoke.check_hist).
+twins), and in the exact mode (the f32 g/h on their fixed-point grid,
+what f32 training runs), checked against the plain version
+(chip_smoke.check_hist, check_hist_exact).
 
 lut: the LUT kernels through chip_smoke.lut_callables on models trained
 once on the card by this checkout (the Higgs shape, depth 6: 100 trees at
@@ -81,7 +83,7 @@ REPS = 10
 LUT_REPS = 20
 LUT_REPS_WARM = 50
 FROZEN_NODES = (1, 4, 16)
-MODES = ("f32", "int8", "int16")
+MODES = ("exact", "f32", "int8", "int16")
 #: The LUT cases' models: name -> (bins, trees), trained at the Higgs shape.
 #: 1000 trees (BASELINE.json's 1000-tree scoring config) do not fit one
 #: block's shared memory: the kernel stages them pass by pass.
@@ -129,7 +131,7 @@ def _hist_times(cs) -> dict:
     p0 = float(y.mean())
     g = (p0 - y.astype(np.float32)).astype(np.float32)
     h = np.full(cs.ROWS, p0 * (1 - p0), np.float32)
-    gh = {"f32": (g, h)}
+    gh = {"exact": (g, h), "f32": (g, h)}
     for dt in ("int8", "int16"):
         qg, qh, _, _ = grad.quantize_gradients_np(g, h, grad_dtype=dt,
                                                   tree_id=0, seed=7)
@@ -138,6 +140,15 @@ def _hist_times(cs) -> dict:
           for k, v in gh.items()}
 
     levels = cs.main_path_levels(binned[255], y)
+    scales = cs.exact_scales(*gh["exact"])
+
+    def call(args, mode):
+        """The launch of `mode` (exact: f32 g/h summed in fixed point on
+        the training grid) and its check against the plain version."""
+        if mode == "exact":
+            return (lambda: run(*args, scales=scales),
+                    lambda what: cs.check_hist_exact(args, scales, what))
+        return lambda: run(*args), lambda what: cs.check_hist(args, what)
 
     rng = np.random.default_rng(7)
     out = {"synthetic": {}, "tree_levels": {}}
@@ -147,29 +158,27 @@ def _hist_times(cs) -> dict:
             ni[rng.random(cs.ROWS) < 0.1] = -1
             nid = torch.from_numpy(ni).to(dev)
             for mode in MODES:
-                args = (binned[B], *gh[mode], nid, N, B)
-                cs.check_hist(args, f"{mode} B={B} N={N}")
+                fn, chk = call((binned[B], *gh[mode], nid, N, B), mode)
+                chk(f"{mode} B={B} N={N}")
                 out["synthetic"][f"{mode} {B} {N}"] = cs.time_ms(
-                    lambda: run(*args), REPS, flush)
+                    fn, REPS, flush)
     # Every row frozen: what a launch costs besides the rows' adds (the
     # node-index scan, the table's zeroing and flush, the launch itself).
     out["frozen"] = {}
     nid = torch.full((cs.ROWS,), -1, dtype=torch.int32, device=dev)
     for N in FROZEN_NODES:
         for mode in MODES:
-            args = (binned[255], *gh[mode], nid, N, 255)
-            cs.check(not bool(run(*args).any()), f"{mode} N={N}: frozen rows")
-            out["frozen"][f"{mode} 255 {N}"] = cs.time_ms(
-                lambda: run(*args), REPS, flush)
+            fn, _ = call((binned[255], *gh[mode], nid, N, 255), mode)
+            cs.check(not bool(fn().any()), f"{mode} N={N}: frozen rows")
+            out["frozen"][f"{mode} 255 {N}"] = cs.time_ms(fn, REPS, flush)
     out["tree_levels_call"] = {}
     for mode in MODES:
         ts, calls = [], []
         for nid, N in levels:
-            args = (binned[255], *gh[mode], nid, N, 255)
-            cs.check_hist(args, f"{mode} main-path level N={N}")
-            ts.append(cs.time_ms(lambda: run(*args), REPS, flush))
-            calls.append(cs.time_ms(lambda: run(*args), REPS, flush,
-                                    spin=False))
+            fn, chk = call((binned[255], *gh[mode], nid, N, 255), mode)
+            chk(f"{mode} main-path level N={N}")
+            ts.append(cs.time_ms(fn, REPS, flush))
+            calls.append(cs.time_ms(fn, REPS, flush, spin=False))
         out["tree_levels"][mode] = ts
         out["tree_levels_call"][mode] = calls
     out["tree_level_nodes"] = [n for _, n in levels]

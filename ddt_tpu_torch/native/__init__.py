@@ -9,13 +9,38 @@ The library is built at first use with
         -o _build/libddtnative-<hash>.so
 
 (the reference Makefile's flags) into the package's gitignored `_build/`.
-The file name carries a hash of the sources and the flags, so an edited
-source is rebuilt and a stale library is never loaded. An exclusive file
-lock serialises concurrent builders (the test suite runs several worker
-processes); the build writes a temporary name and renames it into place.
-The versioned symbols are checked after loading (`ddt_traverse_v3`: a
-library with another traversal ABI fails here instead of being called
-with mismatched arguments).
+Two sanitizer variants build the same sources under their own names and
+keys (the reference Makefile's `asan` and `tsan` targets):
+
+    asan  -O1 -g -fno-omit-frame-pointer -fsanitize=address
+          -> _build/libddtnative_asan-<hash>.so
+    tsan  -O1 -g -fno-omit-frame-pointer -fsanitize=thread
+          -> _build/libddtnative_tsan-<hash>.so
+
+`DDT_TORCH_NATIVE_LIB` selects the library `load()` takes, by name
+(libddtnative.so, libddtnative_asan.so or libddtnative_tsan.so), as the
+reference's DDT_NATIVE_LIB does; unset, the -O3 default. A sanitizer
+library loads only into a process that preloads its runtime, e.g.
+
+    LD_PRELOAD=$(g++ -print-file-name=libasan.so) \\
+    ASAN_OPTIONS=detect_leaks=0 DDT_TORCH_NATIVE_LIB=libddtnative_asan.so \\
+        python -m pytest tests/test_torch_native.py
+    LD_PRELOAD=$(g++ -print-file-name=libtsan.so) OMP_NUM_THREADS=4 \\
+    TSAN_OPTIONS="suppressions=ddt_tpu_torch/native/tsan.supp" \\
+    DDT_TORCH_NATIVE_LIB=libddtnative_tsan.so \\
+        python -m pytest tests/test_torch_native.py
+
+(tsan.supp, beside the sources, is the port's copy of the reference's
+suppressions: libgomp is not TSan-instrumented). No variant is ever taken
+in place of a failed build: a failed build raises.
+
+Each file name carries a hash of the sources and the variant's flags, so
+an edited source is rebuilt and a stale library is never loaded. An
+exclusive file lock serialises concurrent builds (the test suite runs
+several worker processes); the build writes a temporary name and renames
+it into place. The versioned symbols are checked after loading
+(`ddt_traverse_v3`: a library with another traversal ABI fails here
+instead of being called with mismatched arguments).
 
 `available()` says whether the library loads; `load()` raises ImportError
 with the build's error when it does not (backends/cpu.CPUDevice with
@@ -51,6 +76,18 @@ SOURCES = ("histogram.cpp", "split_gain.cpp", "csv_loader.cpp")
 CXXFLAGS = ["-O3", "-march=native", "-funroll-loops", "-fPIC", "-fopenmp",
             "-std=c++17"]
 LDFLAGS = ["-shared", "-fopenmp"]
+_SAN = ["-O1", "-g", "-fno-omit-frame-pointer", "-fPIC", "-fopenmp",
+        "-std=c++17"]
+#: variant -> (library stem, compile flags, link flags).
+VARIANTS = {
+    "default": ("libddtnative", CXXFLAGS, LDFLAGS),
+    "asan": ("libddtnative_asan", _SAN + ["-fsanitize=address"],
+             LDFLAGS + ["-fsanitize=address"]),
+    "tsan": ("libddtnative_tsan", _SAN + ["-fsanitize=thread"],
+             LDFLAGS + ["-fsanitize=thread"]),
+}
+#: The environment variable naming the library load() takes.
+ENV_LIB = "DDT_TORCH_NATIVE_LIB"
 _SYMBOLS = ("ddt_build_histograms", "ddt_traverse_v3", "ddt_split_gain",
             "ddt_split_gain_full", "ddt_csv_parse", "ddt_omp_max_threads",
             "ddt_omp_set_threads")
@@ -60,24 +97,41 @@ _lib: ctypes.CDLL | None = None
 _error: Exception | None = None
 
 
-def source_hash() -> str:
-    """16 hex digits of sha256(sources + flags): the library's build key."""
+def selected_variant() -> str:
+    """The variant DDT_TORCH_NATIVE_LIB names (unset: "default"); an
+    unknown name raises ValueError."""
+    name = os.environ.get(ENV_LIB, "")
+    if not name:
+        return "default"
+    for variant, (stem, _, _) in VARIANTS.items():
+        if name in (stem, f"{stem}.so"):
+            return variant
+    raise ValueError(f"{ENV_LIB}={name!r} names no native library; have "
+                     f"{[f'{v[0]}.so' for v in VARIANTS.values()]}")
+
+
+def source_hash(variant: str = "default") -> str:
+    """16 hex digits of sha256(sources + the variant's flags): the
+    library's build key."""
+    _, cflags, lflags = VARIANTS[variant]
     h = hashlib.sha256()
     for name in SOURCES:
         h.update((SRC_DIR / name).read_bytes())
-    h.update(" ".join(CXXFLAGS + LDFLAGS).encode())
+    h.update(" ".join(cflags + lflags).encode())
     return h.hexdigest()[:16]
 
 
-def lib_path() -> Path:
-    return BUILD_DIR / f"libddtnative-{source_hash()}.so"
+def lib_path(variant: str = "default") -> Path:
+    return BUILD_DIR / f"{VARIANTS[variant][0]}-{source_hash(variant)}.so"
 
 
-def build() -> Path:
-    """Compile the library unless it is there (under the file lock)."""
+def build(variant: str = "default") -> Path:
+    """Compile the variant's library unless it is there (under the file
+    lock); a failed build raises RuntimeError."""
     import fcntl
 
-    path = lib_path()
+    _, cflags, lflags = VARIANTS[variant]
+    path = lib_path(variant)
     if path.exists():
         return path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -87,8 +141,8 @@ def build() -> Path:
             return path
         tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
         proc = subprocess.run(
-            ["g++", *CXXFLAGS, *[str(SRC_DIR / s) for s in SOURCES],
-             *LDFLAGS, "-o", str(tmp)],
+            ["g++", *cflags, *[str(SRC_DIR / s) for s in SOURCES],
+             *lflags, "-o", str(tmp)],
             capture_output=True, text=True, timeout=300)
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)
@@ -99,8 +153,8 @@ def build() -> Path:
 
 
 def load() -> ctypes.CDLL:
-    """The loaded library (built at first use); ImportError when it
-    cannot be built or lacks a symbol."""
+    """The loaded library of the selected variant (built at first use);
+    ImportError when it cannot be built or lacks a symbol."""
     global _lib, _error
     with _lock:
         if _lib is not None:
@@ -108,10 +162,12 @@ def load() -> ctypes.CDLL:
         if _error is not None:
             raise ImportError(f"native kernels unavailable: {_error}")
         try:
-            lib = ctypes.CDLL(str(build()))
+            variant = selected_variant()
+            lib = ctypes.CDLL(str(build(variant)))
             missing = [s for s in _SYMBOLS if not hasattr(lib, s)]
             if missing:
-                raise RuntimeError(f"{lib_path().name} lacks {missing}")
+                raise RuntimeError(f"{lib_path(variant).name} lacks "
+                                   f"{missing}")
             _bind(lib)
         except Exception as e:  # no toolchain, a failed build, a bad ABI
             _error = e

@@ -68,6 +68,19 @@ totals and leaf sums cross as f32 the same way.
 Routing stays rank-local without a feature axis: the decisions are the
 same on every rank.
 
+The OOM ladder (ops/histogram, module docstring) runs at the level step:
+`grow_levels` with the backend's `ladder` retries a level (build, sibling
+subtraction, split search) one rung lower after an allocation failure,
+on one device; rung 1 drops the carried parent table, rungs >= 2 build
+and split the level one node slab at a time. Under a process group
+(`group` or `feature_group`) the ranks must issue the same collectives
+whatever their rungs: the table is built, carried and reduced as at rung
+0, and the ladder steps at the split search alone, whose rungs >= 2 split
+the reduced table by node slabs; a rank that steps down alone changes no
+collective. No rung lowers what a mesh's build allocates, so there an
+injected fault is retried where it fired (before the collective) and a
+real allocation failure is raised (ops/histogram.HistLadder.retry_build).
+
 Quantized gradients (grad_dtype "int8" | "int16"): g/h are quantized once
 per tree (ops/grad.quantize_gradients); histograms, node totals and leaf
 sums add the integer q's exactly in int32; the sibling-subtraction carry
@@ -89,6 +102,7 @@ tree: the reference's ops/stream.apply_tree_pred).
 
 from __future__ import annotations
 
+from contextlib import nullcontext
 from typing import NamedTuple
 
 import torch
@@ -154,7 +168,7 @@ def level_histograms(Xb, g, h, node_index, n_level: int, n_bins: int, *,
                      parent_hist=None, parent_split=None,
                      reduce=None, widths=None,
                      scales: torch.Tensor | None = None,
-                     span=None) -> torch.Tensor:
+                     span=None, ladder=None) -> torch.Tensor:
     """One level's [n_level, F, B, 2] histograms, merged over the ranks by
     `reduce(hist, async_op)` (the histogram collective; None on one
     device): the merged slab under reduce-scatter.
@@ -175,8 +189,10 @@ def level_histograms(Xb, g, h, node_index, n_level: int, n_bins: int, *,
     build_histograms_exact) int64 until `reduce` converts it, and the
     subtraction is exact.
 
-    Every build goes through ops/histogram.build_level (the `hist.build`
-    seam and the OOM ladder). `span` (the partition recorder's
+    Every build goes through ops/histogram.build_table (the `hist.build`
+    seam); with `ladder` (on a mesh) an injected fault at a build is
+    retried there, before its collective, and a real allocation failure
+    raised (HistLadder.retry_build). `span` (the partition recorder's
     `span("hist")`, or None) times each build on this rank before its
     collective is issued, so another rank's lateness does not show in
     this rank's lane."""
@@ -184,11 +200,16 @@ def level_histograms(Xb, g, h, node_index, n_level: int, n_bins: int, *,
         reduce = _no_reduce
     widths = widths or [Xb.shape[1]]
 
-    def build(X, ni, n_nodes):
+    def build_once(X, ni, n_nodes):
         if span is None:
-            return H.build_level(X, g, h, ni, n_nodes, n_bins, scales)
+            return H.build_table(X, g, h, ni, n_nodes, n_bins, scales)
         with span():
-            return H.build_level(X, g, h, ni, n_nodes, n_bins, scales)
+            return H.build_table(X, g, h, ni, n_nodes, n_bins, scales)
+
+    def build(X, ni, n_nodes):
+        if ladder is None:
+            return build_once(X, ni, n_nodes)
+        return ladder.retry_build(lambda: build_once(X, ni, n_nodes))
 
     def build_reduced(ni, n_nodes):
         if len(widths) == 1:
@@ -238,6 +259,18 @@ def split_level(hist: torch.Tensor, G: torch.Tensor, Hh: torch.Tensor, *,
         missing_bin=missing_bin, cat_mask=cat_mask,
         inv_scale=None if hist.is_floating_point() else inv_scale)
     return gains, feats, bins, dls, G, Hh
+
+
+def split_by_slabs(split, n_level: int, per: int, slab):
+    """`split` (split_level's partial) over node slabs of `per` nodes:
+    slab(lo, hi) -> (hist, G, Hh) of nodes [lo, hi), each split before
+    the next is made, the [n_level] results concatenated (the split
+    search is per node, so they are bitwise the whole level's)."""
+    if per >= n_level:
+        return split(*slab(0, n_level))
+    parts = [split(*slab(lo, min(n_level, lo + per)))
+             for lo in range(0, n_level, per)]
+    return tuple(torch.cat(p) for p in zip(*parts))
 
 
 def new_tree(max_depth: int, n_rows: int, device) -> "TreeArrays":
@@ -341,7 +374,8 @@ def grow_tree(Xb: torch.Tensor, g: torch.Tensor, h: torch.Tensor, *,
               hist_comms_dtype: str = "f32", feature_group=None,
               world_group=None, n_features: int | None = None,
               comms_slabs: int = 1, row_shard: int | None = None,
-              shard_ordered: bool = False, hist_span=None) -> TreeArrays:
+              shard_ordered: bool = False, hist_span=None,
+              ladder=None, level_probe=None) -> TreeArrays:
     """Grow one complete-heap tree from uint8 Xb [R, F] and f32 g, h [R]
     (the same decisions as ddt_tpu/ops/grow.grow_tree).
 
@@ -376,6 +410,9 @@ def grow_tree(Xb: torch.Tensor, g: torch.Tensor, h: torch.Tensor, *,
     R, F = Xb.shape
     dev = Xb.device
     P = comms.world(group)
+    on_mesh = group is not None or feature_group is not None
+    if ladder is None:
+        ladder = H.HistLadder(carry=hist_subtraction and not on_mesh)
     if row_shard is None:
         row_shard = comms.rank(group)
     rs = split_comms == "reduce_scatter" and group is not None
@@ -459,23 +496,47 @@ def grow_tree(Xb: torch.Tensor, g: torch.Tensor, h: torch.Tensor, *,
     node_id = tree.leaf_of_row
     frozen = torch.zeros(R, dtype=torch.bool, device=dev)
 
-    def level(depth, parent_hist, parent_split):
+    def level(depth, parent_hist, parent_split, rung, split):
+        """One level's split results and its table to carry (None at a
+        rung that carries none); `rung` is the ladder's (module
+        docstring)."""
         offset = (1 << depth) - 1
         n_level = 1 << depth
-        node_index = torch.where(frozen, -1, node_id - offset) \
-            .to(torch.int32)
+        # In place: one [R] int32 buffer, no temporary beside it.
+        node_index = torch.sub(node_id, offset).masked_fill_(frozen, -1)
+        per = H.slab_nodes(rung, n_level)
+        if not on_mesh and per < n_level:
+            # One node slab at a time, each table freed before the next.
+            def slab(lo, hi):
+                with hist_span() if hist_span else nullcontext():
+                    hs = H.build_table(Xb, g, h, node_index, hi - lo, n_bins,
+                                       scales, node_lo=lo)
+                return (hs,) + S.node_totals(hs)
+
+            return split_by_slabs(split, n_level, per, slab), None
         hist = level_histograms(Xb, g, h, node_index, n_level, n_bins,
                                 parent_hist=parent_hist,
                                 parent_split=parent_split,
                                 reduce=hist_collective, widths=widths,
-                                scales=scales, span=hist_span)
+                                scales=scales, span=hist_span,
+                                ladder=ladder if on_mesh else None)
         if rs or fsh:
             # The ranks hold different columns: node totals from the row
             # vectors, one all-reduce of the [n_level, 2] pair.
             GH = row_sums(grad_ops.leaf_gh_sums(
                 node_index.clamp(min=0), node_index >= 0, gq, hq, n_level))
-            return hist, GH[:, 0], GH[:, 1]
-        return (hist,) + S.node_totals(hist)
+            G, Hh = GH[:, 0], GH[:, 1]
+        else:
+            G, Hh = S.node_totals(hist)
+        if not on_mesh:
+            return split(hist, G, Hh), hist if rung == 0 else None
+
+        def slab(lo, hi):
+            return hist[lo:hi], G[lo:hi], Hh[lo:hi]
+
+        # On a mesh the split search alone is retried and slabbed.
+        return ladder.run(lambda r: split_by_slabs(
+            split, n_level, H.slab_nodes(r, n_level), slab)), hist
 
     def winners(gains, feats, bins, dls):
         if rs:
@@ -530,7 +591,8 @@ def grow_tree(Xb: torch.Tensor, g: torch.Tensor, h: torch.Tensor, *,
         missing_bin=missing_bin, cat_mask=cm_loc, dequant=dequant,
         inv_scale=inv,
         winners=winners if rs or combine_group is not None else None,
-        route=route)
+        route=route, ladder=None if on_mesh else ladder,
+        level_probe=level_probe)
 
 
 def grow_levels(tree: TreeArrays, max_depth: int, level, leaf_sums, *,
@@ -539,30 +601,52 @@ def grow_levels(tree: TreeArrays, max_depth: int, level, leaf_sums, *,
                 feature_mask=None, missing_bin: bool = False,
                 cat_mask=None, dequant: torch.Tensor | None = None,
                 inv_scale: torch.Tensor | None = None, winners=None,
-                route=None) -> TreeArrays:
+                route=None, ladder=None, level_probe=None) -> TreeArrays:
     """The level loop of both trainers (grow_tree in memory, the streamed
     trainer over chunks), filling `tree`'s node arrays in place.
 
-    Per depth: `level(depth, parent_hist, parent_split) -> (hist, G, Hh)`
-    builds the level's merged histogram (right children by sibling
-    subtraction when parent_hist is given: the previous level's hist and
-    do_split, passed with `hist_subtraction`) and its node totals, in
-    their integer or f32 form; split_level converts them once (`dequant`
-    quantized, `inv_scale` exact) and finds the best splits;
-    `winners(gains, feats, bins, dls)` maps them to global features
-    (partitioned columns; None keeps them); record_level writes the
-    decisions; `route(depth, feats, bins, dls, do_split)` moves the rows
-    (None where the caller routes from the node arrays). Then
+    Per depth: `level(depth, parent_hist, parent_split, rung, split) ->
+    (split results, table to carry or None)` builds the level's merged
+    histogram (right children by sibling subtraction when parent_hist is
+    given: the previous level's table and do_split, passed with
+    `hist_subtraction`) and its node totals, in their integer or f32
+    form, and hands them to `split` (split_level with this loop's
+    settings: it converts them once, `dequant` quantized, `inv_scale`
+    exact, and finds the best splits), whole or by node slabs.
+    With `ladder` (one device) the level step runs at the ladder's rung
+    and again one rung lower after an allocation failure; a rung above 0
+    gets no parent table, and the carry is dropped before the level
+    runs again. Without it `rung` is 0 (the streamed trainer, whose
+    builds retry an injected fault only, and a mesh, whose split search
+    takes the ladder inside `level`). `level_probe(depth, parent_table,
+    run)` (None: off) is handed each level step as `run` and returns its
+    result: chip_smoke.py reads a level's peak memory there. `winners(
+    gains, feats, bins, dls)` maps them to global features (partitioned
+    columns; None keeps them); record_level writes the decisions;
+    `route(depth, feats, bins, dls, do_split)` moves the
+    rows (None where the caller routes from the node arrays). Then
     `leaf_sums()` gives the last level's [2^max_depth, 2] (G, H),
     converted to f32 once, and record_leaves."""
-    prev_hist = prev_split = None
-    for depth in range(max_depth):
-        hist, G, Hh = level(depth, prev_hist, prev_split)
-        gains, feats, bins, dls, G, Hh = split_level(
+    def split(hist, G, Hh):
+        return split_level(
             hist, G, Hh, reg_lambda=reg_lambda,
             min_child_weight=min_child_weight, feature_mask=feature_mask,
             missing_bin=missing_bin, cat_mask=cat_mask, dequant=dequant,
             inv_scale=inv_scale)
+
+    carry = [None, None]            # the parent's table and do_split
+    for depth in range(max_depth):
+        def step(rung, depth=depth):
+            if rung > 0:
+                carry[0] = None     # a lower rung holds no parent table
+            return level(depth, carry[0], carry[1], rung, split)
+
+        def run(step=step):
+            return step(0) if ladder is None else ladder.run(step)
+
+        res, hist = run() if level_probe is None \
+            else level_probe(depth, carry[0], run)
+        gains, feats, bins, dls, G, Hh = res
         if winners is not None:
             gains, feats, bins, dls = winners(gains, feats, bins, dls)
         do_split = record_level(tree, depth, gains, feats, bins, dls, G, Hh,
@@ -570,8 +654,13 @@ def grow_levels(tree: TreeArrays, max_depth: int, level, leaf_sums, *,
                                 min_split_gain=min_split_gain)
         if route is not None:
             route(depth, feats, bins, dls, do_split)
-        if hist_subtraction:
-            prev_hist, prev_split = hist, do_split
+        if hist_subtraction and hist is not None:
+            carry[:] = [hist, do_split]
+        else:
+            carry[:] = [None, None]
+        # The carry list is the table's one reference: a step down at the
+        # next level drops it there.
+        del hist
 
     # Final level: leaf values from per-terminal-node (G, H) sums.
     GH = leaf_sums()

@@ -40,7 +40,10 @@ only if one feature of one node does not fit, which cannot happen at
 
 Xb may be a column slab of a wider row-major matrix, read in place: the
 kernel takes the row stride (the slab-pipelined level loop of ops/grow
-hands it such views).
+hands it such views). A launch may cover a node range of the level,
+`node_lo` to `node_lo + n_nodes`: rows of other nodes add nothing and the
+output holds the range's nodes only (the OOM ladder's node slabs,
+ops/histogram.py).
 
 The plain versions are ops/histogram.build_histograms_fixed_segment
 (exact mode) and build_histograms_segment (the others);
@@ -142,7 +145,7 @@ def _lib():
         for entry, _, _, _ in (*_MODES.values(), _EXACT):
             fn = getattr(lib, entry)
             fn.argtypes = [vp, vp, vp, vp, vp, vp, i64, i64, i32, i32, i32,
-                           i32, i32, i32, i32, vp]
+                           i32, i32, i32, i32, i32, vp]
             fn.restype = i32
         lib.ddt_hist_max_blocks.argtypes = [i32, i32, ctypes.POINTER(i32)]
         lib.ddt_hist_max_blocks.restype = i32
@@ -170,7 +173,8 @@ def max_active_blocks(device: torch.device, mode: int,
     return _max_blocks[key]
 
 
-def _check_operands(Xb, g, h, node_index, n_nodes, n_bins, scales):
+def _check_operands(Xb, g, h, node_index, n_nodes, n_bins, scales,
+                    node_lo=0):
     if g.dtype not in _MODES:
         raise TypeError(f"g must be float32, int8 or int16, got {g.dtype}")
     if scales is not None and g.dtype != torch.float32:
@@ -201,13 +205,16 @@ def _check_operands(Xb, g, h, node_index, n_nodes, n_bins, scales):
         raise ValueError(f"n_bins must be in [1, 256], got {n_bins}")
     if n_nodes < 0:
         raise ValueError(f"n_nodes must be >= 0, got {n_nodes}")
+    if not 0 <= node_lo < 2 ** 30:
+        raise ValueError(f"node_lo must be in [0, 2^30), got {node_lo}")
 
 
 def build_histograms_cuda(Xb: torch.Tensor, g: torch.Tensor,
                           h: torch.Tensor, node_index: torch.Tensor,
                           n_nodes: int, n_bins: int,
                           scales: torch.Tensor | None = None,
-                          out: torch.Tensor | None = None) -> torch.Tensor:
+                          out: torch.Tensor | None = None,
+                          node_lo: int = 0) -> torch.Tensor:
     """[n_nodes, F, n_bins, 2] on Xb's card: int64 fixed point for f32 g/h
     with `scales` (the exact mode), f32 for f32 g/h without, int32 for
     int8/int16 g/h. Xb uint8 [R, F] row-major (contiguous, or a column
@@ -215,8 +222,10 @@ def build_histograms_cuda(Xb: torch.Tensor, g: torch.Tensor,
     one of those dtypes (the same for both), node_index int32 [R] (-1 =
     frozen), scales f32 [2], contiguous; all CUDA tensors on one device.
     With `out` (contiguous, that shape and dtype) the sums are added into
-    it and it is returned."""
-    _check_operands(Xb, g, h, node_index, n_nodes, n_bins, scales)
+    it and it is returned. The table holds the level's nodes [node_lo,
+    node_lo + n_nodes): node node_lo + i at i, rows of other nodes left
+    out."""
+    _check_operands(Xb, g, h, node_index, n_nodes, n_bins, scales, node_lo)
     entry, mode, out_dtype, counter = (_EXACT if scales is not None
                                        else _MODES[g.dtype])
     R, F = Xb.shape
@@ -243,8 +252,8 @@ def build_histograms_cuda(Xb: torch.Tensor, g: torch.Tensor,
         status = getattr(lib, entry)(
             Xb.data_ptr(), g.data_ptr(), h.data_ptr(), node_index.data_ptr(),
             None if scales is None else scales.data_ptr(), out.data_ptr(),
-            R, Xb.stride(0) if R > 1 else F, F, n_bins, n_nodes, plan.fs,
-            plan.nr, blocks_x, plan.smem_bytes, stream)
+            R, Xb.stride(0) if R > 1 else F, F, n_bins, n_nodes, node_lo,
+            plan.fs, plan.nr, blocks_x, plan.smem_bytes, stream)
     _build.check(status, f"hist kernel launch ({entry})")
     _launches.count(__name__, counter)
     return out

@@ -108,12 +108,16 @@ def stream_level_hist(Xb: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
                       tree, depth: int, out: torch.Tensor, *, n_bins: int,
                       scales: torch.Tensor | None = None,
                       build_left: bool = False, missing_bin_value: int = -1,
-                      cat_mask: torch.Tensor | None = None) -> torch.Tensor:
+                      cat_mask: torch.Tensor | None = None,
+                      ladder: H.HistLadder) -> torch.Tensor:
     """Add one chunk's level-`depth` histogram into `out` (int64 on the
     exact path, f32 g/h with `scales`; int32 for quantized g/h): each
     row's node from the partial tree (`tree`: feature, threshold_bin,
     is_leaf, default_left on the chunk's device), LEFT children only,
-    keyed by their parent, with `build_left` (sibling subtraction)."""
+    keyed by their parent, with `build_left` (sibling subtraction).
+    Built through the `hist.build` seam and `ladder.retry_build` (the
+    backend's OOM ladder): no rung shrinks `out`, so an injected fault is
+    retried and a real allocation failure raised (ops/histogram)."""
     feature, thr, is_leaf, dl = tree
     ni = partial_node_index(Xb, feature, thr, is_leaf, depth, dl,
                             missing_bin_value, cat_mask)
@@ -121,7 +125,8 @@ def stream_level_hist(Xb: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
     if build_left:
         ni = grow_ops.left_children(ni)
         n_nodes //= 2
-    return H.build_level(Xb, g, h, ni, n_nodes, n_bins, scales, out=out)
+    return ladder.retry_build(lambda: H.build_table(
+        Xb, g, h, ni, n_nodes, n_bins, scales, out=out))
 
 
 def stream_leaf_gh(Xb: torch.Tensor, gq: torch.Tensor, hq: torch.Tensor,

@@ -55,7 +55,8 @@ def initialize_multihost(init_method: str, world_size: int, rank: int, *,
     """init_process_group for this process: `init_method` a
     "tcp://host:port" or "file://path" rendezvous, `backend` "nccl" or
     "gloo" (default: nccl when a card is visible). On NCCL the process is
-    bound to its card first (rank_device). A repeat call with the same
+    bound to its card first (rank_device; without LOCAL_RANK, the card
+    of its rank). A repeat call with the same
     arguments does nothing; with other arguments it raises: a live group
     cannot be re-wired.
 
@@ -76,7 +77,16 @@ def initialize_multihost(init_method: str, world_size: int, rank: int, *,
             f"re-initialise with {args}: destroy the process group first")
     kw = {}
     if backend == "nccl":
-        kw["device_id"] = rank_device("cuda", world_size)
+        if "LOCAL_RANK" not in os.environ:
+            # No launcher named the node-local rank (`cli train
+            # --multihost-*` started by hand): one card a process on one
+            # node, by rank, the card rank_device names once the group
+            # is up.
+            torch.cuda.set_device(rank % max(1, torch.cuda.device_count()))
+            kw["device_id"] = torch.device("cuda",
+                                          torch.cuda.current_device())
+        else:
+            kw["device_id"] = rank_device("cuda", world_size)
     from ddt_tpu_torch.robustness import faultplan
     from ddt_tpu_torch.utils import retry
 

@@ -490,6 +490,35 @@ def train_straggler(device: str, X, y, cfg_kw: dict, plan: dict | None,
             "ms": [r["ms_per_round"] for r in res.history]}
 
 
+def train_hist_fault(device: str, X, y, cfg_kw: dict, plan: dict | None,
+                     fault_rank: int, fault_rung: int = 0) -> dict:
+    """api.train of binned X on this rank's Granular backend, the fault
+    plan `plan` armed on rank `fault_rank` alone (None: on none) and that
+    rank's ladder set to `fault_rung`. Returns the ensemble, the
+    backend's ladder rung and rungs, the faults fired and the degrades
+    counted on this rank."""
+    from ddt_tpu_torch.robustness import faultplan
+    from ddt_tpu_torch.telemetry import counters as tele_counters
+
+    cfg = _config(device, cfg_kw)
+    be = Granular(cfg)
+    before = tele_counters.snapshot()["hist_oom_degrades"]
+    armed = plan is not None and _rank() == fault_rank
+    if _rank() == fault_rank:
+        be.hist_ladder.rung = fault_rung
+    active = faultplan.load_plan(plan) if armed else None
+    prev = faultplan.activate(active)
+    try:
+        res = api.train(X, y, cfg, backend=be, binned=True)
+    finally:
+        faultplan.deactivate(prev)
+    return {"ensemble": res.ensemble, "rung": be.hist_ladder.rung,
+            "rungs": be.hist_ladder.rungs,
+            "fired": 0 if active is None else len(active.fired_log),
+            "degrades": tele_counters.snapshot()["hist_oom_degrades"]
+            - before}
+
+
 def train_streaming_straggler(device: str, src_dir: str,
                               shards_per_chunk: int, cfg_kw: dict,
                               plan: dict | None,
@@ -593,3 +622,43 @@ def straggler_timed(device: str, x_path: str, y_path: str, cfg_kw: dict,
             "bytes_model": be.collective_bytes_per_tree(
                 res.ensemble.n_features),
             "counters": moved}
+
+
+def multihost_train(init_method: str, world: int, rank: int, out: str,
+                    seed: int = 21) -> None:
+    """One OS process of a multi-process run (tests/
+    test_torch_multiprocess.py): join `world` processes over
+    `init_method` (mesh.initialize_multihost, gloo on the CPU), train
+    three paths at n_partitions = world on the same seeded rows (or on
+    one process without a group when world is 1), and save each model
+    as `out` + its name + ".npz": the fused loop in int8 ("fused"), the
+    granular loop in f32 with an eval set ("granular") and the streamed
+    trainer in int8 over 4 chunks ("streamed")."""
+    from ddt_tpu_torch.data import datasets
+    from ddt_tpu_torch.data.quantizer import quantize
+    from ddt_tpu_torch.streaming import fit_streaming
+
+    if world > 1:
+        mesh.initialize_multihost(init_method, world, rank, backend="gloo")
+    X, y = datasets.synthetic_binary(2048, n_features=8, seed=seed)
+    Xb = quantize(X, n_bins=31, seed=seed)[0]
+    base = TrainConfig(n_trees=3, max_depth=4, n_bins=31, device="cpu",
+                       n_partitions=world)
+    bounds = np.linspace(0, len(y), 5).astype(np.int64)
+
+    def chunk_fn(c):
+        return Xb[bounds[c]:bounds[c + 1]], y[bounds[c]:bounds[c + 1]]
+
+    models = {
+        "fused": api.train(Xb, y, base.replace(grad_dtype="int8"),
+                           binned=True).ensemble,
+        "granular": api.train(Xb[:1536], y[:1536], base, binned=True,
+                              profile=True,
+                              eval_set=(Xb[1536:], y[1536:])).ensemble,
+        "streamed": fit_streaming(chunk_fn, 4,
+                                  base.replace(grad_dtype="int8"))}
+    for name, ens in models.items():
+        ens.save(f"{out}{name}.npz")
+    if world > 1:
+        dist.barrier()
+        dist.destroy_process_group()

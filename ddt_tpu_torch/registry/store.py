@@ -30,8 +30,8 @@ Write discipline:
   and the manifest against its address; a torn or tampered object raises
   `IntegrityError`, never serves.
 
-The reference's `artifact` run-log event on push belongs to the
-telemetry layer, which is not ported: `push` takes no `run_log`.
+`push(..., run_log=)` emits the reference's `artifact` run-log event (a
+telemetry RunLog).
 """
 
 from __future__ import annotations

@@ -6,7 +6,9 @@ its conventions: the constructor stores hyperparameters verbatim (and
 get_params reports them), fit() learns state on `self`, fitted attributes
 end in "_". Training and scoring run on the card unless the estimator is
 built with device="cpu" (the plain versions). The reference's `backend`
-parameter is `device` here; its `run_log` (telemetry) is not ported.
+parameter is `device` here. `fit(..., run_log=)` takes a path or a
+telemetry RunLog and hands it to api.train, as the reference does: the
+run's events, which `cli report` reads.
 """
 
 from __future__ import annotations
@@ -95,7 +97,7 @@ class _DDTBase:
         )
 
     def fit(self, X, y, sample_weight=None, *, eval_set=None,
-            eval_metric=None, early_stopping_rounds=None):
+            eval_metric=None, early_stopping_rounds=None, run_log=None):
         X = np.asarray(X, np.float32)
         y = np.asarray(y)
         cfg = self._cfg(**self._fit_cfg_extra(y))
@@ -107,7 +109,7 @@ class _DDTBase:
         res = api.train(X, y, cfg, eval_set=eval_set,
                         eval_metric=eval_metric,
                         early_stopping_rounds=early_stopping_rounds,
-                        sample_weight=sample_weight)
+                        sample_weight=sample_weight, run_log=run_log)
         self.ensemble_ = res.ensemble
         self.mapper_ = res.mapper
         self.n_features_in_ = X.shape[1]
@@ -146,7 +148,7 @@ class DDTClassifier(_DDTBase):
         return {}
 
     def fit(self, X, y, sample_weight=None, *, eval_set=None,
-            eval_metric=None, early_stopping_rounds=None):
+            eval_metric=None, early_stopping_rounds=None, run_log=None):
         y = np.asarray(y)
         classes = np.unique(y)
         if len(classes) < 2:
@@ -168,7 +170,7 @@ class DDTClassifier(_DDTBase):
             eval_set = (eval_set[0], np.searchsorted(classes, yv))
         super().fit(X, y_enc, eval_set=eval_set, eval_metric=eval_metric,
                     early_stopping_rounds=early_stopping_rounds,
-                    sample_weight=sample_weight)
+                    sample_weight=sample_weight, run_log=run_log)
         self.classes_ = classes
         return self
 

@@ -76,10 +76,25 @@ ranks rotate their row shards at a checkpoint boundary
 (CUDADevice.rotate_row_partitions: the resident blocks shift, the chunk
 cache is dropped and the host-sharded slot map rotates with them).
 
-Left out here: the reference's host loop of a backend without the
-stream_* surface and its `cache_preds`. The port's CPU oracle
-(backends/cpu.CPUDevice) has no streamed trainer: fit_streaming refuses
-it.
+The host loop (the reference's, ddt_tpu/streaming.py:503-1018): a
+backend without the stream_* surface, the CPU oracle (backends/cpu.
+CPUDevice, backend="cpu"), streams the host formulation. Per level each
+chunk is read, its rows routed through the partial tree on the host
+(`_traverse_partial`), its gradients computed from the round-start
+predictions, and its f32 histogram built by the backend and summed over
+the chunks in chunk order; the split rule is the oracle's
+(`_apply_level_splits`), the final leaves come from the streamed (G, H)
+sums (`_apply_final_leaves`), and with sibling subtraction (off by
+default on the CPU, as the reference resolves it) right children are
+parent - left (`_assemble_subtracted_level`). Binary, mse and softmax
+(one tree a class from the round-start predictions), learned missing,
+categorical, bagging and colsample, checkpoints and held-out chunks run
+as in the reference. `cache_preds=True` (the default) keeps each chunk's
+raw scores on the host (4 bytes a row and class), updated a round from
+each row's leaf slot (`_leaf_slot`); False recomputes them from the
+partial ensemble a pass (`_rescore`). The host loop has no integer
+histogram: quantized gradients are refused there, as the reference
+refuses them, and `device_chunk_cache` does not apply.
 """
 
 from __future__ import annotations
@@ -105,6 +120,7 @@ from ddt_tpu_torch.ops import grow as grow_ops
 from ddt_tpu_torch.ops import sampling
 from ddt_tpu_torch.ops import split as split_ops
 from ddt_tpu_torch.parallel import comms, mesh
+from ddt_tpu_torch.reference import numpy_trainer as ref_trainer
 from ddt_tpu_torch.telemetry import annotations, costmodel
 from ddt_tpu_torch.telemetry import counters as tele_counters
 from ddt_tpu_torch.robustness.watchdog import (StragglerWatchdog,
@@ -305,6 +321,7 @@ def fit_streaming(
     n_chunks: int,
     cfg: TrainConfig,
     backend=None,
+    cache_preds: bool = True,
     checkpoint_dir: str | None = None,
     checkpoint_every: int = 25,
     valid_chunk_fn: ChunkFn | None = None,
@@ -319,7 +336,9 @@ def fit_streaming(
     status=None,
 ) -> TreeEnsemble:
     """Train a GBDT over `n_chunks` streamed chunks (module docstring) on
-    cfg.device ("cuda" unless the config says "cpu").
+    cfg.device ("cuda" unless the config says "cpu"), or on the host
+    through the CPU oracle (cfg.backend "cpu": the host loop, where
+    `cache_preds` applies).
 
     Validation: held-out chunks (`valid_chunk_fn`, `n_valid_chunks`) are
     scored every round (their margins resident on the device, the metric
@@ -345,11 +364,6 @@ def fit_streaming(
     try:
         if backend is None:
             backend = get_backend(cfg)
-        if getattr(backend, "stream_level_hist", None) is None:
-            raise NotImplementedError(
-                f"the {backend.name!r} backend has no streamed trainer; "
-                "stream with backend='cuda' (device='cpu' runs it on the "
-                "CPU)")
         m = backend.mesh
         if run_log is not None and m is not None \
                 and (m.row != 0 or m.feature != 0):
@@ -364,7 +378,7 @@ def fit_streaming(
                 chunk_fn, n_chunks, cfg, backend, checkpoint_dir,
                 checkpoint_every, valid_chunk_fn, n_valid_chunks,
                 eval_metric, early_stopping_rounds, history,
-                device_chunk_cache,
+                device_chunk_cache, cache_preds,
                 _Telemetry(run_log, profile, profiler_window, status,
                            cost, lanes))
     finally:
@@ -411,12 +425,12 @@ class _Telemetry:
             tele_counters.reset_device_peak()
 
     def manifest(self, backend, cfg, rows: int, F: int,
-                 n_chunks: int) -> None:
+                 n_chunks: int, trainer: str) -> None:
         run_id = None
         if self.run_log is not None or self.window is not None \
                 or self.status is not None:
             run_id = derive_run_id(
-                trainer="streaming_device", rows=rows, features=int(F),
+                trainer=trainer, rows=rows, features=int(F),
                 n_chunks=n_chunks, **dataclasses.asdict(cfg))
         if self.window is not None:
             self.window.bind(run_id)
@@ -428,7 +442,7 @@ class _Telemetry:
         m = backend.mesh
         self.run_log.run_id = run_id
         self.run_log.emit(
-            "run_manifest", trainer="streaming_device",
+            "run_manifest", trainer=trainer,
             backend=backend.name, loss=cfg.loss, n_trees=cfg.n_trees,
             max_depth=cfg.max_depth, n_bins=cfg.n_bins, rows=rows,
             features=int(F), n_classes=cfg.n_outputs, seed=cfg.seed,
@@ -468,8 +482,18 @@ class _Telemetry:
 def _fit_streaming(chunk_fn, n_chunks, cfg, backend, checkpoint_dir,
                    checkpoint_every, valid_chunk_fn, n_valid_chunks,
                    eval_metric, early_stopping_rounds, history,
-                   device_chunk_cache, tel: _Telemetry) -> TreeEnsemble:
-    """fit_streaming's body."""
+                   device_chunk_cache, cache_preds,
+                   tel: _Telemetry) -> TreeEnsemble:
+    """fit_streaming's body: pass 0, then the device loop, or the host
+    loop for a backend without the stream_* surface."""
+    device = getattr(backend, "stream_level_hist", None) is not None
+    if cfg.grad_dtype != "f32" and not device:
+        # The host loop's histograms are the oracle's f32 ones: a
+        # quantized run there would be an f32 run under another name.
+        raise NotImplementedError(
+            f"grad_dtype={cfg.grad_dtype!r} streaming needs a backend with "
+            "the stream_* surface (backend='cuda'; device='cpu' runs it "
+            "on the CPU); the host loop has no integer histogram")
     if cfg.feature_partitions > 1:
         raise NotImplementedError(
             "the streamed trainer is row-parallel only: "
@@ -494,7 +518,8 @@ def _fit_streaming(chunk_fn, n_chunks, cfg, backend, checkpoint_dir,
         y_sum += float(np.sum(yc))
         y_cnt += len(yc)
         chunk_lens.append(len(yc))
-        y_dev.append(backend.upload_labels(yc))
+        if device:
+            y_dev.append(backend.upload_labels(yc))
     chunk_starts = np.concatenate([[0], np.cumsum(chunk_lens)]) \
         .astype(np.int64)
     mean = y_sum / max(1, y_cnt)
@@ -514,7 +539,8 @@ def _fit_streaming(chunk_fn, n_chunks, cfg, backend, checkpoint_dir,
         cfg.n_classes, missing_bin=cfg.missing_policy == "learn",
         n_bins=cfg.n_bins, cat_features=cfg.cat_features)
 
-    tel.manifest(backend, cfg, int(y_cnt), F, n_chunks)
+    tel.manifest(backend, cfg, int(y_cnt), F, n_chunks,
+                 "streaming_device" if device else "streaming_host")
     drv = Driver(backend, cfg, checkpoint_dir=checkpoint_dir,
                  checkpoint_every=checkpoint_every)
     start_round = 0
@@ -535,8 +561,10 @@ def _fit_streaming(chunk_fn, n_chunks, cfg, backend, checkpoint_dir,
     if valid_chunk_fn is not None:
         ev = _StreamEval(valid_chunk_fn, n_valid_chunks, eval_metric,
                          cfg.loss, early_stopping_rounds, history)
-    # A backend without the stream_* surface (the CPU oracle) was
-    # refused in fit_streaming: the reference's host loop is not ported.
+    if not device:
+        return tel.finish(_fit_streaming_host(
+            chunk_fn, n_chunks, cfg, backend, drv, ens, bs, chunk_lens,
+            chunk_starts, start_round, ev, cache_preds, tel), C)
     return tel.finish(_fit_streaming_device(
         chunk_fn, n_chunks, cfg, backend, drv, ens, bs, y_dev, chunk_lens,
         chunk_starts, start_round, ev, device_chunk_cache, tel), C)
@@ -658,10 +686,12 @@ def _fit_streaming_device(chunk_fn, n_chunks, cfg, backend, drv, ens, bs,
             parts = (tree.feature, tree.threshold_bin, tree.is_leaf,
                      tree.default_left)
 
-            def level(depth, parent_hist, parent_split):
+            def level(depth, parent_hist, parent_split, rung, split):
                 """One pass: every chunk's rows of level `depth` (LEFT
                 children only under sibling subtraction) added into one
-                table, reduced over the row group."""
+                table, reduced over the row group, then split (each
+                chunk's build retries an injected fault only, ops/
+                histogram; `rung` is 0)."""
                 sub = parent_hist is not None
                 n_build = (1 << depth) // 2 if sub else 1 << depth
                 with ph("hist"):
@@ -676,7 +706,7 @@ def _fit_streaming_device(chunk_fn, n_chunks, cfg, backend, drv, ens, bs,
                     acc = comms.psum(acc, group, modeled=True)
                 hist = grow_ops.assemble_subtracted(
                     parent_hist, acc, parent_split) if sub else acc
-                return (hist,) + split_ops.node_totals(hist)
+                return split(hist, *split_ops.node_totals(hist)), hist
 
             def leaf_sums():
                 """The leaf pass: the last level's (G, H), and each row's
@@ -779,6 +809,284 @@ def _fit_streaming_device(chunk_fn, n_chunks, cfg, backend, drv, ens, bs,
     return ens
 
 
+def _go_right(fv: np.ndarray, nodes: np.ndarray, feature: np.ndarray,
+              threshold_bin: np.ndarray, default_left: np.ndarray | None,
+              missing_bin_value: int, cat_features: tuple) -> np.ndarray:
+    """The routing rule on the host (ordinal, one-vs-rest categorical, the
+    reserved NaN bin's learned direction) for rows with bins `fv` at
+    heap slots `nodes`."""
+    thr = threshold_bin[nodes]
+    right = fv > thr
+    if cat_features:
+        cat = np.isin(feature[nodes], cat_features)
+        right = np.where(cat, fv != thr, right)
+    if missing_bin_value >= 0:
+        right = np.where(fv == missing_bin_value, ~default_left[nodes],
+                         right)
+    return right
+
+
+def _traverse_partial(Xb: np.ndarray, feature, threshold_bin, is_leaf,
+                      depth: int, default_left=None,
+                      missing_bin_value: int = -1,
+                      cat_features: tuple = ()) -> np.ndarray:
+    """Level-local node of each row at `depth` (int32; -1 for a row frozen
+    at a leaf above): the in-memory level loop's (node_id, frozen)
+    evolution from the node arrays alone, on the host."""
+    R = Xb.shape[0]
+    node = np.zeros(R, np.int64)
+    frozen = np.zeros(R, bool)
+    for _ in range(depth):
+        live = ~frozen & ~is_leaf[node]
+        frozen |= is_leaf[node]
+        f = feature[node[live]]
+        fv = Xb[live, f].astype(np.int64)
+        right = _go_right(fv, node[live], feature, threshold_bin,
+                          default_left, missing_bin_value, cat_features)
+        node[live] = 2 * node[live] + 1 + right
+    out = (node - ((1 << depth) - 1)).astype(np.int32)
+    out[frozen] = -1
+    return out
+
+
+def _apply_level_splits(hist: np.ndarray, cfg: TrainConfig, depth: int,
+                        feature, threshold_bin, is_leaf, leaf_value,
+                        split_gain, default_left=None,
+                        feature_mask: np.ndarray | None = None) -> None:
+    """Level `depth`'s decisions from its summed histogram, written into
+    the node arrays in place: the oracle's split search
+    (reference/numpy_trainer.best_splits) with the round's colsample
+    mask; a node without a split becomes a leaf of -G / (H + lambda)."""
+    n_level = 1 << depth
+    offset = n_level - 1
+    G, H = ref_trainer.node_totals(hist)
+    cat_mask = None
+    if cfg.cat_features:
+        cat_mask = np.zeros(hist.shape[1], bool)
+        cat_mask[list(cfg.cat_features)] = True
+    gains, feats, bins, dls = ref_trainer.best_splits(
+        hist, cfg.reg_lambda, cfg.min_child_weight,
+        feature_mask=feature_mask,
+        missing_bin=cfg.missing_policy == "learn", cat_mask=cat_mask)
+    with np.errstate(divide="ignore", invalid="ignore"):   # empty nodes
+        value = np.where(H > 0, -G / (H + cfg.reg_lambda), 0.0).astype(
+            np.float32)
+    do_split = (gains > cfg.min_split_gain) & np.isfinite(gains) & (H > 0)
+    for i in range(n_level):
+        slot = offset + i
+        if do_split[i]:
+            feature[slot] = feats[i]
+            threshold_bin[slot] = bins[i]
+            split_gain[slot] = gains[i]
+            if default_left is not None:
+                default_left[slot] = dls[i]
+        else:
+            is_leaf[slot] = True
+            leaf_value[slot] = value[i]
+
+
+def _assemble_subtracted_level(parent_hist: np.ndarray, left: np.ndarray,
+                               is_leaf: np.ndarray,
+                               depth: int) -> np.ndarray:
+    """A level's histogram from the previous level's summed one and this
+    level's summed LEFT children: right = parent - left, exactly zero
+    under a parent that did not split, interleaved to level order."""
+    half = 1 << (depth - 1)
+    offset = half - 1
+    gate = ~is_leaf[offset:offset + half]
+    right = np.where(gate[:, None, None, None], parent_hist - left,
+                     left.dtype.type(0))
+    out = np.empty((2 * half,) + left.shape[1:], left.dtype)
+    out[0::2] = left
+    out[1::2] = right
+    return out
+
+
+def _apply_final_leaves(Gl: np.ndarray, Hl: np.ndarray, cfg: TrainConfig,
+                        is_leaf: np.ndarray, leaf_value: np.ndarray) -> None:
+    """The last level's leaf values from its streamed (G, H) sums."""
+    n_last = 1 << cfg.max_depth
+    offset = n_last - 1
+    with np.errstate(divide="ignore", invalid="ignore"):   # empty nodes
+        vals = np.where(Hl > 0, -Gl / (Hl + cfg.reg_lambda), 0.0)
+    is_leaf[offset:offset + n_last] = True
+    leaf_value[offset:offset + n_last] = vals.astype(np.float32)
+
+
+def _add_round(preds: list, Xs, trees: list, cfg: TrainConfig) -> None:
+    """preds[c] += lr * the leaf each row of chunk c reaches in each of
+    the round's trees (one a class), in class order."""
+    for c, X in enumerate(Xs):
+        for cls, (feature, thr, is_leaf, leaf_value, dl) in enumerate(trees):
+            slot = _leaf_slot(X, feature, thr, is_leaf, cfg.max_depth, dl,
+                              cfg.missing_bin_value, cfg.cat_features)
+            dv = cfg.learning_rate * leaf_value[slot]
+            if preds[c].ndim == 2:
+                preds[c][:, cls] += dv
+            else:
+                preds[c] += dv
+
+
+def _fit_streaming_host(chunk_fn, n_chunks, cfg, backend, drv, ens, bs,
+                        chunk_lens, chunk_starts, start_round, ev,
+                        cache_preds, tel) -> TreeEnsemble:
+    """The host loop (module docstring; the reference's host formulation,
+    ddt_tpu/streaming.py:799-1018)."""
+    ph = annotations.phase_ctx(tel.timer)
+    window = tel.window
+    C, D = cfg.n_outputs, cfg.max_depth
+    F = ens.n_features
+    N = cfg.n_nodes_total
+    route_kw = dict(missing_bin_value=cfg.missing_bin_value,
+                    cat_features=cfg.cat_features)
+
+    def fresh(n):
+        if C > 1:
+            return np.zeros((n, C), np.float32)    # softmax: base 0
+        return np.full(n, bs, np.float32)
+
+    def resumed(fn, n):
+        part = ens.truncate(start_round * C)
+        return [part.predict_raw_roundwise(fn(c)[0], binned=True)
+                .astype(np.float32) for c in range(n)]
+
+    # The one O(R) structure: each chunk's raw scores (4 bytes a row and
+    # class), or recomputed from the partial ensemble a pass.
+    preds = None
+    if cache_preds:
+        preds = ([fresh(n) for n in chunk_lens] if start_round == 0
+                 else resumed(chunk_fn, n_chunks))
+    val_preds = None
+    if ev is not None:
+        val_preds = ([fresh(n) for n in ev.lens] if start_round == 0
+                     else resumed(ev.fn, ev.n))
+    subtract = grow_ops.resolve_hist_subtraction(cfg.hist_subtraction,
+                                                 "cpu")
+    rows = int(sum(chunk_lens))
+    t_out = start_round * C
+    for rnd in range(start_round, cfg.n_trees):
+        if window is not None:
+            window.round_start(rnd)
+        t_round = time.perf_counter()
+
+        def chunk_grads(c, Xc, yc, cls, rnd=rnd):
+            """Chunk c's (g, h) of class `cls` from the round-start scores,
+            bagged by (seed, round, global row)."""
+            pred = preds[c] if preds is not None else _rescore(
+                ens, rnd * C, Xc, bs)
+            g, h = ref_trainer.grad_hess(pred, np.asarray(yc), cfg.loss)
+            if g.ndim == 2:
+                g, h = g[:, cls], h[:, cls]
+            if cfg.subsample < 1.0:
+                keep = sampling.row_keep_np(cfg.seed, rnd,
+                                            int(chunk_starts[c]), len(yc),
+                                            cfg.subsample)
+                g, h = g * keep, h * keep
+            return g, h
+
+        round_trees = []
+        for cls in range(C):
+            fmask = None
+            if cfg.colsample_bytree < 1.0:
+                fmask = sampling.colsample_mask(cfg.seed, rnd, cls, F,
+                                                cfg.colsample_bytree)
+            feature = np.full(N, -1, np.int32)
+            threshold_bin = np.zeros(N, np.int32)
+            is_leaf = np.zeros(N, bool)
+            leaf_value = np.zeros(N, np.float32)
+            split_gain = np.zeros(N, np.float32)
+            default_left = np.zeros(N, bool)
+            prev_hist = None
+            for depth in range(D):
+                n_level = 1 << depth
+                sub = subtract and prev_hist is not None
+                hist = None
+                with ph("hist"):
+                    for c in range(n_chunks):
+                        Xc, yc = chunk_fn(c)
+                        ni = _traverse_partial(
+                            Xc, feature, threshold_bin, is_leaf, depth,
+                            default_left, **route_kw)
+                        if sub:
+                            is_l = (ni >= 0) & (ni % 2 == 0)
+                            ni = np.where(is_l, ni // 2, -1).astype(np.int32)
+                        g, h = chunk_grads(c, Xc, yc, cls)
+                        part = np.asarray(backend.build_histograms(
+                            backend.upload(Xc), g, h, ni,
+                            n_level // 2 if sub else n_level))
+                        hist = part if hist is None else hist + part
+                if sub:
+                    hist = _assemble_subtracted_level(prev_hist, hist,
+                                                      is_leaf, depth)
+                with ph("gain"):
+                    _apply_level_splits(hist, cfg, depth, feature,
+                                        threshold_bin, is_leaf, leaf_value,
+                                        split_gain, default_left,
+                                        feature_mask=fmask)
+                prev_hist = hist if subtract else None
+            n_last = 1 << D
+            Gl = np.zeros(n_last, np.float32)
+            Hl = np.zeros(n_last, np.float32)
+            with ph("leaf"):
+                for c in range(n_chunks):
+                    Xc, yc = chunk_fn(c)
+                    ni = _traverse_partial(Xc, feature, threshold_bin,
+                                           is_leaf, D, default_left,
+                                           **route_kw)
+                    g, h = chunk_grads(c, Xc, yc, cls)
+                    act = ni >= 0
+                    np.add.at(Gl, ni[act], g[act])
+                    np.add.at(Hl, ni[act], h[act])
+                _apply_final_leaves(Gl, Hl, cfg, is_leaf, leaf_value)
+            ens.feature[t_out] = feature
+            ens.threshold_bin[t_out] = threshold_bin
+            ens.is_leaf[t_out] = is_leaf
+            ens.leaf_value[t_out] = leaf_value
+            ens.split_gain[t_out] = split_gain
+            if ens.default_left is not None:
+                ens.default_left[t_out] = default_left
+            t_out += 1
+            round_trees.append((feature, threshold_bin, is_leaf, leaf_value,
+                                default_left))
+        if preds is not None:
+            with ph("predict"):
+                _add_round(preds, (chunk_fn(c)[0] for c in range(n_chunks)),
+                           round_trees, cfg)
+        tele_counters.record_grad_stream(
+            C * tele_counters.grad_stream_bytes(rows, D, cfg.grad_dtype))
+        stop = False
+        if ev is not None:
+            with ph("eval"):
+                _add_round(val_preds, (ev.fn(c)[0] for c in range(ev.n)),
+                           round_trees, cfg)
+                stop = ev.record(rnd, np.concatenate(val_preds))
+        ms = 1e3 * (time.perf_counter() - t_round)
+        tel.round_end(rnd, ms, ev)
+        if window is not None:
+            window.round_end(rnd)
+        if stop:
+            log.info("streaming: early stop at round %d (best %s=%.6f at "
+                     "round %d)", rnd + 1, ev.metric, ev.best_score,
+                     ev.best_round + 1)
+            emit_early_stop(tel.run_log, rnd + 1, ev.metric,
+                            ev.best_round + 1, ev.best_score)
+            ens = ens.truncate((ev.best_round + 1) * C)
+            drv.save_checkpoint(ens, ev.best_round + 1)
+            return ens
+        log.info("streaming: round %d/%d done", rnd + 1, cfg.n_trees)
+        drv.save_checkpoint(ens, rnd + 1, drv.checkpoint_every)
+        if (rnd + 1) % drv.checkpoint_every == 0:
+            has_dir = drv.checkpoint_dir is not None
+            if tel.status is not None and has_dir:
+                tel.status.checkpoint_saved(rnd + 1)
+            emit_train_heartbeat(
+                tel.run_log, rnd=rnd, total_rounds=cfg.n_trees,
+                checkpoint_round=rnd + 1 if has_dir else None,
+                ms_per_round=ms)
+    drv.save_checkpoint(ens, cfg.n_trees)
+    return ens
+
+
 def _rotate_resident(backend, chunk_fn, chunks, y_dev, pred_dev, slots,
                      val_chunks, val_y, val_pred, row_start, chunk_starts,
                      chunk_lens) -> None:
@@ -860,14 +1168,8 @@ def _leaf_slot(Xb: np.ndarray, feature, threshold_bin, is_leaf,
         live = ~is_leaf[node]
         f = feature[node[live]]
         fv = Xb[live, f].astype(np.int64)
-        thr = threshold_bin[node[live]]
-        right = fv > thr
-        if cat_features:
-            cat = np.isin(f, cat_features)
-            right = np.where(cat, fv != thr, right)
-        if missing_bin_value >= 0:
-            right = np.where(fv == missing_bin_value,
-                             ~default_left[node[live]], right)
+        right = _go_right(fv, node[live], feature, threshold_bin,
+                          default_left, missing_bin_value, cat_features)
         node[live] = 2 * node[live] + 1 + right
     return node
 

@@ -32,7 +32,7 @@ What the port counts under the reference's names:
   `drift_alerts`) from serve/engine.py, serve/fleet.py and serve/drift.py.
 - `fault_retries`: every failed attempt a retry seam retries
   (utils/retry); `hist_oom_degrades`: every step down the histogram
-  ladder (ops/histogram.build_level).
+  ladder (ops/histogram.HistLadder, one a backend).
 
 `device_peak_bytes()` is torch.cuda.max_memory_allocated of the current
 card since `reset_device_peak` (the trainers reset it at run start), None

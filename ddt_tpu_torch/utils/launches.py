@@ -66,7 +66,9 @@ def recording():
             open_recordings -= 1
 
 
-def _capturing() -> bool:
+def capturing() -> bool:
+    """Is the current stream capturing a CUDA graph? (False without a
+    card.)"""
     return (torch.cuda.is_available()
             and torch.cuda.is_current_stream_capturing())
 
@@ -75,7 +77,7 @@ def capture_recording(what: str) -> Recording | None:
     """The Recording of the capture the current stream is in, or None
     when it is not capturing. A capture with no Recording open raises:
     its replays would go uncounted."""
-    if not _capturing():
+    if not capturing():
         return None
     rec = getattr(_local, "rec", None)
     if rec is None:

@@ -164,8 +164,9 @@ def test_checkpoint_resume_with_sampling_matches_uninterrupted(tmp_path):
 
 
 def test_streaming_checkpoint_resume_with_sampling(tmp_path):
-    """The streamed twin on CUDADevice (device="cpu"); the oracle has no
-    streamed trainer and is refused."""
+    """The streamed twin on CUDADevice (device="cpu") and on the oracle's
+    host loop (backend="cpu"): each resumed run equals its uninterrupted
+    one bitwise."""
     from ddt_tpu_torch.streaming import fit_streaming
 
     Xb, y, _ = _small_problem(rows=2000)
@@ -183,8 +184,15 @@ def test_streaming_checkpoint_resume_with_sampling(tmp_path):
                             checkpoint_every=4)
     for k in ("feature", "threshold_bin", "leaf_value"):
         np.testing.assert_array_equal(getattr(full, k), getattr(resumed, k))
-    with pytest.raises(NotImplementedError, match="streamed"):
-        fit_streaming(cf, 4, cfg.replace(backend="cpu"))
+    host = cfg.replace(backend="cpu")
+    full = fit_streaming(cf, 4, host)
+    ck = str(tmp_path / "ck_host")
+    fit_streaming(cf, 4, host.replace(n_trees=4), checkpoint_dir=ck,
+                  checkpoint_every=2)
+    resumed = fit_streaming(cf, 4, host, checkpoint_dir=ck,
+                            checkpoint_every=4)
+    for k in ("feature", "threshold_bin", "leaf_value"):
+        np.testing.assert_array_equal(getattr(full, k), getattr(resumed, k))
 
 
 def test_checkpoint_config_mismatch_refuses(tmp_path):

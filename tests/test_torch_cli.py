@@ -147,14 +147,26 @@ def test_cli_criteo_categoricals(tmp_path, capsys):
     assert len(TreeEnsemble.load(str(tmp_path / "o.npz")).cat_features)
 
 
-@pytest.mark.parametrize("flag", ["--hist-impl=segment",
-                                  "--multihost-coordinator=h:1"])
+@pytest.mark.parametrize("flag", ["--hist-impl=segment"])
 def test_cli_unported_flags_are_absent(tmp_path, flag):
     """The reference's flags for fields the port lacks are refused, not
     ignored."""
     with pytest.raises(SystemExit):
         main(["train", "--device=cpu", "--rows=100", "--trees=1",
               "--depth=2", "--bins=15", flag,
+              f"--out={tmp_path / 'x.npz'}"])
+
+
+@pytest.mark.parametrize("flags", [["--multihost-coordinator=h:1"],
+                                   ["--multihost-coordinator=h:1",
+                                    "--multihost-id=0"]])
+def test_cli_multihost_coordinator_needs_processes(tmp_path, flags):
+    """--multihost-coordinator without --multihost-processes is refused
+    before any rendezvous, as the reference refuses it (no cluster to
+    discover the process count from)."""
+    with pytest.raises(SystemExit, match="multihost"):
+        main(["train", "--device=cpu", "--rows=100", "--trees=1",
+              "--depth=2", "--bins=15", *flags,
               f"--out={tmp_path / 'x.npz'}"])
 
 
@@ -560,3 +572,19 @@ def test_cli_predict_stream_dir_guards(tmp_path, capsys):
     with pytest.raises(SystemExit, match="24 features"):
         main(["predict", "--device=cpu", f"--model={mb}",
               f"--stream-dir={dw}", f"--out={tmp_path / 's2'}"])
+
+
+def test_cli_train_streams_through_the_cpu_oracle(tmp_path, capsys):
+    """`train --backend cpu --stream-chunks N` runs fit_streaming's host
+    loop (the CPU oracle has no stream_* surface): the trees equal the
+    in-memory oracle fit of the same rows but for proven bf16 ties."""
+    from tree_compare import assert_trees_match_mod_ties
+
+    common = ["train", "--device=cpu", "--backend=cpu", "--rows=3000",
+              "--trees=3", "--depth=3", "--bins=31"]
+    streamed, whole = str(tmp_path / "s.npz"), str(tmp_path / "w.npz")
+    rec = _run(capsys, [*common, "--stream-chunks=4", f"--out={streamed}"])
+    assert rec["streamed_chunks"] == 4 and rec["trees"] == 3
+    _run(capsys, [*common, f"--out={whole}"])
+    assert_trees_match_mod_ties(TreeEnsemble.load(whole),
+                                TreeEnsemble.load(streamed), 0.0)

@@ -1727,9 +1727,11 @@ def test_phase_timer_on_the_card_reads_events_once(dev, monkeypatch):
 # ---------------------------------------------------------------------- #
 @pytest.mark.parametrize("mode", ["exact", "int8"])
 def test_hist_oom_ladder_rungs_bitwise_on_card(dev, mode):
-    """Every rung (K1 over node ranges of 1/4, 1/16, 1/64 of the level,
-    each writing its slab of one table) is bitwise the top rung's table
-    on the card: exact int64 and int32 sums are order-free."""
+    """The node slabs a level step builds at each rung (ops/histogram.
+    build_table over [lo, lo + slab_nodes(rung, 16)), K1 given its first
+    node and writing a table of its slab only, one launch each) are
+    bitwise the matching slices of the whole level's table on the card:
+    exact int64 and int32 sums are order-free."""
     Xb, g, h, ni = _hist_case(200_000, 28, 255, 16, seed=11)
     X = torch.from_numpy(Xb).to(dev)
     n = torch.from_numpy(ni).to(dev)
@@ -1742,15 +1744,108 @@ def test_hist_oom_ladder_rungs_bitwise_on_card(dev, mode):
                               ).to(dev)
         ht = torch.from_numpy((h * 127).astype(np.int8)).to(dev)
         scales = None
-    top = histogram._build_rung(0, X, gt, ht, n, 16, 255, scales, None)
-    for rung in (1, 2, 3):
+    ladder = histogram.HistLadder(carry=True)
+    top = histogram.build_table(X, gt, ht, n, 16, 255, scales)
+    for rung in ladder.rungs[1:]:
+        per = histogram.slab_nodes(rung, 16)
         before = (hist_cuda.launches_exact + hist_cuda.launches_int)
-        out = histogram._build_rung(rung, X, gt, ht, n, 16, 255, scales,
-                                    None)
+        parts = [histogram.build_table(X, gt, ht, n, per, 255, scales,
+                                       node_lo=lo)
+                 for lo in range(0, 16, per)]
         launched = (hist_cuda.launches_exact + hist_cuda.launches_int
                     - before)
-        assert launched == min(16, 4 ** rung), rung
-        assert torch.equal(out, top), rung
+        assert launched == 16 // per, rung
+        assert all(p.shape[0] == per for p in parts), rung
+        assert torch.equal(torch.cat(parts), top), rung
+    for lo, hi in ((0, 4), (3, 9), (15, 16)):
+        part = hist_cuda.build_histograms_cuda(X, gt, ht, n, hi - lo, 255,
+                                               scales=scales, node_lo=lo)
+        assert torch.equal(part, top[lo:hi]), (lo, hi)
+
+
+def _level_peaks(dev, R, F, grad_dtype, depth=6, seed=0):
+    """Peak card memory of the last histogram level (2^(depth-1) nodes)
+    of one depth-`depth` tree at each rung: chip_smoke.level_peaks."""
+    import chip_smoke
+
+    rng = np.random.default_rng(seed)
+    X = torch.from_numpy(rng.integers(0, 255, size=(R, F),
+                                      dtype=np.uint8)).to(dev)
+    g = torch.from_numpy(rng.standard_normal(R).astype(np.float32)).to(dev)
+    h = torch.from_numpy(rng.random(R, dtype=np.float32) + 0.1).to(dev)
+    return chip_smoke.level_peaks(X, g, h, depth, grad_dtype)
+
+
+@pytest.mark.parametrize("grad_dtype", ["f32", "int8"])
+def test_hist_ladder_peak_falls_per_rung_on_card(dev, grad_dtype):
+    """At 65,536 rows x 1024 features and 32 nodes every rung's level
+    peak (build, subtraction and split search, the carried parent table
+    counted) is strictly below the rung above it."""
+    peaks = _level_peaks(dev, 65_536, 1024, grad_dtype)
+    rungs = sorted(peaks)
+    assert rungs == [0, 1, 2, 3]
+    for a, b in zip(rungs, rungs[1:]):
+        assert peaks[b]["peak"] < peaks[a]["peak"], peaks
+
+
+@pytest.mark.parametrize("grad_dtype", ["f32", "int8"])
+def test_capped_fit_survives_a_real_out_of_memory(dev, grad_dtype):
+    """With set_per_process_memory_fraction between rung 0's level peak
+    and rung 1's, a granular fit takes a real torch.cuda.OutOfMemoryError
+    at rung 0, steps its backend down and ends with the undisturbed fit's
+    trees bit for bit (chip_smoke.real_oom_fit)."""
+    import chip_smoke
+
+    got = chip_smoke.real_oom_fit(grad_dtype, n_trees=2)
+    assert got["bitwise"] and got["rung"] > 0 and got["degrades"] >= 1, got
+@pytest.mark.parametrize("grad_dtype", ["f32", "int8"])
+@pytest.mark.parametrize("when", ["warmup", "capture"])
+def test_hist_fault_in_the_fused_loop_bitwise_on_card(dev, grad_dtype,
+                                                      when):
+    """A planned hist.build fault in the fused loop's warm-up round or
+    inside its graph capture: the level step runs again one rung lower
+    (inside the capture the ladder steps and re-raises, and the round is
+    captured again at the new rung, so the graph holds no launch of the
+    abandoned attempt: K1's launches equal a fit held at that rung from
+    the start), the backend keeps the rung, and every replay grows the
+    granular loop's trees bit for bit."""
+    from ddt_tpu_torch import api
+    from ddt_tpu_torch.backends import CUDADevice
+    from ddt_tpu_torch.config import TrainConfig
+    from ddt_tpu_torch.parallel import tasks
+    from ddt_tpu_torch.robustness import faultplan
+
+    rng = np.random.default_rng(5)
+    Xb = rng.integers(0, 63, size=(30_000, 10), dtype=np.uint8)
+    y = (Xb[:, 0] + rng.integers(0, 20, 30_000) > 40).astype(np.float32)
+    depth = 5
+    cfg = TrainConfig(n_trees=6, max_depth=depth, n_bins=63, seed=3,
+                      grad_dtype=grad_dtype)
+    ref = api.train(Xb, y, cfg, binned=True,
+                    backend=tasks.Granular(cfg)).ensemble
+    # The warm-up round builds levels 1..depth, the capture the next.
+    after = 2 if when == "warmup" else depth + 2
+
+    def k1():
+        return hist_cuda.launches_exact + hist_cuda.launches_int
+
+    be = CUDADevice(cfg)
+    prev = faultplan.activate(faultplan.load_plan(
+        {"faults": [{"site": "hist.build", "after_calls": after}]}))
+    k0 = k1()
+    try:
+        got = api.train(Xb, y, cfg, binned=True, backend=be).ensemble
+    finally:
+        faultplan.deactivate(prev)
+    faulted = k1() - k0
+    assert be.hist_ladder.rung == be.hist_ladder.rungs[1]
+    held = CUDADevice(cfg)
+    held.hist_ladder.rung = held.hist_ladder.rungs[1]
+    k0 = k1()
+    api.train(Xb, y, cfg, binned=True, backend=held)
+    assert faulted == k1() - k0
+    for k in ("feature", "threshold_bin", "leaf_value", "split_gain"):
+        np.testing.assert_array_equal(getattr(ref, k), getattr(got, k))
 
 
 def test_real_out_of_memory_is_resource_exhausted(dev):
@@ -1773,8 +1868,8 @@ def test_injected_faults_bitwise_on_card(dev, tmp_path, grad_dtype):
     undisturbed run's bit for bit; the streamed fit under
     stream.chunk_read likewise."""
     from ddt_tpu_torch import api
+    from ddt_tpu_torch.backends import CUDADevice
     from ddt_tpu_torch.config import TrainConfig
-    from ddt_tpu_torch.ops import histogram as hops
     from ddt_tpu_torch.robustness import faultplan
     from ddt_tpu_torch.streaming import fit_streaming
 
@@ -1787,16 +1882,15 @@ def test_injected_faults_bitwise_on_card(dev, tmp_path, grad_dtype):
     plan = {"faults": [{"site": "fetch_tree", "times": 2},
                        {"site": "ckpt.save.write", "round": 2},
                        {"site": "hist.build", "after_calls": 7}]}
-    hops.reset_hist_rung()
+    be = CUDADevice(cfg)
     prev = faultplan.activate(faultplan.load_plan(plan))
     try:
         got = api.train(Xb, y, cfg, binned=True, profile=True,
                         checkpoint_dir=str(tmp_path / "ck"),
-                        checkpoint_every=2).ensemble
-        assert hops.hist_rung() == 1
+                        checkpoint_every=2, backend=be).ensemble
+        assert be.hist_ladder.rung == 1
     finally:
         faultplan.deactivate(prev)
-        hops.reset_hist_rung()
     for k in ("feature", "threshold_bin", "leaf_value", "split_gain"):
         np.testing.assert_array_equal(getattr(ref, k), getattr(got, k))
 

@@ -525,6 +525,15 @@ def test_http_metrics_read_only_with_drift_enabled(served_drift_fleet,
     for i in range(0, 600, 100):
         _post(port, "/models/champ/predict",
               {"rows": shifted[i:i + 100].tolist()})
+    # The fleet folds a batch into the drift window after its futures
+    # settle, so the last fold may trail the responses: wait (with a
+    # deadline) until the window holds all 6 batches before reading.
+    deadline = time.monotonic() + 30.0
+    while json.loads(_get_raw(port, "/debug/drift"))["models"]["champ"][
+            "state"]["window_rows"] < 600:
+        assert time.monotonic() < deadline, "the drift window never took " \
+            "the 6 batches"
+        time.sleep(0.01)
     a = _get_raw(port, "/metrics")
     dbg = json.loads(_get_raw(port, "/debug/drift"))
     assert dbg["fleet"] is True

@@ -11,6 +11,8 @@ its own library the same way); the multi-thread contract has its own
 case below.
 """
 
+import os
+
 import numpy as np
 import pytest
 
@@ -360,3 +362,62 @@ def test_cpu_backend_never_quietly_numpy(monkeypatch):
     with pytest.raises(ImportError, match="native"):
         CPUDevice(_cfg(n_bins=31), use_native=True)
     assert CPUDevice(_cfg(n_bins=31)).hist_impl == "numpy"
+
+
+def _sanitizer_runtime(variant: str) -> str | None:
+    """The path of g++'s runtime library for `variant`, or None when this
+    g++ has none (then -print-file-name echoes the bare name)."""
+    import subprocess
+
+    name = {"asan": "libasan.so", "tsan": "libtsan.so"}[variant]
+    p = subprocess.run(["g++", f"-print-file-name={name}"],
+                       capture_output=True, text=True)
+    path = p.stdout.strip()
+    return path if p.returncode == 0 and os.path.isabs(path) else None
+
+
+@pytest.mark.parametrize("variant", ["default", "asan", "tsan"])
+def test_native_variants_build_and_export_symbols(variant):
+    """Each variant builds from the package's sources into _build/ under a
+    name and key of its own, and its library exports every symbol the
+    loader binds. A sanitizer library loads only under its runtime, so
+    its symbols are read in a child process that preloads it."""
+    import subprocess
+    import sys
+
+    if variant != "default" and _sanitizer_runtime(variant) is None:
+        pytest.skip(f"g++ has no {variant} runtime (-print-file-name "
+                    f"finds no lib{variant}.so)")
+    path = native.build(variant)
+    assert path == native.lib_path(variant)
+    assert path.parent == native.BUILD_DIR and path.exists()
+    stem = native.VARIANTS[variant][0]
+    assert path.name.startswith(f"{stem}-{native.source_hash(variant)}")
+    keys = {native.source_hash(v) for v in native.VARIANTS}
+    assert len(keys) == len(native.VARIANTS)
+    env = dict(os.environ)
+    if variant != "default":
+        env["LD_PRELOAD"] = _sanitizer_runtime(variant)
+        env["ASAN_OPTIONS"] = "detect_leaks=0"
+    code = ("import ctypes, sys; lib = ctypes.CDLL(sys.argv[1]); "
+            "print(','.join(s for s in sys.argv[2:] if hasattr(lib, s)))")
+    p = subprocess.run([sys.executable, "-c", code, str(path),
+                        *native._SYMBOLS], capture_output=True, text=True,
+                       env=env, timeout=120)
+    assert p.returncode == 0, p.stderr[-2000:]
+    assert p.stdout.strip().split(",") == list(native._SYMBOLS)
+
+
+def test_native_library_selected_by_environment(monkeypatch):
+    """DDT_TORCH_NATIVE_LIB names the library load() takes, as the
+    reference's DDT_NATIVE_LIB does; unset means the -O3 default, and a
+    name of no variant raises instead of falling back."""
+    monkeypatch.delenv(native.ENV_LIB, raising=False)
+    assert native.selected_variant() == "default"
+    for variant, (stem, _, _) in native.VARIANTS.items():
+        monkeypatch.setenv(native.ENV_LIB, f"{stem}.so")
+        assert native.selected_variant() == variant
+    monkeypatch.setenv(native.ENV_LIB, "libddthist_asan.so")
+    with pytest.raises(ValueError, match="names no native library"):
+        native.selected_variant()
+    assert (native.SRC_DIR / "tsan.supp").exists()

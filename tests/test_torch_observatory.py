@@ -148,11 +148,11 @@ def fake_capture(monkeypatch):
     @contextlib.contextmanager
     def capture():
         with launches.recording() as rec:
-            monkeypatch.setattr(launches, "_capturing", lambda: True)
+            monkeypatch.setattr(launches, "capturing", lambda: True)
             try:
                 yield rec
             finally:
-                monkeypatch.setattr(launches, "_capturing", lambda: False)
+                monkeypatch.setattr(launches, "capturing", lambda: False)
     return capture
 
 
@@ -203,7 +203,7 @@ def test_replays_count_into_the_collector_active_at_replay(
 def test_costed_call_in_a_capture_without_a_recording_raises(monkeypatch):
     """A costed call in a capture that no launch Recording watches would
     go uncounted in every replay: it raises, as a launch does."""
-    monkeypatch.setattr(launches, "_capturing", lambda: True)
+    monkeypatch.setattr(launches, "capturing", lambda: True)
     monkeypatch.setattr(launches, "open_recordings", 1)
     with pytest.raises(RuntimeError, match="no launch recording open"):
         histogram.build_histograms(*_hist_args())

@@ -25,10 +25,11 @@ from ddt_tpu.robustness import set_fault_sink as jset_fault_sink
 from ddt_tpu.robustness.watchdog import StragglerWatchdog as JWatchdog
 from ddt_tpu.utils import retry as jretry
 from ddt_tpu_torch import api
-from ddt_tpu_torch.backends import get_backend
+from ddt_tpu_torch.backends import CUDADevice, get_backend
 from ddt_tpu_torch.config import TrainConfig
 from ddt_tpu_torch.driver import Driver
 from ddt_tpu_torch.models.tree import TreeEnsemble, empty_ensemble
+from ddt_tpu_torch.ops import grad as grad_ops
 from ddt_tpu_torch.ops import histogram as hist_ops
 from ddt_tpu_torch.parallel import spawn, tasks
 from ddt_tpu_torch.robustness import faultplan, set_fault_sink
@@ -45,19 +46,18 @@ STRAGGLER = {"faults": [{"site": "straggler", "device": 1,
 
 @pytest.fixture(autouse=True)
 def _no_leaked_plan():
-    """Every test starts and ends with no active plan, no sink and the
-    ladder's top rung."""
+    """Every test starts and ends with no active plan and no sink. (The
+    histogram ladder's rung lives on each backend: the tests that step it
+    down build their own backends.)"""
     for fp, sink in ((faultplan, set_fault_sink),
                      (jfaultplan, jset_fault_sink)):
         fp.deactivate(None)
         sink(None)
-    hist_ops.reset_hist_rung()
     yield
     for fp, sink in ((faultplan, set_fault_sink),
                      (jfaultplan, jset_fault_sink)):
         fp.deactivate(None)
         sink(None)
-    hist_ops.reset_hist_rung()
 
 
 @pytest.fixture(scope="module")
@@ -556,11 +556,16 @@ def test_multihost_init_timeout_retries(monkeypatch):
 
 
 @pytest.mark.parametrize("grad_dtype", ["f32", "int8"])
-def test_hist_oom_degrade_ladder_is_value_identical(grad_dtype):
-    """Every rung's table is bitwise the top rung's (exact int64 and
-    int32 sums are order-free); the step is sticky and reported."""
+def test_hist_oom_degrade_ladder_is_value_identical(grad_dtype,
+                                                    monkeypatch):
+    """A whole table (the backend's build_histograms) is bitwise the same
+    at every rung: no rung shapes it, and none lowers what it allocates.
+    So a planned hist.build fault there is retried at the same rung, the
+    ladder unmoved and no degrade reported, up to N_RUNGS attempts; and a
+    real allocation failure is raised at once, not retried."""
     cfg = _cfg(grad_dtype=grad_dtype)
-    be = get_backend(cfg)
+    be = CUDADevice(cfg)
+    ladder = be.hist_ladder
     rng = np.random.default_rng(0)
     Xb = rng.integers(0, 29, size=(512, 5), dtype=np.uint8)
     if grad_dtype == "f32":
@@ -572,52 +577,215 @@ def test_hist_oom_degrade_ladder_is_value_identical(grad_dtype):
     ni = rng.integers(-1, 16, 512).astype(np.int32)
     data = be.upload(Xb)
     top = be.build_histograms(data, g, h, ni, 16)
+    for rung in ladder.rungs[1:]:
+        ladder.rung = rung
+        assert torch.equal(be.build_histograms(data, g, h, ni, 16), top)
+    ladder.rung = 0
     rl = RunLog()
     set_fault_sink(rl)
-    for rung in (1, 2, 3):
-        prev = faultplan.activate(faultplan.load_plan(
-            {"faults": [{"site": "hist.build"}]}))
-        try:
-            out = be.build_histograms(data, g, h, ni, 16)
-        finally:
-            faultplan.deactivate(prev)
-        assert hist_ops.hist_rung() == rung
-        assert torch.equal(out, top), rung
-        # Sticky: a build with no fault stays on the rung.
-        assert torch.equal(be.build_histograms(data, g, h, ni, 16), top)
-        assert hist_ops.hist_rung() == rung
-    ev = [e for e in rl.events("fault") if e["kind"] == "hist_oom_degrade"]
-    assert [e["to_impl"] for e in ev] == [hist_ops.rung_name(r)
-                                          for r in (1, 2, 3)]
-    # The bottom rung re-raises: there is nothing below it.
+    plan = faultplan.load_plan(
+        {"faults": [{"site": "hist.build", "times": hist_ops.N_RUNGS - 1}]})
+    prev = faultplan.activate(plan)
+    try:
+        out = be.build_histograms(data, g, h, ni, 16)
+    finally:
+        faultplan.deactivate(prev)
+    assert torch.equal(out, top)
+    assert len(plan.fired_log) == hist_ops.N_RUNGS - 1
+    degrades = [e for e in rl.events("fault")
+                if e["kind"] == "hist_oom_degrade"]
+    assert ladder.rung == 0 and not degrades
+    # One fault more than the attempts: raised.
     prev = faultplan.activate(faultplan.load_plan(
-        {"faults": [{"site": "hist.build"}]}))
+        {"faults": [{"site": "hist.build", "times": hist_ops.N_RUNGS}]}))
     try:
         with pytest.raises(faultplan.InjectedResourceExhausted):
             be.build_histograms(data, g, h, ni, 16)
     finally:
         faultplan.deactivate(prev)
+    # A real allocation failure: every rung would allocate the same.
+    calls = []
+
+    def oom(*a, **k):
+        calls.append(1)
+        raise torch.cuda.OutOfMemoryError("CUDA out of memory (test)")
+
+    monkeypatch.setattr(hist_ops, "build_histograms_exact", oom)
+    monkeypatch.setattr(hist_ops, "build_histograms", oom)
+    with pytest.raises(torch.cuda.OutOfMemoryError):
+        be.build_histograms(data, g, h, ni, 16)
+    assert calls == [1] and ladder.rung == 0
+    assert not [e for e in rl.events("fault")
+                if e["kind"] == "hist_oom_degrade"]
+
+
+def test_hist_ladder_steps_and_reraises_inside_a_capture(monkeypatch):
+    """Inside a CUDA-graph capture an allocation failure steps the ladder
+    and is re-raised, so the capture's owner drops the graph that holds
+    the failed attempt's work and captures again at the new rung (the
+    stream's capture state is simulated: no card here)."""
+    from ddt_tpu_torch.utils import launches
+
+    ladder = hist_ops.HistLadder(carry=True)
+    tried = []
+
+    def step(rung):
+        tried.append(rung)
+        raise faultplan.InjectedResourceExhausted("hist.build")
+
+    monkeypatch.setattr(launches, "capturing", lambda: True)
+    with pytest.raises(faultplan.InjectedResourceExhausted):
+        ladder.run(step)
+    assert tried == [0] and ladder.rung == 1
+    monkeypatch.setattr(launches, "capturing", lambda: False)
+    assert ladder.run(lambda rung: rung) == 1
+    with pytest.raises(faultplan.InjectedResourceExhausted):
+        ladder.run(step)
+    assert tried == [0, 1, 2, 3] and ladder.rung == 3
 
 
 @pytest.mark.parametrize("grad_dtype", ["f32", "int8"])
 def test_hist_oom_rung_step_in_training_is_bit_exact(grad_dtype):
     """hist.build on the granular loop steps down a rung mid-run: the
-    ensemble is the undisturbed run's and the counter moves."""
+    ensemble is the undisturbed run's and the counter moves. Subtraction
+    is off for f32 on the CPU (rung 1 is skipped there) and on for int8."""
     Xb, y = _binary(1500)
     cfg = _cfg(n_trees=4, max_depth=4, grad_dtype=grad_dtype)
     ref = api.train(Xb, y, cfg, binned=True, profile=True)
     rl = RunLog()
+    be = CUDADevice(cfg)
     prev = faultplan.activate(faultplan.load_plan(
         {"faults": [{"site": "hist.build", "after_calls": 5,
                      "times": 2}]}))
     try:
         chaotic = api.train(Xb, y, cfg, binned=True, profile=True,
-                            run_log=rl)
+                            run_log=rl, backend=be)
     finally:
         faultplan.deactivate(prev)
     _assert_ens_equal(ref.ensemble, chaotic.ensemble)
-    assert hist_ops.hist_rung() == 2
+    assert be.hist_ladder.rung == (2 if grad_dtype == "int8" else 3)
+    assert be.hist_ladder.rung == be.hist_ladder.rungs[2]
     assert rl.events("counters")[0]["hist_oom_degrades"] == 2
+
+
+@pytest.mark.parametrize("loop", ["granular", "fused"])
+@pytest.mark.parametrize("grad_dtype", ["f32", "int8"])
+def test_hist_ladder_every_rung_grows_rung0_trees(grad_dtype, loop):
+    """A backend held at each rung (the carry given up, then node slabs of
+    1/4 and 1/16 of a level, each split before the next) grows rung 0's
+    trees bit for bit, through the granular and the fused loop; sibling
+    subtraction on, so rung 1 is on the ladder for f32 too."""
+    Xb, y = _binary(1200, features=6)
+    cfg = _cfg(n_trees=3, max_depth=5, grad_dtype=grad_dtype,
+               hist_subtraction="on")
+    make = tasks.Granular if loop == "granular" else CUDADevice
+    ens = {}
+    for rung in hist_ops.HistLadder(carry=True).rungs:
+        be = make(cfg)
+        assert be.hist_ladder.rungs == (0, 1, 2, 3)
+        be.hist_ladder.rung = rung
+        ens[rung] = api.train(Xb, y, cfg, binned=True, backend=be).ensemble
+        assert be.hist_ladder.rung == rung
+    for rung in (1, 2, 3):
+        _assert_ens_equal(ens[0], ens[rung])
+
+
+def test_hist_ladder_rung_is_per_backend():
+    """After a planned hist.build fault degrades one api.train, that
+    backend stays at its rung for its next fit, and a backend of another
+    config starts at rung 0 in the same process (the reference keeps the
+    rung on its backend instance: tests/test_robustness.py:486-522)."""
+    Xb, y = _binary(1500)
+    cfg = _cfg(n_trees=3, max_depth=4, grad_dtype="int8")
+    ref = api.train(Xb, y, cfg, binned=True, profile=True).ensemble
+    be = CUDADevice(cfg)
+    prev = faultplan.activate(faultplan.load_plan(
+        {"faults": [{"site": "hist.build", "after_calls": 3}]}))
+    try:
+        got = api.train(Xb, y, cfg, binned=True, profile=True,
+                        backend=be).ensemble
+    finally:
+        faultplan.deactivate(prev)
+    _assert_ens_equal(ref, got)
+    assert be.hist_ladder.rung == 1
+    rl = RunLog()
+    again = api.train(Xb, y, cfg, binned=True, profile=True, backend=be,
+                      run_log=rl).ensemble
+    _assert_ens_equal(ref, again)
+    assert be.hist_ladder.rung == 1
+    assert rl.events("counters")[0]["hist_oom_degrades"] == 0
+    other_cfg = _cfg(n_trees=2, max_depth=3, grad_dtype="f32")
+    other = CUDADevice(other_cfg)
+    assert other.hist_ladder.rung == 0
+    rl = RunLog()
+    api.train(Xb, y, other_cfg, binned=True, profile=True, backend=other,
+              run_log=rl)
+    assert other.hist_ladder.rung == 0
+    assert rl.events("counters")[0]["hist_oom_degrades"] == 0
+    assert get_backend(other_cfg).hist_ladder.rung == 0
+
+
+@pytest.mark.parametrize("exact", [True, False])
+def test_hist_plain_version_over_a_node_range(exact):
+    """K1's plain version over the node range [lo, hi) equals the matching
+    slab of the whole level's table: rows of other nodes and frozen rows
+    add nothing, node lo + i lands at i."""
+    rng = np.random.default_rng(4)
+    R, F, B, N = 3000, 6, 31, 16
+    Xb = torch.from_numpy(rng.integers(0, B, size=(R, F), dtype=np.uint8))
+    ni = torch.from_numpy(rng.integers(-1, N, R).astype(np.int32))
+    if exact:
+        g = torch.from_numpy(rng.standard_normal(R).astype(np.float32))
+        h = torch.from_numpy(rng.random(R, dtype=np.float32))
+        scales = grad_ops.fixed_scales(grad_ops.abs_max2(g, h), R)
+        whole = hist_ops.build_histograms_fixed_segment(Xb, g, h, ni, N, B,
+                                                        scales)
+    else:
+        g = torch.from_numpy(rng.integers(-127, 128, R).astype(np.int8))
+        h = torch.from_numpy(rng.integers(0, 128, R).astype(np.int8))
+        whole = hist_ops.build_histograms_segment(Xb, g, h, ni, N, B)
+    for lo, hi in ((0, 16), (0, 4), (4, 8), (5, 6), (12, 16), (15, 16)):
+        if exact:
+            part = hist_ops.build_histograms_exact(
+                Xb, g, h, ni, hi - lo, B, scales, node_lo=lo)
+            out = torch.zeros_like(whole[lo:hi])
+            hist_ops.build_histograms_fixed_segment(
+                Xb, g, h, ni, hi - lo, B, scales, out=out, node_lo=lo)
+            assert torch.equal(out, whole[lo:hi])
+        else:
+            part = hist_ops.build_histograms(Xb, g, h, ni, hi - lo, B,
+                                             node_lo=lo)
+        assert part.shape == (hi - lo, F, B, 2)
+        assert torch.equal(part, whole[lo:hi]), (lo, hi)
+
+
+@pytest.mark.parametrize("grad_dtype", ["f32", "int8"])
+def test_hist_fault_on_one_gloo_rank_keeps_the_trees(grad_dtype):
+    """Two gloo ranks, one of which alone takes planned hist.build faults
+    (retried at its build, before the collective: no rung lowers a mesh's
+    table) and alone sits at the bottom rung (the node-slab split
+    search): the collectives stay the same, so nothing hangs (the pool's
+    own 120 s timeout), and both finish with the undisturbed trees."""
+    Xb, y = _binary(1600, features=6)
+    kw = dict(n_trees=3, max_depth=4, n_bins=29, seed=2,
+              grad_dtype=grad_dtype)
+    plan = {"faults": [{"site": "hist.build", "after_calls": 2,
+                        "times": 2}]}
+    bottom = hist_ops.N_RUNGS - 1
+    with spawn.Pool(2, backend="gloo", device="cpu",
+                    timeout_s=120.0) as pool:
+        clean = pool.run(tasks.train_hist_fault, Xb, y, kw, None, 1)
+        hit = pool.run(tasks.train_hist_fault, Xb, y, kw, plan, 1, bottom)
+    one = api.train(Xb, y, _cfg(**{k: v for k, v in kw.items()
+                                   if k != "n_bins"}), binned=True)
+    for r in (0, 1):
+        _assert_ens_equal(clean[r]["ensemble"], hit[r]["ensemble"])
+        assert clean[r]["rung"] == 0
+    assert hit[0]["rung"] == 0 and hit[0]["fired"] == 0
+    assert hit[1]["rung"] == bottom and hit[1]["fired"] == 2
+    assert hit[1]["degrades"] == 0
+    if grad_dtype == "int8":
+        _assert_ens_equal(one.ensemble, hit[0]["ensemble"])
 
 
 # ------------------------------------------------------------------ #

@@ -170,3 +170,35 @@ def test_sklearn_facade_eval_attributes():
                          max_depth=3, n_bins=63)
     assert clf.best_iteration_ is None and clf.evals_result_ == {}
     _assert_same_estimator(clf, ref, X[:500], y[:500])
+
+
+@pytest.mark.parametrize("kind", ["classifier", "regressor"])
+def test_sklearn_fit_run_log_round_trips_through_report(tmp_path, capsys,
+                                                        kind):
+    """fit(run_log=path) writes the run's events (as the reference's
+    estimators do), and `cli report` reads them: the manifest, a round
+    record a round, the counters."""
+    import json
+
+    from ddt_tpu_torch.cli import main
+    from ddt_tpu_torch.telemetry.report import read_events
+
+    X, y = synthetic_binary(600, n_features=5, seed=3)
+    path = str(tmp_path / f"{kind}.jsonl")
+    if kind == "classifier":
+        est = DDTClassifier(n_trees=3, max_depth=3, n_bins=31, device="cpu")
+        est.fit(X, np.where(y > 0, "yes", "no"), run_log=path)
+    else:
+        est = DDTRegressor(n_trees=3, max_depth=3, n_bins=31, device="cpu")
+        est.fit(X, y.astype(np.float32) * 2.0, run_log=path)
+    ev = read_events(path)
+    kinds = [e["event"] for e in ev]
+    assert kinds[0] == "run_manifest" and kinds[-1] == "run_end"
+    assert sum(k == "round" for k in kinds) >= 1
+    assert "counters" in kinds
+    capsys.readouterr()
+    assert main(["report", "--log", path, "--json"]) == 0
+    rep = json.loads(capsys.readouterr().out)
+    assert rep
+    assert main(["report", "--log", path]) == 0
+    assert capsys.readouterr().out.strip()

@@ -553,3 +553,247 @@ def test_binned_chunks_from_raw_chunks():
         binned_chunks(raw, mapper, cfg.replace(n_bins=63))
     with pytest.raises(ValueError, match="missing_bin"):
         binned_chunks(raw, mapper, cfg.replace(missing_policy="learn"))
+
+
+# --------------------------------------------------------------------- #
+# The host loop: fit_streaming over the CPU oracle (backend="cpu"),
+# the twins of tests/test_streaming.py's backend="cpu" cases, each held to
+# the port's in-memory oracle fit as the reference holds its own (trees
+# equal, leaves to 2e-4) and to the reference's host loop on the same
+# chunks with tests/tree_compare.py's comparator.
+# --------------------------------------------------------------------- #
+def _host(**kw):
+    return TrainConfig(backend="cpu", **kw)
+
+
+def _vs_reference_host(ens, chunk_fn, n_chunks, cfg, **kw):
+    jcfg = _jcfg(cfg).replace(backend="cpu")
+    ref = j_fit_streaming(chunk_fn, n_chunks, jcfg, **kw)
+    assert ref.n_trees == ens.n_trees
+    assert_trees_match_mod_ties(ref, ens, cfg.min_split_gain)
+    return ref
+
+
+def _like_inmemory(full, streamed, default_left=False):
+    np.testing.assert_array_equal(full.feature, streamed.feature)
+    np.testing.assert_array_equal(full.threshold_bin, streamed.threshold_bin)
+    np.testing.assert_array_equal(full.is_leaf, streamed.is_leaf)
+    if default_left:
+        np.testing.assert_array_equal(full.default_left,
+                                      streamed.default_left)
+    np.testing.assert_allclose(full.leaf_value, streamed.leaf_value,
+                               rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("cache", [True, False])
+def test_stream_host_matches_inmemory(cache):
+    Xb, y = _binary()
+    cfg = _host(n_trees=4, max_depth=4, n_bins=31)
+    chunk_fn, n_chunks = _chunked(Xb, y, 512)
+    streamed = fit_streaming(chunk_fn, n_chunks, cfg, cache_preds=cache)
+    _like_inmemory(_inmemory(Xb, y, cfg), streamed)
+    _vs_reference_host(streamed, chunk_fn, n_chunks, cfg, cache_preds=cache)
+
+
+def test_stream_host_stress_generator_runs():
+    cfg = _host(n_trees=2, max_depth=3, n_bins=255)
+
+    def chunk_fn(c):
+        return datasets.stress_binned_chunk(c, chunk_rows=256,
+                                            n_features=64, seed=9)
+
+    ens = fit_streaming(chunk_fn, 4, cfg)
+    assert ens.n_trees == 2
+    Xb, y = datasets.stress_binned_chunk(0, 256, n_features=64, seed=9)
+    p = ens.predict(Xb, binned=True)
+    assert p[y == 1].mean() > p[y == 0].mean()
+    _vs_reference_host(ens, chunk_fn, 4, cfg)
+
+
+@pytest.mark.parametrize("cache", [True, False])
+def test_stream_host_softmax_matches_inmemory(cache):
+    X, y = datasets.synthetic_multiclass(2048, n_features=8, n_classes=3,
+                                         seed=5)
+    Xb = quantize(X, n_bins=31, seed=5)[0]
+    cfg = _host(n_trees=3, max_depth=3, n_bins=31, loss="softmax",
+                n_classes=3)
+    chunk_fn, n_chunks = _chunked(Xb, y, 512)
+    streamed = fit_streaming(chunk_fn, n_chunks, cfg, cache_preds=cache)
+    assert streamed.n_trees == 9
+    _like_inmemory(_inmemory(Xb, y, cfg), streamed)
+    _vs_reference_host(streamed, chunk_fn, n_chunks, cfg, cache_preds=cache)
+
+
+@pytest.mark.parametrize("cache", [True, False])
+def test_stream_host_sampling_matches_inmemory(cache):
+    Xb, y = _binary()
+    cfg = _host(n_trees=4, max_depth=4, n_bins=31, subsample=0.7,
+                colsample_bytree=0.6, seed=11)
+    chunk_fn, n_chunks = _chunked(Xb, y, 512)
+    streamed = fit_streaming(chunk_fn, n_chunks, cfg, cache_preds=cache)
+    _like_inmemory(_inmemory(Xb, y, cfg), streamed)
+    _vs_reference_host(streamed, chunk_fn, n_chunks, cfg, cache_preds=cache)
+
+
+def test_stream_host_empty_chunk_rejected():
+    with pytest.raises(ValueError, match="empty"):
+        fit_streaming(lambda c: (np.zeros((0, 3), np.uint8), np.zeros(0)), 2,
+                      _host(n_trees=2, max_depth=2))
+
+
+@pytest.mark.parametrize("cache", [True, False])
+def test_stream_host_missing_matches_inmemory(cache):
+    rng = np.random.default_rng(3)
+    X, y = datasets.synthetic_binary(4096, n_features=10, seed=21)
+    X[rng.random(X.shape) < 0.15] = np.nan
+    Xb = fit_bin_mapper(X, n_bins=31, missing_policy="learn").transform(X)
+    cfg = _host(n_trees=4, max_depth=4, n_bins=31, missing_policy="learn")
+    chunk_fn, n_chunks = _chunked(Xb, y, 512)
+    streamed = fit_streaming(chunk_fn, n_chunks, cfg, cache_preds=cache)
+    _like_inmemory(_inmemory(Xb, y, cfg), streamed, default_left=True)
+    assert streamed.missing_bin
+    assert streamed.default_left[~streamed.is_leaf].any()
+    _vs_reference_host(streamed, chunk_fn, n_chunks, cfg, cache_preds=cache)
+
+
+def test_stream_host_categorical_matches_inmemory():
+    rng = np.random.default_rng(4)
+    Xb, y = _binary(n=3000, F=6, bins=31, seed=4)
+    Xb[:, 2] = rng.integers(0, 12, 3000)
+    y = ((Xb[:, 2] % 3 == 0) ^ (rng.random(3000) < 0.1)).astype(np.int32)
+    cfg = _host(n_trees=3, max_depth=3, n_bins=31, cat_features=(2,))
+    chunk_fn, n = _chunked_all(Xb, y, 3)
+    streamed = fit_streaming(chunk_fn, n, cfg)
+    _like_inmemory(_inmemory(Xb, y, cfg), streamed)
+    assert (streamed.feature == 2).any()
+    _vs_reference_host(streamed, chunk_fn, n, cfg)
+
+
+def test_stream_host_ragged_chunks_match_inmemory():
+    X, y = datasets.synthetic_binary(4000, n_features=8, seed=9)
+    Xb = quantize(X, n_bins=31, seed=9)[0]
+    cfg = _host(n_trees=3, max_depth=4, n_bins=31)
+    bounds = [0, 1337, 2674, 4000]
+
+    def chunk_fn(c):
+        return Xb[bounds[c]:bounds[c + 1]], y[bounds[c]:bounds[c + 1]]
+
+    streamed = fit_streaming(chunk_fn, 3, cfg)
+    full = _inmemory(Xb, y, cfg)
+    np.testing.assert_array_equal(full.feature, streamed.feature)
+    np.testing.assert_array_equal(full.threshold_bin, streamed.threshold_bin)
+    _vs_reference_host(streamed, chunk_fn, 3, cfg)
+
+
+@pytest.mark.parametrize("cache", [True, False])
+def test_stream_host_checkpoint_resume_bit_exact(tmp_path, cache):
+    X, y = datasets.synthetic_binary(2048, n_features=8, seed=5)
+    Xb = quantize(X, n_bins=31, seed=5)[0]
+    cfg = _host(n_trees=5, max_depth=3, n_bins=31)
+    chunk_fn, n_chunks = _chunked(Xb, y, 512)
+    plain = fit_streaming(chunk_fn, n_chunks, cfg, cache_preds=cache)
+    ck = str(tmp_path / "ck")
+    fit_streaming(chunk_fn, n_chunks, cfg.replace(n_trees=2),
+                  checkpoint_dir=ck, checkpoint_every=1, cache_preds=cache)
+    resumed = fit_streaming(chunk_fn, n_chunks, cfg, checkpoint_dir=ck,
+                            checkpoint_every=2, cache_preds=cache)
+    for k in ("feature", "threshold_bin", "is_leaf", "leaf_value"):
+        np.testing.assert_array_equal(getattr(plain, k), getattr(resumed, k))
+
+
+def test_stream_host_validation_history_matches_driver():
+    X, y = datasets.synthetic_binary(4096, n_features=10, seed=13)
+    Xb = quantize(X, n_bins=31, seed=13)[0]
+    Xt, yt, Xv, yv = _val_split(Xb, y)
+    cfg = _host(n_trees=5, max_depth=3, n_bins=31)
+    drv = Driver(get_backend(cfg), cfg, log_every=10**9)
+    drv.fit(Xt, yt, eval_set=(Xv, yv), eval_metric="auc")
+    want = [r["valid_auc"] for r in drv.history]
+    chunk_fn, n_chunks = _chunked_all(Xt, yt, 6)
+    vfn, n_valid = _chunked_all(Xv, yv, 2)
+    history, jhistory = [], []
+    streamed = fit_streaming(chunk_fn, n_chunks, cfg, valid_chunk_fn=vfn,
+                             n_valid_chunks=n_valid, eval_metric="auc",
+                             history=history)
+    got = [r["valid_auc"] for r in history]
+    assert len(got) == 5 and streamed.n_trees == 5
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-7)
+    _vs_reference_host(streamed, chunk_fn, n_chunks, cfg, valid_chunk_fn=vfn,
+                       n_valid_chunks=n_valid, eval_metric="auc",
+                       history=jhistory)
+    np.testing.assert_allclose(got, [r["valid_auc"] for r in jhistory],
+                               rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.parametrize("cache", [True, False])
+def test_stream_host_early_stop_truncates_like_driver(cache):
+    X, y = datasets.synthetic_binary(3072, n_features=8, seed=17)
+    Xb = quantize(X, n_bins=31, seed=17)[0]
+    Xt, yt, Xv, yv = _val_split(Xb, y)
+    cfg = _host(n_trees=30, max_depth=4, n_bins=31, learning_rate=0.9,
+                min_split_gain=1e-3)
+    drv = Driver(get_backend(cfg), cfg, log_every=10**9)
+    full = drv.fit(Xt, yt, eval_set=(Xv, yv), eval_metric="logloss",
+                   early_stopping_rounds=3)
+    assert full.n_trees < 30
+    chunk_fn, n_chunks = _chunked_all(Xt, yt, 4)
+    vfn, n_valid = _chunked_all(Xv, yv, 2)
+    kw = dict(valid_chunk_fn=vfn, n_valid_chunks=n_valid,
+              eval_metric="logloss", early_stopping_rounds=3,
+              cache_preds=cache)
+    streamed = fit_streaming(chunk_fn, n_chunks, cfg, **kw)
+    assert streamed.n_trees == full.n_trees
+    np.testing.assert_array_equal(full.feature, streamed.feature)
+    np.testing.assert_array_equal(full.threshold_bin, streamed.threshold_bin)
+    np.testing.assert_allclose(full.leaf_value, streamed.leaf_value,
+                               rtol=2e-4, atol=2e-5)
+    _vs_reference_host(streamed, chunk_fn, n_chunks, cfg, **kw)
+    # The device loop (CUDADevice on the CPU) stops at the same round.
+    dev = fit_streaming(chunk_fn, n_chunks, cfg.replace(backend="cuda",
+                                                        device="cpu"),
+                        **{k: v for k, v in kw.items()
+                           if k != "cache_preds"})
+    assert dev.n_trees == streamed.n_trees
+    np.testing.assert_array_equal(dev.feature, streamed.feature)
+
+
+def test_stream_host_early_stop_requires_validation():
+    with pytest.raises(ValueError, match="valid_chunk_fn"):
+        fit_streaming(lambda c: (np.zeros((4, 3), np.uint8), np.zeros(4)),
+                      1, _host(n_trees=2, max_depth=2),
+                      early_stopping_rounds=2)
+
+
+@pytest.mark.parametrize("grad_dtype", ["int8", "int16"])
+def test_stream_host_refuses_quantized_gradients(grad_dtype):
+    """The host loop has no integer histogram, as in the reference: a
+    quantized config is refused (by the oracle backend, or by the loop
+    when a backend is handed in)."""
+    from ddt_tpu_torch.backends.cpu import CPUDevice
+
+    Xb, y = _binary(512)
+    chunk_fn, n_chunks = _chunked(Xb, y, 256)
+    cfg = _host(n_trees=1, max_depth=2, n_bins=31, grad_dtype=grad_dtype)
+    with pytest.raises(NotImplementedError, match="grad_dtype"):
+        fit_streaming(chunk_fn, n_chunks, cfg)
+    with pytest.raises(NotImplementedError, match="host loop"):
+        fit_streaming(chunk_fn, n_chunks, cfg,
+                      backend=CPUDevice(cfg.replace(grad_dtype="f32")))
+    jcfg = _jcfg(cfg).replace(backend="cpu")
+    with pytest.raises(NotImplementedError, match="grad_dtype"):
+        j_fit_streaming(chunk_fn, n_chunks, jcfg,
+                        backend=j_get_backend(jcfg.replace(
+                            grad_dtype="f32")))
+
+
+def test_stream_host_run_log_names_the_host_trainer(tmp_path):
+    from ddt_tpu_torch.telemetry.events import RunLog
+
+    Xb, y = _binary(1024)
+    chunk_fn, n_chunks = _chunked(Xb, y, 256)
+    log = RunLog()
+    fit_streaming(chunk_fn, n_chunks, _host(n_trees=2, max_depth=2,
+                                            n_bins=31), run_log=log)
+    man = log.events("run_manifest")[0]
+    assert man["trainer"] == "streaming_host" and man["backend"] == "cpu"
+    assert len(log.events("round")) == 2
