@@ -352,9 +352,26 @@ Phases:
              against the in-memory backend="cpu" fit and the card's
              streamed fit against it (equal but for bf16 ties), with its
              seconds.
+ 32 bench    the bench library (ddt_tpu_torch/bench.py): `cli bench`
+             children one after another (each alone on the card and the
+             host): histogram at BASELINE's shape (1M x 28, 255 bins, 32
+             uniform nodes) with --backend cuda (K1's exact mode) and
+             --backend cpu (the native C++ oracle at all host threads),
+             and their ratio; train (the Higgs 100-tree depth-6 fit);
+             predict (1M x 1000 trees); hist_quant (int8, 1M rows); lut4
+             (1M x 1000 trees at 15 bins, the express lane); serve and
+             registry at the reference's shapes. Then in this process
+             histogram_ab (255 against 64 bins), histogram_one_dispatch,
+             hist_fused_ab, predict_both (config 4: 10M x 1000 trees),
+             predict_cuda_ab (K3 against its plain version on 250k of 4M
+             rows, bitwise) and predict_lut_ab, reps cut as the phase
+             prints. Every record: throughputs finite and > 0, witnesses
+             true, roofline shares in (0, 1.05], the timed window's
+             launches what its builds imply and no capture in it (train:
+             its one capture), and the device stamp nvidia-smi's.
   then the {"kernels": [...]} line (K1 and K3 report covertype, the other
   paths' launches under "paths", "stream", "lifecycle", "serve_plane",
-  "ops", "robust" and K3's "config4" included; K1's entry is its exact mode, with the float-atomic mode's
+  "ops", "robust", "bench" and K3's "config4" included; K1's entry is its exact mode, with the float-atomic mode's
   time as cas_ms), nvidia-smi's line, and the ok line.
 
     python3 chip_smoke.py --phase multi
@@ -367,6 +384,8 @@ Phases:
     python3 chip_smoke.py --phase baseline
     python3 chip_smoke.py --phase straggler
     python3 chip_smoke.py --phase multihost
+    python3 chip_smoke.py --phase bench
+    python3 chip_smoke.py --phase bench_multi
 
 run the device, build and multi (or mesh2d, stream, config4, ops,
 robust, baseline, or serve_plane after training its two models) phases
@@ -393,7 +412,13 @@ categorical columns, 255 bins, depth 6) with 1M rows a rank for 4 trees,
 int8 and f32: both children's models bitwise equal; int8 bitwise equal
 to one process training all the rows on one card, f32 equal to it but
 for proven bf16 ties (trees_match_mod_ties: its wire sums f32; the first
-divergence reported).
+divergence reported). `--phase bench` runs phase 32 alone. `--phase
+bench_multi` (>= 2 cards; not in the default run) runs `cli bench
+--kernel hist_comms` (1M x 28, the fused loop's allreduce against
+reduce_scatter, hosts x rows over min(4, cards) NCCL ranks: 2 x 2 from
+four) and `--kernel hist_2d` (200k x 1024 at 64 bins, the 1D row mesh
+against (P/2, 2), or (1, 2) below four cards, which the phase prints),
+each checked as phase 32's records.
 """
 
 from __future__ import annotations
@@ -444,6 +469,7 @@ from ddt_tpu_torch.streaming import fit_streaming, predict_streaming
 from ddt_tpu_torch.telemetry import costmodel
 from ddt_tpu_torch.telemetry import counters as tele_counters
 from ddt_tpu_torch.telemetry.events import RunLog, validate_event
+from ddt_tpu_torch.utils import card as card_mod
 from ddt_tpu_torch.utils.metrics import accuracy, auc, logloss
 
 ROWS = 1_000_000
@@ -694,10 +720,7 @@ def first_divergence(a, b) -> dict:
 
 def phase_device() -> dict:
     name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
+    smi = card_mod.smi_line(0)
     bw, f32, src = card_peaks(name)
     print(smi, flush=True)
     emit({"phase": "device", "name": name, "count":
@@ -5165,6 +5188,231 @@ def phase_straggler(card: dict) -> dict:
     return out
 
 
+#: --phase bench: the bench library (ddt_tpu_torch/bench.py). The CLI
+#: children run one after another (each alone on the card and the host);
+#: histogram and train at the reference's defaults, the other arms cut
+#: where the phase says so.
+BENCH_CHILDREN = {
+    "histogram_cuda": ["--kernel", "histogram", "--backend", "cuda",
+                       "--rows", "1000000"],
+    "histogram_cpu": ["--kernel", "histogram", "--backend", "cpu",
+                      "--rows", "1000000"],
+    "train": ["--kernel", "train", "--rows", "1000000"],
+    "predict": ["--kernel", "predict", "--rows", "1000000", "--trees",
+                "1000"],
+    "hist_quant": ["--kernel", "hist_quant", "--rows", "1000000",
+                   "--iters", "4"],
+    "lut4": ["--kernel", "lut4", "--rows", "1000000", "--bins", "15",
+             "--trees", "1000"],
+    "serve": ["--kernel", "serve", "--rows", "20000", "--bins", "63",
+              "--trees", "50", "--depth", "4"],
+    "registry": ["--kernel", "registry", "--bins", "63", "--trees", "100",
+                 "--depth", "5"],
+}
+#: (what, the reference default, this phase's) of each cut.
+BENCH_CUTS = (
+    ("predict child rows", 1_000_000, 1_000_000),
+    ("histogram_ab reps", 8, 4),
+    ("hist_fused_ab reps", 8, 4),
+    ("predict_cuda_ab reps", 8, 3),
+    ("predict_lut_ab reps", 8, 4),
+    ("cli defaults: hist_quant / lut4 rows 100,000 (the CLI's --rows)",
+     100_000, 1_000_000),
+)
+BENCH_AB_REPS = 4
+BENCH_PLAIN_REPS = 3
+#: --phase bench_multi: hist_comms at the reference's 1M x 28, hist_2d at
+#: its 200k x 1024, 64 bins; 4 trees a bout.
+BENCH_MULTI_CHILDREN = {
+    "hist_comms": ["--kernel", "hist_comms", "--rows", "1000000",
+                   "--iters", "4"],
+    "hist_2d": ["--kernel", "hist_2d", "--rows", "200000", "--bins", "64",
+                "--iters", "4"],
+}
+
+
+def bench_check(name: str, rec: dict, card: dict, launches: dict,
+                captures: int = 0) -> None:
+    """A bench record's checks: throughputs, latencies and ratios finite
+    and > 0, every equality witness true, roofline shares in (0, 1.05],
+    the timed window's launches as the arm's builds imply and its graph
+    captures, and the device stamp (nvidia-smi's name and power limit;
+    "cpu" for the oracle)."""
+    rates = [k for k in rec if ("mrows" in k or "per_sec" in k
+                                or k.startswith("ratio_")
+                                or k.endswith("_ms") or k == "wallclock_s"
+                                or k.startswith("sec_per_build"))]
+    check(rates, f"bench {name}: has rates")
+    for k in rates:
+        v = rec[k]
+        check(isinstance(v, (int, float)) and np.isfinite(v) and v > 0,
+              f"bench {name}: {k} = {v} finite and > 0")
+    for k in ("exact_match", "bitwise"):
+        if k in rec:
+            check(rec[k] is True, f"bench {name}: {k}")
+    for k in rec:
+        if k.endswith(("_roofline_flops_util", "_roofline_hbm_util")):
+            check(0 < rec[k] <= 1.05, f"bench {name}: {k} = {rec[k]}")
+    check(rec["launches"] == launches,
+          f"bench {name}: launches {rec['launches']} == {launches}")
+    check(rec["graph_captures"] == captures,
+          f"bench {name}: graph captures {rec['graph_captures']} == "
+          f"{captures}")
+    if launches:
+        want = card_mod.parse_line(card["smi"])
+        check(rec["device"] == want,
+              f"bench {name}: device {rec['device']} == nvidia-smi {want}")
+    else:
+        check(rec["device"] == "cpu", f"bench {name}: device cpu")
+
+
+def bench_children(runs: dict) -> dict:
+    """Each `cli bench` child of `runs` alone, one after another: name ->
+    (its JSON record, its seconds)."""
+    out = {}
+    for name, args in runs.items():
+        (lines, secs), = cli_children({name: ["bench", *args]}).values()
+        out[name] = (json.loads(lines[-1]), secs)
+    return out
+
+
+def fused_expected(rec: dict, iters: int, reps: int) -> dict:
+    """The timed window's launches a fused A/B implies: each arm's
+    launches in one probe round, times iters x reps."""
+    want: dict = {}
+    for per in rec["per_tree_launches"].values():
+        check(per, f"{rec['kernel']}: every arm launches a kernel a tree")
+        for k, n in per.items():
+            want[k] = want.get(k, 0) + n * iters * reps
+    check(want == rec["launches_expected"],
+          f"{rec['kernel']}: expected launches {want}")
+    return want
+
+
+def phase_bench(card: dict) -> dict:
+    """The bench library and `cli bench` (module docstring, phase
+    bench)."""
+    from ddt_tpu_torch import bench
+
+    t_phase = time.perf_counter()
+    for what, ref, ours in BENCH_CUTS:
+        emit({"phase": "bench", "cut": what, "reference": ref,
+              "here": ours})
+    kids = bench_children(BENCH_CHILDREN)
+    recs = {name: rec for name, (rec, _) in kids.items()}
+    secs = {name: s for name, (_, s) in kids.items()}
+    hc = recs["histogram_cuda"]
+    bench_check("histogram_cuda", hc, card,
+                {"hist": hc["iters"] * 3})
+    check(hc["impl"] == "k1-exact" and hc["n_nodes"] == 32
+          and hc["rows"] == ROWS and hc["features"] == FEATURES
+          and hc["bins"] == 255, "histogram: BASELINE's shape, K1 exact")
+    hp = recs["histogram_cpu"]
+    bench_check("histogram_cpu", hp, card, {})
+    check(hp["impl"] == "native-c++", "histogram cpu: the native C++ ran")
+    tr = recs["train"]
+    bench_check("train", tr, card, {"hist": DEPTH * (N_TREES + 1)}, 1)
+    check(0 < tr["final_train_loss"] < 0.6931, "train: the loss fell")
+    bench_check("predict", recs["predict"], card, {"traverse": 1})
+    hq = recs["hist_quant"]
+    bench_check("hist_quant", hq, card, fused_expected(hq, 4, 8))
+    check(hq["payload_ratio"] == 4.0, "hist_quant: int8 payload ratio 4")
+    l4 = recs["lut4"]
+    bench_check("lut4", l4, card, {"lut": 8, "lut4": 8})
+    check(l4["lut4_thr_packed"] is True
+          and l4["lut4_max_abs_err"] <= l4["lut4_err_bound"],
+          "lut4: nibble thresholds, within the bound")
+    check(l4["express_hits_empty"] > 0, "lut4: the express lane fired")
+    sv = recs["serve"]
+    bench_check("serve", sv, card,
+                {"traverse": sum(a["batches"] for a in sv["arms"])})
+    rg = recs["registry"]
+    # The rebuilt and the restored model warm the 7 buckets up to 64.
+    bench_check("registry", rg, card, {"traverse": 2 * 7})
+    check(rg["nvcc_builds_timed"] == 0, "registry: no nvcc in the window")
+
+    lib = {}
+    ab = bench.bench_histogram_ab(reps=BENCH_AB_REPS)
+    bench_check("histogram_ab", ab, card,
+                {"hist": 2 * ab["iters"] * BENCH_AB_REPS})
+    lib["histogram_ab"] = ab
+    od = bench.bench_histogram_one_dispatch()
+    bench_check("histogram_one_dispatch", od, card,
+                {"hist": od["iters"] * od["reps"]})
+    lib["histogram_one_dispatch"] = od
+    fu = bench.bench_hist_fused_ab(reps=BENCH_AB_REPS)
+    bench_check("hist_fused_ab", fu, card,
+                fused_expected(fu, fu["iters"], BENCH_AB_REPS))
+    lib["hist_fused_ab"] = fu
+    both = bench.bench_predict_both()
+    for rec, n in zip(both, (2, 1, 2)):
+        bench_check(f"predict_both {rec['resident']}", rec, card,
+                    {"traverse": n})
+    lib["predict_both"] = list(both)
+    ca = bench.bench_predict_cuda_ab(reps=BENCH_PLAIN_REPS)
+    bench_check("predict_cuda_ab", ca, card, {"traverse": BENCH_PLAIN_REPS})
+    lib["predict_cuda_ab"] = ca
+    la = bench.bench_predict_lut_ab(reps=BENCH_AB_REPS)
+    bench_check("predict_lut_ab", la, card,
+                {"lut": BENCH_AB_REPS, "traverse": BENCH_AB_REPS})
+    lib["predict_lut_ab"] = la
+
+    for name, rec in {**recs, **{k: v for k, v in lib.items()
+                                  if k != "predict_both"}}.items():
+        emit({"phase": "bench", "arm": name, "record": rec})
+    for rec in both:
+        emit({"phase": "bench", "arm": "predict_both", "record": rec})
+    ratio = (hc["mrows_per_sec_per_chip"] / hp["mrows_per_sec_per_chip"])
+    launches: dict = {}
+    for rec in [*recs.values(), *lib.values(), *both]:
+        if isinstance(rec, dict):
+            for k, n in rec["launches"].items():
+                launches[k] = launches.get(k, 0) + n
+    out = {"phase": "bench", "card": card["smi"],
+           "histogram_mrows_per_s": {"cuda": hc["mrows_per_sec_per_chip"],
+                                     "cpu": hp["mrows_per_sec_per_chip"]},
+           "ratio_cuda_over_cpu": ratio,
+           "ratio_shape": "1M x 28, 255 bins, 32 uniform nodes",
+           "host_threads": os.cpu_count(), "cpu_model": cpu_model(),
+           "train_wallclock_s": tr["wallclock_s"],
+           "predict_mrows_per_s": recs["predict"]["mrows_per_sec"],
+           "predict_both_mrows_per_s": {str(r["resident"]):
+                                        r["mrows_per_sec"] for r in both},
+           "child_s": secs, "launches": launches,
+           "wall_s": time.perf_counter() - t_phase}
+    emit(out)
+    return out
+
+
+def phase_bench_multi(card: dict) -> dict:
+    """hist_comms and hist_2d on min(4, cards) NCCL ranks (module
+    docstring, phase bench_multi)."""
+    n_cards = torch.cuda.device_count()
+    check(n_cards >= 2, f"--phase bench_multi needs >= 2 cards, {n_cards}")
+    t_phase = time.perf_counter()
+    runs = dict(BENCH_MULTI_CHILDREN)
+    if n_cards < 4:
+        # (1, 2) from 2-3 cards; the (2, 2) mesh needs 4.
+        emit({"phase": "bench_multi", "mesh_2d": "(2, 2) not witnessed: "
+              f"{n_cards} cards"})
+    recs = {name: rec for name, (rec, _) in bench_children(runs).items()}
+    P = min(4, n_cards)
+    hc = recs["hist_comms"]
+    bench_check("hist_comms", hc, card, fused_expected(hc, 4, 8))
+    check(hc["ranks"] == P and hc["payload_ratio"] >= 2.0,
+          f"hist_comms: {P} ranks, payload ratio >= 2")
+    h2 = recs["hist_2d"]
+    bench_check("hist_2d", h2, card, fused_expected(h2, 4, 8))
+    check(h2["mesh_2d"][1] == 2 and h2["payload_ratio"] > 0.75 * (
+        h2["mesh_2d"][0] * h2["mesh_2d"][1]), "hist_2d: the payload model")
+    for name, rec in recs.items():
+        emit({"phase": "bench_multi", "arm": name, "record": rec})
+    out = {"phase": "bench_multi", "card": card["smi"], "cards": n_cards,
+           "ranks": P, "wall_s": time.perf_counter() - t_phase}
+    emit(out)
+    return out
+
+
 def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -5174,10 +5422,12 @@ def main(argv: list[str]) -> int:
                     ["--phase", "stream"], ["--phase", "config4"],
                     ["--phase", "serve_plane"], ["--phase", "ops"],
                     ["--phase", "robust"], ["--phase", "baseline"],
-                    ["--phase", "straggler"], ["--phase", "multihost"]):
+                    ["--phase", "straggler"], ["--phase", "multihost"],
+                    ["--phase", "bench"], ["--phase", "bench_multi"]):
         print(f"chip_smoke: unknown arguments {argv}; usage: chip_smoke.py "
               "[--phase multi|mesh2d|stream|config4|serve_plane|ops|"
-              "robust|baseline|straggler|multihost]", file=sys.stderr)
+              "robust|baseline|straggler|multihost|bench|bench_multi]",
+              file=sys.stderr)
         return 2
     t_start = time.perf_counter()
     card = phase_device()
@@ -5213,6 +5463,10 @@ def main(argv: list[str]) -> int:
             phase_straggler(card)
         elif argv[1] == "multihost":
             phase_multihost(card)
+        elif argv[1] == "bench":
+            phase_bench(card)
+        elif argv[1] == "bench_multi":
+            phase_bench_multi(card)
         else:
             phase_stream(card, flush)
             stream_witness(card)
@@ -5263,6 +5517,8 @@ def main(argv: list[str]) -> int:
     ops = phase_ops(X, y)
     robust = phase_robust(X, y, Xb)
     base = phase_baseline(X, y, Xb, levels, card)
+    bench_run = phase_bench(card)
+    benched = bench_run["launches"]
     launches = main_run["launches"]
     k2 = hist_int["rows"][("int16", 64, 32)]
 
@@ -5283,7 +5539,8 @@ def main(argv: list[str]) -> int:
                     "bound_by": wide["bound_by"], "max_abs_err": 0.0},
                     "lifecycle": life["launches"][name],
                     "serve_plane": plane[name],
-                    "ops": ops["launches"][name]}}
+                    "ops": ops["launches"][name],
+                    "bench": benched.get(name, 0)}}
 
     k1, k3 = cov["hist"], cov["traverse"]
     cov_launches = cov["row"]["launches"]
@@ -5325,7 +5582,8 @@ def main(argv: list[str]) -> int:
              "ops": ops["launches"]["hist"],
              "robust": robust["launches"]["hist"],
              "baseline": {"native_vs_k1_mrows_per_s":
-                          base["modes"]["f32"]}}},
+                          base["modes"]["f32"]},
+             "bench": benched.get("hist", 0)}},
         {"name": "traverse", "route": "cuda",
          "source": "ddt_tpu_torch/csrc/lut.cu",
          "replaces": "ddt_tpu/ops/predict_pallas.py:105",
@@ -5348,6 +5606,7 @@ def main(argv: list[str]) -> int:
              "lifecycle": life["launches"]["traverse"],
              "serve_plane": plane["traverse"],
              "ops": ops["launches"]["traverse"],
+             "bench": benched.get("traverse", 0),
              "config4": {
                  "launches": c4["launches"], "rows": c4["rows"],
                  "trees": c4["trees"], "max_abs_err": c4["max_abs_err"],
@@ -5369,7 +5628,8 @@ def main(argv: list[str]) -> int:
                    "stream": {name: row["counters"]["hist_int"]
                               for name, row in runs.items()
                               if "int8" in name},
-                   "robust": robust["launches"]["hist_int"]},
+                   "robust": robust["launches"]["hist_int"],
+                   "bench": benched.get("hist_int", 0)},
          "max_abs_err": hist_int["max_abs_err"],
          "ms": hist_int["int8"]["kernel_ms"],
          "plain_ms": hist_int["int8"]["plain_ms"],

@@ -3,6 +3,8 @@
 Two backends, by cfg.backend: "cuda" (the default) is CUDADevice on
 `cfg.device` ("cuda" by default, "cpu" for the plain versions); "cpu" is
 the NumPy / native C++ oracle, backends/cpu.CPUDevice (the CPU baseline).
+"fpga" is the reference's flag-parity stub (FPGADevice): the flag is
+accepted and the backend's construction raises NotImplementedError.
 For scoring a batch over several cards of one
 process the memoised RowShardedScorer (`row_sharded_backend`).
 Instances are cached on the config with the fields that never change a
@@ -32,6 +34,21 @@ from ddt_tpu_torch.backends.cuda import CUDADevice, RowShardedScorer
 from ddt_tpu_torch.config import TrainConfig
 from ddt_tpu_torch.parallel import mesh
 
+
+class FPGADevice:
+    """Flag-parity stub for the reference's FPGA backend: the flag exists
+    (BASELINE: backend selection by flag), the backend does not."""
+
+    name = "fpga"
+
+    def __init__(self, cfg: TrainConfig):
+        raise NotImplementedError(
+            "The FPGA backend exists in this framework's flag surface for "
+            "parity with the reference, but this build targets NVIDIA "
+            "cards: no FPGA shell or runtime is present. Use "
+            "backend='cuda' or backend='cpu'.")
+
+
 _CACHE_MAX = 8
 _CACHE: dict = {}
 _LOCK = threading.Lock()        # serving threads call get_backend too
@@ -39,7 +56,10 @@ _LOCK = threading.Lock()        # serving threads call get_backend too
 
 def get_backend(cfg: TrainConfig) -> DeviceBackend:
     """The backend of cfg.backend on cfg.device (cached, least recently
-    used evicted; a fresh one where it binds a mesh)."""
+    used evicted; a fresh one where it binds a mesh). backend="fpga"
+    raises NotImplementedError (FPGADevice)."""
+    if cfg.backend == "fpga":
+        return FPGADevice(cfg)
     if cfg.backend == "cuda" and mesh.binds(cfg):
         return CUDADevice(cfg)
     seed_live = cfg.subsample < 1.0 or cfg.grad_dtype != "f32"
@@ -74,5 +94,6 @@ def row_sharded_backend(n_partitions: int,
     return sc
 
 
-__all__ = ["CPUDevice", "CUDADevice", "DeviceBackend", "HostTree", "RowShardedScorer",
+__all__ = ["CPUDevice", "CUDADevice", "DeviceBackend", "FPGADevice",
+           "HostTree", "RowShardedScorer",
            "get_backend", "row_sharded_backend"]

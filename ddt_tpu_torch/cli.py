@@ -12,31 +12,37 @@
     python -m ddt_tpu_torch.cli report diff a.jsonl b.jsonl [--check]
     python -m ddt_tpu_torch.cli trace --log run.jsonl --out trace.json
     python -m ddt_tpu_torch.cli serve --model model.npz [--quantized int4]
+    python -m ddt_tpu_torch.cli bench --kernel histogram [--backend cpu]
 
 The subcommands take the reference's flags and make its refusals, with
 these differences. `--device {cuda,cpu}` (default cuda) says where the
 "cuda" backend runs: `--device cuda` refuses to start without a visible
-card, `--device cpu` runs the kernels' plain versions. `train
---backend {cuda,cpu}` (default cuda; the reference's "tpu" is "cuda"
-here) picks the backend, "cpu" being the NumPy / native C++ oracle
-(backends/cpu.CPUDevice), which needs no card. `train --fault-plan
-PLAN.json` arms a fault plan for the run (before any torch.distributed
-bootstrap, so its `multihost.init` seam can fire; disarmed on return),
-`--straggler-repartition` acts on the straggler watchdog (a mesh run
-with `--run-log`), and `--straggler-skew-threshold` is its trip point.
-The flag of a field the port has not ported is absent: `--hist-impl`. A
-run over several ranks (`--partitions`, `--feature-partitions`,
-`--host-partitions`, `--mesh-shape`) is started by torchrun (the
-rendezvous comes from its environment), inside a parallel/spawn rank
-(global rank 0 writes `--out`), or by running the same command in every
-process with `--multihost-coordinator host:port --multihost-processes N
+card, `--device cpu` runs the kernels' plain versions. `train --backend
+{cuda,cpu,fpga}` (default cuda; the reference's "tpu" is "cuda" here)
+picks the backend, "cpu" being the NumPy / native C++ oracle
+(backends/cpu.CPUDevice), which needs no card, and "fpga" the
+reference's flag-parity stub, which raises NotImplementedError. `train
+--fault-plan PLAN.json` arms a fault plan for the run (before any
+torch.distributed bootstrap, so its `multihost.init` seam can fire;
+disarmed on return), `--straggler-repartition` acts on the straggler
+watchdog (a mesh run with `--run-log`), and `--straggler-skew-threshold`
+is its trip point. The flag of a field the port has not ported is
+absent: `--hist-impl` (train and bench). A run over several ranks
+(`--partitions`, `--feature-partitions`, `--host-partitions`,
+`--mesh-shape`) is started by torchrun (the rendezvous comes from its
+environment), inside a parallel/spawn rank (global rank 0 writes
+`--out`), or by running the same command in every process with
+`--multihost-coordinator host:port --multihost-processes N
 --multihost-id i` (parallel/mesh.initialize_multihost over
 tcp://host:port after the `--fault-plan` plan is armed, so its
 `multihost.init` seam can fire; gloo on the CPU, NCCL with a card, one
 card a process; every process writes its `--out`, the ensembles being
 replicas, as in the reference). `predict` needs the model's bin mapper
 (every model `train` saves carries one): the port scores binned rows
-only. `bench` is not ported yet.
+only. `bench --kernel K` prints one JSON record of
+ddt_tpu_torch/bench.py (the reference's keys, with `graph_captures` /
+`launches` for `jit_compiles` and the `device` stamp); its `--backend
+cpu` times the oracle where the arm has one (histogram, train, predict).
 
 Datasets are the BASELINE configurations' seeded synthetic generators
 (data/datasets.py); `--data` loads a file (data/datasets.load_file: .npz
@@ -457,6 +463,14 @@ def _predict_streaming(args, bundle) -> int:
     return 0
 
 
+#: `bench --kernel` choices (the reference's nine; bench.ARMS).
+_BENCH_KERNELS = ("histogram", "train", "predict", "serve", "registry",
+                  "hist_comms", "hist_2d", "hist_quant", "lut4")
+#: The arms with a `--backend cpu` oracle side; every other arm runs on
+#: --device.
+_BENCH_ORACLE_ARMS = ("histogram", "train", "predict")
+
+
 def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="where to run: cuda (the kernels; refuses to start "
@@ -579,9 +593,12 @@ def build_parser() -> argparse.ArgumentParser:
     tp.add_argument("--checkpoint-dir", default=None)
     tp.add_argument("--checkpoint-every", type=_positive_int, default=25,
                     help="write a checkpoint every K boosting rounds (>= 1)")
-    tp.add_argument("--backend", choices=("cuda", "cpu"), default="cuda",
+    tp.add_argument("--backend", choices=("cuda", "cpu", "fpga"),
+                    default="cuda",
                     help="cuda: CUDADevice on --device; cpu: the NumPy / "
-                         "native C++ oracle (the CPU baseline; no card)")
+                         "native C++ oracle (the CPU baseline; no card); "
+                         "fpga: the reference's flag-parity stub (raises "
+                         "NotImplementedError)")
     tp.add_argument("--fault-plan", default=None,
                     help="JSON fault-injection plan: fires named faults at "
                          "the real seams (torn checkpoint write, stream-read "
@@ -728,6 +745,29 @@ def build_parser() -> argparse.ArgumentParser:
     rtg = rgsub.add_parser("tag", help="point a tag at a version")
     rtg.add_argument("ref", help="name@version (or name for latest)")
     rtg.add_argument("tag", help="tag to set (non-numeric)")
+
+    bp = sub.add_parser("bench",
+                        help="kernel / end-to-end benchmarks (one JSON "
+                             "record, ddt_tpu_torch/bench.py)")
+    _add_common(bp)
+    bp.add_argument("--kernel", default="histogram",
+                    choices=sorted(_BENCH_KERNELS))
+    bp.add_argument("--backend", choices=("cuda", "cpu"), default="cuda",
+                    help="histogram / train / predict: cuda (CUDADevice "
+                         "on --device) or cpu (the NumPy / native C++ "
+                         "oracle)")
+    bp.add_argument("--grad-dtype", default=None,
+                    choices=["int8", "int16"],
+                    help="quantized arm for --kernel hist_quant "
+                         "(default int8)")
+    bp.add_argument("--features", type=int, default=None,
+                    help="feature count; default = each kernel's own "
+                         "(28 for the narrow arms, 1024 for the wide "
+                         "hist_2d A/B)")
+    bp.add_argument("--trees", type=int, default=100)
+    bp.add_argument("--depth", type=int, default=6)
+    bp.add_argument("--iters", type=int, default=10)
+    bp.add_argument("--partitions", type=int, default=1)
 
     rp = sub.add_parser("report",
                         help="render a run summary from a JSONL run log "
@@ -1240,6 +1280,20 @@ def _serve(args) -> int:
     return 0
 
 
+def _bench(args) -> int:
+    from ddt_tpu_torch.bench import run_bench
+
+    if args.backend == "cuda" or args.kernel not in _BENCH_ORACLE_ARMS:
+        _need_device("bench", args.device)
+    out = run_bench(
+        kernel=args.kernel, backend=args.backend, rows=args.rows,
+        features=args.features, bins=args.bins, trees=args.trees,
+        depth=args.depth, iters=args.iters, partitions=args.partitions,
+        seed=args.seed, grad_dtype=args.grad_dtype, device=args.device)
+    print(json.dumps(out))
+    return 0
+
+
 def main(argv: list[str] | None = None) -> int:
     logging.basicConfig(
         level=logging.INFO, format="%(asctime)s %(name)s %(message)s")
@@ -1257,6 +1311,8 @@ def main(argv: list[str] | None = None) -> int:
         return _trace(args)
     if args.cmd == "inspect":
         return _inspect(args, ap)
+    if args.cmd == "bench":
+        return _bench(args)
     return _serve(args)
 
 

@@ -15,8 +15,10 @@ import dataclasses
 LOSSES = ("logloss", "mse", "softmax")
 DEVICES = ("cuda", "cpu")
 #: cfg.backend values: "cuda" is CUDADevice on cfg.device, "cpu" the
-#: NumPy / native C++ oracle (backends/cpu.CPUDevice), the CPU baseline.
-BACKENDS = ("cuda", "cpu")
+#: NumPy / native C++ oracle (backends/cpu.CPUDevice), the CPU baseline;
+#: "fpga" is the reference's flag-parity stub (backends.FPGADevice: its
+#: construction raises NotImplementedError).
+BACKENDS = ("cuda", "cpu", "fpga")
 #: cfg.grad_dtype values ("f32" = quantization off; ops/grad.py).
 GRAD_DTYPES = ("f32", "int16", "int8")
 #: cfg.split_comms values (parallel/comms.resolve_split_comms resolves
@@ -140,7 +142,7 @@ class TrainConfig:
     # is "cuda" or "cpu") or "cpu" (the oracle, backends/cpu.CPUDevice:
     # reference/numpy_trainer with the native C++ kernels when they
     # build; f32 gradients only). The reference's "tpu" is "cuda" here.
-    backend: str = "cuda"       # cuda | cpu
+    backend: str = "cuda"       # cuda | cpu | fpga (stub)
 
     # --- robustness (robustness/) ---
     # Path to a JSON fault-injection plan (robustness/faultplan.py); None

@@ -159,6 +159,11 @@ def graph_captured(seconds: float) -> None:
     _capture_seconds += float(seconds)
 
 
+def graph_captures() -> int:
+    """CUDA graphs captured in this process so far (never reset)."""
+    return _captures
+
+
 def snapshot() -> dict:
     """Point-in-time copy of the monotonic counters (jit_compiles: nvcc
     builds plus graph captures)."""

@@ -1,6 +1,7 @@
 """The port's command line against ddt_tpu's on the CPU (mirrors
 tests/test_cli.py case by case, `--device cpu` in place of the
-reference's `--backend`; `bench` is not ported), with its refusals and
+reference's `--backend`; `bench` in tests/test_torch_bench.py), with its
+refusals and
 the registry workflow (tests/test_registry.py::test_cli_registry_workflow).
 
 Models trained through both CLIs on the same seeded dataset are compared
@@ -211,6 +212,22 @@ def test_cli_unknown_device_fails_loudly(tmp_path):
         main(["train", "--device=fpga", "--dataset=higgs", "--rows=100",
               "--trees=1", "--depth=2", "--bins=15",
               f"--out={tmp_path / 'x.npz'}"])
+
+
+def test_cli_fpga_backend_fails_loudly(tmp_path):
+    from ddt_tpu_torch.backends import FPGADevice
+
+    with pytest.raises(NotImplementedError, match="FPGA"):
+        main(["train", "--backend=fpga", "--dataset=higgs", "--rows=100",
+              "--trees=1", "--depth=2", "--bins=15",
+              f"--out={tmp_path / 'x.npz'}"])
+    cfg = TrainConfig(backend="fpga")
+    with pytest.raises(NotImplementedError, match="FPGA") as err:
+        get_backend(cfg)
+    assert "'cuda'" in str(err.value) and "'cpu'" in str(err.value)
+    with pytest.raises(NotImplementedError, match="FPGA"):
+        FPGADevice(cfg)
+    assert not (tmp_path / "x.npz").exists()
 
 
 def test_cli_cuda_without_a_card_refuses(tmp_path, monkeypatch):

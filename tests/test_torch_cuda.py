@@ -1907,3 +1907,42 @@ def test_injected_faults_bitwise_on_card(dev, tmp_path, grad_dtype):
         faultplan.deactivate(prev)
     for k in ("feature", "threshold_bin", "leaf_value", "split_gain"):
         np.testing.assert_array_equal(getattr(clean, k), getattr(chaos, k))
+
+
+# ------------------------------------------------------------------ #
+# the bench library (ddt_tpu_torch/bench.py) on the card
+# ------------------------------------------------------------------ #
+
+def _card_stamp_ok(rec):
+    from ddt_tpu_torch.utils import card
+
+    assert rec["device"]["name"] == torch.cuda.get_device_name(0)
+    assert rec["device"] == card.parse_line(card.smi_line(0))
+
+
+def test_bench_histogram_on_card(dev):
+    from ddt_tpu_torch import bench
+
+    rec = bench.run_bench("histogram", rows=200_000, features=28, bins=255,
+                          iters=4, reps=2)
+    _card_stamp_ok(rec)
+    assert rec["impl"] == "k1-exact"
+    # One K1 launch a build, no capture, in the timed window.
+    assert rec["launches"] == {"hist": 4 * 2}
+    assert rec["graph_captures"] == 0
+    for k in ("hist_roofline_flops_util", "hist_roofline_hbm_util"):
+        assert 0 < rec[k] <= 1.05
+    assert rec["mrows_per_sec_per_chip"] > 0
+
+
+def test_bench_train_on_card(dev):
+    from ddt_tpu_torch import bench
+
+    rec = bench.run_bench("train", rows=100_000, features=28, bins=255,
+                          trees=10, depth=6)
+    _card_stamp_ok(rec)
+    # The timed fit's new labels recapture its round once; K1 launches
+    # depth times in the round before the capture and in each replay.
+    assert rec["graph_captures"] == 1
+    assert rec["launches"] == {"hist": 6 * (10 + 1)}
+    assert 0 < rec["final_train_loss"] < 0.6931
