@@ -53,6 +53,7 @@ from ddt_tpu_torch.data.quantizer import (BinMapper, feature_bincounts,
 from ddt_tpu_torch.driver import Driver
 from ddt_tpu_torch.models.tree import TreeEnsemble
 from ddt_tpu_torch.parallel import comms, mesh
+from ddt_tpu_torch.telemetry import annotations
 from ddt_tpu_torch.utils.atomic import atomic_savez
 
 
@@ -202,8 +203,11 @@ def _check_ranks_agree(be: DeviceBackend, X, mapper: BinMapper | None
             h.update(np.ascontiguousarray(v).tobytes())
     mine = torch.tensor([int.from_bytes(h.digest(), "little", signed=True)],
                         dtype=torch.int64, device=be.device)
-    every = comms.all_gather(mine, be.mesh.world_group)
-    if not bool((every == mine).all()):
+    # The rank's wait for the slowest rank at a job's start.
+    with annotations.traced_scope("agree"):
+        every = comms.all_gather(mine, be.mesh.world_group)
+        agree = bool((every == mine).all())
+    if not agree:
         raise ValueError(
             "the ranks disagree on the training rows' shape or the fitted "
             "bin edges: every rank must call train with the same X, y and "
@@ -227,6 +231,7 @@ def _bin_rows(be: DeviceBackend, X, mapper: BinMapper):
     return mesh.RowBlock(mesh.pad_rows(Xloc, local), X.shape[0])
 
 
+@annotations.op_scope("train")
 def train(
     X: np.ndarray,
     y: np.ndarray,
@@ -296,22 +301,23 @@ def train(
                     "by this BinMapper; refit it with "
                     f"cat_features={tuple(sorted(cfg.cat_features))} so "
                     "category ids survive binning")
-    if be.mesh is not None:
-        _check_ranks_agree(be, X, mapper)
-    if not binned:
-        Xb = _bin_rows(be, X, mapper)
-    if eval_set is not None:
-        Xv, yv = eval_set
-        if not isinstance(Xv, torch.Tensor):
-            Xv = np.asarray(Xv)
-        if binned:
-            if Xv.dtype not in (np.uint8, torch.uint8):
-                raise TypeError(
-                    "training data is pre-binned; eval_set must be uint8 "
-                    f"bin indices too, got {Xv.dtype}")
-        else:
-            Xv = mapper.transform_device(Xv, be.device)
-        eval_set = (Xv, np.asarray(yv))
+    with annotations.traced_scope("train.rows"):
+        if be.mesh is not None:
+            _check_ranks_agree(be, X, mapper)
+        if not binned:
+            Xb = _bin_rows(be, X, mapper)
+        if eval_set is not None:
+            Xv, yv = eval_set
+            if not isinstance(Xv, torch.Tensor):
+                Xv = np.asarray(Xv)
+            if binned:
+                if Xv.dtype not in (np.uint8, torch.uint8):
+                    raise TypeError(
+                        "training data is pre-binned; eval_set must be "
+                        f"uint8 bin indices too, got {Xv.dtype}")
+            else:
+                Xv = mapper.transform_device(Xv, be.device)
+            eval_set = (Xv, np.asarray(yv))
     driver = Driver(be, cfg, log_every=log_every,
                     checkpoint_dir=checkpoint_dir,
                     checkpoint_every=checkpoint_every, profile=profile,
@@ -329,6 +335,7 @@ def train(
                        best_score=driver.best_score, run_id=driver.run_id)
 
 
+@annotations.op_scope("score.proba")
 def predict_proba_np(raw: np.ndarray, loss: str) -> np.ndarray:
     """Raw margins -> probabilities on host (TreeEnsemble.predict's
     formulas)."""
@@ -360,6 +367,7 @@ def validate_mapper_model(mapper: BinMapper, ens: TreeEnsemble) -> None:
                 "them; use the training-time mapper")
 
 
+@annotations.op_scope("score")
 def predict(
     ens: "TreeEnsemble | ModelBundle",
     X: np.ndarray,
@@ -398,7 +406,8 @@ def predict(
             raise ValueError(
                 "predict on raw features needs the training mapper; or "
                 "pass binned=True with uint8 bins")
-        validate_mapper_model(mapper, ens)
+        with annotations.traced_scope("score.prepare"):
+            validate_mapper_model(mapper, ens)
     elif X.dtype not in (np.uint8, torch.uint8):
         raise TypeError(f"binned data must be uint8, got {X.dtype}")
     if n_partitions is not None and n_partitions > 1 \

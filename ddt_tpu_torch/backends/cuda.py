@@ -87,6 +87,7 @@ from ddt_tpu_torch.ops import stream as stream_ops
 from ddt_tpu_torch.parallel import comms, mesh
 from ddt_tpu_torch.robustness import faultplan
 from ddt_tpu_torch.telemetry import counters as tele_counters
+from ddt_tpu_torch.telemetry.annotations import op_scope, traced_scope
 from ddt_tpu_torch.utils import launches, metrics, retry
 
 log = logging.getLogger("ddt_tpu_torch.backends.cuda")
@@ -1021,6 +1022,7 @@ class CUDADevice(DeviceBackend):
             eff_cat=None if ce.eff_cat is None
             else self._put(ce.eff_cat)), "f32"
 
+    @op_scope("score.prepare")
     def _prepared(self, ens: TreeEnsemble,
                   compiled: CompiledEnsemble | None):
         """(CompiledEnsemble, its scoring operands on the device: the
@@ -1068,8 +1070,10 @@ class CUDADevice(DeviceBackend):
         """Raw margins of binned rows as a host array: through `operands`
         (prepare_scoring's) when given, else the backend's cache."""
         Xd = self.device_rows(Xb)
-        return self.score_device(ens, Xd, compiled,
-                                 operands).cpu().numpy()
+        out = self.score_device(ens, Xd, compiled, operands)
+        # The wait for the device's scoring, then the copy.
+        with traced_scope("score.download"):
+            return out.cpu().numpy()
 
 
 class RowShardedScorer:
@@ -1313,6 +1317,7 @@ class _RoundGraph:
     dataset or eval set at other addresses recaptures; the config is the
     backend's own."""
 
+    @op_scope("capture")
     def __init__(self, backend: CUDADevice, data: torch.Tensor,
                  pred: torch.Tensor, y: LabelHandle, masked: bool,
                  ev: _Eval | None):

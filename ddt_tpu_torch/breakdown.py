@@ -57,6 +57,7 @@ from ddt_tpu_torch.data.quantizer import fit_bin_mapper
 from ddt_tpu_torch.driver import Driver
 from ddt_tpu_torch.models.tree import empty_ensemble
 from ddt_tpu_torch.ops.grad import base_score_np
+from ddt_tpu_torch.telemetry.profiler import device_rows, is_range
 
 ROWS = 1_000_000
 N_TREES = 100
@@ -72,11 +73,6 @@ HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch",
 
 def _emit(obj) -> None:
     print(json.dumps(obj), flush=True)
-
-
-def _device_time_us(evt) -> float:
-    t = getattr(evt, "self_device_time_total", None)
-    return float(t if t is not None else evt.self_cuda_time_total)
 
 
 def _synced(fn):
@@ -115,7 +111,8 @@ def profiled(fn, pad_s: float = 0.0) -> dict:
               torch.autograd.DeviceType.CUDA: []}
     for e in prof.events():
         if (e.device_type == torch.autograd.DeviceType.CUDA
-                and not e.name.startswith("Activity Buffer")) or (
+                and not e.name.startswith("Activity Buffer")
+                and not is_range(e)) or (
                 e.device_type == torch.autograd.DeviceType.CPU
                 and e.name.startswith(HOST_LAUNCH_CALLS)):
             starts[e.device_type].append(e.time_range.start)
@@ -123,13 +120,8 @@ def profiled(fn, pad_s: float = 0.0) -> dict:
     lead = (1e-3 * (min(launched) - min(ran)) if launched and ran
             else None)
     events = prof.key_averages()
-    # Device-side events only (kernels, memcpy, memset): the op-level
-    # rows repeat their kernels' time. CUPTI's own buffer requests are
-    # profiler overhead, not work.
-    rows = [(e.key, _device_time_us(e), e.count) for e in events
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and not e.key.startswith("Activity Buffer")]
-    rows = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])
+    rows = sorted((r for r in device_rows(events) if r[1] > 0),
+                  key=lambda r: -r[1])
     busy = sum(r[1] for r in rows) * 1e-6
     hist = sum(r[1] for r in rows if "hist_kernel" in r[0]) * 1e-3
     host = {e.key: e.count for e in events

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from ddt_tpu_torch.ops import quantize as device_quantize
+from ddt_tpu_torch.telemetry.annotations import op_scope
 
 
 @dataclasses.dataclass
@@ -149,6 +150,7 @@ def feature_bincounts(Xb, n_bins: int):
     return np.bincount(flat, minlength=n_f * n_bins).reshape(n_f, n_bins)
 
 
+@op_scope("edges")
 def fit_bin_mapper(
     X: np.ndarray,
     n_bins: int = 255,

@@ -298,8 +298,28 @@ class Driver:
 
     def _fit(self, Xb, y, eval_set, eval_metric, early_stopping_rounds,
              sample_weight) -> TreeEnsemble:
-        cfg = self.cfg
         t_fit0 = time.perf_counter()
+        data, y_dev, pred, ens, start, ev, counters_start = self._setup(
+            Xb, y, eval_set, eval_metric, early_stopping_rounds,
+            sample_weight)
+        if getattr(self.backend, "grow_rounds", None) is not None \
+                and not self.profile and not self.cfg.straggler_repartition:
+            ens = self._fit_fused(data, y_dev, pred, ens, start, ev)
+        else:
+            with annotations.sub_phases(self.timer) if self.profile \
+                    else contextlib.nullcontext():
+                ens = self._fit_granular(data, y_dev, pred, ens, start, ev)
+        self._finish_run(t_fit0, ens.n_trees // self.cfg.n_outputs,
+                         counters_start)
+        return ens
+
+    @annotations.op_scope("train.setup")
+    def _setup(self, Xb, y, eval_set, eval_metric, early_stopping_rounds,
+               sample_weight) -> tuple:
+        """Everything before the boosting loop: the labels, the base
+        score, the uploads, the initial prediction, the ensemble, a
+        resume and the eval state."""
+        cfg = self.cfg
         mesh.check_partitions(cfg)
         Xb = self._check_rows(Xb)
         y = np.asarray(y)
@@ -346,15 +366,7 @@ class Driver:
                                   early_stopping_rounds, ens, start, bs)
         elif early_stopping_rounds is not None:
             raise ValueError("early_stopping_rounds requires an eval_set")
-        if getattr(self.backend, "grow_rounds", None) is not None \
-                and not self.profile and not cfg.straggler_repartition:
-            ens = self._fit_fused(data, y_dev, pred, ens, start, ev)
-        else:
-            with annotations.sub_phases(self.timer) if self.profile \
-                    else contextlib.nullcontext():
-                ens = self._fit_granular(data, y_dev, pred, ens, start, ev)
-        self._finish_run(t_fit0, ens.n_trees // C, counters_start)
-        return ens
+        return data, y_dev, pred, ens, start, ev, counters_start
 
     def _finish_run(self, t0: float, completed: int,
                     counters_start) -> None:

@@ -27,6 +27,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ddt_tpu_torch.telemetry.annotations import traced_scope
+
 #: Device transforms since the last reset (calls on a CUDA tensor).
 transforms = 0
 
@@ -93,19 +95,23 @@ def transform_device(mapper, X, device="cuda") -> torch.Tensor:
     if isinstance(X, torch.Tensor):
         if X.dtype != torch.float32:
             raise TypeError(f"X must be float32, got {X.dtype}")
-        Xd = X.to(device)
+        with traced_scope("upload"):
+            Xd = X.to(device)
     else:
         Xh = np.asarray(X, np.float32)
         if Xh.ndim != 2 or Xh.shape[1] != mapper.n_features:
             raise ValueError(
                 f"X must be [rows, {mapper.n_features}], got {Xh.shape}")
-        Xd = torch.from_numpy(np.ascontiguousarray(Xh)).to(device)
+        # From pageable host memory: the copy returns once it has landed.
+        with traced_scope("upload"):
+            Xd = torch.from_numpy(np.ascontiguousarray(Xh)).to(device)
     if Xd.dim() != 2 or Xd.shape[1] != mapper.n_features:
         raise ValueError(
             f"X must be [rows, {mapper.n_features}], got {tuple(Xd.shape)}")
-    return transform_binned(Xd, device_edges(mapper, device),
-                            n_bins=mapper.n_bins,
-                            missing_bin=mapper.missing_bin)
+    with traced_scope("bin"):
+        return transform_binned(Xd, device_edges(mapper, device),
+                                n_bins=mapper.n_bins,
+                                missing_bin=mapper.missing_bin)
 
 
 def feature_bincounts(Xb: torch.Tensor, n_bins: int) -> torch.Tensor:

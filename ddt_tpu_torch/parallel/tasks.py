@@ -26,6 +26,7 @@ from ddt_tpu_torch.backends.cuda import CUDADevice
 from ddt_tpu_torch.config import TrainConfig
 from ddt_tpu_torch.ops import hist_cuda, predict_cuda
 from ddt_tpu_torch.parallel import comms, mesh
+from ddt_tpu_torch.telemetry.profiler import device_rows
 from ddt_tpu_torch.utils import checkpoint
 
 #: Counters a training task reads before and after its run.
@@ -242,10 +243,8 @@ def _profile_share(fn) -> dict:
         fn()
         _sync()
         wall = time.perf_counter() - t0
-    rows = sorted(((getattr(e, "self_device_time_total", 0.0) * 1e-6,
-                    e.count, e.key) for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and not e.key.startswith("Activity Buffer")),
+    rows = sorted(((t * 1e-6, c, k)
+                   for k, t, c in device_rows(prof.key_averages())),
                   reverse=True)
     busy = sum(r[0] for r in rows)
     nccl = [r for r in rows if "nccl" in r[2].lower()]

@@ -9,7 +9,10 @@ the logs of either package.
               lanes of a mesh run, the straggler watchdog's feed).
 - counters    process-wide monotonic counters (`snapshot` / `delta`);
               `jit_compiles` counts nvcc builds and CUDA-graph captures.
-- annotations `ddt:<phase>` profiler and NVTX ranges; the ops' scopes.
+- annotations the `ddt:<name>` spans at the layer boundaries and the
+              ops' stages: profiler ranges, live while a torch profiler
+              records or a profiled trainer times its sub-phases, kept
+              in memory (`span_totals`, `span_records`, `reset_spans`).
 - costmodel   analytic bytes and operations of each kernel's dispatcher
               (`costed`), per call signature, counted per replay; the
               roofline join.
@@ -22,11 +25,11 @@ the logs of either package.
 
 Without a run log, profile, capture window or status, the trainers pay
 no sync, no file write and no import of the daemon: the hooks are
-`is not None` tests and two module-global reads a costed call.
+`is not None` tests and two module-global reads a costed call; a span
+site reads a module global and the profiler's flag.
 """
 
 from ddt_tpu_torch.telemetry.events import (  # noqa: F401
     EVENT_FIELDS, SCHEMA_VERSION, PartitionRecorder, RoundRecorder, RunLog,
     derive_run_id, partition_skew_summary, validate_event)
 from ddt_tpu_torch.telemetry import counters  # noqa: F401
-from ddt_tpu_torch.telemetry.annotations import phase_span  # noqa: F401

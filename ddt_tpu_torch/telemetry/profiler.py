@@ -11,8 +11,10 @@ first launch and stops it after round 8, so round 1's builds and graph
 capture stay out of it. The Chrome trace lands in
 `<xprof-dir>/run_<run_id>/trace.json` and the run manifest carries
 `xprof_dir` and `xprof_rounds` (the schema's names), so a run log and
-its trace cross-reference by run_id. While the window is open the ops'
-`ddt:` scopes are profiler ranges (telemetry.annotations).
+its trace cross-reference by run_id. While the window records, the
+program's `ddt:` spans are live, as under any torch profiler
+(telemetry.annotations): the trace carries them and the span store keeps
+them.
 
 The fused Driver loop runs blocks of replayed rounds; the window caps a
 block (`block_cap`) so that blocks start and end on the window's edges,
@@ -23,11 +25,41 @@ holds the window's rounds' device work and no other's. With no window
 
 from __future__ import annotations
 
-import contextlib
 import logging
 import os
 
+from ddt_tpu_torch.telemetry import annotations
+
 log = logging.getLogger("ddt_tpu_torch.telemetry.profiler")
+
+
+def is_range(evt) -> bool:
+    """Whether a profiler event (or a key_averages() row) is a
+    record_function range: a `ddt:` span on the host, or the same range
+    as the profiler also draws it on the device's timeline. A range is
+    no device work."""
+    return (bool(getattr(evt, "is_user_annotation", False))
+            or evt.key.startswith(annotations.PREFIX))
+
+
+def device_time_us(evt) -> float:
+    """A key_averages() row's own device time, in microseconds."""
+    t = getattr(evt, "self_device_time_total", None)
+    return float(t if t is not None else evt.self_cuda_time_total)
+
+
+def device_rows(events) -> list:
+    """(name, device us, count) of each device-side row of a profile's
+    key_averages(): kernels, copies and sets. The op-level host rows
+    repeat their kernels' time, CUPTI's buffer requests are the
+    profiler's own overhead, and ranges (is_range) are no work: all
+    three are left out."""
+    import torch
+
+    return [(e.key, device_time_us(e), e.count) for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.key.startswith("Activity Buffer")
+            and not is_range(e)]
 
 
 def parse_rounds(spec: str) -> tuple[int, int]:
@@ -66,7 +98,6 @@ class CaptureWindow:
         self.lo, self.hi = parse_rounds(rounds)
         self.trace_dir = self.out_dir      # until bind() names the run
         self._prof = None
-        self._scopes = None
         self._started = False
         self._done = False
 
@@ -98,8 +129,6 @@ class CaptureWindow:
         import torch
         from torch.profiler import ProfilerActivity, profile
 
-        from ddt_tpu_torch.telemetry import annotations
-
         acts = [ProfilerActivity.CPU]
         if torch.cuda.is_available():
             acts.append(ProfilerActivity.CUDA)
@@ -112,8 +141,6 @@ class CaptureWindow:
             self._done = True
             return
         self._prof = prof
-        self._scopes = contextlib.ExitStack()
-        self._scopes.enter_context(annotations.tracing())
         self._started = True
         log.info("profiler capture started at round %d -> %s",
                  rnd0 + 1, self.trace_dir)
@@ -139,7 +166,6 @@ class CaptureWindow:
         self._done = True
         self._started = False
         prof, self._prof = self._prof, None
-        self._scopes.close()
         try:
             prof.__exit__(None, None, None)
             prof.export_chrome_trace(self.trace_file)

@@ -151,16 +151,15 @@ class PhaseTimer:
 def trace(log_dir: str):
     """torch.profiler capture of CPU and CUDA activity around the block:
     `with trace("/tmp/prof"): fit()`; the Chrome trace lands in
-    log_dir/trace.json (open it in ui.perfetto.dev). The `ddt:<phase>`
-    spans of telemetry.annotations show on the host track."""
+    log_dir/trace.json (open it in ui.perfetto.dev). The `ddt:` spans of
+    telemetry.annotations are live while it records and show on the host
+    track."""
     from torch.profiler import ProfilerActivity, profile
-
-    from ddt_tpu_torch.telemetry import annotations
 
     acts = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=acts) as prof, annotations.tracing():
+    with profile(activities=acts) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))

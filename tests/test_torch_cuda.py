@@ -1946,3 +1946,38 @@ def test_bench_train_on_card(dev):
     assert rec["graph_captures"] == 1
     assert rec["launches"] == {"hist": 6 * (10 + 1)}
     assert 0 < rec["final_train_loss"] < 0.6931
+
+
+def test_profiled_counts_no_span_as_device_work(dev, monkeypatch):
+    """breakdown.profiled over api.predict, whose `ddt:` spans are live
+    under its profiler: the ranges the profiler draws on the device's
+    timeline are no device work, so the launches equal a profile with
+    every span site silent, no row is a span, and the busy share stays
+    at most 1."""
+    from ddt_tpu_torch import api, breakdown
+    from ddt_tpu_torch.config import TrainConfig
+    from ddt_tpu_torch.telemetry import annotations
+
+    rng = np.random.default_rng(4)
+    X = rng.normal(size=(200_000, 28)).astype(np.float32)
+    y = (X[:, 0] + 0.5 * X[:, 1] > 0).astype(np.float32)
+    res = api.train(X, y, TrainConfig(n_trees=20, max_depth=6))
+
+    def score():
+        return api.predict(res.ensemble, X, mapper=res.mapper, raw=True)
+
+    score()
+    annotations.reset_spans()
+    live = breakdown.profiled(score)
+    assert annotations.span_totals()["ddt:score"]["count"] == 1
+    monkeypatch.setattr(
+        annotations, "_scope",
+        lambda name, timer: (annotations._NULL if timer is None
+                             else timer.phase(name)))
+    annotations.reset_spans()
+    silent = breakdown.profiled(score)
+    assert annotations.span_totals() == {}
+    assert live["device_launches"] == silent["device_launches"] > 0
+    assert not any(r["name"].startswith(annotations.PREFIX)
+                   for r in live["top"])
+    assert 0 < live["busy_share"] <= 1.0
