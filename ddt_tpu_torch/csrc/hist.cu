@@ -34,21 +34,39 @@
 // ATOMS.ADD); a shared f32 add and a shared 64-bit add compile to
 // compare-and-swap loops (ATOMS.CAST.SPIN). The design:
 //
-// 1. A thread takes a row, not a (row, feature) element. It reads the
-//    row's node index once and drops a frozen row, or a row of another
-//    node range, after that one 4-byte read; it reads g and h once and the
-//    row's bytes as aligned 4-byte words (a head and a tail of single
-//    bytes for any F and any row alignment), the lanes of a warp starting
-//    at different words so that they add into different features. No
-//    division per element.
+// 1. Warps compact their rows to the block's node range before the adds. A
+//    lane reads one row's node index (4 bytes; a frozen row, or one of another
+//    range, costs nothing more) and the warp ballots its 32-row strip. A strip
+//    with 28 or more of its rows in the range runs add_row at once, one row a
+//    lane, the others idle (through the queue such a strip cost more: 1M x 28
+//    exact, one node, 10% of rows frozen, 0.0932 ms against 0.0898); the
+//    in-range rows of any other strip join a queue of up to 63 pending rows
+//    held in the warp's registers (two slots a lane, a row's offset from the
+//    warp's first row; its node index is read again when it runs), and
+//    whenever 32 are pending every lane adds one; the last < 32 run once at
+//    the chunk's end. add_row reads g and h once and the row's bytes as
+//    aligned 4-byte words (a head and a tail of single bytes for any F and any
+//    row alignment), the lanes of a warp starting at different words so that
+//    they add into different features. No division per element. Why: with one
+//    row a thread and a test for the range, a warp ran the whole add_row (F
+//    features, two atomics each) whenever any of its 32 lanes held a row of
+//    the range, so a range holding 1/16 of the rows still ran 1 - (15/16)^32 =
+//    87% of a full pass, and a level cost about one full row pass per range
+//    whatever rows it built (1M x 28 at N = 32, 16 ranges: 0.810 ms, ten root
+//    passes' time, for one root pass's adds). Now a level costs the rows it
+//    builds plus a 4-byte scan a row per range, and the root level (every
+//    strip full) only a ballot a strip more. The shared memory is all the
+//    table's, so the queue takes registers, within the 32 a thread that two
+//    blocks an SM allow (no spills: the scales are read where a row is
+//    rounded, the counts are per warp).
 // 2. Node ranges: a block's table holds as many nodes as its shared memory
 //    does (8-byte cells: 4 at 255 bins and F = 28, 16 at 64 bins; the
 //    exact mode's 16-byte cells hold half: 2 at F = 28, 1 at F = 54, and
 //    at F = 1024 a node takes feature slabs of 56 columns, 19 of them,
 //    where 8-byte cells take 10 of 113). A level with more
 //    nodes runs one range per grid row; every range scans the node index,
-//    but a row's bytes, g and h are read only by the range of its node, so
-//    the extra ranges cost 4 B a row each.
+//    but a row's bytes, g and h are read, and its adds made, only by the
+//    range of its node, so the extra ranges cost 4 B a row each.
 // 3. Exact mode: a cell is two int64 (16 bytes). A 64-bit shared add is a
 //    CAS loop on sm_90, so each int64 add is a native 32-bit atomicAdd on
 //    the low word that returns the old word, then, only when it is not 0,
@@ -85,7 +103,8 @@
 //   feature), decoded at the flush (G = (int32)low, H = (sum - G) >> 32):
 //   exact, but the 64-bit shared add is a CAS loop on sm_90, 1.7x slower
 //   than two native 32-bit adds.
-// - Loading the next rows' node indices ahead: no change.
+// - Loading the next strip's node indices ahead: no change before (1),
+//   and 0.7% slower with it (1M x 28, one main-path tree).
 // Not built: TMA multicast of row tiles to the blocks of a cluster. With
 // (2) a row's bytes are already read once, by its own range; multicast
 // could share only the node index of the extra ranges (12 MB at N = 16,
@@ -115,6 +134,9 @@
 namespace {
 
 constexpr int kThreads = 1024;
+// A strip with this many of its 32 rows in the block's node range runs at
+// once, the others idle (design point 1).
+constexpr int kRunAt = 28;
 
 struct Args {
   const uint8_t* xb;
@@ -123,6 +145,7 @@ struct Args {
   const int* ni;
   const float* scale;  // exact mode: (2^k for g, 2^k for h) on the device
   void* out;
+  unsigned long long* stats;  // nullable: rows added, warp add_row passes
   long long n_rows;
   long long ld;   // row stride of xb in bytes (>= n_feat)
   int n_feat, n_bins, n_nodes;
@@ -182,10 +205,27 @@ __device__ __forceinline__ void add_s64(unsigned* w, int v) {
   if (hi != 0) atomicAdd(w + 1, (unsigned)hi);
 }
 
+// Position of the j-th set bit (from 0) of mask, for j < popc(mask): what
+// __fns(mask, 0, j + 1) finds, as five halvings on popcounts.
+__device__ __forceinline__ unsigned nth_set_bit(unsigned mask, unsigned j) {
+  unsigned pos = 0;
+#pragma unroll
+  for (unsigned b = 16; b > 0; b >>= 1) {
+    const unsigned c = __popc(mask & ((1u << b) - 1u));
+    if (j >= c) {
+      j -= c;
+      mask >>= b;
+      pos += b;
+    }
+  }
+  return pos;
+}
+
 // G: the g/h element type (float, int8_t, int16_t); kFx: exact mode (G is
-// float, cells are int64 pairs).
+// float, cells are int64 pairs). Two blocks an SM where the table leaves
+// room for them (a root level's): 32 registers a thread, none spilled.
 template <typename G, bool kFx>
-__global__ void __launch_bounds__(kThreads) hist_kernel(const Args a) {
+__global__ void __launch_bounds__(kThreads, 2) hist_kernel(const Args a) {
   constexpr bool kInt = !std::is_same<G, float>::value;
   constexpr int kOut = kFx ? 2 : kInt ? 1 : 0;
   // 64-bit words a cell takes: (g, h) of one (node, feature, bin), two
@@ -205,11 +245,6 @@ __global__ void __launch_bounds__(kThreads) hist_kernel(const Args a) {
   const int n_cells = nw * per_node;
 
   for (int i = threadIdx.x; i < n_cells * kW; i += kThreads) cells[i] = 0ull;
-  float gs = 0.f, hs = 0.f;
-  if constexpr (kFx) {
-    gs = __ldg(a.scale);
-    hs = __ldg(a.scale + 1);
-  }
   __syncthreads();
 
   const G* __restrict__ gp = static_cast<const G*>(a.g);
@@ -222,8 +257,9 @@ __global__ void __launch_bounds__(kThreads) hist_kernel(const Args a) {
   // One row: its g and h read once, its bytes as aligned 4-byte words
   // (single bytes before the first and after the last), each word's
   // features added in turn. Lanes start at different words, so the 32
-  // rows of a warp touch several features at once.
-  auto add_row = [&](long long r, int ln) {
+  // rows of a warp touch several features at once. False for a row that
+  // adds nothing.
+  auto add_row = [&](long long r, int ln) -> bool {
     unsigned long long* t = cells + ln * per_node * kW;
     const G gv = __ldg(gp + r);
     const G hv = __ldg(hp + r);
@@ -231,11 +267,11 @@ __global__ void __launch_bounds__(kThreads) hist_kernel(const Args a) {
     // product by a power of two, then round half to even).
     int qg = 0, qh = 0;
     if constexpr (kFx) {
-      qg = __float2int_rn(__fmul_rn(gv, gs));
-      qh = __float2int_rn(__fmul_rn(hv, hs));
-      if (qg == 0 && qh == 0) return;  // adds nothing
+      qg = __float2int_rn(__fmul_rn(gv, __ldg(a.scale)));
+      qh = __float2int_rn(__fmul_rn(hv, __ldg(a.scale + 1)));
+      if (qg == 0 && qh == 0) return false;  // adds nothing
     } else if constexpr (kInt) {
-      if (gv == 0 && hv == 0) return;  // adds nothing
+      if (gv == 0 && hv == 0) return false;  // adds nothing
     }
     auto add = [&](int fl, unsigned b) {
       if (b >= (unsigned)B) return;
@@ -280,15 +316,60 @@ __global__ void __launch_bounds__(kThreads) hist_kernel(const Args a) {
       if (++k == n_words) k = 0;
     }
     for (int fl = head + 4 * n_words; fl < fw; ++fl) add(fl, __ldg(p + fl));
+    return true;
   };
 
-  // Rows of this block's chunk: a frozen row, or one of another range's
-  // nodes (or outside the launch's [node_lo, node_lo + n_nodes)), costs
-  // its 4-byte read.
+  // Each warp walks its 32-row strips of the block's chunk (design point
+  // 1); a row outside the range (frozen, another range's, or outside the
+  // launch's [node_lo, node_lo + n_nodes)) costs its 4-byte read. Queue
+  // slot s is lane s % 32's q[s / 32]; the j-th new row of a strip goes to
+  // slot count + j, fetched by the lane that holds that slot from the lane
+  // of the mask's j-th set bit.
   const int base = a.node_lo + n0;
-  for (long long r = r_begin + threadIdx.x; r < r_end; r += kThreads) {
-    const int ln = __ldg(a.ni + r) - base;  // frozen rows (-1) fall below 0
-    if ((unsigned)ln < (unsigned)nw) add_row(r, ln);
+  // Rows are offsets from this warp's first row (a block holds fewer than
+  // 2^31 rows); a queued row's node index is read again when it is added.
+  const long long rw = r_begin + (threadIdx.x & ~31u);
+  const unsigned n_left = r_end > rw ? (unsigned)(r_end - rw) : 0u;
+  auto add_queued = [&](unsigned o) {
+    return add_row(rw + o, __ldg(a.ni + rw + o) - base);
+  };
+  unsigned q0 = 0, q1 = 0;  // this lane's slots: lane and 32 + lane
+  int count = 0;            // pending rows, the same in every lane
+  unsigned added = 0;       // rows this warp added
+  unsigned passes = 0;      // add_row passes of this warp
+  for (unsigned s = 0; s < n_left; s += kThreads) {
+    const unsigned o = s + lane;
+    // Frozen rows (-1) and rows past the chunk fall below 0.
+    const int ln = (o < n_left ? __ldg(a.ni + rw + o) : -1) - base;
+    const bool in = (unsigned)ln < (unsigned)nw;
+    const unsigned mask = __ballot_sync(~0u, in);
+    const int n = __popc(mask);
+    if (n >= kRunAt) {
+      ++passes;
+      added += __popc(__ballot_sync(~0u, in && add_row(rw + o, ln)));
+      continue;
+    }
+    if (n == 0) continue;
+    const unsigned j = (lane - (unsigned)count) & 31u;  // new row to fetch
+    const unsigned v = __shfl_sync(~0u, o, nth_set_bit(mask, j));
+    if (j < (unsigned)n) {
+      if ((int)lane >= count)
+        q0 = v;
+      else
+        q1 = v;
+    }
+    count += n;
+    if (count >= 32) {
+      ++passes;
+      added += __popc(__ballot_sync(~0u, add_queued(q0)));
+      q0 = q1;
+      count -= 32;
+    }
+  }
+  if (count > 0) {
+    ++passes;
+    added += __popc(
+        __ballot_sync(~0u, (int)lane < count && add_queued(q0)));
   }
   // The bulk reduction reads the table through the async proxy.
   fence_async_shared();
@@ -313,6 +394,23 @@ __global__ void __launch_bounds__(kThreads) hist_kernel(const Args a) {
     }
   }
   if (threadIdx.x == 0) bulk_wait();
+  if (a.stats == nullptr) return;
+  // The counts: warps to the block in the table's first two words once
+  // the flush has read them (32-bit: a block holds fewer than 2^31 rows),
+  // then one global add each.
+  __syncthreads();
+  unsigned* sums = reinterpret_cast<unsigned*>(cells);
+  if (threadIdx.x == 0) sums[0] = sums[1] = 0u;
+  __syncthreads();
+  if (lane == 0) {
+    atomicAdd(sums, added);
+    atomicAdd(sums + 1, passes);
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    atomicAdd(a.stats, (unsigned long long)sums[0]);
+    atomicAdd(a.stats + 1, (unsigned long long)sums[1]);
+  }
 }
 
 template <typename G, bool kFx>
@@ -333,16 +431,17 @@ int max_blocks(int smem_bytes, int* out) {
 
 template <typename G, bool kFx = false>
 int launch(const void* xb, const void* g, const void* h, const void* ni,
-           const void* scale, void* out, long long n_rows, long long ld,
-           int n_feat, int n_bins, int n_nodes, int node_lo, int fs, int nr,
-           int blocks_x, int smem_bytes, void* stream) {
+           const void* scale, void* out, void* stats, long long n_rows,
+           long long ld, int n_feat, int n_bins, int n_nodes, int node_lo,
+           int fs, int nr, int blocks_x, int smem_bytes, void* stream) {
   cudaError_t e = cudaFuncSetAttribute(
       hist_kernel<G, kFx>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem_bytes);
   if (e != cudaSuccess) return (int)e;
   const Args a{(const uint8_t*)xb, g, h, (const int*)ni,
-               (const float*)scale, out, n_rows, ld, n_feat, n_bins,
-               n_nodes, node_lo, fs, nr, (n_feat + fs - 1) / fs};
+               (const float*)scale, out, (unsigned long long*)stats, n_rows,
+               ld, n_feat, n_bins, n_nodes, node_lo, fs, nr,
+               (n_feat + fs - 1) / fs};
   const int n_ranges = (n_nodes + nr - 1) / nr;
   const dim3 grid((unsigned)blocks_x, (unsigned)(a.n_slabs * n_ranges), 1);
   hist_kernel<G, kFx>
@@ -358,47 +457,51 @@ extern "C" {
 // Row r of xb starts at xb + r * ld. The launch covers the level's nodes
 // [node_lo, node_lo + n_nodes) into an out of n_nodes nodes.
 // Grid: blocks_x blocks along the rows, n_slabs * ceil(n_nodes / nr) tiles
-// along y. `scale` is read in exact mode only. Every entry adds into out.
+// along y. `scale` is read in exact mode only. Every entry adds into out,
+// and, where `stats` is not null, adds into its two uint64 the rows it
+// added (a row whose g and h both are, or round to, 0 adds nothing) and
+// its warps' add_row passes: lanes busy over lanes run is rows / (32 x
+// passes).
 // f32 g/h and scales (2^k_g, 2^k_h) -> int64 fixed-point histogram.
 int ddt_hist_fx(const void* xb, const void* g, const void* h,
-                const void* ni, const void* scale, void* out,
+                const void* ni, const void* scale, void* out, void* stats,
                 long long n_rows, long long ld, int n_feat, int n_bins,
                 int n_nodes, int node_lo, int fs, int nr, int blocks_x,
                 int smem_bytes, void* stream) {
-  return launch<float, true>(xb, g, h, ni, scale, out, n_rows, ld, n_feat,
-                             n_bins, n_nodes, node_lo, fs, nr, blocks_x,
-                             smem_bytes, stream);
+  return launch<float, true>(xb, g, h, ni, scale, out, stats, n_rows, ld,
+                             n_feat, n_bins, n_nodes, node_lo, fs, nr,
+                             blocks_x, smem_bytes, stream);
 }
 
 // f32 g/h -> f32 histogram (float atomics).
 int ddt_hist_f32(const void* xb, const void* g, const void* h,
-                 const void* ni, const void* scale, void* out,
+                 const void* ni, const void* scale, void* out, void* stats,
                  long long n_rows, long long ld, int n_feat, int n_bins,
                  int n_nodes, int node_lo, int fs, int nr, int blocks_x,
                  int smem_bytes, void* stream) {
-  return launch<float>(xb, g, h, ni, scale, out, n_rows, ld, n_feat, n_bins,
-                       n_nodes, node_lo, fs, nr, blocks_x, smem_bytes,
+  return launch<float>(xb, g, h, ni, scale, out, stats, n_rows, ld, n_feat,
+                       n_bins, n_nodes, node_lo, fs, nr, blocks_x, smem_bytes,
                        stream);
 }
 
 // int8 g/h -> raw int32 histogram.
 int ddt_hist_i8(const void* xb, const void* g, const void* h,
-                const void* ni, const void* scale, void* out,
+                const void* ni, const void* scale, void* out, void* stats,
                 long long n_rows, long long ld, int n_feat, int n_bins,
                 int n_nodes, int node_lo, int fs, int nr, int blocks_x,
                 int smem_bytes, void* stream) {
-  return launch<int8_t>(xb, g, h, ni, scale, out, n_rows, ld, n_feat,
-                        n_bins, n_nodes, node_lo, fs, nr, blocks_x,
-                        smem_bytes, stream);
+  return launch<int8_t>(xb, g, h, ni, scale, out, stats, n_rows, ld, n_feat,
+                        n_bins, n_nodes, node_lo, fs, nr, blocks_x, smem_bytes,
+                        stream);
 }
 
 // int16 g/h -> raw int32 histogram.
 int ddt_hist_i16(const void* xb, const void* g, const void* h,
-                 const void* ni, const void* scale, void* out,
+                 const void* ni, const void* scale, void* out, void* stats,
                  long long n_rows, long long ld, int n_feat, int n_bins,
                  int n_nodes, int node_lo, int fs, int nr, int blocks_x,
                  int smem_bytes, void* stream) {
-  return launch<int16_t>(xb, g, h, ni, scale, out, n_rows, ld, n_feat,
+  return launch<int16_t>(xb, g, h, ni, scale, out, stats, n_rows, ld, n_feat,
                          n_bins, n_nodes, node_lo, fs, nr, blocks_x,
                          smem_bytes, stream);
 }

@@ -20,7 +20,13 @@ host's wrapper too, as in the boosting loop); and every row frozen at 1,
 and int16 g/h (logloss gradients at the base score, and their quantized
 twins), and in the exact mode (the f32 g/h on their fixed-point grid,
 what f32 training runs), checked against the plain version
-(chip_smoke.check_hist, check_hist_exact).
+(chip_smoke.check_hist, check_hist_exact). Beside each synthetic and
+main-path level's time, the kernel's lane occupancy over one call
+(ops/hist_cuda.lane_stats: rows added over 32 x warp add_row passes;
+left out for a checkout whose kernel keeps no lane counters). The
+summary repeats each mode's main-path levels one by one (the first is
+the root, every row active), their occupancy, and the synthetic level
+at 255 bins and 32 nodes.
 
 lut: the LUT kernels through chip_smoke.lut_callables on models trained
 once on the card by this checkout (the Higgs shape, depth 6: 100 trees at
@@ -150,8 +156,18 @@ def _hist_times(cs) -> dict:
                     lambda what: cs.check_hist_exact(args, scales, what))
         return lambda: run(*args), lambda what: cs.check_hist(args, what)
 
+    def occupancy(fn):
+        """K1's lane occupancy over one call of fn (None for a checkout
+        whose kernel keeps no lane counters)."""
+        if not hasattr(hist_cuda, "lane_stats"):
+            return None
+        hist_cuda.reset_lane_stats(dev)
+        fn()
+        return hist_cuda.lane_stats(dev)["occupancy"]
+
     rng = np.random.default_rng(7)
-    out = {"synthetic": {}, "tree_levels": {}}
+    out = {"synthetic": {}, "tree_levels": {}, "occupancy": {},
+           "tree_level_occupancy": {}}
     for B, nodes in cs.HIST_SHAPES:
         for N in nodes:
             ni = rng.integers(0, N, size=cs.ROWS).astype(np.int32)
@@ -162,6 +178,7 @@ def _hist_times(cs) -> dict:
                 chk(f"{mode} B={B} N={N}")
                 out["synthetic"][f"{mode} {B} {N}"] = cs.time_ms(
                     fn, REPS, flush)
+                out["occupancy"][f"{mode} {B} {N}"] = occupancy(fn)
     # Every row frozen: what a launch costs besides the rows' adds (the
     # node-index scan, the table's zeroing and flush, the launch itself).
     out["frozen"] = {}
@@ -173,14 +190,16 @@ def _hist_times(cs) -> dict:
             out["frozen"][f"{mode} 255 {N}"] = cs.time_ms(fn, REPS, flush)
     out["tree_levels_call"] = {}
     for mode in MODES:
-        ts, calls = [], []
+        ts, calls, occ = [], [], []
         for nid, N in levels:
             fn, chk = call((binned[255], *gh[mode], nid, N, 255), mode)
             chk(f"{mode} main-path level N={N}")
             ts.append(cs.time_ms(fn, REPS, flush))
             calls.append(cs.time_ms(fn, REPS, flush, spin=False))
+            occ.append(occupancy(fn))
         out["tree_levels"][mode] = ts
         out["tree_levels_call"][mode] = calls
+        out["tree_level_occupancy"][mode] = occ
     out["tree_level_nodes"] = [n for _, n in levels]
     out["tree_level_active_rows"] = [int((ni >= 0).sum()) for ni, _ in levels]
     return out
@@ -368,6 +387,11 @@ def _summary(label: str, r: dict, cs, acc: dict) -> None:
             for m in MODES}
         s["hist_tree_levels_per_tree"] = {m: sum(h["tree_levels"][m])
                                           for m in MODES}
+        s["hist_tree_levels"] = {m: h["tree_levels"][m] for m in MODES}
+        s["hist_synthetic_255_32"] = {m: h["synthetic"][f"{m} 255 32"]
+                                      for m in MODES}
+        if "tree_level_occupancy" in h:
+            s["hist_tree_level_occupancy"] = h["tree_level_occupancy"]
     for k in ("lut", "traverse", "leaf"):
         if k in r:
             s[k] = r[k]

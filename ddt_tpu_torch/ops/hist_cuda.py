@@ -16,21 +16,28 @@ takes `out`, a table to accumulate into (the streamed level passes).
 The byte bound is ~12.5 us a level at 1M x 28 on the H100 (Xb, the node
 index, g and h read once); what sets the kernel's time is the card's rate
 of shared-memory atomics, one per (row, feature) and channel. The design,
-stated in full in the source: a thread reads a row once (node index
-first, so a frozen row or a row of another node range costs 4 bytes) and
-its bytes as 4-byte words; in exact mode each int64 add is a native
-32-bit add on the low word and, on a carry or a negative value, one on the
-high word; one 64-bit compare-and-swap adds g and h in f32 mode, two
-native 32-bit adds in integer mode; each block's table (16 bytes a cell
-in exact mode, 8 in the others, laid out as the output) is flushed with
-TMA bulk
-reductions into L2, not one global atomic per cell; the grid holds as
-many blocks as the card runs at once. Tried on the card and not taken: a
-thread-block cluster holding a level's table in distributed shared memory
-(remote atomics cost more than the scans they save) and a packed 64-bit
-integer atomic (a compare-and-swap loop on sm_90). The TPU kernels'
-one-hot form on tensor cores was not taken: its shared-memory writes per
-row cost ~20x the byte bound, and f32 would need TF32.
+stated in full in the source: each warp compacts its rows to the block's
+node range before the adds (a lane reads a node index, 4 bytes, and the
+rows of the range queue in the warp's registers until 32 are pending, so
+a level costs the rows it builds and not one full pass per node range);
+a lane reads a queued row's g, h and bytes once, the bytes as 4-byte
+words; in exact mode each int64 add is a native 32-bit add on the low
+word and, on a carry or a negative value, one on the high word; one
+64-bit compare-and-swap adds g and h in f32 mode, two native 32-bit adds
+in integer mode; each block's table (16 bytes a cell in exact mode, 8 in
+the others, laid out as the output) is flushed with TMA bulk reductions
+into L2, not one global atomic per cell; the grid holds as many blocks as
+the card runs at once. Tried on the card and not taken: a thread-block
+cluster holding a level's table in distributed shared memory (remote
+atomics cost more than the scans they save) and a packed 64-bit integer
+atomic (a compare-and-swap loop on sm_90). The TPU kernels' one-hot form
+on tensor cores was not taken: its shared-memory writes per row cost ~20x
+the byte bound, and f32 would need TF32.
+
+Every launch adds into its card's lane counters (`lane_stats`: rows
+added, warp add_row passes, and rows / (32 x passes), the share of lanes
+a pass kept busy); a captured launch adds on every replay. Reading them
+syncs the card, so only tests and kernel_bench do.
 
 `plan_tiles` plays the role of hist_pallas.feature_chunks_for: it sizes the
 feature slab and node-range widths from the card's real shared-memory
@@ -87,6 +94,9 @@ CELL_BYTES_EXACT = 16
 _MAX_GRID_Y = 65_535
 _argtypes_set = False
 _max_blocks: dict = {}
+#: Card index -> int64 [2]: rows the kernel added and its warps' add_row
+#: passes, summed over every launch since the last reset_lane_stats.
+_lane_stats: dict = {}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -144,8 +154,8 @@ def _lib():
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         for entry, _, _, _ in (*_MODES.values(), _EXACT):
             fn = getattr(lib, entry)
-            fn.argtypes = [vp, vp, vp, vp, vp, vp, i64, i64, i32, i32, i32,
-                           i32, i32, i32, i32, i32, vp]
+            fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, i64, i64, i32, i32,
+                           i32, i32, i32, i32, i32, i32, vp]
             fn.restype = i32
         lib.ddt_hist_max_blocks.argtypes = [i32, i32, ctypes.POINTER(i32)]
         lib.ddt_hist_max_blocks.restype = i32
@@ -171,6 +181,42 @@ def max_active_blocks(device: torch.device, mode: int,
                 "shared memory")
         _max_blocks[key] = int(out.value)
     return _max_blocks[key]
+
+
+def _card(device: torch.device) -> int:
+    return (device.index if device.index is not None
+            else torch.cuda.current_device())
+
+
+def _stats_ptr(device: torch.device):
+    """The card's lane counters, made (zeroed) at its first launch; every
+    launch adds into them, a captured one on each replay. None while a
+    capture is under way and the card has none yet: zeroing a new buffer
+    there would be captured too, and rerun at every replay."""
+    idx = _card(device)
+    if idx not in _lane_stats:
+        if torch.cuda.is_current_stream_capturing():
+            return None
+        _lane_stats[idx] = torch.zeros(2, dtype=torch.int64, device=device)
+    return _lane_stats[idx].data_ptr()
+
+
+def lane_stats(device: torch.device) -> dict:
+    """K1's lane counters on `device` since the last reset: `rows` added
+    (a row whose g and h are both 0, or round to 0, adds nothing), the
+    warps' add_row `passes`, and `occupancy` = rows / (32 x passes), the
+    share of lanes a pass kept busy. Reading syncs the card."""
+    buf = _lane_stats.get(_card(device))
+    rows, passes = (0, 0) if buf is None else (int(v) for v in buf.tolist())
+    return {"rows": rows, "passes": passes,
+            "occupancy": rows / (32 * passes) if passes else 0.0}
+
+
+def reset_lane_stats(device: torch.device) -> None:
+    """Zero the lane counters of `device` (on its current stream)."""
+    buf = _lane_stats.get(_card(device))
+    if buf is not None:
+        buf.zero_()
 
 
 def _check_operands(Xb, g, h, node_index, n_nodes, n_bins, scales,
@@ -246,14 +292,18 @@ def build_histograms_cuda(Xb: torch.Tensor, g: torch.Tensor,
         raise ValueError(f"{plan.tiles} tiles exceed the grid's y limit")
     blocks_x = grid_blocks(
         R, plan.tiles, max_active_blocks(Xb.device, mode, plan.smem_bytes))
+    if -(-R // blocks_x) >= 2 ** 31:
+        raise ValueError(f"{R} rows over {blocks_x} blocks: the kernel "
+                         "walks a block's rows in 31-bit offsets")
     lib = _lib()
     with torch.cuda.device(Xb.device):
         stream = torch.cuda.current_stream().cuda_stream
         status = getattr(lib, entry)(
             Xb.data_ptr(), g.data_ptr(), h.data_ptr(), node_index.data_ptr(),
             None if scales is None else scales.data_ptr(), out.data_ptr(),
-            R, Xb.stride(0) if R > 1 else F, F, n_bins, n_nodes, node_lo,
-            plan.fs, plan.nr, blocks_x, plan.smem_bytes, stream)
+            _stats_ptr(Xb.device), R, Xb.stride(0) if R > 1 else F, F,
+            n_bins, n_nodes, node_lo, plan.fs, plan.nr, blocks_x,
+            plan.smem_bytes, stream)
     _build.check(status, f"hist kernel launch ({entry})")
     _launches.count(__name__, counter)
     return out

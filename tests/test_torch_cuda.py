@@ -1981,3 +1981,152 @@ def test_profiled_counts_no_span_as_device_work(dev, monkeypatch):
     assert not any(r["name"].startswith(annotations.PREFIX)
                    for r in live["top"])
     assert 0 < live["busy_share"] <= 1.0
+
+
+# K1's warp compaction (csrc/hist.cu, design point 1) at deep-level shapes,
+# where a level runs more than one node range: every mode against its plain
+# version, the exact and integer tables bitwise. Each case's node indices
+# hold frozen rows, rows of nodes outside the launch and nodes with no row
+# (a whole range of them where a range holds up to 4 nodes); 10% of the
+# rows are bagged out (g = h = 0) and some exact-mode rows round to 0.
+# (name, R, F, N, node_lo, slab): R a multiple of neither 32 nor a block's
+# chunk; `slab` reads Xb as 28 columns from column 17 of a 64-column
+# matrix (row stride 64, no row 4-byte aligned).
+COMPACT_CASES = [
+    ("N8", 300_007, 28, 8, 0, False),
+    ("N16", 300_007, 28, 16, 0, False),
+    ("N32", 300_007, 28, 32, 0, False),
+    ("F39_N16", 200_003, 39, 16, 0, False),
+    ("F54_N16", 200_003, 54, 16, 0, False),
+    ("node_lo", 300_007, 28, 16, 5, False),
+    ("slab_node_lo", 200_003, 28, 16, 3, True),
+]
+
+
+def _compact_case(R, F, N, node_lo, slab, mode, seed=21):
+    rng = np.random.default_rng(seed)
+    B = 255
+    Xb = rng.integers(0, B, size=(R, 64 if slab else F), dtype=np.uint8)
+    ni = rng.integers(node_lo - 2, node_lo + N + 2, size=R)
+    ni[(ni >= node_lo + 4) & (ni < node_lo + 8)] = node_lo   # empty nodes
+    ni[rng.random(R) < 0.5] = -1             # right children and frozen
+    ni = np.maximum(ni, -1).astype(np.int32)
+    if mode in ("exact", "f32"):
+        g = rng.standard_normal(R).astype(np.float32)
+        h = rng.random(R).astype(np.float32)
+        tiny = rng.random(R) < 0.05            # both round to 0 in exact
+        g[tiny] *= 1e-12
+        h[tiny] *= 1e-12
+    else:
+        g, h, _ = _int_hist_case(R, 1, B, 1, mode, seed=seed)[1:]
+    bag = rng.random(R) < 0.1
+    g[bag] = 0
+    h[bag] = 0
+    return Xb, g, h, ni
+
+
+@pytest.mark.parametrize("mode", ["exact", "int8", "int16", "f32"])
+@pytest.mark.parametrize("name,R,F,N,node_lo,slab", COMPACT_CASES,
+                         ids=[c[0] for c in COMPACT_CASES])
+def test_hist_compacted_deep_levels_equal_plain(dev, mode, name, R, F, N,
+                                                node_lo, slab):
+    Xb, g, h, ni = _compact_case(R, F, N, node_lo, slab, mode)
+    Xd, gd, hd, nd = [torch.from_numpy(a).to(dev) for a in (Xb, g, h, ni)]
+    if slab:
+        Xd = Xd[:, 17:17 + F]
+        assert Xd.stride(0) == 64 > F
+    B = 255
+    kw = dict(node_lo=node_lo)
+    if mode == "exact":
+        sc = grad.fixed_scales(grad.abs_max2(gd, hd), R)
+        got = hist_cuda.build_histograms_cuda(Xd, gd, hd, nd, N, B,
+                                              scales=sc, **kw)
+        want = histogram.build_histograms_fixed_segment(Xd, gd, hd, nd, N,
+                                                        B, sc, **kw)
+    else:
+        got = hist_cuda.build_histograms_cuda(Xd, gd, hd, nd, N, B, **kw)
+        want = histogram.build_histograms_segment(Xd, gd, hd, nd, N, B, **kw)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (N, F, B, 2)
+    assert got.dtype == want.dtype
+    assert bool((want[4:8] == 0).all()) and bool(want.any())
+    if mode == "f32":
+        tol = 1e-5 * histogram.build_histograms_segment(
+            Xd, gd.abs(), hd.abs(), nd, N, B, **kw) + 1e-6
+        assert bool(((got - want).abs() <= tol).all())
+    else:
+        assert torch.equal(got, want)
+
+
+def _lane_passes(ni_in: np.ndarray, blocks_x: int) -> int:
+    """Warp add_row passes of one grid row (a node range of one feature
+    slab) whose rows in the range are `ni_in`, by the kernel's walk: block
+    b takes rows [b * rpb, (b + 1) * rpb), warp w its 32-row strips w,
+    w + 32, ...; a strip with 28 or more rows in the range (csrc/hist.cu's
+    kRunAt) is one pass, and each warp's other in-range rows run 32 at a
+    time, the last < 32 in one more."""
+    R = ni_in.size
+    rpb = -(-R // blocks_x)
+    r = np.arange(R)
+    blk, off = r // rpb, r % rpb
+    strip = blk * (-(-rpb // 32)) + off // 32            # strip id, global
+    warp = blk * 32 + (off // 32) % 32
+    n_strips = int(strip.max()) + 1
+    in_strip = np.bincount(strip, weights=ni_in, minlength=n_strips)
+    full = in_strip >= 28
+    strip_warp = np.zeros(n_strips, np.int64)
+    strip_warp[strip] = warp
+    n_warps = int(warp.max()) + 1
+    n_full = np.bincount(strip_warp, weights=full, minlength=n_warps)
+    part = np.bincount(strip_warp, weights=np.where(full, 0, in_strip),
+                       minlength=n_warps)
+    return int(n_full.sum() + np.ceil(part / 32).sum())
+
+
+@pytest.mark.parametrize("level", ["N16", "root"])
+@pytest.mark.parametrize("mode", ["exact", "int8"])
+def test_lane_stats_count_rows_and_passes(dev, mode, level):
+    """The lane counters at Higgs' train shape: rows added are the rows of
+    the launch's nodes whose g or h is (rounds to) non-zero, and the
+    passes are the kernel's walk's. Random left-child indices at 16 nodes
+    keep the lanes >= 95% busy; a root level only loses each warp's last
+    partial pass."""
+    R, F, B = 10_500_001, 28, 255
+    N = 16 if level == "N16" else 1
+    rng = np.random.default_rng(8)
+    Xb = rng.integers(0, B, size=(R, F), dtype=np.uint8)
+    if level == "N16":
+        ni = rng.integers(0, N, size=R).astype(np.int32)
+        ni[rng.random(R) < 0.5] = -1
+    else:
+        ni = np.zeros(R, np.int32)
+    if mode == "exact":
+        g = rng.standard_normal(R).astype(np.float32)
+        h = rng.random(R).astype(np.float32)
+    else:
+        _, g, h, _ = _int_hist_case(R, 1, B, 1, "int8", seed=8)
+    Xd, gd, hd, nd = [torch.from_numpy(a).to(dev) for a in (Xb, g, h, ni)]
+    kw = {}
+    if mode == "exact":
+        kw["scales"] = grad.fixed_scales(grad.abs_max2(gd, hd), R)
+        qg = grad.to_fixed(gd, kw["scales"][0]).cpu().numpy()
+        qh = grad.to_fixed(hd, kw["scales"][1]).cpu().numpy()
+        nonzero = (qg != 0) | (qh != 0)
+    else:
+        nonzero = (g != 0) | (h != 0)
+    hist_cuda.build_histograms_cuda(Xd, gd, hd, nd, N, B, **kw)
+    hist_cuda.reset_lane_stats(dev)
+    hist_cuda.build_histograms_cuda(Xd, gd, hd, nd, N, B, **kw)
+    st = hist_cuda.lane_stats(dev)
+    cells = (hist_cuda.CELL_BYTES_EXACT if mode == "exact"
+             else hist_cuda.CELL_BYTES)
+    plan = hist_cuda.plan_tiles(N, F, B, _build.smem_limit(dev), cells)
+    active = hist_cuda.max_active_blocks(dev, 3 if mode == "exact" else 1,
+                                         plan.smem_bytes)
+    blocks_x = hist_cuda.grid_blocks(R, plan.tiles, active)
+    passes = sum(_lane_passes((ni >= lo) & (ni < lo + plan.nr), blocks_x)
+                 for lo in range(0, N, plan.nr))
+    assert st["rows"] == int(((ni >= 0) & nonzero).sum())
+    assert st["passes"] == passes
+    assert st["occupancy"] == st["rows"] / (32 * passes)
+    assert st["occupancy"] >= (0.95 if level == "N16" else 0.99)

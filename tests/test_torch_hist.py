@@ -1,5 +1,6 @@
 """The port's plain histogram against ddt_tpu's on the CPU, and the CUDA
-kernel's host-side planning (tiling, grid) that the CPU can check.
+kernel's host-side planning (tiling, grid) and its warp queue's slot
+arithmetic (a model of csrc/hist.cu's walk) that the CPU can check.
 
 The plain version (ops/histogram.build_histograms_segment, index_add_
 over node*B + bin keys) is held to the reference's Pallas kernel run in
@@ -172,3 +173,81 @@ def test_grid_blocks(R, tiles, active):
     assert bx >= 1
     assert bx * tiles <= max(active, tiles)       # one wave when it fits
     assert (bx - 1) * hist_cuda.THREADS < R       # every block has rows
+
+
+def _nth_set_bit(mask: int, j: int) -> int:
+    """csrc/hist.cu's nth_set_bit: five halvings on popcounts."""
+    pos, b = 0, 16
+    while b:
+        c = bin(mask & ((1 << b) - 1)).count("1")
+        if j >= c:
+            j, mask, pos = j - c, mask >> b, pos + b
+        b >>= 1
+    return pos
+
+
+#: csrc/hist.cu's kRunAt: a strip with this many rows in the range runs at
+#: once.
+RUN_AT = 28
+
+
+def _warp_queue(in_range: np.ndarray) -> tuple[list, int]:
+    """One warp's walk over its 32-row strips (rows of in_range [S, 32]),
+    by the kernel's queue (csrc/hist.cu, design point 1): a strip with
+    RUN_AT or more rows in the range runs at once; lane L of any other
+    strip fetches new row
+    j = (L - count) % 32 from the mask's j-th set bit into slot L (q0) if
+    L >= count, else slot L + 32 (q1); 32 pending rows run and shift q1
+    down; the rest run at the end. Returns (rows added, passes)."""
+    q0, q1, count, added, passes = [None] * 32, [None] * 32, 0, [], 0
+    for s, strip in enumerate(in_range):
+        mask = sum(1 << i for i in range(32) if strip[i])
+        n = bin(mask).count("1")
+        if n >= RUN_AT:
+            added += [32 * s + i for i in range(32) if strip[i]]
+            passes += 1
+            continue
+        if n == 0:
+            continue
+        for lane in range(32):
+            j = (lane - count) % 32
+            if j < n:
+                row = 32 * s + _nth_set_bit(mask, j)
+                if lane >= count:
+                    q0[lane] = row
+                else:
+                    q1[lane] = row
+        count += n
+        if count >= 32:
+            added += q0
+            passes += 1
+            q0, count = list(q1), count - 32
+    if count:
+        added += q0[:count]
+        passes += 1
+    return added, passes
+
+
+def test_nth_set_bit_finds_each_set_bit():
+    rng = np.random.default_rng(0)
+    for mask in [1, 1 << 31, (1 << 32) - 1, 0x12345678,
+                 *rng.integers(1, 1 << 32, size=50).tolist()]:
+        bits = [i for i in range(32) if mask >> i & 1]
+        assert [_nth_set_bit(mask, j) for j in range(len(bits))] == bits
+
+
+@pytest.mark.parametrize("share", [0.03, 0.3, 0.7, 0.9, 0.97, 1.0])
+def test_warp_queue_adds_every_row_of_the_range_once(share):
+    """The queue's slot arithmetic loses and repeats no row, whatever
+    share of a strip is in the range (full strips mixed in), and a warp's
+    passes are its strips run at once plus ceil(other rows / 32)."""
+    rng = np.random.default_rng(int(share * 100))
+    in_range = rng.random((40, 32)) < share
+    in_range[::7] = True
+    added, passes = _warp_queue(in_range)
+    want = np.flatnonzero(in_range.reshape(-1))
+    assert sorted(added) == want.tolist()
+    per_strip = in_range.sum(axis=1)
+    now = per_strip >= RUN_AT
+    queued = int(per_strip[~now].sum())
+    assert passes == int(now.sum()) + -(-queued // 32)
