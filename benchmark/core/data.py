@@ -1,9 +1,11 @@
 """Rows made from the run's seed, on the device in a few large calls, then
 handed to the program as host float arrays (the form a user's rows
-arrive in). A configuration names its generator under "generator"; each
-follows the recipe of the synthetic generator of the same purpose in
-ddt_tpu_torch/data/datasets.py, drawn with torch.Generator instead of
-numpy, so the same seed gives the same rows on any card.
+arrive in). A configuration names its generator under "generator".
+higgs_like and criteo_like follow the recipes of the synthetic generators
+of the same purpose in ddt_tpu_torch/data/datasets.py; covtype_like
+follows the source's published shape, with its parameters in the
+configuration. All draw with torch.Generator instead of numpy, so the
+same seed gives the same rows on any card.
 """
 
 from __future__ import annotations
@@ -48,19 +50,88 @@ def higgs_like(rows: int, cfg: dict, seed: int, stream: int, device):
     return _to_host(X, np.float32), _to_host(y, np.int32)
 
 
+def _split(counts, rows: int) -> list:
+    """`rows` shared out in proportion to `counts`, largest remainders
+    first: the same whole numbers for every seed."""
+    c = np.asarray(counts, np.float64)
+    share = c * rows / c.sum()
+    out = np.floor(share).astype(np.int64)
+    rest = np.argsort(-(share - out), kind="stable")[:rows - out.sum()]
+    out[rest] += 1
+    return out.tolist()
+
+
 def covtype_like(rows: int, cfg: dict, seed: int, stream: int, device):
-    """synthetic_multiclass's recipe: one normal center a class (scale 2),
-    a class drawn uniformly, unit normal noise around its center. The
-    centers come from a stream of their own that no run's seed changes,
-    as the source is one fixed table: every seed samples the same classes,
-    and train and eval rows share them."""
-    F, C = cfg["features"], cfg["classes"]
-    centers = torch.randn((C, F), generator=_gen(device, 0, 2),
-                          device=device) * 2.0
-    g = _gen(device, seed, 2, stream)
-    y = torch.randint(0, C, (rows,), generator=g, device=device)
-    X = centers[y] + torch.randn((rows, F), generator=g, device=device)
-    return _to_host(X, np.float32), _to_host(y.to(torch.int32), np.int32)
+    """Rows in the published shape of UCI Covertype: 10 quantitative
+    columns, whole numbers within the data's ranges (each column's stand
+    centers lo + (hi - lo) * u**skew), then one-hot columns
+    of 4 wilderness areas and 40 soil types; the classes in the source's
+    proportions (the same counts for every seed, in an order drawn from
+    it). Each row comes from a stand, a patch of one class: the stand's
+    center in the quantitative columns (its elevation about its class's),
+    its area and its soil; the row lies around the center by a share of
+    each column's range, and now and then takes its class's area or soil
+    in place of its stand's. Stands overlap, so do classes. The source is
+    one fixed table, so the stands and the rows come from streams that no
+    run's seed changes (train and eval rows share the stands); the seed
+    orders the rows. A seed thus changes no job's work, which early
+    stopping would otherwise make a seed's own."""
+    sh = cfg["shape"]
+    quant = sh["quantitative"]
+    lo = torch.tensor([q[1] for q in quant], dtype=torch.float32,
+                      device=device)
+    hi = torch.tensor([q[2] for q in quant], dtype=torch.float32,
+                      device=device)
+    A, K, Q = sh["wilderness_areas"], sh["soil_types"], len(quant)
+    counts = sh["class_counts"]
+    C = len(counts)
+    # The fixed table: stands shared out over the classes by their rows.
+    t = _gen(device, 0, 2)
+    n_st = torch.tensor([max(4, n) for n in _split(counts, sh["stands"])],
+                        device=device)
+    S = int(n_st.sum())
+    cls = torch.repeat_interleave(torch.arange(C, device=device), n_st)
+    skew = torch.tensor([q[3] for q in quant], dtype=torch.float32,
+                        device=device)
+    center = lo + (hi - lo) * torch.rand((S, Q), generator=t,
+                                         device=device).pow(skew)
+    elev = torch.tensor(sh["elevation_by_class"], dtype=torch.float32,
+                        device=device)
+    center[:, 0] = elev[cls, 0] + elev[cls, 1] * torch.randn(
+        (S,), generator=t, device=device)
+    area_p = torch.rand((C, A), generator=t, device=device).pow(3)
+    soil_p = torch.rand((C, K), generator=t, device=device).pow(6)
+    st_area = torch.multinomial(area_p[cls], 1, generator=t).squeeze(1)
+    st_soil = torch.multinomial(soil_p[cls], 1, generator=t).squeeze(1)
+    # The rows: exact class counts, a stand of the row's class, noise
+    # around its center; drawn from a stream of their own, the same rows
+    # for every seed, which puts them in its own order.
+    g = _gen(device, 0, 3, stream)
+    y = torch.repeat_interleave(
+        torch.arange(C, device=device),
+        torch.tensor(_split(counts, rows), device=device))
+    y = y[torch.randperm(rows, generator=g, device=device)]
+    first = torch.cumsum(n_st, 0) - n_st
+    k = first[y] + torch.minimum(
+        (torch.rand((rows,), generator=g, device=device) * n_st[y]).long(),
+        n_st[y] - 1)
+    Xq = center[k] + torch.randn((rows, Q), generator=g, device=device) \
+        * ((hi - lo) * sh["stand_width"])
+    Xq[:, 1] = torch.remainder(Xq[:, 1], hi[1] - lo[1])    # aspect, degrees
+    Xq = torch.minimum(torch.maximum(Xq.round(), lo), hi)
+    stray = sh["stray"]
+    area = torch.where(
+        torch.rand((rows,), generator=g, device=device) < stray,
+        torch.multinomial(area_p[y], 1, generator=g).squeeze(1), st_area[k])
+    soil = torch.where(
+        torch.rand((rows,), generator=g, device=device) < stray,
+        torch.multinomial(soil_p[y], 1, generator=g).squeeze(1), st_soil[k])
+    X = torch.cat([Xq, torch.nn.functional.one_hot(area, A).float(),
+                   torch.nn.functional.one_hot(soil, K).float()], dim=1)
+    order = torch.randperm(rows, generator=_gen(device, seed, 2, stream),
+                           device=device)
+    return (_to_host(X[order], np.float32),
+            _to_host(y[order].to(torch.int32), np.int32))
 
 
 def criteo_like(rows: int, cfg: dict, seed: int, stream: int, device):

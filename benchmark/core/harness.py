@@ -161,6 +161,11 @@ def run_cell(cell: Cell, *, seed: int, seconds: float, trace: bool,
     if world > 1:
         dist.barrier()
     setup_s = time.perf_counter() - t_start
+    # A traced run reads back every event of its window; a mix whose
+    # jobs launch many kernels bounds that window with "trace_steps": it
+    # closes after that many whole jobs or batches, if --seconds has not
+    # closed it before.
+    cap = cell.traffic.get("trace_steps") if trace else None
     ctx.tracer.start()
     attempted = failed = 0
     t0 = time.perf_counter()
@@ -175,7 +180,8 @@ def run_cell(cell: Cell, *, seed: int, seconds: float, trace: bool,
         if world > 1:
             dist.barrier()
         t1 = time.perf_counter()
-        if not _go(ctx, t1 - t0 < seconds):
+        if not _go(ctx, t1 - t0 < seconds
+                   and (cap is None or attempted < cap)):
             break
     ctx.tracer.stop()
     window_s = t1 - t0

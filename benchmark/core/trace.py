@@ -15,6 +15,7 @@ import dataclasses
 import re
 import time
 
+import numpy as np
 import torch
 
 
@@ -41,16 +42,33 @@ class Summary:
         return sum(s for n, s in self.kernels.items() if rx.search(n))
 
 
-def _is_device(ev) -> bool:
-    return str(ev.device_type()).endswith("CUDA")
+def _union(starts: list, ends: list, t0_ns: int, t1_ns: int):
+    """The union of the intervals clipped to [t0_ns, t1_ns], intervals
+    that touch joined: (starts, ends) of its pieces in order, int64."""
+    s = np.maximum(np.asarray(starts, np.int64), t0_ns)
+    e = np.minimum(np.asarray(ends, np.int64), t1_ns)
+    s, e = s[e > s], e[e > s]
+    if not len(s):
+        return s, e
+    order = np.argsort(s, kind="stable")
+    s, reach = s[order], np.maximum.accumulate(e[order])
+    first = np.ones(len(s), bool)
+    first[1:] = s[1:] > reach[:-1]
+    last = np.r_[np.flatnonzero(first)[1:] - 1, len(s) - 1]
+    return s[first], reach[last]
 
 
 def summarize(events, device_index: int, t0_ns: int, t1_ns: int) -> Summary:
+    """One pass over the events, as few calls into each as its kind needs
+    (a traced window can hold millions); a host event's name is read only
+    where it labels an idle gap."""
+    cuda = torch.autograd.DeviceType.CUDA
     kernels = collections.defaultdict(float)
     copies = collections.defaultdict(float)
-    spans, host = [], []
+    starts, ends = [], []
+    host, host_s, host_e = [], [], []
     for ev in events:
-        if _is_device(ev):
+        if ev.device_type() == cuda:
             name, s, d = ev.name(), ev.start_ns(), ev.duration_ns()
             # A range of the harness's spans (or the program's) drawn on the
             # device's timeline is no device work.
@@ -59,30 +77,28 @@ def summarize(events, device_index: int, t0_ns: int, t1_ns: int) -> Summary:
                 continue
             copy = name.startswith(("Memcpy", "Memset"))
             (copies if copy else kernels)[name] += d * 1e-9
-            spans.append((s, s + d))
+            starts.append(s)
+            ends.append(s + d)
         else:
             d = ev.duration_ns()
             if d > 0:
-                host.append((ev.start_ns(), ev.start_ns() + d, ev.name()))
-    spans.sort()
-    merged = []
-    for s, e in spans:
-        s, e = max(s, t0_ns), min(e, t1_ns)
-        if e <= s:
-            continue
-        if merged and s <= merged[-1][1]:
-            merged[-1][1] = max(merged[-1][1], e)
-        else:
-            merged.append([s, e])
-    busy = sum(e - s for s, e in merged)
-    edges = [t0_ns] + [x for se in merged for x in se] + [t1_ns]
-    gaps = sorted(((edges[i + 1] - edges[i], edges[i])
-                   for i in range(0, len(edges), 2)
-                   if edges[i + 1] > edges[i]), reverse=True)[:10]
+                s = ev.start_ns()
+                host.append(ev)
+                host_s.append(s)
+                host_e.append(s + d)
+    seg_s, seg_e = _union(starts, ends, t0_ns, t1_ns)
+    busy = int((seg_e - seg_s).sum())
+    gap_s = np.r_[np.int64(t0_ns), seg_e]
+    gap_len = np.r_[seg_s, np.int64(t1_ns)] - gap_s
+    gap_s, gap_len = gap_s[gap_len > 0], gap_len[gap_len > 0]
+    longest = np.lexsort((gap_s, gap_len))[::-1][:10]
+    hs, he = np.asarray(host_s, np.int64), np.asarray(host_e, np.int64)
     idle = []
-    for length, start in gaps:
+    for i in longest:
+        length, start = int(gap_len[i]), int(gap_s[i])
         mid = start + length // 2
-        inside = [(e - s, n) for s, e, n in host if s <= mid <= e]
+        inside = [(int(he[k] - hs[k]), host[k].name())
+                  for k in np.flatnonzero((hs <= mid) & (mid <= he))]
         idle.append([min(inside)[1] if inside else "host (no traced op)",
                      length * 1e-9])
     ops = sorted(list(kernels.items()) + list(copies.items()),
@@ -139,7 +155,11 @@ class Tracer:
             torch.cuda.synchronize(self.device)
         t1 = time.time_ns()
         prof, self._prof = self._prof, None
-        prof.__exit__(None, None, None)
+        # The profiler's own stop, then the read-back and reduction of its
+        # events: the two costs of a traced run after its window.
+        with self.span("trace.stop"):
+            prof.__exit__(None, None, None)
         index = self.device.index if self.device.index is not None else 0
-        self.summary = summarize(prof.profiler.kineto_results.events(),
-                                 index, self._t0, t1)
+        with self.span("trace.reduce"):
+            self.summary = summarize(prof.profiler.kineto_results.events(),
+                                     index, self._t0, t1)

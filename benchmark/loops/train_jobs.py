@@ -142,9 +142,15 @@ def check(st: State) -> dict:
         ev_y = torch.from_numpy(st.eval_set[1]).to(dev)
         ev_margin = torch.full((Xv.shape[0], C), bs, dtype=torch.float32,
                                device=dev)
+    # The program's last reported training loss within the model it kept:
+    # an early stop keeps the rounds up to the best, which the history
+    # runs past.
+    reported = [r for r in res.history
+                if r.get("train_loss") is not None and r["round"] <= rounds]
+    at = reported[-1] if reported else None
     nodes = mism = 0
     leaves = []
-    eval_at_best = None
+    eval_at_best = loss_ref = None
     lr = t["learning_rate"]
     for rnd in range(rounds):
         # Every round's gradients: every leaf of every tree is judged; the
@@ -176,20 +182,21 @@ def check(st: State) -> dict:
             if ev_margin is not None:
                 ev_margin[:, c] += lr * vals[ref.leaf_index(Xv, tree, D,
                                                             cat_mask)]
+        if at is not None and rnd + 1 == at["round"]:
+            loss_ref = ref.mean_loss(margin, y, loss)
         if ev_margin is not None and rnd == res.best_round:
             eval_at_best = ref.mean_loss(
                 ev_margin if C > 1 else ev_margin[:, 0], ev_y, loss)
     out = {"exact_mismatches": float(exact),
            "split_mismatch": mism / max(1, nodes),
            "leaf_gap": ref.leaf_gap(leaves)}
-    last = res.history[-1]
-    if last.get("train_loss") is not None and last["round"] == rounds:
-        lref = ref.mean_loss(margin, y, loss)
-        out["loss_gap"] = abs(last["train_loss"] - lref) / lref
+    if loss_ref is not None:
+        out["loss_gap"] = abs(at["train_loss"] - loss_ref) / loss_ref
     if eval_at_best is not None:
         out["eval_gap"] = abs(res.best_score - eval_at_best) / eval_at_best
     if ctx.tracer.enabled:
-        st.work_per_round = _work_per_round(st, Xb, ens, C, D, cat_mask)
+        with ctx.tracer.span("check.work"):
+            st.work_per_round = _work_per_round(st, Xb, ens, C, D, cat_mask)
     return out
 
 

@@ -311,7 +311,9 @@ def leaf_index(Xb: torch.Tensor, tree: Tree, max_depth: int,
 
 def level_counts(Xb: torch.Tensor, tree: Tree, max_depth: int,
                  cat_mask: torch.Tensor | None) -> list:
-    """Per level 0..max_depth, the rows that reach each of its nodes."""
+    """Per level 0..max_depth, the rows that reach each of its nodes. The
+    levels are counted on the device and read back together, one sync a
+    tree."""
     dev = Xb.device
     feat = torch.from_numpy(tree.feature.astype(np.int64)).to(dev)
     thr = torch.from_numpy(tree.threshold_bin.astype(np.int64)).to(dev)
@@ -322,15 +324,17 @@ def level_counts(Xb: torch.Tensor, tree: Tree, max_depth: int,
     out = []
     for depth in range(max_depth + 1):
         off, n_level = (1 << depth) - 1, 1 << depth
-        out.append(torch.bincount(node[live] - off,
-                                  minlength=n_level).cpu().numpy())
+        # Rows stopped above this level land in a last slot, dropped.
+        at = torch.where(live, node - off, n_level)
+        out.append(torch.bincount(at, minlength=n_level + 1)[:n_level])
         if depth == max_depth:
             break
         f = feat[node].clamp(min=0)
         right = go_right(Xb[rows, f].long(), thr[node], f, cat_mask)
         live = live & ~leaf[node]
         node = torch.where(leaf[node], node, 2 * node + 1 + right)
-    return out
+    flat = torch.cat(out).cpu().numpy()
+    return np.split(flat, np.cumsum([c.numel() for c in out])[:-1])
 
 
 def score_raw(X: torch.Tensor, feature: np.ndarray, threshold_raw: np.ndarray,

@@ -25,48 +25,11 @@ def tiny(cell):
     return cell
 
 
-#: A cell whose files stay under benchmark/ while BENCHMARK.json leaves it
-#: out (its traced run outlasts a run's time limit; PERF.md, Open
-#: questions). The CPU tests still run it: the eval rows and early
-#: stopping of the train_jobs loop are its alone.
-UNLISTED = {
-    "config": {"name": "covtype",
-               "source": "https://archive.ics.uci.edu/dataset/31/covertype",
-               "file": "benchmark/configs/covtype.json", "reduced": [],
-               "why": "7-class softmax at depth 8, eval rows, early stopping"},
-    "workload": {"name": "covtype.train", "config": "covtype",
-                 "traffic": "train_jobs_es", "chips": 1,
-                 "why": "K1 at depth 8 and 7 classes, the eval step"},
-    "like": "higgs.train",
-}
-
-
-def resolve(name):
-    """The cell `name` of BENCHMARK.json, or the unlisted one, resolved
-    from a manifest that lists it beside a cell of its kind."""
-    import json
-    import tempfile
-
-    from benchmark.core import harness
-    if name != UNLISTED["workload"]["name"]:
-        return harness.resolve(name)
-    m = json.loads((ROOT / "BENCHMARK.json").read_text())
-    m["configs"].append(UNLISTED["config"])
-    m["workloads"].append(UNLISTED["workload"])
-    for e in m["end_to_end"] + m["per_layer"]:
-        if UNLISTED["like"] in e.get("workloads", ()):
-            e["workloads"].append(name)
-    with tempfile.TemporaryDirectory() as d:
-        (Path(d) / "BENCHMARK.json").write_text(json.dumps(m))
-        (Path(d) / "benchmark").symlink_to(ROOT / "benchmark")
-        return harness.resolve(name, root=Path(d))
-
-
 def run_tiny(name, overrides=None, trace=False, seed=7, plant=None):
     import contextlib
 
     from benchmark.core import harness
-    cell = tiny(resolve(name))
+    cell = tiny(harness.resolve(name))
     with plant(cell) if plant else contextlib.nullcontext():
         return harness.run_cell(cell, seed=seed, seconds=0.0, trace=trace,
                                 device="cpu", t_start=time.perf_counter(),

@@ -16,7 +16,7 @@ from .conftest import ROOT
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["higgs.train", "higgs.score",
-                                  "criteo.train4"])
+                                  "criteo.train4", "covtype.train"])
 def test_cell_runs_on_the_card(name):
     from benchmark.core import harness
     chips = harness.resolve(name).chips

@@ -30,7 +30,7 @@ def _loaded(code):
 
 
 def test_a_runs_modules_hold_no_jax():
-    cells = ["higgs.train", "higgs.score", "criteo.train4"]
+    cells = ["higgs.train", "higgs.score", "criteo.train4", "covtype.train"]
     mods = _loaded(PROBE.format(root=str(ROOT), cells=cells))
     assert "ddt_tpu_torch" in mods
     assert not mods & set(harness.FORBIDDEN)

@@ -14,8 +14,9 @@ import pytest
 import torch
 
 from benchmark import faults
+from benchmark.core import harness
 
-from .conftest import ROOT, resolve, run_tiny, tiny
+from .conftest import ROOT, run_tiny, tiny
 
 KEYS = ["correct", "attempted", "failed", "metrics", "device"]
 
@@ -46,7 +47,7 @@ def test_traced_run_reports_per_layer_metrics_and_a_breakdown():
 @pytest.mark.parametrize("name", ["higgs.train", "higgs.score",
                                   "covtype.train"])
 def test_control_is_not_correct(name):
-    control = resolve(name).traffic["control"]
+    control = harness.resolve(name).traffic["control"]
     assert run_tiny(name, overrides=control)["correct"] is False
 
 
@@ -159,3 +160,56 @@ def test_seed_beyond_32_bits_gives_the_same_rows():
 def np_equal(a, b):
     import numpy as np
     return all(np.array_equal(x, y) for x, y in zip(a, b))
+
+
+def test_covtype_rows_keep_the_sources_shape():
+    """10 whole-numbered columns within their ranges, one wilderness area
+    and one soil type a row, the classes in the source's proportions, and
+    for every seed the same rows in the seed's order."""
+    import numpy as np
+
+    from benchmark.core import data
+    cfg = json.loads((ROOT / "benchmark/configs/covtype.json").read_text())
+    sh = cfg["shape"]
+    lo = np.array([q[1] for q in sh["quantitative"]])
+    hi = np.array([q[2] for q in sh["quantitative"]])
+    counts = np.array(sh["class_counts"])
+    for seed in (3, 2**31 + 7):
+        X, y = data.make_rows(cfg, 5000, seed, 0, "cpu")
+        assert X.shape == (5000, cfg["features"])
+        q = X[:, :10]
+        assert np.array_equal(q, np.round(q))
+        assert (q >= lo).all() and (q <= hi).all()
+        for cols in (X[:, 10:14], X[:, 14:]):
+            assert set(np.unique(cols)) <= {0.0, 1.0}
+            assert (cols.sum(1) == 1).all()
+        assert np.abs(np.bincount(y, minlength=7)
+                      - counts * 5000 / counts.sum()).max() < 1
+    # Another seed: the same rows in another order.
+    a, b = data.make_rows(cfg, 500, 3, 0, "cpu"), \
+        data.make_rows(cfg, 500, 4, 0, "cpu")
+    assert not np_equal(a, b)
+    key = [np.lexsort(np.c_[x, y].T) for x, y in (a, b)]
+    assert np_equal((a[0][key[0]], a[1][key[0]]), (b[0][key[1]], b[1][key[1]]))
+
+
+def test_an_early_stopped_job_still_has_its_loss_compared(monkeypatch):
+    """The model an early stop keeps ends before the history does; the
+    check compares the last training loss reported within it."""
+    cell = tiny(harness.resolve("covtype.train"))
+    cell.config["train"].update(n_trees=80, learning_rate=0.5)
+    cell.config["early_stopping_rounds"] = 3
+    jobs = []
+    check = cell.loop.check
+
+    def keep(st):
+        jobs.extend(st.jobs)
+        return check(st)
+
+    monkeypatch.setattr(cell.loop, "check", keep)
+    res = harness.run_cell(cell, seed=7, seconds=0.0, trace=False,
+                           device="cpu", t_start=time.perf_counter())
+    job = jobs[0]
+    assert job.ensemble.n_trees // 7 < job.history[-1]["round"] < 80
+    assert res["correct"] is True
+    assert res["checks"]["loss_gap"]["value"] < 1e-6

@@ -17,6 +17,8 @@ from .conftest import run_tiny
 
 SPAN_METRICS = {"higgs.train": ("train.prologue_ms_per_job",
                                 "train.capture_ms_per_job"),
+                "covtype.train": ("train.prologue_ms_per_job",
+                                  "train.capture_ms_per_job"),
                 "higgs.score": ("score.host_ms_per_batch",)}
 
 
@@ -65,7 +67,7 @@ def test_traced_run_reports_the_span_metrics(name):
         assert res["metrics"][m]["unit"] == "ms"
         assert res["metrics"][m]["value"] >= 0.0
     # Every span opened inside the window; none at set-up or in the check.
-    roots = {"higgs.train": "ddt:train", "higgs.score": "ddt:score"}[name]
+    roots = "ddt:score" if name == "higgs.score" else "ddt:train"
     assert annotations.span_totals()[roots]["count"] == res["attempted"]
 
 
